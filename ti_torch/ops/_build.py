@@ -1,0 +1,112 @@
+"""Build and load the hand-written CUDA kernels (ti_torch/csrc/*.cu).
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, loaded with ``ctypes``. The build runs
+at first use into ``build/kernels/`` at the root of the checkout (listed
+in .gitignore) and is reused while it is newer than its sources.
+``build_all`` starts one ``nvcc`` per source at once.
+
+Every wrapper counts its launches in ``LAUNCHES``: one per kernel launch
+and nowhere else, so a run can show that its path went through the
+kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+KERNELS = ("pair_layer", "pair_tangent")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.glob("*.cu*"))
+    return lib.stat().st_mtime < newest
+
+
+def _command(name: str, out: Path) -> list:
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-I", str(CSRC), "-o", str(out), str(CSRC / f"{name}.cu"),
+    ]
+
+
+def build_all(names=KERNELS, force: bool = False) -> Dict[str, dict]:
+    """Compile the named kernels in parallel; returns, per kernel, the
+    build seconds and what ``-Xptxas -v`` reported. Raises on a failed
+    build."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in names if force or _stale(n)]
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        tmp = BUILD_DIR / f"lib{n}.{os.getpid()}.tmp.so"
+        procs[n] = (tmp, subprocess.Popen(
+            _command(n, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True,
+        ))
+    report = {n: {"seconds": 0.0, "ptxas": "(up to date)"} for n in names}
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        report[n] = {"seconds": time.perf_counter() - t0, "ptxas": out}
+        if proc.returncode != 0:
+            failed.append(f"{n}:\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, _lib_path(n))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built first if missing or stale."""
+    if name not in _LIBS:
+        if _stale(name):
+            build_all((name,))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib.pk_error_string.restype = ctypes.c_char_p
+        lib.pk_error_string.argtypes = [ctypes.c_int]
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.pk_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")

@@ -1,0 +1,371 @@
+"""One cPaiNN message layer on the dense pair grid — kernel B1, hand-written
+CUDA (csrc/pair_layer.cu), with its plain PyTorch version beside it.
+
+Port of ti_tpu/ops/pair_layer_kernel.py (the Pallas ``_pair_layer_kernel``).
+Per chain and pair row p = i·N + j (dst i, src j) the layer computes the
+geometry r = x_j − x_i, dist and dir = r/(1+|r|); the positional encoding
+of dist; h = phi([s_j | e_ij]) · w(PE(dist)) with both MLPs
+Dense-LN-SiLU ×2 → Dense 5F; the diagonal mask; the Σ_j aggregations of
+ds, gates·v_j and scale·dir; the chirality term (Σ_j cg·dir) × v_i; and
+e + de.
+
+Layouts (the kernel's and the plain version's): x (B, N, 3) f32; s (B, N, F);
+v (B, 3, N, F) component-major; e (B, N·N, F). Outputs dv (B, 3, N, F) f32,
+ds (B, N, F) f32, e_out (B, N·N, F). s, v, e and the MLP matrices are f32,
+or bf16 in the ``bf16_agg`` profile (bf16 operands and pair storage, f32
+accumulation rounded once, f32 LayerNorm statistics, f32 geometry and
+aggregated outputs).
+
+``pair_layer`` launches the kernel on a CUDA tensor and takes the plain
+version only on a CPU tensor; there is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from ti_torch.models.cpainn import state_of
+from ti_torch.models.cpainn_dense import dense_edge_type_matrix, node_features
+from ti_torch.ops import _build
+from ti_torch.ops.mlp_block import (
+    BF16,
+    MLPWeights,
+    _ln_silu_block,
+    _ln_silu_block_agg,
+    _mlp_block,
+    dot_bf16_agg,
+    mlp_weights,
+)
+
+KERNEL_F = 128       # the feature width the CUDA kernels are built for
+KERNEL_MAX_N = 32    # pair rows per CTA: one dst atom's N src atoms
+
+
+class PairLayerWeights(NamedTuple):
+    """One message layer's weights, packed once for the kernel.
+
+    ``mats`` is flat, in the working dtype: phi.w1 (2F,F), phi.w2 (F,F),
+    phi.w3 (F,5F), w.w1 (F,F), w.w2 (F,F), w.w3 (F,5F), each (in, out)
+    row-major — 15F² values. ``vecs`` is flat f32: per MLP (phi, then w)
+    b1, ln1 scale, ln1 bias, b2, ln2 scale, ln2 bias (F each), b3 (5F) —
+    22F values. ``phi`` and ``w`` are views into both, for the plain
+    version."""
+
+    mats: torch.Tensor
+    vecs: torch.Tensor
+    phi: MLPWeights
+    w: MLPWeights
+
+    @property
+    def bf16(self) -> bool:
+        return self.mats.dtype == BF16
+
+
+def _mlp_views(mats, vecs, f: int, f_in: int, m0: int, v0: int):
+    """MLPWeights viewing one MLP's slice of the packed buffers, and the
+    offsets of the next MLP."""
+    def mat(off, rows, cols):
+        return mats[off: off + rows * cols].view(rows, cols)
+
+    vec = [vecs[v0 + k * f: v0 + (k + 1) * f] for k in range(6)]
+    w = MLPWeights(
+        w1=mat(m0, f_in, f), b1=vec[0], ln1_scale=vec[1], ln1_bias=vec[2],
+        w2=mat(m0 + f_in * f, f, f), b2=vec[3], ln2_scale=vec[4], ln2_bias=vec[5],
+        w3=mat(m0 + (f_in + f) * f, f, 5 * f), b3=vecs[v0 + 6 * f: v0 + 11 * f],
+    )
+    return w, m0 + (f_in + 6 * f) * f, v0 + 11 * f
+
+
+def pack_layer(params, layer: int, f: int, dtype, device) -> PairLayerWeights:
+    """Pack message layer ``layer`` of a CPaiNN state dict (once, when a
+    drift or divergence function is built)."""
+    mats, vecs = [], []
+    for name in ("phi", "w"):
+        w = mlp_weights(params, f"message_{layer}.{name}")
+        mats += [w.w1, w.w2, w.w3]
+        vecs += [w.b1, w.ln1_scale, w.ln1_bias, w.b2, w.ln2_scale, w.ln2_bias, w.b3]
+    mats = torch.cat([m.reshape(-1) for m in mats]).to(device=device, dtype=dtype).contiguous()
+    vecs = torch.cat([v.reshape(-1) for v in vecs]).to(device=device, dtype=torch.float32).contiguous()
+    phi, m0, v0 = _mlp_views(mats, vecs, f, 2 * f, 0, 0)
+    w, _, _ = _mlp_views(mats, vecs, f, f, m0, v0)
+    return PairLayerWeights(mats, vecs, phi, w)
+
+
+def pe_scale(length_scale: float) -> float:
+    """π/length_scale, the positional-encoding angle per rank and unit
+    distance (rounded to f32 where used, as in the TPU kernel)."""
+    return math.pi / float(length_scale)
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _mlp_store(x, w: MLPWeights, bf16: bool):
+    """(pre-LN h1, pre-LN h2, out) of one MLP in the kernel's precision:
+    f32, or bf16 dot outputs rounded once + bf16 biases + f32 LN stats."""
+    if bf16:
+        dot, ln = dot_bf16_agg, _ln_silu_block_agg
+
+        def bias(b):
+            return b.to(BF16)
+    else:
+        dot, ln = torch.matmul, _ln_silu_block
+
+        def bias(b):
+            return b
+    h1 = dot(x, w.w1) + bias(w.b1)
+    h2 = dot(ln(h1, w.ln1_scale, w.ln1_bias), w.w2) + bias(w.b2)
+    out = dot(ln(h2, w.ln2_scale, w.ln2_bias), w.w3) + bias(w.b3)
+    return h1, h2, out
+
+
+def pair_geometry(x: torch.Tensor):
+    """Per pair row p = i·N + j: r (B,P,3), dist, inv = 1/(1+dist) and
+    sid = 1/dist off the diagonal (B,P,1); the diagonal mask (P,1)."""
+    b, n, _ = x.shape
+    r = (x[:, None, :, :] - x[:, :, None, :]).reshape(b, n * n, 3)
+    d2 = r[..., 0:1] ** 2 + r[..., 1:2] ** 2 + r[..., 2:3] ** 2
+    dist = torch.sqrt(d2)
+    inv = 1.0 / (1.0 + dist)
+    sid = torch.where(dist > 0, 1.0 / torch.clamp(dist, min=1e-30), torch.zeros_like(dist))
+    p = torch.arange(n * n, device=x.device)
+    mask = (p // n != p % n).to(torch.float32)[:, None]
+    return r, dist, inv, sid, mask
+
+
+def pe_angle(dist: torch.Tensor, f: int, ps: float):
+    """(angle (B,P,F), rank (F,), even-lane mask (F,)) of the interleaved
+    cos/sin encoding: lane k has rank k//2+1, cos on even lanes."""
+    lane = torch.arange(f, device=dist.device)
+    rank = (lane // 2 + 1).to(torch.float32)
+    return dist * rank * ps, rank, lane % 2 == 0
+
+
+def tile_src(a: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., N, W) node rows -> (..., N·N, W) pair rows, row i·N+j <- node j."""
+    return a.unsqueeze(-3).expand(*a.shape[:-2], n, n, a.shape[-1]).reshape(
+        *a.shape[:-2], n * n, a.shape[-1])
+
+
+def agg(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., N·N, W) -> (..., N, W): f32 sum over the src atoms j of each
+    dst block."""
+    return rows.reshape(*rows.shape[:-2], n, n, rows.shape[-1]).float().sum(-2)
+
+
+def chirality(t0, t1, t2, vx, vy, vz):
+    """(Σ_j cg·dir) × v_dst by components."""
+    return t1 * vz - t2 * vy, t2 * vx - t0 * vz, t0 * vy - t1 * vx
+
+
+def primal_plain(x, s, v, e, wts: PairLayerWeights, length_scale: float):
+    """The primal layer in the kernels' precision: ((dv, ds, e_out), the
+    residuals the tangent lanes replay)."""
+    b, n, _ = x.shape
+    f = s.shape[-1]
+    bf16 = wts.bf16
+    wd = s.dtype
+    ps = pe_scale(length_scale)
+    r, dist, inv, sid, mask = pair_geometry(x)
+    ang, rank, even = pe_angle(dist, f, ps)
+    pe = torch.where(even, torch.cos(ang), torch.sin(ang))
+    in_feats = torch.cat([tile_src(s, n), e], dim=-1)
+    h1p, h2p, outp = _mlp_store(in_feats, wts.phi, bf16)
+    h1w, h2w, outw = _mlp_store(pe, wts.w, bf16)
+    h = outp * outw * mask.to(wd)
+    gates, scale_dir, ds, de, cg = torch.split(h, f, dim=-1)
+    dirs = [(r[..., c:c + 1] * inv).to(wd) for c in range(3)]
+    out = [agg(gates * tile_src(v[:, c], n) + scale_dir * dirs[c], n) for c in range(3)]
+    t_cg = [agg(cg * dirs[c], n) for c in range(3)]
+    cross = chirality(*t_cg, v[:, 0], v[:, 1], v[:, 2])
+    dv = torch.stack([out[c] + cross[c] for c in range(3)], dim=1)
+    pefac = (torch.where(even, -torch.sin(ang), torch.cos(ang)) * rank * ps).to(wd)
+    res = dict(r=r, inv=inv, sid=sid, mask=mask.to(wd), dirs=dirs, pefac=pefac,
+               h1p=h1p, h2p=h2p, outp=outp, h1w=h1w, h2w=h2w, outw=outw,
+               gates=gates, scale_dir=scale_dir, cg=cg, t_cg=t_cg)
+    return (dv, agg(ds, n), e + de), res
+
+
+def pair_layer_plain(x, s, v, e, wts: PairLayerWeights, length_scale: float):
+    """The plain PyTorch version of kernel B1 (same layouts and precision)."""
+    return primal_plain(x, s, v, e, wts, length_scale)[0]
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+
+
+def _check_pair_inputs(x, s, v, e, wts: PairLayerWeights):
+    """Device, dtype, shape and contiguity checks shared by both kernels;
+    returns (B, N, F, working dtype)."""
+    dev = x.device
+    if x.dim() != 3 or x.shape[-1] != 3 or x.dtype != torch.float32:
+        raise ValueError(f"x must be (B, N, 3) float32, got {tuple(x.shape)} {x.dtype}")
+    b, n, _ = x.shape
+    f = s.shape[-1]
+    wd = BF16 if wts.bf16 else torch.float32
+    if f != KERNEL_F:
+        raise ValueError(f"the CUDA pair kernels are built for F={KERNEL_F}, got F={f}")
+    if not 2 <= n <= KERNEL_MAX_N:
+        raise ValueError(f"the CUDA pair kernels take 2..{KERNEL_MAX_N} atoms, got {n}")
+    want = {"s": (s, (b, n, f)), "v": (v, (b, 3, n, f)), "e": (e, (b, n * n, f))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape or t.dtype != wd:
+            raise ValueError(f"{name} must be {shape} {wd}, got {tuple(t.shape)} {t.dtype}")
+    if wts.mats.numel() != 15 * f * f or wts.vecs.numel() != 22 * f or wts.vecs.dtype != torch.float32:
+        raise ValueError("weights are not packed for this width (pack_layer)")
+    for t in (x, s, v, e, wts.mats, wts.vecs):
+        if t.device != dev:
+            raise ValueError(f"all tensors must be on {dev}, found one on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA pair kernels take contiguous tensors")
+    return b, n, f, wd
+
+
+def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float):
+    """One message layer: (dv, ds, e_out). Launches kernel B1 on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return pair_layer_plain(x, s, v, e, wts, length_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"pair_layer runs on cuda or cpu, not {x.device}")
+    b, n, f, wd = _check_pair_inputs(x, s, v, e, wts)
+    lib = _build.load("pair_layer")
+    fn = lib.pair_layer_bf16 if wts.bf16 else lib.pair_layer_f32
+    fn.argtypes = [_P] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, _P]
+    fn.restype = ctypes.c_int
+    dv = torch.empty((b, 3, n, f), device=x.device, dtype=torch.float32)
+    ds = torch.empty((b, n, f), device=x.device, dtype=torch.float32)
+    e_out = torch.empty_like(e)
+    rc = fn(x.data_ptr(), s.data_ptr(), v.data_ptr(), e.data_ptr(),
+            wts.mats.data_ptr(), wts.vecs.data_ptr(),
+            dv.data_ptr(), ds.data_ptr(), e_out.data_ptr(), b, n,
+            pe_scale(length_scale), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "pair_layer launch")
+    _build.LAUNCHES["pair_layer"] += 1
+    return dv, ds, e_out
+
+
+# ---------------------------------------------------------------------------
+# the velocity field through the layer kernel
+# ---------------------------------------------------------------------------
+
+class PairModel(NamedTuple):
+    """What the pair-kernel forwards need, resolved once when a drift or
+    divergence function is built: the state dict on the device, the packed
+    message layers and the flat edge types."""
+
+    model: object
+    p: dict
+    layers: list
+    etype: torch.Tensor
+    atom_ids: torch.Tensor
+    bf16: bool
+
+
+def prepare(model, params, template, compute_dtype, device) -> PairModel:
+    if getattr(model, "cutoff", None) is not None:
+        raise NotImplementedError(
+            "the pair kernels support the complete graph only (cutoff=None); "
+            "use apply_dense for finite-cutoff models"
+        )
+    if compute_dtype not in (None, "bf16_agg"):
+        raise ValueError(
+            "the pair kernels' compute_dtype must be None (f32) or "
+            f"'bf16_agg', got {compute_dtype!r}"
+        )
+    bf16 = compute_dtype == "bf16_agg"
+    p = {k: t.detach().to(device) for k, t in state_of(model, params).items()}
+    f = model.n_features
+    wd = BF16 if bf16 else torch.float32
+    layers = [pack_layer(p, i, f, wd, device) for i in range(model.score_layers)]
+    n = template.n_atoms
+    etype = torch.as_tensor(dense_edge_type_matrix(template.edges).reshape(n * n),
+                            device=device).long()
+    atom_ids = torch.as_tensor(template.atom_ids, device=device)
+    return PairModel(model, p, layers, etype, atom_ids, bf16)
+
+
+def embed(pm: PairModel, t, temps, n: int):
+    """(s (B,N,F), e (B,N·N,F)) in the working dtype: the combine MLP of
+    the node encodings and the edge-type embedding."""
+    model, p = pm.model, pm.p
+    f = model.n_features
+    mlp_kw = dict(compute_dtype=BF16, bf16_out=True) if pm.bf16 else {}
+    s = _mlp_block(node_features(model, p, t, temps, pm.atom_ids, n),
+                   mlp_weights(p, "combine"), **mlp_kw)
+    wd = BF16 if pm.bf16 else torch.float32
+    e = p["edge_embed.weight"][pm.etype].to(wd).expand(t.shape[0], n * n, f)
+    return s.to(wd), e.contiguous()
+
+
+def apply_dense_pair_kernel(pm: PairModel, x, t, temps, *, kernel: bool = True):
+    """Batched velocity (B, N, 3) with the message layers in kernel B1
+    (``kernel=False``: its plain version, on any device). Same math as
+    ``apply_dense`` on the complete graph; inference only."""
+    model, p = pm.model, pm.p
+    b, n, _ = x.shape
+    f = model.n_features
+    bf16 = pm.bf16
+    wd = BF16 if bf16 else torch.float32
+    mlp_kw = dict(compute_dtype=BF16, bf16_out=True) if bf16 else {}
+    layer_fn = pair_layer if kernel else pair_layer_plain
+
+    def c(a):
+        return a.to(wd)
+
+    def ein(eq, a, w):
+        if bf16:
+            return torch.einsum(eq, a.float(), w.float()).to(BF16)
+        return torch.einsum(eq, a, w)
+
+    x = x.contiguous()
+    s, e = embed(pm, t, temps, n)
+    v = torch.zeros((b, 3, n, f), dtype=wd, device=x.device)
+    for layer in range(model.score_layers):
+        dv, ds, e = layer_fn(x, s.contiguous(), v, e, pm.layers[layer], model.length_scale)
+        s = c(s + ds)
+        v = c(v + dv)
+        # node update (reference Update), plain: O(N·F) rows
+        up = f"update_{layer}"
+        v3 = v.permute(0, 2, 3, 1)  # (B, N, F, 3)
+        uv = ein("bnfc,gf->bngc", v3, c(p[f"{up}.u.weight"]))
+        vv = ein("bnfc,gf->bngc", v3, c(p[f"{up}.v.weight"]))
+        vv_norm = torch.linalg.norm(vv.float(), dim=-1)
+        hu = _mlp_block(torch.cat([c(vv_norm), s], dim=-1), mlp_weights(p, f"{up}.mlp"), **mlp_kw)
+        g_u, scale_sq, add_inv = torch.split(hu, f, dim=-1)
+        v3 = v3 + c(g_u)[..., None] * uv
+        s = c(s + c(vv_norm ** 2 * scale_sq.float() + add_inv.float()))
+        v = v3.permute(0, 3, 1, 2).contiguous()
+
+    v3 = v.permute(0, 2, 3, 1)
+    hr = _mlp_block(s, mlp_weights(p, "readout.mlp"), **mlp_kw)  # (B, N, 2)
+    v_out = ein("bnfc,gf->bngc", v3, c(p["readout.V.weight"]))
+    return (hr[..., 1:2].float() * v_out[:, :, 0, :].float()).to(x.dtype)
+
+
+def pair_kernel_drift(model, params, template, *, compute_dtype=None,
+                      device=None, kernel: bool = True):
+    """Batched drift ``(xs (B,N,3), t, temps (B,K)) -> (B,N,3)`` through
+    kernel B1 — the velocity-only trajectory segments of the Gauss
+    quadrature-dlogp path. Packs the weights once, here. Runs on ``cuda``
+    unless ``device`` says otherwise; ``kernel=False`` builds the same
+    drift from the plain version (the comparison on the card)."""
+    from ti_torch import resolve_device
+
+    dev = resolve_device(device)
+    pm = prepare(model, params, template, compute_dtype, dev)
+
+    def drift(xs, t, temps):
+        tb = torch.as_tensor(t, dtype=xs.dtype, device=xs.device).expand(xs.shape[0])
+        return apply_dense_pair_kernel(pm, xs, tb, temps, kernel=kernel)
+
+    return drift

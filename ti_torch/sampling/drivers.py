@@ -1,0 +1,422 @@
+"""Sampling drivers: batched transport with dlogp and .npy artifacts
+(port of the ambient main path of ti_tpu/sampling/drivers.py).
+
+``sample_ambient`` transports conformations from sampling_T0 to
+sampling_T1 through ``make_ode_sampler``'s segmented Gauss-Legendre path:
+RK trajectory segments gap by gap between the quadrature nodes, then one
+divergence evaluation per node, and dlogp as the weighted sum. The
+trajectory drift and the divergence-node estimator are hooks
+(``traj_drift``/``div_drift``) that ``cfg.traj_forward_impl`` and
+``cfg.div_forward_impl`` fill with the CUDA pair kernels
+(ops/pair_layer_kernel.py, ops/pair_tangent_kernel.py); with a hook left
+None the node runs the dense forward (and its torch.func JVPs).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Other solvers and samplers of ti_tpu (dopri5, Simpson quadrature,
+stage-coupled dlogp, SDE, latent, ADW) come with later slices and raise
+NotImplementedError here.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ti_torch import resolve_device
+from ti_torch.config import MDQM9Config
+from ti_torch.ops.divergence import _probe_block, divergence_exact, divergence_hutchinson
+from ti_torch.sampling.integrators import ODESolution, _tableau, sample_ode
+
+
+def _compute_dtype(cfg):
+    """The config's compute_dtype string as the forwards take it (None =
+    f32)."""
+    name = getattr(cfg, "compute_dtype", "f32")
+    if name in ("f32", "float32", ""):
+        return None
+    if name in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    if name == "bf16_agg":
+        return "bf16_agg"
+    raise ValueError(f"unknown compute_dtype {name!r} (use f32, bf16 or bf16_agg)")
+
+
+def _later(what: str, slice_name: str):
+    return NotImplementedError(f"{what} is not ported yet: it comes with the {slice_name} slice")
+
+
+def make_ode_sampler(
+    v_fn_of: Callable,
+    *,
+    solver: str = "dopri5",
+    n_steps: int = 100,
+    n_save: int = 2,
+    return_dlogp: bool = True,
+    divergence: str = "exact",
+    t0: float = 0.0,
+    t1: float = 1.0,
+    steps_per_dispatch: Optional[int] = None,
+    dlogp_quad_points: Optional[int] = None,
+    dlogp_quad: str = "simpson",
+    num_probes: int = 8,
+    probe_crn: bool = False,
+    probe_mode: str = "rademacher",
+    traj_drift: Optional[Callable] = None,
+    div_drift: Optional[Callable] = None,
+    return_dlogp_var: bool = False,
+    device=None,
+):
+    """Build a batched transport sampler ``sampler(x0s, conds, generator)
+    -> ODESolution``.
+
+    ``v_fn_of(conds) -> v(xs, t)`` builds the batched velocity of a chain
+    batch from its conditioning (B, 2). This slice ports the segmented
+    Gauss quadrature-dlogp path (``dlogp_quad='gauss'``,
+    ``dlogp_quad_points``, ``steps_per_dispatch``), where
+    ``steps_per_dispatch`` caps the RK steps per trajectory gap.
+
+    ``traj_drift(xs, t, conds)`` drives the velocity-only trajectory
+    segments; ``div_drift(xs, t, conds, generator) -> (B,)`` estimates the
+    divergence at each node — with ``return_dlogp_var`` it must return
+    (div, var), e.g. ``pair_tangent_div_fn(return_var=True)``. With a hook
+    None the dense velocity of ``v_fn_of`` serves, and the divergence runs
+    as forward-mode JVPs (exact, or Hutchinson probes from ``generator``).
+    """
+    dev = resolve_device(device)
+    gauss = (dlogp_quad_points is not None and return_dlogp and dlogp_quad == "gauss")
+    if (traj_drift is not None or div_drift is not None) and not (
+        gauss and steps_per_dispatch is not None
+    ):
+        raise ValueError(
+            "traj_drift/div_drift require the segmented gauss "
+            "quadrature-dlogp path (dlogp_quad='gauss', dlogp_quad_points=, "
+            "steps_per_dispatch=)"
+        )
+    if return_dlogp_var and not (gauss and steps_per_dispatch is not None):
+        raise ValueError(
+            "return_dlogp_var requires the segmented gauss quadrature-dlogp "
+            "path (dlogp_quad='gauss', dlogp_quad_points=, return_dlogp=True, "
+            "steps_per_dispatch=)"
+        )
+    if probe_crn and div_drift is not None:
+        raise ValueError(
+            "probe_crn is not supported with div_drift: the batched estimator "
+            "draws its own probes per chain"
+        )
+    if not return_dlogp:
+        raise _later("transport without dlogp (make_ode_sampler)", "SDE")
+    if solver == "dopri5":
+        raise _later("the dopri5 solver", "integrators")
+    if dlogp_quad_points is None:
+        raise _later("stage-coupled dlogp", "integrators")
+    if dlogp_quad != "gauss":
+        raise _later(f"dlogp_quad={dlogp_quad!r}", "integrators")
+    if steps_per_dispatch is None:
+        raise _later("the unsegmented Gauss sampler (steps_per_dispatch=None)", "integrators")
+    if divergence not in ("exact", "hutchinson"):
+        raise _later(f"divergence={divergence!r}", "integrators")
+    return _gauss_dlogp_sampler(
+        v_fn_of, solver=solver, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
+        gl_points=dlogp_quad_points, divergence=divergence,
+        steps_per_dispatch=steps_per_dispatch, num_probes=num_probes,
+        probe_crn=probe_crn, probe_mode=probe_mode, traj_drift=traj_drift,
+        div_drift=div_drift, return_dlogp_var=return_dlogp_var, device=dev,
+    )
+
+
+def _gauss_dlogp_sampler(
+    v_fn_of, *, solver, t0, t1, n_steps, n_save, gl_points, divergence,
+    steps_per_dispatch, num_probes, probe_crn, probe_mode,
+    traj_drift, div_drift, return_dlogp_var, device,
+):
+    """Phase 1 integrates gap by gap (a gap lies between consecutive
+    quadrature/save boundaries) with the same number of RK steps per gap;
+    phase 2 evaluates the divergence at every node; dlogp is the
+    Gauss-Legendre weighted sum per save interval."""
+    if gl_points < 1:
+        raise ValueError("gl_points must be >= 1")
+    if return_dlogp_var and divergence != "hutchinson":
+        raise ValueError(
+            "return_dlogp_var requires divergence='hutchinson' (the "
+            "probe-noise variance of the stochastic estimator; exact has none)"
+        )
+    gl_x, gl_w = np.polynomial.legendre.leggauss(gl_points)
+    saves = np.linspace(t0, t1, n_save)
+    bounds = [t0]
+    node_w = np.zeros((n_save - 1, gl_points))
+    for j in range(n_save - 1):
+        lo, hi = saves[j], saves[j + 1]
+        half = 0.5 * (hi - lo)
+        bounds.extend((lo + half * (gl_x + 1.0)).tolist())
+        bounds.append(hi)
+        node_w[j] = gl_w * half
+    bounds = np.asarray(bounds)  # len = 1 + (n_save-1)*(gl_points+1)
+    gaps_per_interval = gl_points + 1
+    m = max(1, -(-n_steps // ((n_save - 1) * gaps_per_interval)))
+    m = min(m, steps_per_dispatch)
+    n_stages = len(_tableau(solver)[2])
+    save_pos = np.arange(n_save) * gaps_per_interval
+    node_pos = np.setdiff1d(np.arange(len(bounds)), save_pos)
+
+    def drift_of(conds):
+        if traj_drift is not None:
+            return lambda xs, t: traj_drift(xs, t, conds)
+        return v_fn_of(conds)
+
+    def node_div(xb, t, conds, generator):
+        if div_drift is not None:
+            return div_drift(xb, t, conds, generator)
+        v = v_fn_of(conds)
+
+        def f(y):
+            return v(y, t)
+
+        if divergence == "exact":
+            return divergence_exact(f, xb)[1]
+        b, d = xb.shape[0], xb[0].numel()
+        if probe_crn:  # one probe block shared by every chain
+            z, w = _probe_block(generator, num_probes, d, probe_mode)
+            z, w = z.expand(b, *z.shape), w.expand(b, *w.shape)
+        else:
+            z, w = _probe_block(generator, num_probes, d, probe_mode, shape=(b,))
+        res = divergence_hutchinson(f, xb, z=z.to(xb.dtype), w=w.to(xb.dtype),
+                                    probe_mode=probe_mode, return_var=return_dlogp_var)
+        return res[1:] if return_dlogp_var else res[1]
+
+    @torch.no_grad()
+    def sampler(x0s, conds, generator: torch.Generator) -> ODESolution:
+        x = torch.as_tensor(x0s, dtype=torch.float32, device=device)
+        conds = torch.as_tensor(conds, dtype=torch.float32, device=device)
+        drift = drift_of(conds)
+        states = [x]
+        for gi in range(len(bounds) - 1):
+            x = sample_ode(drift, x, t0=float(bounds[gi]), t1=float(bounds[gi + 1]),
+                           n_steps=m, method=solver).xs[:, -1]
+            states.append(x)
+        stacked = torch.stack(states, dim=1)  # (B, len(bounds), ...)
+        divs, dvars = [], []
+        for pos in node_pos:
+            out = node_div(stacked[:, pos], float(bounds[pos]), conds, generator)
+            if return_dlogp_var:
+                divs.append(out[0])
+                dvars.append(out[1])
+            else:
+                divs.append(out)
+        b = x.shape[0]
+        w = torch.as_tensor(node_w, dtype=x.dtype, device=device)
+        divs = torch.stack(divs, dim=1).reshape(b, n_save - 1, gl_points)
+        zero = torch.zeros((b, 1), dtype=x.dtype, device=device)
+        dlogp = torch.cat([zero, torch.cumsum(-(w[None] * divs).sum(2), dim=1)], dim=1)
+        dlogp_var = None
+        if return_dlogp_var:
+            # independent probe draws per node: Var(dlogp) = sum w^2 var
+            dv = torch.stack(dvars, dim=1).reshape(b, n_save - 1, gl_points)
+            dlogp_var = torch.cat([zero, torch.cumsum(((w ** 2)[None] * dv).sum(2), dim=1)], dim=1)
+        nfe = (len(bounds) - 1) * m * n_stages + len(node_pos)
+        return ODESolution(xs=stacked[:, save_pos], dlogp=dlogp, nfe=nfe, dlogp_var=dlogp_var)
+
+    return sampler
+
+
+# ---------------------------------------------------------------------------
+# MDQM9 ambient (reference mdqm9/sample_ambient.py)
+# ---------------------------------------------------------------------------
+
+def molecular_v_fn_of(model, params, template, impl: str = "dense", compute_dtype=None,
+                      device=None):
+    """Batched velocity factory ``v_fn_of(temps (B,K)) -> v(xs (B,N,3), t)``
+    through the dense pair forward (models/cpainn_dense.py)."""
+    if impl != "dense":
+        raise _later(f"molecular_v_fn_of(impl={impl!r})", "training")
+    from ti_torch.models.cpainn import state_of
+    from ti_torch.models.cpainn_dense import apply_dense
+
+    dev = resolve_device(device)
+    p = {k: t.detach().to(dev) for k, t in state_of(model, params).items()}
+    atom_ids = torch.as_tensor(template.atom_ids, device=dev)
+
+    def v_fn_of(temps):
+        def v(xs, t):
+            tb = torch.as_tensor(t, dtype=xs.dtype, device=xs.device).expand(xs.shape[0])
+            return apply_dense(model, p, xs, tb, temps, atom_ids, template.edges,
+                               compute_dtype=compute_dtype)
+
+        return v
+
+    return v_fn_of
+
+
+def _gauss_path(cfg) -> bool:
+    return bool(
+        getattr(cfg, "dlogp_quad", "") == "gauss"
+        and getattr(cfg, "dlogp_quad_points", 0)
+        and getattr(cfg, "steps_per_dispatch", 0)
+        and cfg.return_dlogp
+    )
+
+
+def _traj_drift_of(cfg, model, params, template, device=None):
+    """The trajectory drift from ``cfg.traj_forward_impl``: None for
+    "default", kernel B1 (f32 or bf16_agg) for "pair_kernel" /
+    "pair_kernel_bf16"."""
+    impl = getattr(cfg, "traj_forward_impl", "default")
+    if impl in ("", "default"):
+        return None
+    from ti_torch.ops.pair_layer_kernel import pair_kernel_drift
+
+    try:
+        cd = {"pair_kernel": None, "pair_kernel_bf16": "bf16_agg"}[impl]
+    except KeyError:
+        raise ValueError(
+            f"unknown traj_forward_impl {impl!r} (default | pair_kernel | pair_kernel_bf16)"
+        ) from None
+    if not _gauss_path(cfg):
+        raise ValueError(
+            "traj_forward_impl needs the segmented gauss quadrature-dlogp "
+            "path: set dlogp_quad='gauss', dlogp_quad_points and "
+            "steps_per_dispatch (see make_ode_sampler traj_drift)"
+        )
+    return pair_kernel_drift(model, params, template, compute_dtype=cd, device=device)
+
+
+def _div_drift_of(cfg, model, params, template, device=None):
+    """The divergence-node estimator from ``cfg.div_forward_impl``: None
+    for "default", kernel B3 (f32 or bf16_agg) for "pair_tangent" /
+    "pair_tangent_bf16". With ``cfg.divergence == "exact"`` it runs the
+    full orthogonal frame (K = 3N), which is the exact trace. The
+    estimator returns its variance too when ``cfg.return_dlogp_var`` is
+    set."""
+    impl = getattr(cfg, "div_forward_impl", "default")
+    if impl in ("", "default"):
+        return None
+    from ti_torch.ops.pair_tangent_kernel import pair_tangent_div_fn
+
+    try:
+        cd = {"pair_tangent": None, "pair_tangent_bf16": "bf16_agg"}[impl]
+    except KeyError:
+        raise ValueError(
+            f"unknown div_forward_impl {impl!r} (default | pair_tangent | pair_tangent_bf16)"
+        ) from None
+    if not _gauss_path(cfg):
+        raise ValueError(
+            "div_forward_impl needs the segmented gauss quadrature-dlogp "
+            "path: set dlogp_quad='gauss', dlogp_quad_points and "
+            "steps_per_dispatch (see make_ode_sampler div_drift)"
+        )
+    if cfg.divergence == "hutchinson":
+        num_probes = getattr(cfg, "num_probes", 16)
+        probe_mode = getattr(cfg, "probe_mode", "rademacher")
+    elif cfg.divergence == "exact":
+        num_probes = 3 * template.n_atoms
+        probe_mode = "orthogonal"
+    else:
+        raise ValueError(
+            f"div_forward_impl does not support divergence={cfg.divergence!r} "
+            "(exact | hutchinson)"
+        )
+    return pair_tangent_div_fn(
+        model, params, template, num_probes=num_probes, probe_mode=probe_mode,
+        compute_dtype=cd, return_var=bool(getattr(cfg, "return_dlogp_var", False)),
+        device=device,
+    )
+
+
+def sample_ambient(
+    cfg: MDQM9Config,
+    model,
+    params,
+    template,
+    x0: np.ndarray,
+    latent_z: Optional[np.ndarray] = None,
+    latent_dlogp: Optional[np.ndarray] = None,
+    save: bool = True,
+    batch_size: Optional[int] = None,
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """Transport conformations x0 (n, N, 3) from sampling_T0 to
+    sampling_T1, with dlogp. ``params`` is a CPaiNN state dict (None: the
+    model's own). Optional latent_z/latent_dlogp pass through for the
+    BG→TI composition bookkeeping. Runs on ``cuda`` unless ``device``
+    says otherwise."""
+    dev = resolve_device(device)
+    x0 = np.asarray(x0, dtype=np.float32)
+    n = len(x0)
+    bs = batch_size or cfg.batch_size
+    n_save = cfg.n_steps if cfg.solver_type == "dopri5" else max(2, cfg.n_steps // 50 + 1)
+
+    sampler = make_ode_sampler(
+        molecular_v_fn_of(model, params, template, compute_dtype=_compute_dtype(cfg),
+                          device=dev),
+        solver=cfg.solver_type,
+        n_steps=cfg.n_steps,
+        n_save=n_save,
+        return_dlogp=cfg.return_dlogp,
+        divergence=cfg.divergence,
+        steps_per_dispatch=cfg.steps_per_dispatch or None,
+        dlogp_quad_points=getattr(cfg, "dlogp_quad_points", 0) or None,
+        dlogp_quad=getattr(cfg, "dlogp_quad", "simpson"),
+        num_probes=getattr(cfg, "num_probes", 8),
+        probe_mode=getattr(cfg, "probe_mode", "rademacher"),
+        probe_crn=bool(getattr(cfg, "probe_crn", False)),
+        traj_drift=_traj_drift_of(cfg, model, params, template, dev),
+        div_drift=_div_drift_of(cfg, model, params, template, dev),
+        return_dlogp_var=bool(getattr(cfg, "return_dlogp_var", False)),
+        device=dev,
+    )
+
+    if latent_z is None:
+        latent_z = np.zeros_like(x0)
+    if latent_dlogp is None:
+        latent_dlogp = np.zeros(n, dtype=np.float32)
+    temps_full = np.tile(np.array([cfg.sampling_T0, cfg.sampling_T1], dtype=np.float32), (n, 1))
+
+    if save:
+        os.makedirs(cfg.data_save_path, exist_ok=True)
+    generator = torch.Generator(device=dev).manual_seed(int(cfg.seed))
+    all_samples, all_dlogps, all_dvars, nfe = [], [], [], 0
+    for i in range(0, n, bs):
+        xb, tb = x0[i: i + bs], temps_full[i: i + bs]
+        take = len(xb)
+        if take < bs:  # pad the tail batch, slice back
+            pad = bs - take
+            xb = np.concatenate([xb, np.repeat(xb[-1:], pad, axis=0)])
+            tb = np.concatenate([tb, np.repeat(tb[-1:], pad, axis=0)])
+        sol = sampler(xb, tb, generator)
+        all_samples.append(sol.xs[:take].cpu().numpy())  # (B, n_save, N, 3)
+        all_dlogps.append(sol.dlogp[:take, -1].cpu().numpy())  # final dlogp per chain
+        if sol.dlogp_var is not None:
+            all_dvars.append(sol.dlogp_var[:take, -1].cpu().numpy())
+        nfe = max(nfe, int(sol.nfe))
+        if save:  # incremental checkpointing
+            _save_ambient(cfg, all_samples, all_dlogps, latent_z, latent_dlogp,
+                          i + take, all_dvars)
+
+    out = {
+        "samples": np.concatenate(all_samples, axis=0),
+        "dlogps": np.concatenate(all_dlogps, axis=0),
+        "latent_noises": latent_z[:n],
+        "latent_dlogps": latent_dlogp[:n],
+        "nfe": nfe,
+    }
+    if all_dvars:
+        out["dlogp_vars"] = np.concatenate(all_dvars, axis=0)
+    return out
+
+
+def _save_ambient(cfg, samples_list, dlogps_list, latent_z, latent_dlogp,
+                  n_done, dvars_list=()):
+    base = cfg.data_save_path
+    name = cfg.data_save_name
+    np.save(os.path.join(base, f"samples_{name}.npy"), np.concatenate(samples_list, axis=0))
+    np.save(os.path.join(base, f"dlogps_{name}.npy"), np.concatenate(dlogps_list, axis=0))
+    np.save(os.path.join(base, f"latent_noises_{name}.npy"), latent_z[:n_done])
+    np.save(os.path.join(base, f"latent_dlogps_{name}.npy"), latent_dlogp[:n_done])
+    if dvars_list:
+        # probe-noise variance of each chain's dlogp (cfg.return_dlogp_var):
+        # exp(-phi) consumers debias with phi += var/2
+        # (analysis.free_energy.debias_phis)
+        np.save(os.path.join(base, f"dlogp_vars_{name}.npy"),
+                np.concatenate(dvars_list, axis=0))
