@@ -1,11 +1,19 @@
 """Chip smoke test of the PyTorch port (ti_torch) on one NVIDIA H100.
 
 Builds the hand-written CUDA kernels from ti_torch/csrc, holds each against
-its plain PyTorch version at the main path's shapes, runs the main path —
-MDQM9 ambient transport with dlogp under ``fast_profile`` at the 00031
-width (19 atoms, F = 128, 5 message layers, 128 chains) — through
-``ti_torch.sampling.drivers.sample_ambient``, checks what comes out, and
-shows that the path went through the kernels.
+its plain PyTorch version at its path's shapes, and runs the port's three
+paths at the 00031 width (19 atoms, F = 128, 5 message layers) through
+their entry points, checking what comes out and showing, with the launch
+counts set to 0 just before each path and read just after, that the path
+went through its kernels:
+
+- MDQM9 ambient transport with dlogp under ``fast_profile`` at 128 chains
+  (``sample_ambient``: kernels B1, B3);
+- the SDE at 8192 chains (``sample_molecular_sde``, pair-kernel drift,
+  bf16_agg, ``chain_block=4``: kernel B2);
+- the fused-MLP path: ``fused_velocity_fn`` at 128 chains (B4, B6) and the
+  exact-dlogp sampler through ``molecular_v_fn_of(impl="dense_fused")``
+  at 32 chains (B4, B5).
 
     python3 chip_smoke.py
 
@@ -18,7 +26,19 @@ Phases (any failure exits non-zero and prints no result):
      dlogp rtol 1e-3 (atol 1e-3 x max |dlogp| for chains near 0);
   5. the slice as users run it (``fast_profile``), artifacts written to a
      temporary directory, launch counts and samples/s;
-  6. the ``kernels`` line, the card line and the result line.
+  6. kernel B2 (chain-blocked pair layer) against its plain version and
+     against B1, C = 2 and 4, f32 and bf16_agg, at 130 chains; its time at
+     8192 chains for C = 1, 2, 4 beside the bound;
+  7. the SDE: at 256 chains in f32 (C = 2) against the same SDE built from
+     the plain version on the same noise; then at 8192 chains, bf16_agg,
+     C = 4, 20 steps (``bench.py`` takes 100), with B2's launch count,
+     samples/s and the centre-of-mass checks;
+  8. kernels B4, B5 and B6 against their plain versions at full width, with
+     their times and bounds;
+  9. the fused paths: ``fused_velocity_fn`` against ``dense_velocity_fn``
+     with its B4/B6 launch counts, and the ``dense_fused`` exact sampler
+     against the ``dense`` one with its B4/B5 launch counts;
+ 10. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -41,6 +61,17 @@ H100_FP32 = 67e12     # FLOP/s, f32 outside the tensor cores (data sheet, 700 W)
 H100_BF16 = 989e12    # FLOP/s, dense bf16 tensor cores
 H100_HBM = 3.35e12    # bytes/s
 BAR = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # max |kernel - plain| / max |plain|
+SDE_CHAINS, SDE_STEPS, BENCH_SDE_STEPS = 8192, 20, 100  # bench.py:378 runs 100 steps
+FUSED_CHAINS = 32  # the dense_fused exact sampler's batch
+SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
+    "pair_layer": ("ti_torch/csrc/pair_layer.cu", "ti_tpu/ops/pair_layer_kernel.py:83"),
+    "pair_layer_cb": ("ti_torch/csrc/pair_layer.cu", "ti_tpu/ops/pair_layer_kernel.py:190"),
+    "pair_tangent": ("ti_torch/csrc/pair_tangent.cu", "ti_tpu/ops/pair_tangent_kernel.py:76"),
+    "fused_edge_mlp": ("ti_torch/csrc/fused_edge_mlp.cu", "ti_tpu/ops/pallas_kernels.py:180"),
+    "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp.cu",
+                           "ti_tpu/ops/pallas_kernels.py:232"),
+    "fused_mlp": ("ti_torch/csrc/fused_mlp.cu", "ti_tpu/ops/pallas_kernels.py:343"),
+}
 
 
 def log(*a):
@@ -89,7 +120,7 @@ def compare(outs, refs, dtype, what: str) -> float:
     return worst_abs
 
 
-def layer_inputs(params, dtype, k: int, seed: int):
+def layer_inputs(params, dtype, k: int, seed: int, b: int = CHAINS):
     from ti_torch.ops.pair_layer_kernel import pack_layer
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -97,7 +128,7 @@ def layer_inputs(params, dtype, k: int, seed: int):
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
 
-    b, n = CHAINS, N_ATOMS
+    n = N_ATOMS
     w = pack_layer(params, 0, F, dtype, "cuda")
     x = 0.3 * torch.randn(b, n, 3, generator=g, device="cuda")
     base = (x, rnd(b, n, F), rnd(b, 3, n, F, scale=0.3), rnd(b, n * n, F))
@@ -113,6 +144,247 @@ def nbytes(*tensors) -> int:
 def bound_ms(flops: float, peak: float, moved: int):
     t_ops, t_bytes = flops / peak, moved / H100_HBM
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def zero_com_x0(rng, b: int) -> np.ndarray:
+    x0 = (0.1 * rng.standard_normal((b, N_ATOMS, 3))).astype(np.float32)
+    return x0 - x0.mean(axis=1, keepdims=True)
+
+
+def ambient_temps(b: int) -> np.ndarray:
+    """T0 = 1000 K -> T1 = 300 K for every chain (fast_profile's sampling pair)."""
+    return np.tile(np.array([1000.0, 300.0], np.float32), (b, 1))
+
+
+def phase_b2(params, rows_kernels) -> None:
+    """6. B2 against its plain version and B1; its time at 8192 chains."""
+    from ti_torch.ops.pair_layer_kernel import pair_layer, pair_layer_plain
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        w, base, _ = layer_inputs(params, dtype, 0, seed=3, b=130)  # 130: not a multiple of 4
+        ref = pair_layer_plain(*base, w, LENGTH_SCALE)
+        b1 = pair_layer(*base, w, LENGTH_SCALE)
+        for c in (2, 4):
+            out = pair_layer(*base, w, LENGTH_SCALE, c)
+            torch.cuda.synchronize()
+            errs[dtype, c] = compare(out, ref, dtype, f"B2 pair_layer_cb {dtype} C={c} B=130")
+            diff = max((a.float() - q.float()).abs().max().item() for a, q in zip(out, b1))
+            log(f"[B2 {dtype} C={c}] max |B2 - B1| on the same inputs: {diff:.3e}")
+            compare(out, b1, dtype, f"B2 against B1 {dtype} C={c}")
+    w, base, _ = layer_inputs(params, torch.bfloat16, 0, seed=4, b=SDE_CHAINS)
+    out = pair_layer(*base, w, LENGTH_SCALE, 4)
+    bnd, by = bound_ms(2.0 * 15 * F * F * SDE_CHAINS * N_ATOMS ** 2, H100_BF16,
+                       nbytes(*base, w.mats, w.vecs, *out))
+    ms = {c: cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE, c), 3, warm=1) for c in (1, 2, 4)}
+    plain = cuda_ms(lambda: pair_layer_plain(*base, w, LENGTH_SCALE), 2, warm=1)
+    log(f"[B2 bf16_agg B={SDE_CHAINS}] ms per launch: C=1 (B1) {ms[1]:.3f}, C=2 {ms[2]:.3f}, "
+        f"C=4 {ms[4]:.3f}; plain {plain:.3f}; bound {bnd:.4f} ms ({by})")
+    rows_kernels["pair_layer_cb"] = dict(err=errs[torch.bfloat16, 4], ms=ms[4], plain=plain,
+                                         bound=bnd, by=by)
+    del w, base, out
+    torch.cuda.empty_cache()
+
+
+def phase_sde(model, template, card: str) -> dict:
+    """7. The SDE path: f32 C=2 against the plain version, then the 8192-chain
+    run through sample_molecular_sde. Returns its launch counts."""
+    from ti_torch.ops import _build
+    from ti_torch.ops.pair_layer_kernel import pair_kernel_drift
+    from ti_torch.sampling.drivers import sample_molecular_sde
+    from ti_torch.sampling.integrators import sample_sde
+
+    rng = np.random.default_rng(2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kw = dict(g_fn=0.1, n_steps=SDE_STEPS, n_save=2)
+    b = 256
+    x0, temps = zero_com_x0(rng, b), ambient_temps(b)
+    noise = torch.randn((SDE_STEPS, b, N_ATOMS, 3), generator=gen, device="cuda")
+    got = sample_molecular_sde(model, None, template, x0, temps, forward_impl="pair_kernel",
+                               chain_block=2, noise=noise, device="cuda", **kw)
+    drift = pair_kernel_drift(model, None, template, device="cuda", kernel=False)
+    conds = torch.as_tensor(temps, device="cuda")
+    with torch.no_grad():
+        ref = sample_sde(lambda x, t: drift(x, t, conds), torch.as_tensor(x0, device="cuda"),
+                         project_zero_mean=True, noise=noise, **kw).movedim(0, 1)
+    err = (got - ref).abs().max().item()
+    log(f"[SDE f32 C=2 B={b}] kernel against plain version, same noise: max abs err {err:.3e}")
+    require(bool(torch.allclose(got, ref, rtol=1e-4, atol=1e-5)),
+            "SDE f32: the kernel SDE agrees with the plain-version SDE (rtol 1e-4, atol 1e-5)")
+
+    x0, temps = zero_com_x0(rng, SDE_CHAINS), ambient_temps(SDE_CHAINS)
+    sde_kw = dict(forward_impl="pair_kernel", compute_dtype="bf16_agg", chain_block=4,
+                  device="cuda")
+    sample_molecular_sde(model, None, template, x0, temps, gen, g_fn=0.1, n_steps=1, n_save=2,
+                         **sde_kw)  # warm-up, not counted
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    xs = sample_molecular_sde(model, None, template, x0, temps, gen, **kw, **sde_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    log(f"[SDE bf16_agg C=4] {SDE_CHAINS} chains, {SDE_STEPS} Euler-Maruyama steps (bench.py "
+        f"runs {BENCH_SDE_STEPS}), g=0.1, T0=1000 -> T1=300: {wall:.3f} s, "
+        f"{SDE_CHAINS / wall:.3f} samples/s (host clock, {card}); launches {launches}")
+    want = {k: 0 for k in launches}
+    want["pair_layer_cb"] = SDE_STEPS * LAYERS
+    require(launches == want, f"SDE launch counts {launches} == {want}")
+    require(xs.shape == (SDE_CHAINS, 2, N_ATOMS, 3) and bool(torch.isfinite(xs).all()),
+            "SDE: finite samples of the expected shape")
+    com = xs.mean(dim=2).abs().amax(dim=(0, 2))
+    log(f"[SDE] max |centre of mass| over chains at t0 {com[0].item():.3e}, at t1 "
+        f"{com[1].item():.3e} (the random-weight drift's own centre of mass moves it)")
+    require(com[0].item() <= 1e-6, "SDE: zero centre of mass at t0")
+    # one step from the same x0 and noise with and without g: the noise moves
+    # every chain but adds nothing to its centre of mass
+    one = torch.randn((1, SDE_CHAINS, N_ATOMS, 3), generator=gen, device="cuda")
+    noisy, still = (sample_molecular_sde(model, None, template, x0, temps, g_fn=g, noise=one,
+                                         n_steps=1, n_save=2, **sde_kw) for g in (0.1, 0.0))
+    dcom = (noisy.mean(dim=2) - still.mean(dim=2)).abs().max().item()
+    moved = (noisy - still).abs().max().item()
+    log(f"[SDE] one step with and without noise: positions differ by up to {moved:.3e}, "
+        f"centres of mass by {dcom:.3e}")
+    require(moved > 1e-3 and dcom <= 1e-6, "SDE: the projected noise keeps each chain's COM")
+    return launches
+
+
+def phase_fused_kernels(params, rows_kernels) -> None:
+    """8. B4, B5, B6 against their plain versions at full width."""
+    from ti_torch.ops import pallas_kernels as pk
+    from ti_torch.ops.mlp_block import mlp_weights
+    from ti_torch.ops.pair_layer_kernel import pack_layer
+
+    f32 = torch.float32
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    w = pack_layer(params, 0, F, f32, "cuda")
+    mac_row = 15 * F * F
+    r = CHAINS * N_ATOMS ** 2  # the dense pair rows of 128 chains
+    in_feat, pe = rn(r, 2 * F), rn(r, F)
+    out = pk.fused_edge_mlp(in_feat, pe, w)
+    torch.cuda.synchronize()
+    err = compare([out], [pk.fused_edge_mlp_reference(in_feat, pe, w.phi, w.w)], f32,
+                  f"B4 fused_edge_mlp R={r}")
+    ms = cuda_ms(lambda: pk.fused_edge_mlp(in_feat, pe, w), 10)
+    plain = cuda_ms(lambda: pk.fused_edge_mlp_reference(in_feat, pe, w.phi, w.w), 5)
+    bnd, by = bound_ms(2.0 * mac_row * r, H100_FP32, nbytes(in_feat, pe, w.mats, w.vecs, out))
+    log(f"[B4 R={r}] kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+    rows_kernels["fused_edge_mlp"] = dict(err=err, ms=ms, plain=plain, bound=bnd, by=by)
+    del in_feat, pe, out
+
+    r, k = FUSED_CHAINS * N_ATOMS ** 2, 3 * N_ATOMS  # one exact node of 32 chains
+    in_feat, pe, din, dpe = rn(r, 2 * F), rn(r, F), rn(k, r, 2 * F), rn(k, r, F)
+    out = pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w)
+    torch.cuda.synchronize()
+    err = compare([out], [pk.edge_mlp_jvp_reference(in_feat, pe, din, dpe, w.phi, w.w)], f32,
+                  f"B5 fused_edge_mlp_jvp K={k} R={r}")
+    ms = cuda_ms(lambda: pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w), 3, warm=1)
+    plain = cuda_ms(lambda: pk.edge_mlp_jvp_reference(in_feat, pe, din, dpe, w.phi, w.w), 2,
+                    warm=1)
+    bnd, by = bound_ms(2.0 * mac_row * r * (k + 1), H100_FP32,
+                       nbytes(in_feat, pe, din, dpe, w.mats, w.vecs, out))
+    log(f"[B5 K={k} R={r}] kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
+    rows_kernels["fused_edge_mlp_jvp"] = dict(err=err, ms=ms, plain=plain, bound=bnd, by=by)
+    del in_feat, pe, din, dpe, out
+    torch.cuda.empty_cache()
+
+    r = CHAINS * N_ATOMS  # the node rows of 128 chains
+    for name, f_in in (("combine", 4 * F), ("update_0.mlp", 2 * F), ("readout.mlp", F)):
+        pack = pk.pack_mlp(mlp_weights(params, name), "cuda")
+        x = rn(r, f_in)
+        out = pk.fused_mlp(x, pack)
+        torch.cuda.synchronize()
+        err = compare([out], [pk._mlp_block(x, pack.w)], f32,
+                      f"B6 fused_mlp {name} {f_in}->{pack.f_out} R={r}")
+        ms = cuda_ms(lambda: pk.fused_mlp(x, pack), 50, warm=5)
+        plain = cuda_ms(lambda: pk._mlp_block(x, pack.w), 50, warm=5)
+        bnd, by = bound_ms(2.0 * r * (f_in + F + pack.f_out) * F, H100_FP32,
+                           nbytes(x, pack.mats, pack.vecs, out))
+        log(f"[B6 {name} {f_in}->{pack.f_out} R={r}] kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bnd:.5f} ms ({by})")
+        if name == "update_0.mlp":  # 5 of the 7 launches of a forward
+            rows_kernels["fused_mlp"] = dict(err=err, ms=ms, plain=plain, bound=bnd, by=by)
+
+
+def phase_fused_paths(model, template, card: str) -> tuple:
+    """9. fused_velocity_fn against dense_velocity_fn, and the dense_fused
+    exact sampler against the dense one. Returns both runs' launch counts."""
+    from ti_torch.models.cpainn import state_of
+    from ti_torch.models.cpainn_dense import dense_velocity_fn
+    from ti_torch.models.cpainn_fused import fused_velocity_fn
+    from ti_torch.ops import _build
+    from ti_torch.sampling.drivers import make_ode_sampler, molecular_v_fn_of
+
+    rng = np.random.default_rng(3)
+    xs = torch.as_tensor(zero_com_x0(rng, CHAINS), device="cuda")
+    conds = torch.as_tensor(ambient_temps(CHAINS), device="cuda")
+    fused = fused_velocity_fn(model, None, template, device="cuda")
+    p = {k: t.detach().to("cuda") for k, t in state_of(model, None).items()}
+    dense = dense_velocity_fn(model, p, template)
+    fused(xs, 0.5, conds)  # warm-up, not counted
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    v_fused = fused(xs, 0.5, conds)
+    torch.cuda.synchronize()
+    fwd_launches = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        v_dense = dense(xs, 0.5, conds)
+        ms_f = cuda_ms(lambda: fused(xs, 0.5, conds), 5)
+        ms_d = cuda_ms(lambda: dense(xs, 0.5, conds), 5)
+    err = (v_fused - v_dense).abs().max().item()
+    log(f"[fused_velocity_fn B={CHAINS}] against dense_velocity_fn: max abs err {err:.3e}; "
+        f"{ms_f:.3f} ms per forward (dense {ms_d:.3f} ms); launches {fwd_launches}")
+    want = {k: 0 for k in fwd_launches}
+    want.update(fused_edge_mlp=LAYERS, fused_mlp=LAYERS + 2)
+    require(fwd_launches == want, f"fused forward launch counts {fwd_launches} == {want}")
+    require(bool(torch.allclose(v_fused, v_dense, rtol=1e-4, atol=1e-5)),
+            "fused_velocity_fn agrees with dense_velocity_fn (rtol 1e-4, atol 1e-5)")
+
+    b, gl, n_steps = FUSED_CHAINS, 8, 8
+    x0, temps = zero_com_x0(rng, b), ambient_temps(b)
+    kw = dict(solver="rk4", n_steps=n_steps, dlogp_quad="gauss", dlogp_quad_points=gl,
+              steps_per_dispatch=25, divergence="exact", device="cuda")
+    fused_sampler = make_ode_sampler(
+        molecular_v_fn_of(model, None, template, impl="dense_fused", device="cuda"), **kw)
+    dense_sampler = make_ode_sampler(molecular_v_fn_of(model, None, template, device="cuda"), **kw)
+    for sampler in (fused_sampler, dense_sampler):  # warm-up, not counted: the first torch.func
+        sampler(x0, temps, torch.Generator(device="cuda").manual_seed(0))  # call pays one-time set-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out_f = fused_sampler(x0, temps, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t0
+    smp_launches = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    out_d = dense_sampler(x0, temps, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    # (1 + GL) gaps x 1 RK4 step x 4 stages of trajectory forwards, and per
+    # node two forwards (the JVPs' primal and the velocity) and one B5 per layer
+    forwards = (1 + gl) * max(1, -(-n_steps // (1 + gl))) * 4 + 2 * gl
+    want = {k: 0 for k in smp_launches}
+    want.update(fused_edge_mlp=forwards * LAYERS, fused_edge_mlp_jvp=gl * LAYERS)
+    s_err = (out_f.xs - out_d.xs).abs().max().item()
+    d_ref = out_d.dlogp[:, -1]
+    d_err = (out_f.dlogp[:, -1] - d_ref).abs().max().item()
+    log(f"[dense_fused exact sampler B={b}] {wall_f:.3f} s, {b / wall_f:.3f} samples/s "
+        f"(dense: {wall_d:.3f} s, {b / wall_d:.3f} samples/s; host clock, {card}); samples max "
+        f"abs err {s_err:.3e}, dlogp max abs err {d_err:.3e} (max |dlogp| "
+        f"{d_ref.abs().max().item():.4f}); launches {smp_launches}")
+    require(smp_launches == want, f"dense_fused sampler launch counts {smp_launches} == {want}")
+    require(bool(torch.isfinite(out_f.xs).all() and torch.isfinite(out_f.dlogp).all()),
+            "dense_fused sampler: finite")
+    require(bool(torch.allclose(out_f.xs, out_d.xs, rtol=1e-4, atol=1e-5)),
+            "dense_fused sampler: samples agree with dense (rtol 1e-4, atol 1e-5)")
+    d_atol = 1e-3 * d_ref.abs().max().item()
+    require(bool(torch.allclose(out_f.dlogp, out_d.dlogp, rtol=1e-3, atol=d_atol)),
+            "dense_fused sampler: dlogp agrees with dense (rtol 1e-3, atol 1e-3 max|dlogp|)")
+    return fwd_launches, smp_launches
 
 
 def main() -> int:
@@ -260,8 +532,9 @@ def main() -> int:
         f"artifacts {saved}")
     gaps = 1 + cfg.dlogp_quad_points  # GL-8: 9 trajectory gaps, one RK4 step each
     stages = {"rk4": 4}[cfg.solver_type]
-    want = {"pair_layer": n_batches * gaps * stages * LAYERS,
-            "pair_tangent": n_batches * cfg.dlogp_quad_points * LAYERS}
+    want = {k: 0 for k in launches}
+    want.update(pair_layer=n_batches * gaps * stages * LAYERS,
+                pair_tangent=n_batches * cfg.dlogp_quad_points * LAYERS)
     require(launches == want, f"launch counts {launches} == {want}")
     require(out["samples"].shape == (len(x0), 2, N_ATOMS, 3) and out["dlogps"].shape == (len(x0),),
             "fast slice: output shapes")
@@ -274,15 +547,26 @@ def main() -> int:
     log(f"[slice fast_profile] dlogp (orthogonal-16, bf16_agg) minus exact: mean {diff.mean():.5f}, "
         f"rms {math.sqrt(float((diff ** 2).mean())):.5f}")
 
-    # ---- 6. result lines ----
-    sources = {"pair_layer": ("ti_torch/csrc/pair_layer.cu", "ti_tpu/ops/pair_layer_kernel.py:83"),
-               "pair_tangent": ("ti_torch/csrc/pair_tangent.cu",
-                                "ti_tpu/ops/pair_tangent_kernel.py:76")}
+    # ---- 6-9. the SDE and fused-MLP slices ----
+    phase_b2(params, rows_kernels)
+    sde_launches = phase_sde(model, template, card)
+    phase_fused_kernels(params, rows_kernels)
+    fwd_launches, smp_launches = phase_fused_paths(model, template, card)
+
+    # ---- 10. result lines ----
+    path_launches = {"pair_layer": launches["pair_layer"],
+                     "pair_tangent": launches["pair_tangent"],
+                     "pair_layer_cb": sde_launches["pair_layer_cb"],
+                     "fused_edge_mlp": smp_launches["fused_edge_mlp"],
+                     "fused_edge_mlp_jvp": smp_launches["fused_edge_mlp_jvp"],
+                     "fused_mlp": fwd_launches["fused_mlp"]}
+    require(all(n > 0 for n in path_launches.values()), f"every kernel ran on its path: "
+            f"{path_launches}")
     kernels = []
-    for name, r in rows_kernels.items():
-        src, replaces = sources[name]
+    for name, (src, replaces) in SOURCES.items():
+        r = rows_kernels[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
+                        "launches": path_launches[name], "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain"], "bound_ms": r["bound"], "bound_by": r["by"],
                         "library_ms": None})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -13,8 +13,12 @@ another order).
 import pytest
 import torch
 
+from torch.func import jvp, vmap
+
 from ti_torch.models.cpainn import CPaiNN
 from ti_torch.ops import _build
+from ti_torch.ops import pallas_kernels as pk
+from ti_torch.ops.mlp_block import mlp_weights
 from ti_torch.ops.pair_layer_kernel import pack_layer, pair_layer, pair_layer_plain
 from ti_torch.ops.pair_tangent_kernel import pair_tangent, pair_tangent_plain
 
@@ -29,20 +33,28 @@ def _card():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _layer(dtype, k=0):
+def _params():
     torch.manual_seed(0)
-    params = {n: t.detach() for n, t in CPaiNN(F, 1, n_atoms=N).state_dict().items()}
-    w = pack_layer(params, 0, F, dtype, "cuda")
+    return {n: t.detach() for n, t in CPaiNN(F, 1, n_atoms=N).state_dict().items()}
+
+
+def _layer(dtype, k=0, b=B):
+    w = pack_layer(_params(), 0, F, dtype, "cuda")
     g = torch.Generator(device="cuda").manual_seed(1)
 
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
 
-    x = 0.3 * torch.randn(B, N, 3, generator=g, device="cuda")
-    base = (x, rnd(B, N, F), rnd(B, 3, N, F, scale=0.3), rnd(B, N * N, F))
-    lanes = (torch.randn(B, k, N, 3, generator=g, device="cuda"), rnd(B, k, N, F, scale=0.1),
-             rnd(B, k, 3, N, F, scale=0.1), rnd(B, k, N * N, F, scale=0.1))
+    x = 0.3 * torch.randn(b, N, 3, generator=g, device="cuda")
+    base = (x, rnd(b, N, F), rnd(b, 3, N, F, scale=0.3), rnd(b, N * N, F))
+    lanes = (torch.randn(b, k, N, 3, generator=g, device="cuda"), rnd(b, k, N, F, scale=0.1),
+             rnd(b, k, 3, N, F, scale=0.1), rnd(b, k, N * N, F, scale=0.1))
     return w, base, lanes
+
+
+def _rows(*shape, seed=2):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(*shape, generator=g, device="cuda")
 
 
 def _assert_close(outs, refs, dtype):
@@ -63,6 +75,65 @@ def test_pair_layer_kernel_matches_plain(dtype):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["pair_layer"] == before + 1
     _assert_close(out, pair_layer_plain(*base, w, 10.0), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,chain_block", [(torch.float32, 2), (torch.float32, 4),
+                                               (torch.bfloat16, 2), (torch.bfloat16, 4)])
+def test_chain_blocked_pair_layer_is_b1(dtype, chain_block):
+    """B2 on a batch C does not divide: B1's result to the bit, and the
+    plain version's within the bar."""
+    _card()
+    w, base, _ = _layer(dtype, b=13)
+    before = dict(_build.LAUNCHES)
+    out = pair_layer(*base, w, 10.0, chain_block)
+    b1 = pair_layer(*base, w, 10.0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pair_layer_cb"] == before["pair_layer_cb"] + 1
+    assert _build.LAUNCHES["pair_layer"] == before["pair_layer"] + 1
+    for a, r in zip(out, b1):
+        assert torch.equal(a, r)
+    _assert_close(out, pair_layer_plain(*base, w, 10.0), dtype)
+
+
+@pytest.mark.gpu
+def test_fused_mlp_kernels_match_plain():
+    """B4 and B5 at a ragged row count, B5 at every lane block, B6 at the
+    combine, update and readout widths."""
+    _card()
+    params = _params()
+    w = pack_layer(params, 0, F, torch.float32, "cuda")
+    r = 1000 + 7
+    in_feat, pe = _rows(r, 2 * F), _rows(r, F, seed=3)
+    before = dict(_build.LAUNCHES)
+    out = pk.fused_edge_mlp(in_feat, pe, w)
+    _assert_close([out], [pk.fused_edge_mlp_reference(in_feat, pe, w.phi, w.w)], torch.float32)
+    din, dpe = _rows(6, r, 2 * F, seed=4), _rows(6, r, F, seed=5)
+    ref = pk.edge_mlp_jvp_reference(in_feat, pe, din, dpe, w.phi, w.w)
+    for lane_block in (1, 2, 3):
+        _assert_close([pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w, lane_block)], [ref],
+                      torch.float32)
+    for name, f_in in (("combine", 4 * F), ("update_0.mlp", 2 * F), ("readout.mlp", F)):
+        pack = pk.pack_mlp(mlp_weights(params, name), "cuda")
+        x = _rows(r, f_in, seed=6)
+        _assert_close([pk.fused_mlp(x, pack)], [pk._mlp_block(x, pack.w)], torch.float32)
+    torch.cuda.synchronize()
+    got = {k: _build.LAUNCHES[k] - before[k] for k in ("fused_edge_mlp", "fused_edge_mlp_jvp",
+                                                        "fused_mlp")}
+    assert got == {"fused_edge_mlp": 1, "fused_edge_mlp_jvp": 3, "fused_mlp": 3}
+
+
+@pytest.mark.gpu
+def test_vmapped_lanes_launch_b5_once():
+    _card()
+    w = pack_layer(_params(), 0, F, torch.float32, "cuda")
+    x, pe, z = _rows(64, 2 * F), _rows(64, F, seed=3), _rows(5, 64, 2 * F, seed=4)
+    before = _build.LAUNCHES["fused_edge_mlp_jvp"]
+    lanes = vmap(lambda zz: jvp(lambda a: pk.fused_edge_mlp_diff(a, pe, w), (x,), (zz,))[1])(z)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fused_edge_mlp_jvp"] == before + 1
+    ref = pk.edge_mlp_jvp_reference(x, pe, z, torch.zeros(5, 64, F, device="cuda"), w.phi, w.w)
+    _assert_close([lanes], [ref], torch.float32)
 
 
 @pytest.mark.gpu
@@ -92,3 +163,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         pair_tangent(x, s, v, e, *lanes, w, 10.0, 3)
     with pytest.raises(ValueError, match="shared memory"):
         pair_tangent(x, s, v, e, *lanes, w, 10.0, 2)
+    with pytest.raises(ValueError, match="cannot launch.*shared memory"):
+        pair_layer(x, s, v, e, w, 10.0, 5)
+    with pytest.raises(ValueError, match="chain_block"):
+        pair_layer(x, s, v, e, w, 10.0, 0)
+    with pytest.raises(ValueError, match="float32"):
+        pk.fused_edge_mlp(s.reshape(-1, F)[:, :64].contiguous(), s.reshape(-1, F), w)

@@ -169,4 +169,5 @@ def test_cpu_route_launches_nothing(setup):
     div, var = div_fn(_t(x), 0.5, _t(temps), torch.Generator().manual_seed(0))
     assert div.shape == (B,) and var.shape == (B,)
     assert torch.isfinite(div).all() and (var >= 0).all()
-    assert _build.LAUNCHES == {"pair_layer": 0, "pair_tangent": 0}
+    assert {"pair_layer", "pair_tangent"} <= set(_build.LAUNCHES)
+    assert not any(_build.LAUNCHES.values())

@@ -25,10 +25,12 @@ from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
 from ti_torch.models.convert import params_from_flax
 from ti_torch.models.cpainn import CPaiNN
 from ti_torch.ops.pair_tangent_kernel import pair_tangent_div_fn
+from ti_torch.models.cpainn_fused import fused_velocity_fn
 from ti_torch.sampling.drivers import (
     make_ode_sampler,
     molecular_v_fn_of,
     sample_ambient,
+    sample_molecular_sde,
 )
 
 N_ATOMS, F, LAYERS, B = 6, 16, 2, 3
@@ -130,6 +132,13 @@ def test_no_silent_cpu(setup, monkeypatch):
         pair_tangent_div_fn(model, params, template)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         molecular_v_fn_of(model, params, template)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        molecular_v_fn_of(model, params, template, impl="dense_fused")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sample_molecular_sde(model, params, template, x0, np.tile([700.0, 300.0], (B, 1)),
+                             g_fn=0.1, n_steps=2, forward_impl="pair_kernel")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fused_velocity_fn(model, params, template)
 
 
 @pytest.mark.parametrize("method", ["euler", "rk4"])

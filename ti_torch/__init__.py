@@ -7,14 +7,21 @@ Subpackages
 -----------
 - ``ti_torch.config``: the typed settings and presets (copy of ti_tpu's)
 - ``ti_torch.data``: SDF reader, molecule templates, synthetic molecules
-- ``ti_torch.models``: cPaiNN as an ``nn.Module``, the dense pair forward,
-  the flax weight bridge
+- ``ti_torch.models``: cPaiNN as an ``nn.Module``, the dense pair forward
+  (``fused=True``: its message MLPs in kernels B4/B5), the fused edge-row
+  forward (``cpainn_fused``), the flax weight bridge
 - ``ti_torch.ops``: graph tables, MLP-block math, divergence estimators and
-  the two hand-written CUDA kernels (pair layer, pair tangent)
-- ``ti_torch.sampling``: RK integrators and the ambient sampling driver
+  the hand-written CUDA kernels (``csrc/``): B1 the pair layer and B2 its
+  chain-blocked form (``pair_layer_kernel``), B3 the pair tangent
+  (``pair_tangent_kernel``), B4 the fused edge MLP, B5 its tangent and B6
+  the row-tiled MLP (``pallas_kernels``)
+- ``ti_torch.sampling``: RK integrators, Euler–Maruyama, the ambient
+  sampling driver, velocity-only transport and the molecular SDE
 - ``ti_torch.analysis``: importance weights and TFEP free energies
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+What is not ported yet (dopri5, Simpson and stage-coupled dlogp, the edge
+form of cPaiNN, training, latent, ADW) raises ``NotImplementedError``.
 """
 
 import torch

@@ -1,9 +1,11 @@
-// Shared device code of the two pair kernels (pair_layer.cu, pair_tangent.cu):
-// the layouts, the CTA's tile of the pair grid, the MLP products, LayerNorm
-// and the primal message layer.
+// Shared device code of the hand-written kernels (pair_layer.cu, pair_tangent.cu,
+// fused_edge_mlp.cu, fused_edge_mlp_jvp.cu, fused_mlp.cu): the layouts, the
+// 32-row tile, the MLP products, LayerNorm and the primal message layer.
 //
-// A CTA owns one (chain b, dst atom i): the R = 32 pair rows i*N + j of the
-// N <= 32 source atoms j, padded. Its 256 threads are 8 warps; warp w owns
+// A group of 256 threads owns one tile of R = 32 rows: in the pair kernels
+// one (chain b, dst atom i), the pair rows i*N + j of the N <= 32 source atoms
+// j, padded; in the fused-MLP kernels 32 consecutive rows. A CTA is one group,
+// or C groups in the chain-blocked pair layer (B2). The 256 threads are 8 warps; warp w owns
 // rows 4w..4w+3 and lane l owns columns 4l..4l+3 of a 128-wide column block,
 // so one warp holds whole rows of an F = 128 activation and LayerNorm runs on
 // registers with warp shuffles. The matrix products read their A operand
@@ -85,7 +87,9 @@ __device__ __forceinline__ void st4(bf16* p, const float v[4]) {
   *reinterpret_cast<uint2*>(p) = q;
 }
 
-__device__ __forceinline__ int warp_id() { return threadIdx.x >> 5; }
+// thread index within the thread's 256-thread group, and its warp there
+__device__ __forceinline__ int ltid() { return threadIdx.x & (NT - 1); }
+__device__ __forceinline__ int warp_id() { return ltid() >> 5; }
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -224,12 +228,83 @@ __device__ __forceinline__ void reduce_rows(const float (&part)[NQ][4], float* r
 #pragma unroll
   for (int q = 0; q < NQ; ++q) st4(red + (w * NQ + q) * F + 4 * lane, part[q]);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < NQ * F; idx += NT) {
+  for (int idx = ltid(); idx < NQ * F; idx += NT) {
     float s = 0.f;
 #pragma unroll
     for (int ww = 0; ww < NW; ++ww) s += red[ww * NQ * F + idx];
     out[idx] = s;
   }
+  __syncthreads();
+}
+
+// Rows r0 .. r0+R-1 of a (rows x W) f32 matrix into the tile T (R x W), zero
+// past the last row (W % 4 == 0). No barrier.
+__device__ __forceinline__ void load_rows(float* T, const float* __restrict__ src, int W,
+                                          size_t r0, int rows) {
+  const int w4 = W / 4;
+  for (int idx = ltid(); idx < R * w4; idx += NT) {
+    const int r = idx / w4, c = 4 * (idx % w4);
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < (size_t)rows) q = __ldg(reinterpret_cast<const float4*>(src + (r0 + r) * W + c));
+    *reinterpret_cast<float4*>(T + r * W + c) = q;
+  }
+}
+
+// Offsets into one MLP's packed vectors, from the MLP's first one.
+enum { V_B1 = 0, V_LN1S = F, V_LN1B = 2 * F, V_B2 = 3 * F, V_LN2S = 4 * F, V_LN2B = 5 * F, V_B3 = 6 * F };
+
+// The two Dense-LN-SiLU blocks of one MLP on the tile's R rows: X holds the
+// R x K input (row stride K, K % 4 == 0) and is a work buffer; the R x F
+// output a2 goes to A2 (which may be X). W1 (K x F), W2 (F x F) and the
+// vectors v are the MLP's; with H1/H2 non-null the pre-LN products are kept
+// there (R x F). The caller puts a barrier between filling X and the call;
+// the call ends with one.
+template <typename T>
+__device__ __forceinline__ void mlp_front(T* X, int K, const T* __restrict__ W1,
+                                          const T* __restrict__ W2,
+                                          const float* __restrict__ v, T* A2, T* H1 = nullptr,
+                                          T* H2 = nullptr) {
+  float a[RPW][4];
+  zero(a);
+  gemm<T>(a, X, K, K, W1, F);
+  add_bias<T>(a, v + V_B1);
+  if (H1) store_tile(H1, a);
+  ln_silu<T>(a, v + V_LN1S, v + V_LN1B);
+  __syncthreads();
+  store_tile(X, a);
+  __syncthreads();
+  zero(a);
+  gemm<T>(a, X, F, F, W2, F);
+  add_bias<T>(a, v + V_B2);
+  if (H2) store_tile(H2, a);
+  ln_silu<T>(a, v + V_LN2S, v + V_LN2B);
+  __syncthreads();
+  store_tile(A2, a);
+  __syncthreads();
+}
+
+// The tangent of mlp_front under the tangent rows in X (R x K), replayed at
+// the primal's pre-LN products H1, H2 (no biases: they have no tangent);
+// the tangent of a2 goes to DA. Same barriers as mlp_front.
+template <typename T>
+__device__ __forceinline__ void mlp_front_tan(T* X, int K, const T* __restrict__ W1,
+                                              const T* __restrict__ W2,
+                                              const float* __restrict__ v, const T* H1,
+                                              const T* H2, T* DA) {
+  float a[RPW][4];
+  zero(a);
+  gemm<T>(a, X, K, K, W1, F);
+  round_tile<T>(a);
+  ln_silu_tan<T>(a, H1, v + V_LN1S, v + V_LN1B);
+  __syncthreads();
+  store_tile(X, a);
+  __syncthreads();
+  zero(a);
+  gemm<T>(a, X, F, F, W2, F);
+  round_tile<T>(a);
+  ln_silu_tan<T>(a, H2, v + V_LN2S, v + V_LN2B);
+  __syncthreads();
+  store_tile(DA, a);
   __syncthreads();
 }
 
@@ -239,7 +314,6 @@ __device__ __forceinline__ void reduce_rows(const float (&part)[NQ][4], float* r
 constexpr size_t M_PHI1 = 0, M_PHI2 = 2 * F * F, M_PHI3 = 3 * F * F;
 constexpr size_t M_W1 = 8 * F * F, M_W2 = 9 * F * F, M_W3 = 10 * F * F;
 constexpr int V_PHI = 0, V_W = 11 * F;
-enum { V_B1 = 0, V_LN1S = F, V_LN1B = 2 * F, V_B2 = 3 * F, V_LN2S = 4 * F, V_LN2B = 5 * F, V_B3 = 6 * F };
 
 // Residuals of the primal layer that the tangent kernel replays (shared
 // memory, R x F each): pre-LN h1/h2 and post-LN a2 of both MLPs, and the
@@ -249,9 +323,13 @@ struct Residuals {
   T *h1p, *h2p, *a2p, *h1w, *h2w, *a2w, *pef;
 };
 
-// The primal message layer of CTA (b, i). X (R x 2F) and Y (R x F) are work
+// The primal message layer of tile (b, i). X (R x 2F) and Y (R x F) are work
 // buffers; acc receives dv (3F), ds (F) and the chirality aggregate t_cg (3F)
 // of dst atom i. With SAVE the residuals are kept for the tangent lanes.
+// red may alias X's second half (R x F), which is free once phi's first
+// product has read it. With store false nothing is written to device memory:
+// the idle group of a chain-blocked CTA whose last block is not full still
+// takes every barrier.
 template <typename T, bool SAVE>
 __device__ void primal_layer(int b, int i, int N, float pe_scale,
                              const float* __restrict__ x, const T* __restrict__ s,
@@ -259,8 +337,8 @@ __device__ void primal_layer(int b, int i, int N, float pe_scale,
                              const T* __restrict__ mats, const float* __restrict__ vecs,
                              float* __restrict__ dv_out, float* __restrict__ ds_out,
                              T* __restrict__ e_out, T* X, T* Y, float* red, float* geo,
-                             float* acc, Residuals<T> res) {
-  const int tid = threadIdx.x, lane = lane_id();
+                             float* acc, Residuals<T> res, bool store = true) {
+  const int tid = ltid(), lane = lane_id();
   const size_t NN = (size_t)N * N;
   const size_t pair0 = (size_t)b * NN + (size_t)i * N;  // pair row (b, i, j=0)
 
@@ -309,42 +387,13 @@ __device__ void primal_layer(int b, int i, int N, float pe_scale,
   }
   __syncthreads();
 
-  float a[RPW][4];
-  // phi MLP front: a2 = LN-SiLU(LN-SiLU(X W1 + b1) W2 + b2)
-  zero(a);
-  gemm<T>(a, X, 2 * F, 2 * F, mats + M_PHI1, F);
-  add_bias<T>(a, vecs + V_PHI + V_B1);
-  if (SAVE) store_tile(res.h1p, a);
-  ln_silu<T>(a, vecs + V_PHI + V_LN1S, vecs + V_PHI + V_LN1B);
-  __syncthreads();
-  store_tile(X, a);
-  __syncthreads();
-  zero(a);
-  gemm<T>(a, X, F, F, mats + M_PHI2, F);
-  add_bias<T>(a, vecs + V_PHI + V_B2);
-  if (SAVE) store_tile(res.h2p, a);
-  ln_silu<T>(a, vecs + V_PHI + V_LN2S, vecs + V_PHI + V_LN2B);
+  // both MLPs' fronts: a2 = LN-SiLU(LN-SiLU(in W1 + b1) W2 + b2)
   T* A2p = SAVE ? res.a2p : X;
-  __syncthreads();
-  store_tile(A2p, a);
-  // w MLP front on the encoding
-  zero(a);
-  gemm<T>(a, Y, F, F, mats + M_W1, F);
-  add_bias<T>(a, vecs + V_W + V_B1);
-  if (SAVE) store_tile(res.h1w, a);
-  ln_silu<T>(a, vecs + V_W + V_LN1S, vecs + V_W + V_LN1B);
-  __syncthreads();
-  store_tile(Y, a);
-  __syncthreads();
-  zero(a);
-  gemm<T>(a, Y, F, F, mats + M_W2, F);
-  add_bias<T>(a, vecs + V_W + V_B2);
-  if (SAVE) store_tile(res.h2w, a);
-  ln_silu<T>(a, vecs + V_W + V_LN2S, vecs + V_W + V_LN2B);
   T* A2w = SAVE ? res.a2w : Y;
-  __syncthreads();
-  store_tile(A2w, a);
-  __syncthreads();
+  mlp_front<T>(X, 2 * F, mats + M_PHI1, mats + M_PHI2, vecs + V_PHI, A2p,
+               SAVE ? res.h1p : nullptr, SAVE ? res.h2p : nullptr);
+  mlp_front<T>(Y, F, mats + M_W1, mats + M_W2, vecs + V_W, A2w, SAVE ? res.h1w : nullptr,
+               SAVE ? res.h2w : nullptr);
 
   // the 5F product, one F-wide chunk at a time:
   // gates | scale_dir | ds | de | cross_gates
@@ -396,7 +445,7 @@ __device__ void primal_layer(int b, int i, int N, float pe_scale,
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
         const int j = RPW * warp_id() + r;
-        if (j >= N) continue;
+        if (j >= N || !store) continue;
         float ev[4], out[4];
         ldg4(e + (pair0 + j) * F + 4 * lane, ev);
 #pragma unroll
@@ -420,7 +469,7 @@ __device__ void primal_layer(int b, int i, int N, float pe_scale,
   }
 
   // dv_i = Σ_j(...) + (t_cg × v_i); ds_i
-  for (int f = tid; f < F; f += NT) {
+  for (int f = tid; store && f < F; f += NT) {
     const float vx = tof(v[(((size_t)b * 3 + 0) * N + i) * F + f]);
     const float vy = tof(v[(((size_t)b * 3 + 1) * N + i) * F + f]);
     const float vz = tof(v[(((size_t)b * 3 + 2) * N + i) * F + f]);

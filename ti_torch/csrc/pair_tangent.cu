@@ -104,39 +104,16 @@ pair_tangent_kernel(const float* __restrict__ x, const T* __restrict__ s, const 
         WX[j * 2 * F + F + f] = Cvt<T>::from(ev);
       }
       __syncthreads();
-      float a[RPW][4];
-      zero(a);
-      gemm<T>(a, WX, 2 * F, 2 * F, mats + M_PHI1, F);
-      round_tile<T>(a);
-      ln_silu_tan<T>(a, res.h1p, vecs + V_PHI + V_LN1S, vecs + V_PHI + V_LN1B);
-      __syncthreads();
-      store_tile(WX, a);
-      __syncthreads();
-      zero(a);
-      gemm<T>(a, WX, F, F, mats + M_PHI2, F);
-      round_tile<T>(a);
-      ln_silu_tan<T>(a, res.h2p, vecs + V_PHI + V_LN2S, vecs + V_PHI + V_LN2B);
-      store_tile(DA + 2 * l * RF, a);
-      __syncthreads();
+      mlp_front_tan<T>(WX, 2 * F, mats + M_PHI1, mats + M_PHI2, vecs + V_PHI, res.h1p, res.h2p,
+                       DA + 2 * l * RF);
       // dPE = dPE/ddist * ddist
       for (int idx = tid; idx < RF; idx += NT) {
         const int j = idx / F;
         WX[idx] = Cvt<T>::from(tof(res.pef[idx]) * lg[3 * R + j]);
       }
       __syncthreads();
-      zero(a);
-      gemm<T>(a, WX, F, F, mats + M_W1, F);
-      round_tile<T>(a);
-      ln_silu_tan<T>(a, res.h1w, vecs + V_W + V_LN1S, vecs + V_W + V_LN1B);
-      __syncthreads();
-      store_tile(WX, a);
-      __syncthreads();
-      zero(a);
-      gemm<T>(a, WX, F, F, mats + M_W2, F);
-      round_tile<T>(a);
-      ln_silu_tan<T>(a, res.h2w, vecs + V_W + V_LN2S, vecs + V_W + V_LN2B);
-      store_tile(DA + (2 * l + 1) * RF, a);
-      __syncthreads();
+      mlp_front_tan<T>(WX, F, mats + M_W1, mats + M_W2, vecs + V_W, res.h1w, res.h2w,
+                       DA + (2 * l + 1) * RF);
     }
 
     // ---- the 5F chunks: primal recomputed once, then each lane ----

@@ -6,6 +6,8 @@ become broadcasts, the edge→node sums become masked contractions, and the
 cross term collapses to one contraction because it uses the dst node's
 equivariant features. Differentiable (torch.func forward mode serves the
 divergence), and the plain reference the pair kernels are checked against.
+With ``fused=True`` the message MLPs run as kernel B4 with its tangent
+kernel B5 (ops/pallas_kernels.fused_edge_mlp_diff): forward mode only.
 """
 
 from __future__ import annotations
@@ -61,18 +63,44 @@ def apply_dense(
     edges: EdgeTable,
     *,
     compute_dtype=None,
+    fused: bool = False,
+    packed=None,
 ) -> torch.Tensor:
     """Batched velocity field, dense-pair layout: (B, N, 3) -> (B, N, 3).
 
     ``compute_dtype``: None (f32), ``torch.bfloat16`` (bf16 operands, f32
     accumulation) or "bf16_agg" (bf16 dot outputs too); params, positions,
     embeddings and the returned velocity stay f32.
+
+    ``fused=True`` routes the message MLPs over the B·N² pair rows through
+    ``fused_edge_mlp_diff`` (kernel B4, and B5 under forward-mode JVPs), in
+    f32 only. ``packed`` is the message layers' packed weights
+    (``pack_message_layers``), built once by the caller; None packs them
+    here.
     """
     p = state_of(model, params)
     f = model.n_features
     b, n, _ = x.shape
     bf16_out = compute_dtype == "bf16_agg"
     cd = BF16 if bf16_out else compute_dtype
+    if fused and cd is not None:
+        raise ValueError(
+            "fused=True is incompatible with compute_dtype: the fused edge-MLP "
+            "kernels compute in f32 — use one or the other"
+        )
+    if fused:
+        from ti_torch.ops.pallas_kernels import fused_edge_mlp_diff
+
+        layers = packed if packed is not None else pack_message_layers(model, p, x.device)
+
+        def message_mlps(in_feats, pe_rows, layer):
+            rows = in_feats.reshape(b * n * n, -1).contiguous()
+            pes = pe_rows.reshape(b * n * n, -1).contiguous()
+            return fused_edge_mlp_diff(rows, pes, layers[layer]).reshape(b, n, n, -1)
+    else:
+        def message_mlps(in_feats, pe_rows, layer):
+            pre = f"message_{layer}"
+            return mlp(in_feats, f"{pre}.phi") * mlp(pe_rows, f"{pre}.w")
 
     def c(a):
         return a.to(cd) if cd is not None else a
@@ -106,10 +134,9 @@ def apply_dense(
     pe = c(positional_encoding(dist, f, model.length_scale))
 
     for layer in range(model.score_layers):
-        pre = f"message_{layer}"
         s_src = s[:, None, :, :].expand(b, n, n, f)
         in_feats = torch.cat([s_src, e], dim=-1)
-        h = c(mlp(in_feats, f"{pre}.phi") * mlp(pe, f"{pre}.w"))
+        h = c(message_mlps(in_feats, pe, layer))
         gates, scale_dir, ds, de, cg = torch.split(h * mask, f, dim=-1)
 
         dv = (
@@ -134,6 +161,15 @@ def apply_dense(
     hr = mlp(s, "readout.mlp")  # (B, N, 2)
     v_out = ein("bnfc,gf->bngc", v, c(p["readout.V.weight"]))
     return (hr[..., 1:2] * v_out[:, :, 0, :].float()).to(x.dtype)
+
+
+def pack_message_layers(model, params, device) -> list:
+    """The message layers' MLPs packed once, in f32, for the fused kernels."""
+    from ti_torch.ops.pair_layer_kernel import pack_layer
+
+    p = state_of(model, params)
+    return [pack_layer(p, i, model.n_features, torch.float32, device)
+            for i in range(model.score_layers)]
 
 
 def dense_velocity_fn(model, params, template, compute_dtype=None):

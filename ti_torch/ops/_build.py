@@ -6,9 +6,11 @@ at first use into ``build/kernels/`` at the root of the checkout (listed
 in .gitignore) and is reused while it is newer than its sources.
 ``build_all`` starts one ``nvcc`` per source at once.
 
-Every wrapper counts its launches in ``LAUNCHES``: one per kernel launch
-and nowhere else, so a run can show that its path went through the
-kernels.
+Every wrapper counts its launches in ``LAUNCHES``, under its kernel's own
+name: one per kernel launch and nowhere else, so a run can show that its
+path went through the kernels. ``pair_layer.cu`` holds two of them: B1
+(``pair_layer``, one chain per CTA) and B2 (``pair_layer_cb``, C > 1
+chains per CTA).
 """
 
 from __future__ import annotations
@@ -23,9 +25,11 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("pair_layer", "pair_tangent")
+KERNELS = ("pair_layer", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp", "fused_mlp")
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (
+    "pair_layer", "pair_layer_cb", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp",
+    "fused_mlp")}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

@@ -1,7 +1,10 @@
-"""One cPaiNN message layer on the dense pair grid — kernel B1, hand-written
-CUDA (csrc/pair_layer.cu), with its plain PyTorch version beside it.
+"""One cPaiNN message layer on the dense pair grid — kernels B1 and B2,
+hand-written CUDA (csrc/pair_layer.cu), with their plain PyTorch version
+beside them.
 
-Port of ti_tpu/ops/pair_layer_kernel.py (the Pallas ``_pair_layer_kernel``).
+Port of ti_tpu/ops/pair_layer_kernel.py (the Pallas ``_pair_layer_kernel``,
+and ``_pair_layer_kernel_cb`` for ``chain_block`` > 1: C chains per CTA,
+which share each weight read; the per-chain result is B1's).
 Per chain and pair row p = i·N + j (dst i, src j) the layer computes the
 geometry r = x_j − x_i, dist and dir = r/(1+|r|); the positional encoding
 of dist; h = phi([s_j | e_ij]) · w(PE(dist)) with both MLPs
@@ -17,7 +20,9 @@ accumulation rounded once, f32 LayerNorm statistics, f32 geometry and
 aggregated outputs).
 
 ``pair_layer`` launches the kernel on a CUDA tensor and takes the plain
-version only on a CPU tensor; there is no fallback between the two.
+version only on a CPU tensor; there is no fallback between the two. The
+plain version has no chain blocks: on a CPU tensor ``chain_block`` changes
+nothing.
 """
 
 from __future__ import annotations
@@ -42,7 +47,10 @@ from ti_torch.ops.mlp_block import (
 )
 
 KERNEL_F = 128       # the feature width the CUDA kernels are built for
-KERNEL_MAX_N = 32    # pair rows per CTA: one dst atom's N src atoms
+KERNEL_MAX_N = 32    # pair rows per thread group: one dst atom's N src atoms
+SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on Hopper
+MAX_CHAIN_BLOCK = 4   # 256 threads a chain, 1024 threads a CTA
+_R, _NW, _NGEO = 32, 8, 10  # tile rows, warps of a group, geometry rows (pair_common.cuh)
 
 
 class PairLayerWeights(NamedTuple):
@@ -80,19 +88,34 @@ def _mlp_views(mats, vecs, f: int, f_in: int, m0: int, v0: int):
     return w, m0 + (f_in + 6 * f) * f, v0 + 11 * f
 
 
-def pack_layer(params, layer: int, f: int, dtype, device) -> PairLayerWeights:
-    """Pack message layer ``layer`` of a CPaiNN state dict (once, when a
-    drift or divergence function is built)."""
+def pack_pair_mlps(phi: MLPWeights, w: MLPWeights, dtype, device) -> PairLayerWeights:
+    """Pack the two message MLPs (phi: 2F -> 5F, w: F -> 5F) into the
+    layout of the pair kernels and the fused edge-MLP kernels."""
     mats, vecs = [], []
-    for name in ("phi", "w"):
-        w = mlp_weights(params, f"message_{layer}.{name}")
-        mats += [w.w1, w.w2, w.w3]
-        vecs += [w.b1, w.ln1_scale, w.ln1_bias, w.b2, w.ln2_scale, w.ln2_bias, w.b3]
-    mats = torch.cat([m.reshape(-1) for m in mats]).to(device=device, dtype=dtype).contiguous()
-    vecs = torch.cat([v.reshape(-1) for v in vecs]).to(device=device, dtype=torch.float32).contiguous()
+    for m in (phi, w):
+        mats += [m.w1, m.w2, m.w3]
+        vecs += [m.b1, m.ln1_scale, m.ln1_bias, m.b2, m.ln2_scale, m.ln2_bias, m.b3]
+    mats = torch.cat([m.detach().reshape(-1) for m in mats])
+    vecs = torch.cat([v.detach().reshape(-1) for v in vecs])
+    return unpack_pair_mlps(mats.to(device=device, dtype=dtype).contiguous(),
+                            vecs.to(device=device, dtype=torch.float32).contiguous())
+
+
+def unpack_pair_mlps(mats: torch.Tensor, vecs: torch.Tensor) -> PairLayerWeights:
+    """PairLayerWeights over packed buffers, with the MLP views."""
+    f = vecs.numel() // 22
     phi, m0, v0 = _mlp_views(mats, vecs, f, 2 * f, 0, 0)
     w, _, _ = _mlp_views(mats, vecs, f, f, m0, v0)
     return PairLayerWeights(mats, vecs, phi, w)
+
+
+def pack_layer(params, layer: int, f: int, dtype, device) -> PairLayerWeights:
+    """Pack message layer ``layer`` (width ``f``) of a CPaiNN state dict
+    (once, when a drift or divergence function is built)."""
+    phi = mlp_weights(params, f"message_{layer}.phi")
+    if tuple(phi.w2.shape) != (f, f):
+        raise ValueError(f"message_{layer} is {tuple(phi.w2.shape)} wide, not F={f}")
+    return pack_pair_mlps(phi, mlp_weights(params, f"message_{layer}.w"), dtype, device)
 
 
 def pe_scale(length_scale: float) -> float:
@@ -230,27 +253,50 @@ def _check_pair_inputs(x, s, v, e, wts: PairLayerWeights):
     return b, n, f, wd
 
 
-def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float):
+def check_chain_block(chain_block) -> int:
+    if isinstance(chain_block, bool) or not isinstance(chain_block, int) or chain_block < 1:
+        raise ValueError(f"chain_block must be an integer >= 1, got {chain_block!r}")
+    return chain_block
+
+
+def group_smem_bytes(bf16: bool) -> int:
+    """Dynamic shared memory of one chain's thread group in csrc/pair_layer.cu;
+    a CTA of C chains takes C times this."""
+    t = 2 if bf16 else 4
+    red_in_x = t * _R * KERNEL_F >= 4 * _NW * 3 * KERNEL_F
+    return t * 3 * _R * KERNEL_F + 4 * ((0 if red_in_x else _NW * 3 * KERNEL_F)
+                                        + _NGEO * _R + 7 * KERNEL_F)
+
+
+def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float, chain_block: int = 1):
     """One message layer: (dv, ds, e_out). Launches kernel B1 on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    tensor (B2 with ``chain_block`` > 1 chains per CTA), the plain version
+    on a CPU tensor."""
+    c = check_chain_block(chain_block)
     if x.device.type == "cpu":
         return pair_layer_plain(x, s, v, e, wts, length_scale)
     if x.device.type != "cuda":
         raise ValueError(f"pair_layer runs on cuda or cpu, not {x.device}")
     b, n, f, wd = _check_pair_inputs(x, s, v, e, wts)
+    smem = c * group_smem_bytes(wts.bf16)
+    if c > MAX_CHAIN_BLOCK or smem > SMEM_LIMIT:
+        raise ValueError(
+            f"chain_block {c} cannot launch: it needs {256 * c} threads and {smem} bytes of "
+            f"shared memory per CTA ({group_smem_bytes(wts.bf16)} a chain); the card allows "
+            f"1024 threads and {SMEM_LIMIT} bytes (chain_block <= {MAX_CHAIN_BLOCK})")
     lib = _build.load("pair_layer")
     fn = lib.pair_layer_bf16 if wts.bf16 else lib.pair_layer_f32
-    fn.argtypes = [_P] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, _P]
+    fn.argtypes = [_P] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, _P]
     fn.restype = ctypes.c_int
     dv = torch.empty((b, 3, n, f), device=x.device, dtype=torch.float32)
     ds = torch.empty((b, n, f), device=x.device, dtype=torch.float32)
     e_out = torch.empty_like(e)
     rc = fn(x.data_ptr(), s.data_ptr(), v.data_ptr(), e.data_ptr(),
             wts.mats.data_ptr(), wts.vecs.data_ptr(),
-            dv.data_ptr(), ds.data_ptr(), e_out.data_ptr(), b, n,
+            dv.data_ptr(), ds.data_ptr(), e_out.data_ptr(), b, n, c,
             pe_scale(length_scale), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "pair_layer launch")
-    _build.LAUNCHES["pair_layer"] += 1
+    _build.LAUNCHES["pair_layer" if c == 1 else "pair_layer_cb"] += 1
     return dv, ds, e_out
 
 
@@ -307,17 +353,18 @@ def embed(pm: PairModel, t, temps, n: int):
     return s.to(wd), e.contiguous()
 
 
-def apply_dense_pair_kernel(pm: PairModel, x, t, temps, *, kernel: bool = True):
-    """Batched velocity (B, N, 3) with the message layers in kernel B1
-    (``kernel=False``: its plain version, on any device). Same math as
-    ``apply_dense`` on the complete graph; inference only."""
+def apply_dense_pair_kernel(pm: PairModel, x, t, temps, *, kernel: bool = True,
+                            chain_block: int = 1):
+    """Batched velocity (B, N, 3) with the message layers in kernel B1, or
+    B2 with ``chain_block`` > 1 (``kernel=False``: their plain version, on
+    any device). Same math as ``apply_dense`` on the complete graph;
+    inference only."""
     model, p = pm.model, pm.p
     b, n, _ = x.shape
     f = model.n_features
     bf16 = pm.bf16
     wd = BF16 if bf16 else torch.float32
     mlp_kw = dict(compute_dtype=BF16, bf16_out=True) if bf16 else {}
-    layer_fn = pair_layer if kernel else pair_layer_plain
 
     def c(a):
         return a.to(wd)
@@ -331,7 +378,8 @@ def apply_dense_pair_kernel(pm: PairModel, x, t, temps, *, kernel: bool = True):
     s, e = embed(pm, t, temps, n)
     v = torch.zeros((b, 3, n, f), dtype=wd, device=x.device)
     for layer in range(model.score_layers):
-        dv, ds, e = layer_fn(x, s.contiguous(), v, e, pm.layers[layer], model.length_scale)
+        args = (x, s.contiguous(), v, e, pm.layers[layer], model.length_scale)
+        dv, ds, e = pair_layer(*args, chain_block) if kernel else pair_layer_plain(*args)
         s = c(s + ds)
         v = c(v + dv)
         # node update (reference Update), plain: O(N·F) rows
@@ -353,19 +401,22 @@ def apply_dense_pair_kernel(pm: PairModel, x, t, temps, *, kernel: bool = True):
 
 
 def pair_kernel_drift(model, params, template, *, compute_dtype=None,
-                      device=None, kernel: bool = True):
+                      device=None, kernel: bool = True, chain_block: int = 1):
     """Batched drift ``(xs (B,N,3), t, temps (B,K)) -> (B,N,3)`` through
-    kernel B1 — the velocity-only trajectory segments of the Gauss
-    quadrature-dlogp path. Packs the weights once, here. Runs on ``cuda``
+    kernel B1, or B2 with ``chain_block`` > 1 chains per CTA — the
+    velocity-only trajectory segments of the Gauss quadrature-dlogp path
+    and the SDE drift. Packs the weights once, here. Runs on ``cuda``
     unless ``device`` says otherwise; ``kernel=False`` builds the same
     drift from the plain version (the comparison on the card)."""
     from ti_torch import resolve_device
 
+    check_chain_block(chain_block)
     dev = resolve_device(device)
     pm = prepare(model, params, template, compute_dtype, dev)
 
     def drift(xs, t, temps):
         tb = torch.as_tensor(t, dtype=xs.dtype, device=xs.device).expand(xs.shape[0])
-        return apply_dense_pair_kernel(pm, xs, tb, temps, kernel=kernel)
+        return apply_dense_pair_kernel(pm, xs, tb, temps, kernel=kernel,
+                                       chain_block=chain_block)
 
     return drift

@@ -32,7 +32,11 @@ from ti_torch.ops import _build
 from ti_torch.ops.divergence import _probe_block, hutchinson_var_estimate
 from ti_torch.ops.mlp_block import BF16, _mlp_block_jvp, dot_bf16_agg, mlp_weights
 from ti_torch.ops.pair_layer_kernel import (
+    _NGEO,
+    _NW,
+    _R,
     KERNEL_F,
+    SMEM_LIMIT,
     PairLayerWeights,
     _check_pair_inputs,
     agg,
@@ -42,9 +46,6 @@ from ti_torch.ops.pair_layer_kernel import (
     primal_plain,
     tile_src,
 )
-
-SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on Hopper
-_R, _NW, _NGEO = 32, 8, 10
 
 
 def smem_bytes(bf16: bool, lane_block: int) -> int:

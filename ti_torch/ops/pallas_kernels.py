@@ -1,0 +1,314 @@
+"""The fused MLP kernels — B4 (``fused_edge_mlp``), B5
+(``fused_edge_mlp_jvp``) and B6 (``fused_mlp``), hand-written CUDA
+(csrc/fused_edge_mlp.cu, fused_edge_mlp_jvp.cu, fused_mlp.cu) — with
+their plain PyTorch versions beside them.
+
+Port of ti_tpu/ops/pallas_kernels.py (named after it). B4 computes
+phi(in) · w(pe) per row, both MLPs Dense-LN-SiLU ×2 → Dense 5F, keeping
+every intermediate on chip; B5 its tangent under K lanes of input
+tangents, recomputing the primal; B6 one such MLP over row tiles. They
+serve ``apply_dense(fused=True)`` (B4 and B5, through
+``fused_edge_mlp_diff``) and ``cpainn_fused.apply_fused`` (B4 and B6).
+All three are f32, as the JAX fused path is.
+
+``fused_edge_mlp_diff`` is the counterpart of the JAX ``custom_jvp``: an
+``autograd.Function`` whose forward is B4 and whose ``jvp`` is B5. The
+``jvp`` reaches B5 through a ``torch.library`` custom op whose vmap rule
+folds the vmapped lane dimension into B5's K, so the exact divergence's
+``vmap(jvp)`` launches B5 once per layer, not once per lane (a ``ctypes``
+launch cannot take a vmapped tensor). Tangents on the weights go through
+the plain version's own JVP; reverse mode raises.
+
+Every wrapper launches its kernel on a CUDA tensor and takes the plain
+version only on a CPU tensor; there is no fallback between the two.
+``PLAIN_CALLS`` counts the plain versions' calls on that route.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as tnf
+
+from ti_torch.ops import _build
+from ti_torch.ops.mlp_block import MLPWeights, _mlp_block, _mlp_block_jvp
+from ti_torch.ops.pair_layer_kernel import (
+    _R,
+    KERNEL_F,
+    SMEM_LIMIT,
+    PairLayerWeights,
+    unpack_pair_mlps,
+)
+
+PLAIN_CALLS = {"fused_edge_mlp": 0, "fused_edge_mlp_jvp": 0, "fused_mlp": 0}
+_P = ctypes.c_void_p
+
+
+class MLPPack(NamedTuple):
+    """One MLP packed once for kernel B6. ``mats`` is flat f32: w1
+    (f_in, F), w2 (F, F), w3 (F, f_pad) with w3's columns padded with zeros
+    to a multiple of F; ``vecs`` is flat f32: b1, ln1 scale, ln1 bias, b2,
+    ln2 scale, ln2 bias (F each), b3 (f_pad). ``w`` views both, unpadded,
+    for the plain version."""
+
+    mats: torch.Tensor
+    vecs: torch.Tensor
+    f_in: int
+    f_out: int
+    w: MLPWeights
+
+
+def pack_mlp(w: MLPWeights, device) -> MLPPack:
+    f, f_in, f_out = w.w2.shape[0], w.w1.shape[0], w.w3.shape[1]
+    f_pad = -(-f_out // f) * f
+    w3 = tnf.pad(w.w3, (0, f_pad - f_out))
+    b3 = tnf.pad(w.b3, (0, f_pad - f_out))
+    mats = torch.cat([m.detach().reshape(-1) for m in (w.w1, w.w2, w3)])
+    vecs = torch.cat([v.detach() for v in (w.b1, w.ln1_scale, w.ln1_bias, w.b2, w.ln2_scale,
+                                           w.ln2_bias, b3)])
+    mats = mats.to(device=device, dtype=torch.float32).contiguous()
+    vecs = vecs.to(device=device, dtype=torch.float32).contiguous()
+    m2, m3 = f_in * f, (f_in + f) * f
+    views = MLPWeights(
+        w1=mats[:m2].view(f_in, f), b1=vecs[:f], ln1_scale=vecs[f:2 * f],
+        ln1_bias=vecs[2 * f:3 * f], w2=mats[m2:m3].view(f, f), b2=vecs[3 * f:4 * f],
+        ln2_scale=vecs[4 * f:5 * f], ln2_bias=vecs[5 * f:6 * f],
+        w3=mats[m3:].view(f, f_pad)[:, :f_out], b3=vecs[6 * f:6 * f + f_out],
+    )
+    return MLPPack(mats, vecs, f_in, f_out, views)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def fused_edge_mlp_reference(in_feat, pe, phi: MLPWeights, w: MLPWeights):
+    """phi(in_feat) · w(pe) — the plain version of B4."""
+    return _mlp_block(in_feat, phi) * _mlp_block(pe, w)
+
+
+def edge_mlp_jvp_reference(in_feat, pe, din, dpe, phi: MLPWeights, w: MLPWeights):
+    """Tangent of ``fused_edge_mlp_reference`` under (din, dpe) — the plain
+    version of B5; lanes (K, R, ·) broadcast against the primal (R, ·)."""
+    p, dp = _mlp_block_jvp(in_feat, din, phi)
+    q, dq = _mlp_block_jvp(pe, dpe, w)
+    return dp * q + p * dq
+
+
+def _reference_packed(in_feat, pe, mats, vecs):
+    wts = unpack_pair_mlps(mats, vecs)
+    return fused_edge_mlp_reference(in_feat, pe, wts.phi, wts.w)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _on_card(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (the plain version); raises on any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+    return True
+
+
+def _check(name: str, t: torch.Tensor, shape, dev) -> None:
+    if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32:
+        raise ValueError(f"{name} must be {tuple(shape)} float32, got {tuple(t.shape)} {t.dtype}")
+    if t.device != dev or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous on {dev}")
+
+
+def _check_pair_mlps(wts: PairLayerWeights, dev) -> None:
+    f = KERNEL_F
+    if wts.mats.dtype != torch.float32 or wts.mats.numel() != 15 * f * f \
+            or wts.vecs.numel() != 22 * f:
+        raise ValueError(f"the fused edge-MLP kernels take f32 weights packed at F={f} "
+                         "(pack_pair_mlps)")
+    for t in (wts.mats, wts.vecs):
+        if t.device != dev:
+            raise ValueError(f"weights must be on {dev}, found them on {t.device}")
+
+
+def _rows(t: torch.Tensor) -> int:
+    if t.dim() != 2 or t.shape[0] < 1:
+        raise ValueError(f"expected (rows >= 1, width) rows, got {tuple(t.shape)}")
+    return t.shape[0]
+
+
+def fused_edge_mlp(in_feat, pe, wts: PairLayerWeights):
+    """phi(in_feat) · w(pe): in_feat (R, 2F), pe (R, F) -> (R, 5F), f32.
+    Launches kernel B4 on a CUDA tensor, the plain version on a CPU one."""
+    if not _on_card(in_feat, "fused_edge_mlp"):
+        PLAIN_CALLS["fused_edge_mlp"] += 1
+        return fused_edge_mlp_reference(in_feat, pe, wts.phi, wts.w)
+    dev, f, r = in_feat.device, KERNEL_F, _rows(in_feat)
+    _check("in_feat", in_feat, (r, 2 * f), dev)
+    _check("pe", pe, (r, f), dev)
+    _check_pair_mlps(wts, dev)
+    lib = _build.load("fused_edge_mlp")
+    fn = lib.fused_edge_mlp_f32
+    fn.argtypes = [_P] * 5 + [ctypes.c_int, _P]
+    fn.restype = ctypes.c_int
+    out = torch.empty((r, 5 * f), device=dev, dtype=torch.float32)
+    rc = fn(in_feat.data_ptr(), pe.data_ptr(), wts.mats.data_ptr(), wts.vecs.data_ptr(),
+            out.data_ptr(), r, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "fused_edge_mlp launch")
+    _build.LAUNCHES["fused_edge_mlp"] += 1
+    return out
+
+
+def jvp_smem_bytes(lane_block: int) -> int:
+    """Dynamic shared memory of one B5 CTA (csrc/fused_edge_mlp_jvp.cu)."""
+    return 4 * (8 + 2 * lane_block) * _R * KERNEL_F
+
+
+def _pick_lane_block(k_lanes: int) -> int:
+    """Lanes whose tangent chains are kept together per primal recompute:
+    the most of 3, 2, 1 that divides K and fits shared memory."""
+    for cand in (3, 2):
+        if k_lanes % cand == 0 and jvp_smem_bytes(cand) <= SMEM_LIMIT:
+            return cand
+    return 1
+
+
+def fused_edge_mlp_jvp(in_feat, pe, din, dpe, wts: PairLayerWeights,
+                       lane_block: Optional[int] = None):
+    """Tangent of ``fused_edge_mlp`` under K lanes: primal in_feat (R, 2F),
+    pe (R, F); tangents din (K, R, 2F), dpe (K, R, F) -> (K, R, 5F), f32.
+    Launches kernel B5 on a CUDA tensor, the plain version on a CPU one."""
+    if not _on_card(in_feat, "fused_edge_mlp_jvp"):
+        PLAIN_CALLS["fused_edge_mlp_jvp"] += 1
+        return edge_mlp_jvp_reference(in_feat, pe, din, dpe, wts.phi, wts.w)
+    dev, f, r = in_feat.device, KERNEL_F, _rows(in_feat)
+    k_lanes = din.shape[0] if din.dim() == 3 else -1
+    _check("in_feat", in_feat, (r, 2 * f), dev)
+    _check("pe", pe, (r, f), dev)
+    _check("din", din, (k_lanes, r, 2 * f), dev)
+    _check("dpe", dpe, (k_lanes, r, f), dev)
+    _check_pair_mlps(wts, dev)
+    L = lane_block or _pick_lane_block(k_lanes)
+    if k_lanes < 1 or k_lanes % L:
+        raise ValueError(f"lane_block {L} must divide the lane count {k_lanes}")
+    if jvp_smem_bytes(L) > SMEM_LIMIT:
+        raise ValueError(f"lane_block {L} needs {jvp_smem_bytes(L)} bytes of shared memory "
+                         f"per CTA; the card has {SMEM_LIMIT}")
+    lib = _build.load("fused_edge_mlp_jvp")
+    fn = lib.fused_edge_mlp_jvp_f32
+    fn.argtypes = [_P] * 7 + [ctypes.c_int] * 3 + [_P]
+    fn.restype = ctypes.c_int
+    out = torch.empty((k_lanes, r, 5 * f), device=dev, dtype=torch.float32)
+    rc = fn(*(t.data_ptr() for t in (in_feat, pe, din, dpe, wts.mats, wts.vecs, out)),
+            r, k_lanes, L, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "fused_edge_mlp_jvp launch")
+    _build.LAUNCHES["fused_edge_mlp_jvp"] += 1
+    return out
+
+
+def fused_mlp(x, pack: MLPPack):
+    """One MLP over rows: x (R, f_in) -> (R, f_out), f32. Launches kernel
+    B6 on a CUDA tensor, the plain version on a CPU one."""
+    if not _on_card(x, "fused_mlp"):
+        PLAIN_CALLS["fused_mlp"] += 1
+        return _mlp_block(x, pack.w)
+    dev, f, r = x.device, KERNEL_F, _rows(x)
+    _check("x", x, (r, pack.f_in), dev)
+    smem = 4 * _R * max(pack.f_in, f)
+    if pack.w.w2.shape[0] != f or pack.f_in % 4 or smem > SMEM_LIMIT:
+        raise ValueError(f"fused_mlp takes hidden width F={f} and f_in a multiple of 4 whose "
+                         f"input tile ({smem} bytes) fits {SMEM_LIMIT} bytes of shared memory; "
+                         f"got F={pack.w.w2.shape[0]}, f_in={pack.f_in}")
+    for t in (pack.mats, pack.vecs):
+        if t.device != dev:
+            raise ValueError(f"weights must be on {dev}, found them on {t.device}")
+    lib = _build.load("fused_mlp")
+    fn = lib.fused_mlp_f32
+    fn.argtypes = [_P] * 4 + [ctypes.c_int] * 3 + [_P]
+    fn.restype = ctypes.c_int
+    out = torch.empty((r, pack.f_out), device=dev, dtype=torch.float32)
+    rc = fn(x.data_ptr(), pack.mats.data_ptr(), pack.vecs.data_ptr(), out.data_ptr(),
+            r, pack.f_in, pack.f_out, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "fused_mlp launch")
+    _build.LAUNCHES["fused_mlp"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the differentiable edge MLP: B4 forward, B5 tangent, under torch.func
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("ti_torch::fused_edge_mlp_jvp", mutates_args=())
+def _edge_mlp_jvp_op(in_feat: torch.Tensor, pe: torch.Tensor, din: torch.Tensor,
+                     dpe: torch.Tensor, mats: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    return fused_edge_mlp_jvp(in_feat, pe, din, dpe, unpack_pair_mlps(mats, vecs))
+
+
+@_edge_mlp_jvp_op.register_fake
+def _(in_feat, pe, din, dpe, mats, vecs):
+    return din.new_empty(din.shape[0], din.shape[1], 5 * (vecs.shape[0] // 22))
+
+
+def _edge_mlp_jvp_vmap(info, in_dims, in_feat, pe, din, dpe, mats, vecs):
+    """Vmapped lanes (the divergence's vmap over its JVP lanes) fold into
+    B5's K: one launch for all of them."""
+    if any(d is not None for d in (in_dims[0], in_dims[1], in_dims[4], in_dims[5])):
+        raise NotImplementedError(
+            "the fused edge MLP's tangent rule vmaps over tangent lanes only, not over its "
+            "primal rows or weights")
+    bs = info.batch_size
+
+    def lanes(t, dim):  # (bs, K, R, W) -> (bs·K, R, W)
+        t = t.movedim(dim, 0) if dim is not None else t.expand(bs, *t.shape)
+        return t.reshape(bs * t.shape[1], *t.shape[2:]).contiguous()
+
+    out = _edge_mlp_jvp_op(in_feat, pe, lanes(din, in_dims[2]), lanes(dpe, in_dims[3]), mats, vecs)
+    return out.reshape(bs, -1, *out.shape[1:]), 0
+
+
+torch.library.register_vmap(_edge_mlp_jvp_op, _edge_mlp_jvp_vmap)
+
+
+class _FusedEdgeMLP(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(in_feat, pe, mats, vecs):
+        return fused_edge_mlp(in_feat, pe, unpack_pair_mlps(mats, vecs))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.set_materialize_grads(False)  # an input without a tangent arrives as None
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def jvp(ctx, din, dpe, dmats, dvecs):
+        in_feat, pe, mats, vecs = ctx.saved_tensors
+        if dmats is not None or dvecs is not None:
+            # tangents on the weights: the plain version's own JVP (never on
+            # the sampling paths), as the JAX fallback
+            primals = (in_feat, pe, mats, vecs)
+            tangents = tuple(torch.zeros_like(p) if d is None else d
+                             for p, d in zip(primals, (din, dpe, dmats, dvecs)))
+            return torch.func.jvp(_reference_packed, primals, tangents)[1]
+        din = torch.zeros_like(in_feat) if din is None else din
+        dpe = torch.zeros_like(pe) if dpe is None else dpe
+        return _edge_mlp_jvp_op(in_feat, pe, din.unsqueeze(0).contiguous(),
+                                dpe.unsqueeze(0).contiguous(), mats, vecs).squeeze(0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "fused_edge_mlp_diff is forward-mode only (sampling and dlogp); reverse mode "
+            "(training) must use the plain composition, apply_dense(fused=False)")
+
+
+def fused_edge_mlp_diff(in_feat, pe, wts: PairLayerWeights):
+    """Differentiable fused edge MLP ``(R, 2F), (R, F) -> (R, 5F)``:
+    forward = B4, JVP in (in_feat, pe) = B5 (on a CPU tensor, their plain
+    versions through the same rule); JVP in the weights = the plain
+    version's; no reverse mode."""
+    return _FusedEdgeMLP.apply(in_feat, pe, wts.mats, wts.vecs)

@@ -1,5 +1,6 @@
-"""Sampling drivers: batched transport with dlogp and .npy artifacts
-(port of the ambient main path of ti_tpu/sampling/drivers.py).
+"""Sampling drivers: batched transport with dlogp and .npy artifacts, and
+the SDE rollout (port of the ambient and SDE paths of
+ti_tpu/sampling/drivers.py).
 
 ``sample_ambient`` transports conformations from sampling_T0 to
 sampling_T1 through ``make_ode_sampler``'s segmented Gauss-Legendre path:
@@ -9,11 +10,17 @@ trajectory drift and the divergence-node estimator are hooks
 (``traj_drift``/``div_drift``) that ``cfg.traj_forward_impl`` and
 ``cfg.div_forward_impl`` fill with the CUDA pair kernels
 (ops/pair_layer_kernel.py, ops/pair_tangent_kernel.py); with a hook left
-None the node runs the dense forward (and its torch.func JVPs).
+None the node runs the dense forward (and its torch.func JVPs) — with
+``molecular_v_fn_of(impl="dense_fused")`` the message MLPs of that forward
+run as kernels B4 and B5 (ops/pallas_kernels.py).
+
+``make_ode_sampler(return_dlogp=False)`` is velocity-only fixed-step
+transport. ``sample_molecular_sde`` is Euler–Maruyama over the dense drift
+or the pair-kernel drift (B1, or B2 with ``chain_block`` > 1).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Other solvers and samplers of ti_tpu (dopri5, Simpson quadrature,
-stage-coupled dlogp, SDE, latent, ADW) come with later slices and raise
+stage-coupled dlogp, latent, ADW) come with later slices and raise
 NotImplementedError here.
 """
 
@@ -28,7 +35,7 @@ import torch
 from ti_torch import resolve_device
 from ti_torch.config import MDQM9Config
 from ti_torch.ops.divergence import _probe_block, divergence_exact, divergence_hutchinson
-from ti_torch.sampling.integrators import ODESolution, _tableau, sample_ode
+from ti_torch.sampling.integrators import ODESolution, _tableau, sample_ode, sample_sde
 
 
 def _compute_dtype(cfg):
@@ -76,7 +83,10 @@ def make_ode_sampler(
     batch from its conditioning (B, 2). This slice ports the segmented
     Gauss quadrature-dlogp path (``dlogp_quad='gauss'``,
     ``dlogp_quad_points``, ``steps_per_dispatch``), where
-    ``steps_per_dispatch`` caps the RK steps per trajectory gap.
+    ``steps_per_dispatch`` caps the RK steps per trajectory gap, and
+    velocity-only transport (``return_dlogp=False``, euler/heun/rk4,
+    unsegmented or in segments of at most ``steps_per_dispatch`` steps;
+    dlogp is then zero).
 
     ``traj_drift(xs, t, conds)`` drives the velocity-only trajectory
     segments; ``div_drift(xs, t, conds, generator) -> (B,)`` estimates the
@@ -106,10 +116,12 @@ def make_ode_sampler(
             "probe_crn is not supported with div_drift: the batched estimator "
             "draws its own probes per chain"
         )
-    if not return_dlogp:
-        raise _later("transport without dlogp (make_ode_sampler)", "SDE")
     if solver == "dopri5":
         raise _later("the dopri5 solver", "integrators")
+    if not return_dlogp:
+        return _velocity_sampler(v_fn_of, solver=solver, t0=t0, t1=t1, n_steps=n_steps,
+                                 n_save=n_save, steps_per_dispatch=steps_per_dispatch,
+                                 device=dev)
     if dlogp_quad_points is None:
         raise _later("stage-coupled dlogp", "integrators")
     if dlogp_quad != "gauss":
@@ -125,6 +137,50 @@ def make_ode_sampler(
         probe_crn=probe_crn, probe_mode=probe_mode, traj_drift=traj_drift,
         div_drift=div_drift, return_dlogp_var=return_dlogp_var, device=dev,
     )
+
+
+def _segments_per_interval(per_save: int, steps_per_dispatch: int) -> int:
+    """Smallest q dividing per_save with per_save/q <= steps_per_dispatch."""
+    q = max(1, -(-per_save // steps_per_dispatch))
+    while per_save % q:
+        q += 1
+    return q
+
+
+def _velocity_sampler(v_fn_of, *, solver, t0, t1, n_steps, n_save, steps_per_dispatch,
+                      device):
+    """Velocity-only fixed-step transport of the whole chain batch: in one
+    ``sample_ode`` call, or (``steps_per_dispatch``) in segments of
+    ``per_save / q`` steps, q the smallest divisor of the steps per save
+    interval that keeps a segment within ``steps_per_dispatch``."""
+    n_stages = len(_tableau(solver)[2])
+    if n_save < 2 or n_steps % (n_save - 1) != 0:
+        raise ValueError("n_steps must be a positive multiple of (n_save - 1)")
+    per_save = n_steps // (n_save - 1)
+    q = 1 if steps_per_dispatch is None else _segments_per_interval(per_save, steps_per_dispatch)
+    sub_steps = per_save // q
+    seg_span = (t1 - t0) / (n_steps // sub_steps)
+
+    @torch.no_grad()
+    def sampler(x0s, conds, generator: Optional[torch.Generator] = None) -> ODESolution:
+        x = torch.as_tensor(x0s, dtype=torch.float32, device=device)
+        v = v_fn_of(torch.as_tensor(conds, dtype=torch.float32, device=device))
+        zeros = torch.zeros((x.shape[0], n_save), dtype=x.dtype, device=device)
+        if steps_per_dispatch is None:
+            xs = sample_ode(v, x, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
+                            method=solver).xs
+        else:
+            saves = [x]
+            for si in range((n_save - 1) * q):
+                ts = t0 + si * seg_span
+                x = sample_ode(v, x, t0=ts, t1=ts + seg_span, n_steps=sub_steps,
+                               method=solver).xs[:, -1]
+                if (si + 1) % q == 0:
+                    saves.append(x)
+            xs = torch.stack(saves, dim=1)
+        return ODESolution(xs=xs, dlogp=zeros, nfe=n_steps * n_stages)
+
+    return sampler
 
 
 def _gauss_dlogp_sampler(
@@ -228,21 +284,31 @@ def _gauss_dlogp_sampler(
 def molecular_v_fn_of(model, params, template, impl: str = "dense", compute_dtype=None,
                       device=None):
     """Batched velocity factory ``v_fn_of(temps (B,K)) -> v(xs (B,N,3), t)``
-    through the dense pair forward (models/cpainn_dense.py)."""
-    if impl != "dense":
+    through the dense pair forward (models/cpainn_dense.py).
+
+    ``impl="dense_fused"`` runs its message MLPs as kernel B4, and their
+    forward-mode tangents (the divergence's JVP lanes) as kernel B5, with
+    the weights packed once, here: f32 only, no reverse mode."""
+    if impl == "edge":
         raise _later(f"molecular_v_fn_of(impl={impl!r})", "training")
+    if impl not in ("dense", "dense_fused"):
+        raise ValueError(f"unknown impl {impl!r} (dense | dense_fused | edge)")
     from ti_torch.models.cpainn import state_of
-    from ti_torch.models.cpainn_dense import apply_dense
+    from ti_torch.models.cpainn_dense import apply_dense, pack_message_layers
 
     dev = resolve_device(device)
     p = {k: t.detach().to(dev) for k, t in state_of(model, params).items()}
     atom_ids = torch.as_tensor(template.atom_ids, device=dev)
+    fused = impl == "dense_fused"
+    if fused and compute_dtype is not None:
+        raise ValueError("impl='dense_fused' is f32 only: compute_dtype must be None")
+    packed = pack_message_layers(model, p, dev) if fused else None
 
     def v_fn_of(temps):
         def v(xs, t):
             tb = torch.as_tensor(t, dtype=xs.dtype, device=xs.device).expand(xs.shape[0])
             return apply_dense(model, p, xs, tb, temps, atom_ids, template.edges,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, fused=fused, packed=packed)
 
         return v
 
@@ -420,3 +486,61 @@ def _save_ambient(cfg, samples_list, dlogps_list, latent_z, latent_dlogp,
         # (analysis.free_energy.debias_phis)
         np.save(os.path.join(base, f"dlogp_vars_{name}.npy"),
                 np.concatenate(dvars_list, axis=0))
+
+
+# ---------------------------------------------------------------------------
+# SDE sampling (Euler–Maruyama over the learned drift)
+# ---------------------------------------------------------------------------
+
+def sample_molecular_sde(
+    model,
+    params,
+    template,
+    x0,
+    temps,
+    generator: Optional[torch.Generator] = None,
+    *,
+    g_fn=0.0,
+    n_steps: int = 100,
+    n_save: int = 2,
+    compute_dtype=None,
+    forward_impl: str = "dense",
+    chain_block: int = 1,
+    noise: Optional[torch.Tensor] = None,
+    device=None,
+) -> torch.Tensor:
+    """Batched Euler–Maruyama transport (no dlogp) of x0 (C, N, 3) under
+    conditioning temps (C, K); the noise is projected to zero centre of
+    mass per chain. Returns (C, n_save, N, 3).
+
+    The drift is the dense forward on the whole chain batch per step
+    (``forward_impl="dense"``, ``chain_block`` ignored) or the pair-kernel
+    forward (``"pair_kernel"``: kernel B1, or B2 with ``chain_block`` > 1
+    chains per CTA; ``compute_dtype`` None or "bf16_agg"). The noise of
+    each step is drawn from ``generator`` unless ``noise`` (n_steps, C, N,
+    3) is given. Runs on ``cuda`` unless ``device`` says otherwise.
+    """
+    from ti_torch.models.cpainn import state_of
+
+    if n_save < 2 or n_steps % (n_save - 1) != 0:
+        raise ValueError("n_steps must be a positive multiple of (n_save - 1)")
+    dev = resolve_device(device)
+    if forward_impl == "pair_kernel":
+        from ti_torch.ops.pair_layer_kernel import pair_kernel_drift
+
+        drift = pair_kernel_drift(model, params, template, compute_dtype=compute_dtype,
+                                  device=dev, chain_block=chain_block)
+    elif forward_impl == "dense":
+        from ti_torch.models.cpainn_dense import dense_velocity_fn
+
+        p = {k: t.detach().to(dev) for k, t in state_of(model, params).items()}
+        drift = dense_velocity_fn(model, p, template, compute_dtype=compute_dtype)
+    else:
+        raise ValueError(f"unknown forward_impl {forward_impl!r} (dense | pair_kernel)")
+    x = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    conds = torch.as_tensor(temps, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        xs = sample_sde(lambda xx, t: drift(xx, t, conds).to(x.dtype), x, generator,
+                        g_fn=g_fn, n_steps=n_steps, n_save=n_save, project_zero_mean=True,
+                        noise=noise)  # (n_save, C, N, 3)
+    return xs.movedim(0, 1)

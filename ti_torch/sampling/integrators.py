@@ -1,5 +1,6 @@
-"""Fixed-step probability-flow integrators (port of the parts of
-ti_tpu/sampling/integrators.py on the ambient main path).
+"""Fixed-step probability-flow integrators and the Euler–Maruyama SDE
+(port of the parts of ti_tpu/sampling/integrators.py on the ambient and
+SDE paths).
 
 Batched over chains: a velocity ``v_fn(xs, t)`` maps (B, ...) states to
 (B, ...) velocities. Python loops take the place of ``lax.scan``. Sign
@@ -9,7 +10,7 @@ d(dlogp)/dt = -div b, so the saved dlogp is log q(x_1) - log p_0(x_0).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -86,3 +87,52 @@ def sample_ode(v_fn, x0: torch.Tensor, *, t0: float = 0.0, t1: float = 1.0,
     return ODESolution(xs=torch.stack(saves, dim=1),
                        dlogp=torch.zeros(x0.shape[0], n_save, dtype=x0.dtype, device=x0.device),
                        nfe=n_steps * n_stages)
+
+
+def sample_sde(
+    drift_fn,
+    x0: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    g_fn: Union[Callable[[float], float], float] = 0.0,
+    t0: float = 0.0,
+    t1: float = 1.0,
+    n_steps: int = 100,
+    n_save: int = 2,
+    project_zero_mean: bool = False,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Euler–Maruyama: dX = b(X, t) dt + g(t) dW. Returns (n_save, *state).
+
+    With g = 0 this is the Euler probability-flow ODE. ``project_zero_mean``
+    removes the mean of the injected noise over axis -2 each step — the
+    per-structure centre of mass of a (N, 3) or batched (C, N, 3) state.
+    The noise of step i is ``noise[i]`` when ``noise`` (n_steps, *state) is
+    given (the parity tests pass JAX's draws), else a standard normal draw
+    from ``generator``. The one Euler–Maruyama core: the batched molecular
+    driver (drivers.sample_molecular_sde) delegates here.
+    """
+    if n_save < 2 or n_steps % (n_save - 1) != 0:
+        raise ValueError("n_steps must be a positive multiple of (n_save - 1)")
+    if noise is not None and tuple(noise.shape) != (n_steps, *x0.shape):
+        raise ValueError(f"noise must be {(n_steps, *x0.shape)}, got {tuple(noise.shape)}")
+    if noise is None and generator is None:
+        raise ValueError("sample_sde needs a generator or explicit noise")
+    g = g_fn if callable(g_fn) else (lambda t, _g=float(g_fn): _g)
+    dt = (t1 - t0) / n_steps
+    sqrt_dt = float(np.sqrt(np.float32(abs(dt))))
+    per_save = n_steps // (n_save - 1)
+    x = x0
+    saves = [x]
+    for i in range(n_steps):
+        t = t0 + i * dt
+        if noise is None:
+            z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        else:
+            z = noise[i].to(device=x.device, dtype=x.dtype)
+        if project_zero_mean:
+            z = z - z.mean(dim=-2, keepdim=True)
+        x = x + (dt * drift_fn(x, t) + g(t) * sqrt_dt * z).to(x.dtype)
+        if (i + 1) % per_save == 0:
+            saves.append(x)
+    return torch.stack(saves)
