@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch port (ti_torch) on one NVIDIA H100.
 
 Builds the hand-written CUDA kernels from ti_torch/csrc, holds each against
-its plain PyTorch version at its path's shapes, and runs the port's three
+its plain PyTorch version at its path's shapes, and runs the port's four
 paths at the 00031 width (19 atoms, F = 128, 5 message layers) through
 their entry points, checking what comes out and showing, with the launch
 counts set to 0 just before each path and read just after, that the path
@@ -13,7 +13,9 @@ went through its kernels:
   bf16_agg, ``chain_block=4``: kernel B2);
 - the fused-MLP path: ``fused_velocity_fn`` at 128 chains (B4, B6) and the
   exact-dlogp sampler through ``molecular_v_fn_of(impl="dense_fused")``
-  at 32 chains (B4, B5).
+  at 32 chains (B4, B5);
+- the whole-network exact divergence ``divergence_kernel_batch`` at 128
+  chains (B7).
 
     python3 chip_smoke.py
 
@@ -38,7 +40,13 @@ Phases (any failure exits non-zero and prints no result):
   9. the fused paths: ``fused_velocity_fn`` against ``dense_velocity_fn``
      with its B4/B6 launch counts, and the ``dense_fused`` exact sampler
      against the ``dense`` one with its B4/B5 launch counts;
- 10. the ``kernels`` line, the card line and the result line.
+ 10. kernel B7 against its plain version at 130 chains, L = 4 and 6 (bar
+     1e-4); ``divergence_kernel_batch`` at 128 chains, t = 0.5, launching
+     B7 once, against ``divergence_exact(chunk=19)`` over the dense forward
+     and B3's full orthogonal frame (rtol 3e-4); the times of B7, its plain
+     version, the whole call and both yardsticks, and ``dense_divergence``
+     chain by chain;
+ 11. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -71,6 +79,7 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
     "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp.cu",
                            "ti_tpu/ops/pallas_kernels.py:232"),
     "fused_mlp": ("ti_torch/csrc/fused_mlp.cu", "ti_tpu/ops/pallas_kernels.py:343"),
+    "div_kernel": ("ti_torch/csrc/div_kernel.cu", "ti_tpu/ops/div_kernel.py:117"),
 }
 
 
@@ -105,8 +114,10 @@ def cuda_ms(fn, n: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def compare(outs, refs, dtype, what: str) -> float:
-    """Max abs error over the outputs; fails past the scaled bar."""
+def compare(outs, refs, dtype, what: str, bar=None) -> float:
+    """Max abs error over the outputs; fails past the scaled bar (``bar``,
+    else the dtype's)."""
+    bar = BAR[dtype] if bar is None else bar
     worst_abs, worst_rel = 0.0, 0.0
     for a, r in zip(outs, refs):
         require(a.shape == r.shape and a.dtype == r.dtype, f"{what}: output shape/dtype")
@@ -115,8 +126,8 @@ def compare(outs, refs, dtype, what: str) -> float:
         worst_abs = max(worst_abs, err)
         worst_rel = max(worst_rel, err / max(r.float().abs().max().item(), 1e-30))
     log(f"[{what}] max abs err {worst_abs:.3e}, max err / max |plain| {worst_rel:.3e} "
-        f"(bar {BAR[dtype]:g})")
-    require(worst_rel <= BAR[dtype], f"{what}: kernel disagrees with its plain version")
+        f"(bar {bar:g})")
+    require(worst_rel <= bar, f"{what}: kernel disagrees with its plain version")
     return worst_abs
 
 
@@ -387,6 +398,130 @@ def phase_fused_paths(model, template, card: str) -> tuple:
     return fwd_launches, smp_launches
 
 
+def b7_macs(c: int, n: int, layers: int) -> float:
+    """Multiply-adds the function of kernel B7 needs for c chains: per chain
+    and layer the primal message MLPs once (phi 8F² + w 7F² per pair row),
+    per each of the 3N real lanes the w tangent (7F² per pair row) and from
+    layer 1 on the phi tangent (8F²), and per lane and node the update
+    tangent (d_vv, d_uv and the update MLP: 12F²)."""
+    lanes = 3 * n
+    pair = 15 * layers + lanes * (7 * layers + 8 * (layers - 1))
+    return float(c * F * F * (pair * n * n + 12 * lanes * n * layers))
+
+
+def b7_kernel_macs(c: int, n: int, layers: int, lanes: int) -> float:
+    """Multiply-adds kernel B7 itself computes (csrc/div_kernel.cu), counted
+    on the N² real pair rows (not the tiles' padding to 32) and L·N node rows
+    of each (chain, chunk): per layer the primal fronts of phi and w once per
+    chunk (5F²), the primal 5F products once per sub-block of 2 lanes
+    (10F²), and per lane, the padded ones of the last chunk included, the
+    tangents of ``b7_macs``."""
+    n_chunks = -(-3 * n // lanes)
+    pair = (5 + 10 * -(-lanes // 2)) * layers + lanes * (7 * layers + 8 * (layers - 1))
+    return float(c * n_chunks * F * F * (pair * n * n + 12 * lanes * n * layers))
+
+
+def phase_div(model, template, card: str, rows_kernels) -> dict:
+    """10. Kernel B7 and the exact-divergence node: B7 against its plain
+    version at 130 chains, L = 4 and 6; ``divergence_kernel_batch`` at 128
+    chains with its launch count, against the torch.func exact divergence
+    and B3's full orthogonal frame; their times. Returns the launch counts."""
+    from ti_torch.models.cpainn import state_of
+    from ti_torch.models.cpainn_dense import dense_edge_type_matrix, dense_velocity_fn
+    from ti_torch.ops import _build
+    from ti_torch.ops import div_kernel as dk
+    from ti_torch.ops.dense_divergence import dense_divergence
+    from ti_torch.ops.divergence import divergence_exact
+    from ti_torch.ops.pair_tangent_kernel import pair_tangent_div_fn
+
+    p = {k: w.detach().to("cuda") for k, w in state_of(model, None).items()}
+    etype = torch.as_tensor(dense_edge_type_matrix(template.edges), device="cuda").long()
+    atom_ids = torch.as_tensor(template.atom_ids, device="cuda")
+    stacks = dk._pack_mlp_stacks(p, LAYERS)
+    rng = np.random.default_rng(4)
+
+    def states(b):
+        xs = torch.as_tensor(zero_com_x0(rng, b), device="cuda")
+        temps = torch.as_tensor(ambient_temps(b), device="cuda")
+        with torch.no_grad():
+            return xs, temps, dk._primal_layer_states(model, p, xs, 0.5, temps, atom_ids, etype)
+
+    b7_bar = 1e-4  # five layers of f32 tangent sums taken in another order
+    errs = {}
+    with torch.no_grad():
+        _, _, st = states(130)  # 130: not a multiple of anything
+        for lanes in (4, 6):
+            inp = dk.pack_inputs(st, lanes)
+            out = dk.div_kernel(inp, stacks, lanes)
+            torch.cuda.synchronize()
+            errs[lanes] = compare([out], [dk.div_kernel_plain(inp, stacks, lanes)], torch.float32,
+                                  f"B7 div_kernel L={lanes} B=130", bar=b7_bar)
+        del st, inp, out
+        torch.cuda.empty_cache()
+
+    # the entry point at 128 chains, counted
+    lanes = 4
+    xs, temps, st = states(CHAINS)
+    dk.divergence_kernel_batch(model, None, xs, 0.5, temps, template, lanes, device="cuda")
+    torch.cuda.synchronize()  # warm-up, not counted
+    _build.reset_launches()
+    divs = dk.divergence_kernel_batch(model, None, xs, 0.5, temps, template, lanes,
+                                      device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want["div_kernel"] = 1
+    require(launches == want, f"divergence_kernel_batch launch counts {launches} == {want}")
+    require(divs.shape == (CHAINS,) and bool(torch.isfinite(divs).all()),
+            "divergence_kernel_batch: finite (128,) divergences")
+    drift = dense_velocity_fn(model, p, template)
+    exact_fn = lambda: divergence_exact(lambda y: drift(y, 0.5, temps), xs, chunk=3 * N_ATOMS)[1]
+    with torch.no_grad():
+        exact = exact_fn()
+    div_fn = pair_tangent_div_fn(model, None, template, num_probes=3 * N_ATOMS,
+                                 probe_mode="orthogonal", device="cuda")
+    frame_fn = lambda: div_fn(xs, 0.5, temps, torch.Generator(device="cuda").manual_seed(0))
+    frame = frame_fn()
+    for name, ref in (("divergence_exact(chunk=19)", exact), ("B3 orthogonal K=57", frame)):
+        err = ((divs - ref).abs() / ref.abs()).max().item()
+        log(f"[B7 entry B={CHAINS} L={lanes}] against {name}: max rel err {err:.3e} (bar 3e-4); "
+            f"max |div| {ref.abs().max().item():.4f}")
+        require(bool(torch.allclose(divs, ref, rtol=3e-4, atol=0)),
+                f"divergence_kernel_batch agrees with {name} (rtol 3e-4)")
+
+    # times, CUDA events after warm-up
+    with torch.no_grad():
+        inp = dk.pack_inputs(st, lanes)
+        out = dk.div_kernel(inp, stacks, lanes)
+        ms = cuda_ms(lambda: dk.div_kernel(inp, stacks, lanes), 3, warm=1)
+        plain = cuda_ms(lambda: dk.div_kernel_plain(inp, stacks, lanes), 2, warm=1)
+        whole = cuda_ms(lambda: dk.divergence_kernel_batch(model, None, xs, 0.5, temps, template,
+                                                           lanes, device="cuda"), 3, warm=1)
+        t_exact = cuda_ms(exact_fn, 2, warm=1)
+        t_frame = cuda_ms(frame_fn, 2, warm=1)
+        one = lambda i: dense_divergence(model, p, xs[i], 0.5, temps[i], template.atom_ids,
+                                         template.edges)
+        t_one = cuda_ms(lambda: one(0), 3, warm=1)
+        t_all = cuda_ms(lambda: [one(i) for i in range(CHAINS)], 1, warm=0)
+    macs = b7_macs(CHAINS, N_ATOMS, LAYERS)
+    own = b7_kernel_macs(CHAINS, N_ATOMS, LAYERS, lanes)
+    bnd, by = bound_ms(2.0 * macs, H100_FP32, nbytes(*inp, *stacks, out))
+    log(f"[B7 B={CHAINS} L={lanes}] kernel {ms:.3f} ms per launch ({ms / bnd:.2f}x the bound), "
+        f"plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}: 2 x {macs:.4e} MACs = "
+        f"2·C·F²·(N²·(15·SL + 3N·(7·SL + 8·(SL-1))) + 12·3N·N·SL) at 67 TFLOP/s f32; {card})")
+    log(f"[B7 B={CHAINS} L={lanes}] the kernel itself computes {own:.4e} MACs "
+        f"({own / macs:.3f}x the function's: primal recomputed per chunk and per 2-lane "
+        f"sub-block, padded lanes) = C·ceil(3N/L)·F²·(N²·((5 + 10·ceil(L/2))·SL "
+        f"+ L·(7·SL + 8·(SL-1))) + 12·L·N·SL), {2e-9 * own / ms:.3f} TFLOP/s")
+    log(f"[exact node B={CHAINS}] divergence_kernel_batch {whole:.3f} ms (primal states, B7, "
+        f"readout); divergence_exact(chunk=19) over dense_velocity_fn {t_exact:.3f} ms; "
+        f"pair_tangent_div_fn K=57 f32 (5 B3 launches + glue) {t_frame:.3f} ms; "
+        f"dense_divergence {t_one:.3f} ms per chain, {t_all:.3f} ms for the {CHAINS} chains "
+        f"one by one ({card})")
+    rows_kernels["div_kernel"] = dict(err=errs[4], ms=ms, plain=plain, bound=bnd, by=by)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -553,13 +688,17 @@ def main() -> int:
     phase_fused_kernels(params, rows_kernels)
     fwd_launches, smp_launches = phase_fused_paths(model, template, card)
 
-    # ---- 10. result lines ----
+    # ---- 10. kernel B7 and the exact-divergence node ----
+    div_launches = phase_div(model, template, card, rows_kernels)
+
+    # ---- 11. result lines ----
     path_launches = {"pair_layer": launches["pair_layer"],
                      "pair_tangent": launches["pair_tangent"],
                      "pair_layer_cb": sde_launches["pair_layer_cb"],
                      "fused_edge_mlp": smp_launches["fused_edge_mlp"],
                      "fused_edge_mlp_jvp": smp_launches["fused_edge_mlp_jvp"],
-                     "fused_mlp": fwd_launches["fused_mlp"]}
+                     "fused_mlp": fwd_launches["fused_mlp"],
+                     "div_kernel": div_launches["div_kernel"]}
     require(all(n > 0 for n in path_launches.values()), f"every kernel ran on its path: "
             f"{path_launches}")
     kernels = []

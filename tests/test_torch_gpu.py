@@ -169,3 +169,75 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         pair_layer(x, s, v, e, w, 10.0, 0)
     with pytest.raises(ValueError, match="float32"):
         pk.fused_edge_mlp(s.reshape(-1, F)[:, :64].contiguous(), s.reshape(-1, F), w)
+
+
+def _div_setup(n, f, layers, c, L):
+    """Kernel B7's packed inputs for c chains of an n-atom molecule on the card."""
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+    from ti_torch.ops import div_kernel as dk
+
+    torch.manual_seed(0)
+    model = CPaiNN(f, layers, n_atoms=n)
+    p = {k: t.detach().to("cuda") for k, t in model.state_dict().items()}
+    template = graph_template(make_synthetic_molecule(n, seed=0), t_cond=2)
+    xs = 0.1 * _rows(c, n, 3, seed=7)
+    temps = torch.tensor([[1000.0, 300.0]], device="cuda").expand(c, 2)
+    etype = torch.as_tensor(dk.dense_edge_type_matrix(template.edges), device="cuda").long()
+    with torch.no_grad():
+        st = dk._primal_layer_states(model, p, xs, 0.5, temps,
+                                     torch.as_tensor(template.atom_ids, device="cuda"), etype)
+    return model, template, xs, temps, dk.pack_inputs(st, L), dk._pack_mlp_stacks(p, layers)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,layers,c,L", [(6, 2, 3, 4), (6, 2, 3, 3), (19, 5, 5, 4), (19, 5, 4, 6)])
+def test_div_kernel_matches_plain(n, layers, c, L):
+    """B7 against its plain version; bar 1e-4 (five layers of f32 tangent
+    sums taken in another order)."""
+    from ti_torch.ops import div_kernel as dk
+
+    _card()
+    *_, inp, stacks = _div_setup(n, F, layers, c, L)
+    before = _build.LAUNCHES["div_kernel"]
+    with torch.no_grad():
+        out = dk.div_kernel(inp, stacks, L)
+        torch.cuda.synchronize()
+        ref = dk.div_kernel_plain(inp, stacks, L)
+    assert _build.LAUNCHES["div_kernel"] == before + 1
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_divergence_kernel_batch_launches_b7_once():
+    from ti_torch.ops.div_kernel import divergence_kernel_batch
+    from ti_torch.ops.dense_divergence import dense_divergence
+
+    _card()
+    model, template, xs, temps, *_ = _div_setup(19, F, 2, 3, 4)
+    model = model.to("cuda")
+    _build.reset_launches()
+    divs = divergence_kernel_batch(model, None, xs, 0.5, temps, template)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"div_kernel": 1}
+    ref = torch.stack([dense_divergence(model, None, xs[i], 0.5, temps[i], template.atom_ids,
+                                        template.edges)[1].detach() for i in range(3)])
+    torch.testing.assert_close(divs, ref, rtol=3e-4, atol=0)
+
+
+@pytest.mark.gpu
+def test_div_kernel_rejects_what_it_does_not_take():
+    from ti_torch.ops import div_kernel as dk
+
+    _card()
+    *_, inp, stacks = _div_setup(6, 256, 1, 2, 4)
+    with pytest.raises(ValueError, match="F=128"):
+        dk.div_kernel(inp, stacks, 4)
+    *_, inp, stacks = _div_setup(33, F, 1, 1, 4)
+    with pytest.raises(ValueError, match="2..32 atoms, got 33"):
+        dk.div_kernel(inp, stacks, 4)
+    *_, inp, stacks = _div_setup(6, F, 1, 2, 4)
+    with pytest.raises(ValueError, match="lanes_per_chunk"):
+        dk.div_kernel(inp, stacks, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        dk.div_kernel(inp._replace(e=inp.e.transpose(2, 3).contiguous().transpose(2, 3)), stacks, 4)

@@ -32,7 +32,8 @@ def test_imports_with_jax_blocked():
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
     assert len(mods) >= 17
-    assert {"ti_torch.ops.pallas_kernels", "ti_torch.models.cpainn_fused"} <= set(mods)
+    assert {"ti_torch.ops.pallas_kernels", "ti_torch.models.cpainn_fused",
+            "ti_torch.ops.div_kernel", "ti_torch.ops.dense_divergence"} <= set(mods)
 
 
 def test_no_source_imports_jax_or_ti_tpu():

@@ -107,6 +107,34 @@ def test_default_route_matches_the_kernel_route(setup):
     np.testing.assert_allclose(a["dlogps"], b["dlogps"], rtol=1e-3, atol=1e-4)
 
 
+def test_sampler_div_chunk_and_hutchpp(setup):
+    """The default route's exact divergence in blocks of ``div_chunk`` lanes
+    gives the unblocked dlogp; Hutch++ with a sketch as wide as the state
+    (54 queries: s = 3N = 18) is exact too, per chain and with one shared
+    probe set (``probe_crn``)."""
+    _jm, _jp, _jt, params, model, template, x0 = setup
+    v_of = molecular_v_fn_of(model, params, template, device="cpu")
+    kw = dict(solver="rk4", n_steps=4, dlogp_quad="gauss", dlogp_quad_points=2,
+              steps_per_dispatch=4, device="cpu")
+    temps = np.tile(np.array([700.0, 300.0], np.float32), (B, 1))
+
+    def run(**over):
+        return make_ode_sampler(v_of, **kw, **over)(x0, temps, torch.Generator().manual_seed(0))
+
+    ref = run(divergence="exact")
+    assert np.all(np.isfinite(ref.dlogp.numpy()))
+    got = run(divergence="exact", div_chunk=5)
+    torch.testing.assert_close(got.xs, ref.xs, rtol=0, atol=0)
+    np.testing.assert_allclose(got.dlogp.numpy(), ref.dlogp.numpy(), rtol=1e-5, atol=1e-6)
+    for crn in (False, True):
+        got = run(divergence="hutchpp", num_probes=9 * N_ATOMS, probe_crn=crn)
+        np.testing.assert_allclose(got.dlogp.numpy(), ref.dlogp.numpy(), rtol=1e-3, atol=1e-4)
+    with pytest.raises(ValueError, match="num_probes >= 3"):
+        make_ode_sampler(v_of, divergence="hutchpp", num_probes=2, **kw)
+    with pytest.raises(ValueError, match="unknown divergence"):
+        make_ode_sampler(v_of, divergence="nope", **kw)
+
+
 def test_sampler_guards(setup):
     _jm, _jp, _jt, params, model, template, _x0 = setup
     v_of = molecular_v_fn_of(model, params, template, device="cpu")

@@ -10,11 +10,13 @@ Subpackages
 - ``ti_torch.models``: cPaiNN as an ``nn.Module``, the dense pair forward
   (``fused=True``: its message MLPs in kernels B4/B5), the fused edge-row
   forward (``cpainn_fused``), the flax weight bridge
-- ``ti_torch.ops``: graph tables, MLP-block math, divergence estimators and
-  the hand-written CUDA kernels (``csrc/``): B1 the pair layer and B2 its
+- ``ti_torch.ops``: graph tables, MLP-block math, divergence estimators
+  (``divergence``, the hand-propagated ``dense_divergence``) and the
+  hand-written CUDA kernels (``csrc/``): B1 the pair layer and B2 its
   chain-blocked form (``pair_layer_kernel``), B3 the pair tangent
   (``pair_tangent_kernel``), B4 the fused edge MLP, B5 its tangent and B6
-  the row-tiled MLP (``pallas_kernels``)
+  the row-tiled MLP (``pallas_kernels``), B7 the whole-network exact
+  divergence (``div_kernel``)
 - ``ti_torch.sampling``: RK integrators, Euler–Maruyama, the ambient
   sampling driver, velocity-only transport and the molecular SDE
 - ``ti_torch.analysis``: importance weights and TFEP free energies

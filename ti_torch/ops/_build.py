@@ -25,11 +25,12 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("pair_layer", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp", "fused_mlp")
+KERNELS = ("pair_layer", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp", "fused_mlp",
+           "div_kernel")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "pair_layer", "pair_layer_cb", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp",
-    "fused_mlp")}
+    "fused_mlp", "div_kernel")}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

@@ -8,10 +8,17 @@ per lane serves every chain at once. The trace is over each chain's
 flattened state (d = prod(x.shape[1:])).
 
 - ``divergence_exact``: trace(J) from d forward-mode JVPs against the
-  identity basis (``torch.func.jvp`` under ``vmap``).
+  identity basis (``torch.func.jvp`` under ``vmap``), all at once or in
+  ``chunk``-lane blocks.
 - ``divergence_hutchinson``: Σ_k w_k z_kᵀ J z_k with rademacher or Haar
   orthogonal probes (``_probe_block``), drawn from a ``torch.Generator``
   or passed in explicitly.
+- ``divergence_hutchpp``: Hutch++ (an exact trace over a sketched range of
+  J plus Hutchinson on the projected residual), probes drawn or explicit.
+- ``value_and_divergence``: dispatch over the three.
+
+Lane sharding over a device mesh (the JAX package's ``axis_name``) belongs
+to the parallel slice of the port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -70,14 +77,53 @@ def _lane_jvps(f, x: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
     return vmap(lambda z: jvp(f, (x,), (z,))[1])(lanes)
 
 
-def divergence_exact(f, x: torch.Tensor):
-    """(f(x), trace(J) per chain (B,)) from the d identity-basis JVPs."""
+def _no_lane_sharding(axis_name) -> None:
+    if axis_name is not None:
+        raise NotImplementedError(
+            "axis_name lane sharding over a device mesh is not ported yet "
+            "(the parallel slice of the port)"
+        )
+
+
+def value_and_divergence(f, x: torch.Tensor, *, mode: str = "exact",
+                         generator: Optional[torch.Generator] = None, num_probes: int = 8,
+                         chunk: Optional[int] = None, axis_name=None,
+                         probe_mode: str = "rademacher"):
+    """(f(x), div f(x) per chain) with the chosen estimator: ``mode`` in
+    {"exact", "hutchinson", "hutchpp"}; the stochastic ones draw from
+    ``generator`` (hutchpp takes ``num_probes`` as its query budget)."""
+    _no_lane_sharding(axis_name)
+    if mode == "exact":
+        return divergence_exact(f, x, chunk=chunk)
+    if mode in ("hutchinson", "hutchpp") and generator is None:
+        raise ValueError(f"{mode} mode requires a torch.Generator")
+    if mode == "hutchinson":
+        return divergence_hutchinson(f, x, generator, num_probes=num_probes,
+                                     probe_mode=probe_mode)
+    if mode == "hutchpp":
+        return divergence_hutchpp(f, x, generator, num_queries=num_probes)
+    raise ValueError(f"unknown divergence mode {mode!r}")
+
+
+def divergence_exact(f, x: torch.Tensor, chunk: Optional[int] = None, axis_name=None):
+    """(f(x), trace(J) per chain (B,)) from the d identity-basis JVPs.
+
+    ``chunk`` bounds the lanes evaluated at once: ceil(d/chunk) blocks of
+    vmapped JVPs whose partial traces are summed, so memory holds
+    ``chunk`` lanes of activations instead of d. None = all d at once."""
+    _no_lane_sharding(axis_name)
     b = x.shape[0]
     d = x[0].numel()
     eye = torch.eye(d, dtype=x.dtype, device=x.device)
-    lanes = eye.reshape(d, 1, *x.shape[1:]).expand(d, *x.shape)
-    jz = _lane_jvps(f, x, lanes).reshape(d, b, d)
-    return f(x), torch.einsum("kbk->b", jz)
+    step = d if chunk is None else max(1, min(chunk, d))
+    div = torch.zeros(b, dtype=x.dtype, device=x.device)
+    for k0 in range(0, d, step):
+        k1 = min(k0 + step, d)
+        lanes = eye[k0:k1].reshape(k1 - k0, 1, *x.shape[1:]).expand(k1 - k0, *x.shape)
+        jz = _lane_jvps(f, x, lanes).reshape(k1 - k0, b, d)
+        rows = torch.arange(k1 - k0, device=x.device)
+        div = div + jz[rows, :, k0 + rows].sum(0)
+    return f(x), div
 
 
 def divergence_hutchinson(f, x: torch.Tensor, generator: Optional[torch.Generator] = None, *,
@@ -100,3 +146,53 @@ def divergence_hutchinson(f, x: torch.Tensor, generator: Optional[torch.Generato
     if return_var:
         return f(x), div, hutchinson_var_estimate(est, w, d, probe_mode)
     return f(x), div
+
+
+def divergence_hutchpp(f, x: torch.Tensor, generator: Optional[torch.Generator] = None, *,
+                       num_queries: Optional[int] = None, sketch: Optional[int] = None,
+                       S: Optional[torch.Tensor] = None, g: Optional[torch.Tensor] = None):
+    """Hutch++ trace estimator (Meyer et al. 2021) per chain:
+
+        tr(J) = tr(Qᵀ J Q) + E_g[gᵀ(I-QQᵀ) J (I-QQᵀ)g],   Q = qr(J S)
+
+    with S an (s, d) Rademacher sketch (s = ``sketch``, default
+    num_queries // 3) and m = num_queries - 2s Rademacher probes g
+    (``num_queries`` 12 by default). Unbiased for any square J, exact when
+    rank(J) <= s. ``S`` (B, s, d) and ``g`` (B, m, d) are passed together or
+    not at all: given, s and m are their row counts, held against
+    ``sketch`` and ``num_queries`` where those are passed too; not given,
+    both are drawn per chain from ``generator``."""
+    b = x.shape[0]
+    d = x[0].numel()
+    if (S is None) != (g is None):
+        raise ValueError("pass both S and g, or neither (both are then drawn from generator)")
+    if S is None:
+        s = sketch if sketch is not None else max(1, (num_queries or 12) // 3)
+        m = (num_queries or 12) - 2 * s
+    else:
+        if S.dim() != 3 or g.dim() != 3 or S.shape[::2] != (b, d) or g.shape[::2] != (b, d):
+            raise ValueError(f"S and g must be (B={b}, rows, d={d}), got {tuple(S.shape)} and "
+                             f"{tuple(g.shape)}")
+        s, m = S.shape[1], g.shape[1]
+        if sketch is not None and sketch != s:
+            raise ValueError(f"sketch={sketch} but S has {s} rows")
+        if num_queries is not None and num_queries != 2 * s + m:
+            raise ValueError(f"num_queries={num_queries} but S and g make 2*{s} + {m} queries")
+    if m < 1:
+        raise ValueError(f"num_queries={2 * s + m} too small for sketch s={s} "
+                         "(need num_queries >= 2*s + 1)")
+    if S is None:
+        S = _probe_block(generator, s, d, "rademacher", shape=(b,), dtype=x.dtype)[0]
+        g = _probe_block(generator, m, d, "rademacher", shape=(b,), dtype=x.dtype)[0]
+
+    def jvps(rows):  # (B, k, d) -> (B, k, d): J r for each row r
+        k = rows.shape[1]
+        lanes = rows.transpose(0, 1).reshape(k, *x.shape)
+        return _lane_jvps(f, x, lanes).reshape(k, b, d).transpose(0, 1)
+
+    q, _ = torch.linalg.qr(jvps(S).transpose(1, 2))  # (B, d, s) basis of range(J S)
+    qt = q.transpose(1, 2)
+    t_sketch = (qt * jvps(qt)).sum((1, 2))  # tr(Qᵀ J Q)
+    g_perp = g - (g @ q) @ qt  # (I - QQᵀ) g
+    resid = (g_perp * jvps(g_perp)).sum(-1)  # (B, m)
+    return f(x), t_sketch + resid.mean(-1)

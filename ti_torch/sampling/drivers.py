@@ -34,7 +34,12 @@ import torch
 
 from ti_torch import resolve_device
 from ti_torch.config import MDQM9Config
-from ti_torch.ops.divergence import _probe_block, divergence_exact, divergence_hutchinson
+from ti_torch.ops.divergence import (
+    _probe_block,
+    divergence_exact,
+    divergence_hutchinson,
+    divergence_hutchpp,
+)
 from ti_torch.sampling.integrators import ODESolution, _tableau, sample_ode, sample_sde
 
 
@@ -63,6 +68,7 @@ def make_ode_sampler(
     n_save: int = 2,
     return_dlogp: bool = True,
     divergence: str = "exact",
+    div_chunk: Optional[int] = None,
     t0: float = 0.0,
     t1: float = 1.0,
     steps_per_dispatch: Optional[int] = None,
@@ -93,7 +99,9 @@ def make_ode_sampler(
     divergence at each node — with ``return_dlogp_var`` it must return
     (div, var), e.g. ``pair_tangent_div_fn(return_var=True)``. With a hook
     None the dense velocity of ``v_fn_of`` serves, and the divergence runs
-    as forward-mode JVPs (exact, or Hutchinson probes from ``generator``).
+    as forward-mode JVPs: exact (in blocks of ``div_chunk`` lanes, None = all
+    at once), or Hutchinson probes or Hutch++ queries (``num_probes`` of
+    them) from ``generator``.
     """
     dev = resolve_device(device)
     gauss = (dlogp_quad_points is not None and return_dlogp and dlogp_quad == "gauss")
@@ -128,11 +136,14 @@ def make_ode_sampler(
         raise _later(f"dlogp_quad={dlogp_quad!r}", "integrators")
     if steps_per_dispatch is None:
         raise _later("the unsegmented Gauss sampler (steps_per_dispatch=None)", "integrators")
-    if divergence not in ("exact", "hutchinson"):
-        raise _later(f"divergence={divergence!r}", "integrators")
+    if divergence not in ("exact", "hutchinson", "hutchpp"):
+        raise ValueError(f"unknown divergence {divergence!r} (exact | hutchinson | hutchpp)")
+    if divergence == "hutchpp" and num_probes < 3:
+        raise ValueError(f"divergence='hutchpp' needs num_probes >= 3 (a sketch row, its "
+                         f"exact-term query and a residual probe), got {num_probes}")
     return _gauss_dlogp_sampler(
         v_fn_of, solver=solver, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
-        gl_points=dlogp_quad_points, divergence=divergence,
+        gl_points=dlogp_quad_points, divergence=divergence, div_chunk=div_chunk,
         steps_per_dispatch=steps_per_dispatch, num_probes=num_probes,
         probe_crn=probe_crn, probe_mode=probe_mode, traj_drift=traj_drift,
         div_drift=div_drift, return_dlogp_var=return_dlogp_var, device=dev,
@@ -184,7 +195,7 @@ def _velocity_sampler(v_fn_of, *, solver, t0, t1, n_steps, n_save, steps_per_dis
 
 
 def _gauss_dlogp_sampler(
-    v_fn_of, *, solver, t0, t1, n_steps, n_save, gl_points, divergence,
+    v_fn_of, *, solver, t0, t1, n_steps, n_save, gl_points, divergence, div_chunk,
     steps_per_dispatch, num_probes, probe_crn, probe_mode,
     traj_drift, div_drift, return_dlogp_var, device,
 ):
@@ -231,8 +242,15 @@ def _gauss_dlogp_sampler(
             return v(y, t)
 
         if divergence == "exact":
-            return divergence_exact(f, xb)[1]
+            return divergence_exact(f, xb, chunk=div_chunk)[1]
         b, d = xb.shape[0], xb[0].numel()
+        if divergence == "hutchpp":
+            if not probe_crn:
+                return divergence_hutchpp(f, xb, generator, num_queries=num_probes)[1]
+            s = max(1, num_probes // 3)  # one sketch and query set shared by every chain
+            S = _probe_block(generator, s, d, "rademacher", dtype=xb.dtype)[0]
+            g = _probe_block(generator, num_probes - 2 * s, d, "rademacher", dtype=xb.dtype)[0]
+            return divergence_hutchpp(f, xb, S=S.expand(b, *S.shape), g=g.expand(b, *g.shape))[1]
         if probe_crn:  # one probe block shared by every chain
             z, w = _probe_block(generator, num_probes, d, probe_mode)
             z, w = z.expand(b, *z.shape), w.expand(b, *w.shape)
