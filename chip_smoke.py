@@ -22,12 +22,17 @@ went through its kernels:
 Phases (any failure exits non-zero and prints no result):
   1. the card, TF32 off, the kernel build (seconds, ``-Xptxas -v``);
   2. kernel B1 (pair layer) against its plain version, f32 and bf16_agg;
-  3. kernel B3 (pair tangent) at K = 16 bf16_agg and K = 57 f32;
+  3. kernel B3 (pair tangent): bf16_agg K = 16 on the tensor cores
+     (``variant="mma"``) against its plain version and timed beside the
+     earlier f32-FMA kernel (``variant="fma"``); a ragged shape (130 chains,
+     K = 8, L = 2); K = 57 f32;
   4. the exact slice (full orthogonal frame) against the same sampler
      built from the plain versions: samples rtol 1e-4 / atol 1e-5,
      dlogp rtol 1e-3 (atol 1e-3 x max |dlogp| for chains near 0);
   5. the slice as users run it (``fast_profile``), artifacts written to a
-     temporary directory, launch counts and samples/s;
+     temporary directory, launch counts and samples/s; then one divergence
+     node of that path (``pair_tangent_div_fn``, 128 chains, K = 16,
+     bf16_agg) timed beside its 5 B3 launches: the rest is plain glue;
   6. kernel B2 (chain-blocked pair layer) against its plain version and
      against B1, C = 2 and 4, f32 and bf16_agg, at 130 chains; its time at
      8192 chains for C = 1, 2, 4 beside the bound;
@@ -74,7 +79,7 @@ FUSED_CHAINS = 32  # the dense_fused exact sampler's batch
 SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
     "pair_layer": ("ti_torch/csrc/pair_layer.cu", "ti_tpu/ops/pair_layer_kernel.py:83"),
     "pair_layer_cb": ("ti_torch/csrc/pair_layer.cu", "ti_tpu/ops/pair_layer_kernel.py:190"),
-    "pair_tangent": ("ti_torch/csrc/pair_tangent.cu", "ti_tpu/ops/pair_tangent_kernel.py:76"),
+    "pair_tangent": ("ti_torch/csrc/pair_tangent_mma.cu", "ti_tpu/ops/pair_tangent_kernel.py:76"),
     "fused_edge_mlp": ("ti_torch/csrc/fused_edge_mlp.cu", "ti_tpu/ops/pallas_kernels.py:180"),
     "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp.cu",
                            "ti_tpu/ops/pallas_kernels.py:232"),
@@ -133,6 +138,7 @@ def compare(outs, refs, dtype, what: str, bar=None) -> float:
 
 def layer_inputs(params, dtype, k: int, seed: int, b: int = CHAINS):
     from ti_torch.ops.pair_layer_kernel import pack_layer
+    from ti_torch.ops.pair_tangent_kernel import with_mma_weights
 
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -140,7 +146,7 @@ def layer_inputs(params, dtype, k: int, seed: int, b: int = CHAINS):
         return (scale * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
 
     n = N_ATOMS
-    w = pack_layer(params, 0, F, dtype, "cuda")
+    w = with_mma_weights(pack_layer(params, 0, F, dtype, "cuda"))
     x = 0.3 * torch.randn(b, n, 3, generator=g, device="cuda")
     base = (x, rnd(b, n, F), rnd(b, 3, n, F, scale=0.3), rnd(b, n * n, F))
     lanes = (torch.randn(b, k, n, 3, generator=g, device="cuda"), rnd(b, k, n, F, scale=0.1),
@@ -554,6 +560,9 @@ def main() -> int:
         for line in r["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
+    spills = [ln.strip() for ln in report["pair_tangent_mma"]["ptxas"].splitlines() if "spill" in ln]
+    require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
+            f"pair_tangent_mma builds without register spills: {spills}")
 
     torch.manual_seed(0)
     model = CPaiNN(F, LAYERS, n_atoms=N_ATOMS)
@@ -579,25 +588,64 @@ def main() -> int:
             rows_kernels["pair_layer"] = dict(err=err, ms=ms, plain=plain, bound=bnd, by=by)
 
     # ---- 3. B3 against its plain version ----
-    for dtype, k, lane_block in ((torch.bfloat16, 16, 4), (torch.float32, 3 * N_ATOMS, 1)):
-        w, base, lanes = layer_inputs(params, dtype, k, seed=2)
-        out = pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block)
+    # bf16_agg, the main path's divergence profile: the tensor-core kernel and,
+    # timed beside it in turns, the earlier f32-FMA kernel
+    k, lane_block, reps = 16, 4, 5
+    w, base, lanes = layer_inputs(params, torch.bfloat16, k, seed=2)
+    ref = pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, lane_block)
+    errs = {}
+    for variant in ("mma", "fma"):
+        out = pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block, variant=variant)
         torch.cuda.synchronize()
-        err = compare(out, pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, lane_block), dtype,
-                      f"B3 pair_tangent {dtype} K={k} L={lane_block}")
-        reps = 5 if k <= 16 else 2
-        ms = cuda_ms(lambda: pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block), reps, warm=1)
-        plain = cuda_ms(lambda: pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, lane_block),
-                        reps, warm=1)
-        moved = nbytes(*base, *lanes, w.mats, w.vecs, *out)
-        bnd, by = bound_ms(2.0 * mac_row * rows * (1 + k),
-                           H100_FP32 if dtype == torch.float32 else H100_BF16, moved)
-        log(f"[B3 {dtype} K={k} L={lane_block}] kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-            f"bound {bnd:.4f} ms ({by})")
-        if dtype == torch.bfloat16:  # the main path's divergence profile
-            rows_kernels["pair_tangent"] = dict(err=err, ms=ms, plain=plain, bound=bnd, by=by)
-        del w, base, lanes, out
-        torch.cuda.empty_cache()
+        errs[variant] = compare(out, ref, torch.bfloat16,
+                                f"B3 pair_tangent bf16 K={k} L={lane_block} variant={variant}")
+    require(_build.ROUTES["pair_tangent"] == "pair_tangent", "variant='fma' launches pair_tangent.cu")
+    compare(pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block), out, torch.bfloat16,
+            "B3 variant=mma against variant=fma")
+    require(_build.ROUTES["pair_tangent"] == "pair_tangent_mma",
+            "the default variant launches pair_tangent_mma.cu")
+    ms = {v: [] for v in ("mma", "fma")}
+    fmt = lambda ts: " and ".join(f"{t:.3f}" for t in ts)
+    for variant in ("mma", "fma", "fma", "mma"):
+        ms[variant].append(cuda_ms(lambda: pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block,
+                                                        variant=variant), reps, warm=1))
+    plain = cuda_ms(lambda: pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, lane_block), reps,
+                    warm=1)
+    b3_ms, fma_ms = min(ms["mma"]), min(ms["fma"])
+    bnd, by = bound_ms(2.0 * mac_row * rows * (1 + k), H100_BF16,
+                       nbytes(*base, *lanes, w.mats, w.vecs, *out))
+    log(f"[B3 bf16 K={k} L={lane_block} B={CHAINS}] ms per launch, {reps} launches a reading, in "
+        f"turns: variant=mma (mma.sync, tensor cores) {fmt(ms['mma'])}, variant=fma (f32 FMA) "
+        f"{fmt(ms['fma'])}; mma {fma_ms / b3_ms:.2f}x faster; plain {plain:.3f} ms; bound {bnd:.4f} ms "
+        f"({by}), mma at {b3_ms / bnd:.1f}x the bound ({card})")
+    require(b3_ms < fma_ms, "the tensor-core kernel is faster than the f32-FMA kernel")
+    rows_kernels["pair_tangent"] = dict(err=errs["mma"], ms=b3_ms, plain=plain, bound=bnd, by=by)
+    del w, base, lanes, out, ref
+    torch.cuda.empty_cache()
+    # a ragged shape: 130 chains (a multiple of nothing), K = 8 in lane blocks of 2
+    w, base, lanes = layer_inputs(params, torch.bfloat16, 8, seed=6, b=130)
+    out = pair_tangent(*base, *lanes, w, LENGTH_SCALE, 2)
+    torch.cuda.synchronize()
+    compare(out, pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, 2), torch.bfloat16,
+            "B3 pair_tangent bf16 K=8 L=2 B=130 variant=mma")
+    del w, base, lanes, out
+    torch.cuda.empty_cache()
+    # f32, the exact slice's frame: the f32-FMA kernel
+    k, lane_block, reps = 3 * N_ATOMS, 1, 2
+    w, base, lanes = layer_inputs(params, torch.float32, k, seed=2)
+    out = pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block)
+    torch.cuda.synchronize()
+    compare(out, pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, lane_block), torch.float32,
+            f"B3 pair_tangent f32 K={k} L={lane_block}")
+    ms32 = cuda_ms(lambda: pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block), reps, warm=1)
+    plain = cuda_ms(lambda: pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, lane_block), reps,
+                    warm=1)
+    bnd, by = bound_ms(2.0 * mac_row * rows * (1 + k), H100_FP32,
+                       nbytes(*base, *lanes, w.mats, w.vecs, *out))
+    log(f"[B3 f32 K={k} L={lane_block}] kernel {ms32:.3f} ms, plain {plain:.3f} ms, "
+        f"bound {bnd:.4f} ms ({by})")
+    del w, base, lanes, out
+    torch.cuda.empty_cache()
 
     # ---- 4. the exact slice against the plain-version sampler ----
     mol = make_synthetic_molecule(N_ATOMS, seed=0)
@@ -671,6 +719,8 @@ def main() -> int:
     want.update(pair_layer=n_batches * gaps * stages * LAYERS,
                 pair_tangent=n_batches * cfg.dlogp_quad_points * LAYERS)
     require(launches == want, f"launch counts {launches} == {want}")
+    require(_build.ROUTES["pair_tangent"] == "pair_tangent_mma",
+            "the main path's B3 launches come from pair_tangent_mma.cu")
     require(out["samples"].shape == (len(x0), 2, N_ATOMS, 3) and out["dlogps"].shape == (len(x0),),
             "fast slice: output shapes")
     require(np.isfinite(out["samples"]).all() and np.isfinite(out["dlogps"]).all(),
@@ -681,6 +731,19 @@ def main() -> int:
     diff = out["dlogps"][:CHAINS] - exact["dlogps"]
     log(f"[slice fast_profile] dlogp (orthogonal-16, bf16_agg) minus exact: mean {diff.mean():.5f}, "
         f"rms {math.sqrt(float((diff ** 2).mean())):.5f}")
+    # one divergence node of that path beside its B3 launches: the rest is plain glue
+    # (embeddings, update and readout JVPs, the probes' QR)
+    div_fn = pair_tangent_div_fn(model, None, template, num_probes=cfg.num_probes,
+                                 probe_mode=cfg.probe_mode, compute_dtype="bf16_agg", device="cuda")
+    xs_node = torch.as_tensor(x0[:CHAINS], device="cuda")
+    temps_node = torch.as_tensor(temps, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _build.reset_launches()
+    node_ms = cuda_ms(lambda: div_fn(xs_node, 0.5, temps_node, gen), 5, warm=2)
+    require(_build.LAUNCHES["pair_tangent"] == 7 * LAYERS, "a divergence node launches B3 once a layer")
+    log(f"[divergence node B={CHAINS} K={cfg.num_probes} bf16_agg] {node_ms:.3f} ms a node, of which "
+        f"{LAYERS} B3 launches x {b3_ms:.3f} ms = {LAYERS * b3_ms:.3f} ms; plain glue "
+        f"{node_ms - LAYERS * b3_ms:.3f} ms ({card})")
 
     # ---- 6-9. the SDE and fused-MLP slices ----
     phase_b2(params, rows_kernels)

@@ -20,7 +20,11 @@ from ti_torch.ops import _build
 from ti_torch.ops import pallas_kernels as pk
 from ti_torch.ops.mlp_block import mlp_weights
 from ti_torch.ops.pair_layer_kernel import pack_layer, pair_layer, pair_layer_plain
-from ti_torch.ops.pair_tangent_kernel import pair_tangent, pair_tangent_plain
+from ti_torch.ops.pair_tangent_kernel import (
+    pair_tangent,
+    pair_tangent_plain,
+    with_mma_weights,
+)
 
 N, F, B = 19, 128, 6
 BARS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -33,13 +37,13 @@ def _card():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _params():
+def _params(n=N):
     torch.manual_seed(0)
-    return {n: t.detach() for n, t in CPaiNN(F, 1, n_atoms=N).state_dict().items()}
+    return {name: t.detach() for name, t in CPaiNN(F, 1, n_atoms=n).state_dict().items()}
 
 
-def _layer(dtype, k=0, b=B):
-    w = pack_layer(_params(), 0, F, dtype, "cuda")
+def _layer(dtype, k=0, b=B, N=N):
+    w = with_mma_weights(pack_layer(_params(N), 0, F, dtype, "cuda"))
     g = torch.Generator(device="cuda").manual_seed(1)
 
     def rnd(*shape, scale=1.0):
@@ -136,17 +140,65 @@ def test_vmapped_lanes_launch_b5_once():
     _assert_close([lanes], [ref], torch.float32)
 
 
+_BF16_CASES = [(torch.bfloat16, k, lane_block, b, variant)
+               for (k, lane_block) in ((8, 4), (16, 4), (6, 2), (3, 1))
+               for b in (B, 130) for variant in ("mma", "fma")]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,k,lane_block", [(torch.float32, 3, 1), (torch.bfloat16, 8, 4),
-                                                (torch.bfloat16, 6, 2)])
-def test_pair_tangent_kernel_matches_plain(dtype, k, lane_block):
+@pytest.mark.parametrize("dtype,k,lane_block,b,variant",
+                         [(torch.float32, 3, 1, B, "mma")] + _BF16_CASES)
+def test_pair_tangent_kernel_matches_plain(dtype, k, lane_block, b, variant):
+    """B3 against its plain version: in bf16_agg the tensor-core kernel
+    (``"mma"``) and the earlier f32-FMA one (``"fma"``), at batches that are
+    and are not multiples of anything; f32 has the one kernel."""
     _card()
-    w, base, lanes = _layer(dtype, k)
+    w, base, lanes = _layer(dtype, k, b)
     before = _build.LAUNCHES["pair_tangent"]
-    out = pair_tangent(*base, *lanes, w, 10.0, lane_block)
+    out = pair_tangent(*base, *lanes, w, 10.0, lane_block, variant=variant)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["pair_tangent"] == before + 1
+    mma = dtype == torch.bfloat16 and variant == "mma"
+    assert _build.ROUTES["pair_tangent"] == ("pair_tangent_mma" if mma else "pair_tangent")
     _assert_close(out, pair_tangent_plain(*base, *lanes, w, 10.0, lane_block), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 7, 16, 17, 32])
+def test_pair_tangent_mma_other_atom_counts(n):
+    """The tensor-core kernel where the 32-row tile has no padding (32 atoms),
+    one empty row tile (16 and fewer) and a ragged second one (17)."""
+    _card()
+    w, base, lanes = _layer(torch.bfloat16, 4, 3, N=n)
+    out = pair_tangent(*base, *lanes, w, 10.0, 4)
+    torch.cuda.synchronize()
+    _assert_close(out, pair_tangent_plain(*base, *lanes, w, 10.0, 4), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_pair_tangent_smem_count_is_the_kernels_own():
+    """``smem_bytes`` of the wrapper against the count the CUDA source exports."""
+    import ctypes
+
+    from ti_torch.ops.pair_tangent_kernel import smem_bytes
+
+    _card()
+    lib = _build.load("pair_tangent_mma")
+    lib.pair_tangent_mma_smem_bytes.restype = ctypes.c_ulonglong
+    for lane_block in (1, 2, 4):
+        assert lib.pair_tangent_mma_smem_bytes(lane_block) == smem_bytes(True, lane_block, "mma")
+
+
+@pytest.mark.gpu
+def test_pair_tangent_variants_agree():
+    """The tensor-core kernel against the f32-FMA kernel on the same inputs:
+    the same rounding sites, another order of summation (bar 2e-2)."""
+    _card()
+    w, base, lanes = _layer(torch.bfloat16, 16, 13)
+    new = pair_tangent(*base, *lanes, w, 10.0, 4, variant="mma")
+    old = pair_tangent(*base, *lanes, w, 10.0, 4, variant="fma")
+    torch.cuda.synchronize()
+    _assert_close(new, old, torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -163,6 +215,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         pair_tangent(x, s, v, e, *lanes, w, 10.0, 3)
     with pytest.raises(ValueError, match="shared memory"):
         pair_tangent(x, s, v, e, *lanes, w, 10.0, 2)
+    wb, (xb, sb, vb, eb), lb = _layer(torch.bfloat16, 8)
+    with pytest.raises(ValueError, match="1, 2 or 4"):
+        pair_tangent(xb, sb, vb, eb, *lb, wb, 10.0, 8)
+    with pytest.raises(ValueError, match="must divide"):
+        pair_tangent(xb, sb, vb, eb, *lb, wb, 10.0, 3)
+    with pytest.raises(ValueError, match="with_mma_weights"):
+        pair_tangent(xb, sb, vb, eb, *lb, wb._replace(mma=None), 10.0)
+    with pytest.raises(ValueError, match="fragment-order weights must be"):
+        pair_tangent(xb, sb, vb, eb, *lb, wb._replace(mma=wb.mma[:-8]), 10.0)
+    with pytest.raises(ValueError, match="variant"):
+        pair_tangent(xb, sb, vb, eb, *lb, wb, 10.0, variant="wgmma")
+    with pytest.raises(ValueError, match="F=128"):
+        pair_tangent(xb, sb[..., :64].contiguous(), vb, eb, *lb, wb, 10.0)
+    big = torch.zeros(1, 33, 3, device="cuda")
+    with pytest.raises(ValueError, match="2..32 atoms, got 33"):
+        pair_tangent(big, sb, vb, eb, *lb, wb, 10.0)
     with pytest.raises(ValueError, match="cannot launch.*shared memory"):
         pair_layer(x, s, v, e, w, 10.0, 5)
     with pytest.raises(ValueError, match="chain_block"):

@@ -24,7 +24,11 @@
 // last Dense's work extra. L is a launch parameter; the shared memory it
 // needs is (9 + 3L) x 32 x F x sizeof(T) plus small buffers (L = 1 in f32,
 // up to 4 in bf16). Only tangent inputs and outputs reach device memory.
-// f32 FMA on the CUDA cores in this version; wgmma and TMA are later work.
+// Every product here is an f32 FMA on the CUDA cores. This file builds the
+// f32 instantiation (pair_tangent_f32: the exact slice and the parity
+// default, where tensor cores would mean TF32 and other numbers) and keeps the
+// bf16 one of this design as pair_tangent_bf16_fma, to be timed beside the
+// tensor-core kernel that the bf16_agg profile runs (pair_tangent_mma.cu).
 
 #include "pair_common.cuh"
 
@@ -273,7 +277,7 @@ extern "C" int pair_tangent_f32(PK_TANGENT_ARGS) {
   return pk::launch<float>(p, B, N, K, L, pe_scale, stream);
 }
 
-extern "C" int pair_tangent_bf16(PK_TANGENT_ARGS) {
+extern "C" int pair_tangent_bf16_fma(PK_TANGENT_ARGS) {
   PK_TANGENT_PTRS;
   return pk::launch<pk::bf16>(p, B, N, K, L, pe_scale, stream);
 }

@@ -10,7 +10,10 @@ Every wrapper counts its launches in ``LAUNCHES``, under its kernel's own
 name: one per kernel launch and nowhere else, so a run can show that its
 path went through the kernels. ``pair_layer.cu`` holds two of them: B1
 (``pair_layer``, one chain per CTA) and B2 (``pair_layer_cb``, C > 1
-chains per CTA).
+chains per CTA). B3 (``pair_tangent``) has two libraries:
+``pair_tangent_mma`` (bf16_agg on the tensor cores) and ``pair_tangent``
+(f32, and the earlier bf16 kernel kept for timing); ``ROUTES`` says which
+one a kernel's last launch came from.
 """
 
 from __future__ import annotations
@@ -25,12 +28,13 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("pair_layer", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp", "fused_mlp",
-           "div_kernel")
+KERNELS = ("pair_layer", "pair_tangent", "pair_tangent_mma", "fused_edge_mlp",
+           "fused_edge_mlp_jvp", "fused_mlp", "div_kernel")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "pair_layer", "pair_layer_cb", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp",
     "fused_mlp", "div_kernel")}
+ROUTES: Dict[str, str] = {}  # kernel name -> the library its last launch came from
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 

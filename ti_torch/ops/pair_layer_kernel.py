@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -61,12 +61,14 @@ class PairLayerWeights(NamedTuple):
     row-major — 15F² values. ``vecs`` is flat f32: per MLP (phi, then w)
     b1, ln1 scale, ln1 bias, b2, ln2 scale, ln2 bias (F each), b3 (5F) —
     22F values. ``phi`` and ``w`` are views into both, for the plain
-    version."""
+    version. ``mma`` is ``mats`` once more in the fragment order of the
+    tensor-core kernel (``pair_tangent_kernel.with_mma_weights``), or None."""
 
     mats: torch.Tensor
     vecs: torch.Tensor
     phi: MLPWeights
     w: MLPWeights
+    mma: Optional[torch.Tensor] = None
 
     @property
     def bf16(self) -> bool:

@@ -1,6 +1,10 @@
 """The message layer with K forward-mode probe lanes — kernel B3,
-hand-written CUDA (csrc/pair_tangent.cu), with its plain PyTorch version
-beside it.
+hand-written CUDA, with its plain PyTorch version beside it. In the
+bf16_agg profile the kernel runs on the tensor cores
+(csrc/pair_tangent_mma.cu, ``mma.sync``), with the layer's matrices packed
+once in fragment order (``pack_mma_weights``); in f32 it is
+csrc/pair_tangent.cu (f32 FMA), which also keeps the earlier bf16 kernel,
+reachable as ``variant="fma"`` to be timed beside the new one.
 
 Port of ti_tpu/ops/pair_tangent_kernel.py (the Pallas
 ``_pair_tangent_kernel``). Per chain the layer computes kernel B1's primal
@@ -48,12 +52,53 @@ from ti_torch.ops.pair_layer_kernel import (
 )
 
 
-def smem_bytes(bf16: bool, lane_block: int) -> int:
-    """Dynamic shared memory of one B3 CTA (csrc/pair_tangent.cu)."""
+VARIANTS = ("mma", "fma")  # the bf16_agg kernel: tensor cores, or the earlier f32-FMA one
+
+
+def smem_bytes(bf16: bool, lane_block: int, variant: str = "mma") -> int:
+    """Dynamic shared memory of one B3 CTA: csrc/pair_tangent_mma.cu for the
+    bf16_agg tensor-core kernel, csrc/pair_tangent.cu otherwise."""
     f, L = KERNEL_F, lane_block
+    if bf16 and variant == "mma":
+        # 7 residual tiles and the primal gates, the stacked work buffer, 2L a2-tangent
+        # tiles; per-lane sums, geometry, lane geometry (4 lanes), primal sums, LayerNorm
+        # statistics and vectors
+        return (2 * (8 + max(2 * L, L + 4) + 2 * L) * _R * f
+                + 4 * (4 * 7 * f + _NGEO * _R + 4 * 4 * _R + 7 * f + 8 * _R + 8 * f))
     t = 2 if bf16 else 4
     return (t * (9 + 3 * L) * _R * f
             + 4 * (_NW * 3 * f + _NGEO * _R + 4 * L * _R + 7 * f + 7 * f * L))
+
+
+def _pack_mma_matrix(w: torch.Tensor) -> torch.Tensor:
+    """One (in, out) matrix in the order the tensor-core kernel reads it:
+    per 16-row k-tile kt and pair np of 8-column n-tiles, per thread
+    lane = 4g + t of a warp, the eight values
+    w[16kt + 8h + 2t + e, 16np + 8q + g] for q, h, e in {0, 1} — the B
+    fragments (b0, b1) of ``mma.m16n8k16`` for n-tiles 2np and 2np + 1."""
+    k, n = w.shape
+    if k % 16 or n % 16:
+        raise ValueError(f"the fragment order needs multiples of 16, got a {k} x {n} matrix")
+    v = w.reshape(k // 16, 2, 4, 2, n // 16, 2, 8)      # kt, h, t, e, np, q, g
+    return v.permute(0, 4, 6, 2, 5, 1, 3).reshape(-1)   # kt, np, g, t, q, h, e
+
+
+def pack_mma_weights(wts: PairLayerWeights) -> torch.Tensor:
+    """``wts.mats`` in fragment order: the six matrices at their offsets of
+    the row-major buffer, each permuted by ``_pack_mma_matrix``. A pure
+    function of the tensors; done once per layer, not per launch."""
+    if not wts.bf16:
+        raise ValueError("the tensor-core kernel takes bf16 weights (compute_dtype='bf16_agg')")
+    mats = (wts.phi.w1, wts.phi.w2, wts.phi.w3, wts.w.w1, wts.w.w2, wts.w.w3)
+    return torch.cat([_pack_mma_matrix(m) for m in mats]).contiguous()
+
+
+def with_mma_weights(wts: PairLayerWeights) -> PairLayerWeights:
+    """``wts`` carrying its fragment-order packing (bf16 weights only; f32
+    weights come back as they are)."""
+    if not wts.bf16 or wts.mma is not None:
+        return wts
+    return wts._replace(mma=pack_mma_weights(wts))
 
 
 def _pick_lane_block(k_lanes: int, bf16: bool) -> int:
@@ -148,10 +193,27 @@ def pair_tangent_plain(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
 _P = ctypes.c_void_p
 
 
+def _check_lane_block(bf16: bool, k_lanes: int, L: int, variant: str) -> None:
+    """Raise on a lane block the kernel cannot launch with."""
+    if k_lanes < 1 or L < 1 or k_lanes % L:
+        raise ValueError(f"lane_block {L} must divide the lane count {k_lanes}")
+    if bf16 and variant == "mma" and L not in (1, 2, 4):
+        raise ValueError(f"the tensor-core kernel takes lane_block 1, 2 or 4, got {L}")
+    need = smem_bytes(bf16, L, variant)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"lane_block {L} needs {need} bytes of shared memory per CTA; "
+                         f"the card has {SMEM_LIMIT}")
+
+
 def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
-                 length_scale: float, lane_block: Optional[int] = None):
+                 length_scale: float, lane_block: Optional[int] = None, variant: str = "mma"):
     """Primal and K-lane JVP of one message layer. Launches kernel B3 on a
-    CUDA tensor, the plain version on a CPU tensor."""
+    CUDA tensor, the plain version on a CPU tensor. With bf16 weights
+    ``variant`` picks the tensor-core kernel (``"mma"``, which needs
+    ``with_mma_weights``) or the earlier f32-FMA one (``"fma"``, kept for
+    timing); f32 weights have the one f32 kernel."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if x.device.type == "cpu":
         return pair_tangent_plain(x, s, v, e, dx, ds, dv, de, wts, length_scale, lane_block)
     if x.device.type != "cuda":
@@ -168,14 +230,23 @@ def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
             raise ValueError(f"{name} must be {shape} {dt}, got {tuple(t.shape)} {t.dtype}")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    if k_lanes < 1 or k_lanes % L:
-        raise ValueError(f"lane_block {L} must divide the lane count {k_lanes}")
-    if smem_bytes(wts.bf16, L) > SMEM_LIMIT:
-        raise ValueError(f"lane_block {L} needs {smem_bytes(wts.bf16, L)} bytes of "
-                         f"shared memory per CTA; the card has {SMEM_LIMIT}")
-    lib = _build.load("pair_tangent")
-    fn = lib.pair_tangent_bf16 if wts.bf16 else lib.pair_tangent_f32
-    fn.argtypes = [_P] * 16 + [ctypes.c_int] * 4 + [ctypes.c_float, _P]
+    _check_lane_block(wts.bf16, k_lanes, L, variant)
+    mma = wts.bf16 and variant == "mma"
+    mats = wts.mats
+    if mma:
+        mats = wts.mma
+        if mats is None:
+            raise ValueError("the weights carry no fragment-order packing (with_mma_weights)")
+        if (mats.numel() != wts.mats.numel() or mats.dtype != BF16 or mats.device != x.device
+                or not mats.is_contiguous()):
+            raise ValueError(f"the fragment-order weights must be {wts.mats.numel()} contiguous "
+                             f"bf16 values on {x.device}, got {mats.numel()} {mats.dtype} on "
+                             f"{mats.device}")
+    libname = "pair_tangent_mma" if mma else "pair_tangent"
+    lib = _build.load(libname)
+    fn = (lib.pair_tangent_bf16 if mma
+          else lib.pair_tangent_bf16_fma if wts.bf16 else lib.pair_tangent_f32)
+    fn.argtypes = [_P] * (17 if mma else 16) + [ctypes.c_int] * 4 + [ctypes.c_float, _P]
     fn.restype = ctypes.c_int
     dev = x.device
     dvp = torch.empty((b, 3, n, f), device=dev, dtype=torch.float32)
@@ -184,12 +255,14 @@ def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
     dvt = torch.empty((b, k_lanes, 3, n, f), device=dev, dtype=torch.float32)
     dst = torch.empty((b, k_lanes, n, f), device=dev, dtype=torch.float32)
     et = torch.empty_like(de)
-    rc = fn(*(t.data_ptr() for t in (x, s, v, e, dx, ds, dv, de, wts.mats, wts.vecs,
-                                     dvp, dsp, ep, dvt, dst, et)),
-            b, n, k_lanes, L, pe_scale(length_scale),
+    bufs = [x, s, v, e, dx, ds, dv, de, mats, wts.vecs, dvp, dsp, ep, dvt, dst, et]
+    if mma:  # each CTA's primal 5F products, kept in L2 between its lane blocks
+        bufs.append(torch.empty((b * n, 5 * 2 * _R * f), device=dev, dtype=BF16))
+    rc = fn(*(t.data_ptr() for t in bufs), b, n, k_lanes, L, pe_scale(length_scale),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "pair_tangent launch")
     _build.LAUNCHES["pair_tangent"] += 1
+    _build.ROUTES["pair_tangent"] = libname
     return dvp, dsp, ep, dvt, dst, et
 
 
@@ -198,7 +271,8 @@ def apply_dense_pair_tangent(pm, x, t, temps, z, *, lane_block: Optional[int] = 
     """(velocity (B,N,3), K-lane JVP (B,K,N,3)) under tangent probes
     z (B,K,N,3): the message layers in kernel B3 (``kernel=False``: its
     plain version), the node update and readout as a plain lane-batched
-    hand JVP in f32. ``pm`` from ``pair_layer_kernel.prepare``."""
+    hand JVP in f32. ``pm`` from ``pair_layer_kernel.prepare``; in bf16_agg
+    on the card its layers carry ``with_mma_weights``."""
     model, p = pm.model, pm.p
     b, n, _ = x.shape
     f = model.n_features
@@ -283,6 +357,7 @@ def pair_tangent_div_fn(model, params, template, *, num_probes: int = 16,
 
     dev = resolve_device(device)
     pm = prepare(model, params, template, compute_dtype, dev)
+    pm = pm._replace(layers=[with_mma_weights(w) for w in pm.layers])
     n = template.n_atoms
     d = 3 * n
 
