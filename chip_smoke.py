@@ -21,7 +21,10 @@ went through its kernels:
 
 Phases (any failure exits non-zero and prints no result):
   1. the card, TF32 off, the kernel build (seconds, ``-Xptxas -v``);
-  2. kernel B1 (pair layer) against its plain version, f32 and bf16_agg;
+  2. kernel B1 (pair layer) against its plain version: f32 on the tensor
+     cores in 3xTF32 (``variant="tc"``) at 128 chains and at ragged shapes
+     (130 chains at 19 and 29 atoms), timed in turns beside the f32-FMA
+     kernel (``variant="fma"``); bf16_agg;
   3. kernel B3 (pair tangent): bf16_agg K = 16 on the tensor cores
      (``variant="mma"``) against its plain version and timed beside the
      earlier f32-FMA kernel (``variant="fma"``); a ragged shape (130 chains,
@@ -30,9 +33,14 @@ Phases (any failure exits non-zero and prints no result):
      built from the plain versions: samples rtol 1e-4 / atol 1e-5,
      dlogp rtol 1e-3 (atol 1e-3 x max |dlogp| for chains near 0);
   5. the slice as users run it (``fast_profile``), artifacts written to a
-     temporary directory, launch counts and samples/s; then one divergence
-     node of that path (``pair_tangent_div_fn``, 128 chains, K = 16,
-     bf16_agg) timed beside its 5 B3 launches: the rest is plain glue;
+     temporary directory, launch counts (counted per library: every B1
+     launch from pair_layer_tf32x3, every B3 launch from pair_tangent_mma)
+     and samples/s; its trajectory against the exact slice's, to the bit;
+     the dlogp of B3 in bf16_agg with the full orthogonal frame (K = 57)
+     against the exact slice's; then one divergence node of that path
+     (``pair_tangent_div_fn``, 128 chains, K = 16, bf16_agg) timed beside its
+     5 B3 launches: the rest is plain glue; and one trajectory forward's
+     host time to enqueue beside its time synchronised;
   6. kernel B2 (chain-blocked pair layer) against its plain version and
      against B1, C = 2 and 4, f32 and bf16_agg, at 130 chains; its time at
      8192 chains for C = 1, 2, 4 beside the bound;
@@ -72,12 +80,13 @@ import torch
 N_ATOMS, F, LAYERS, CHAINS, LENGTH_SCALE = 19, 128, 5, 128, 10.0
 H100_FP32 = 67e12     # FLOP/s, f32 outside the tensor cores (data sheet, 700 W)
 H100_BF16 = 989e12    # FLOP/s, dense bf16 tensor cores
+H100_TF32 = 495e12    # FLOP/s, dense TF32 tensor cores
 H100_HBM = 3.35e12    # bytes/s
 BAR = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # max |kernel - plain| / max |plain|
 SDE_CHAINS, SDE_STEPS, BENCH_SDE_STEPS = 8192, 20, 100  # bench.py:378 runs 100 steps
 FUSED_CHAINS = 32  # the dense_fused exact sampler's batch
 SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
-    "pair_layer": ("ti_torch/csrc/pair_layer.cu", "ti_tpu/ops/pair_layer_kernel.py:83"),
+    "pair_layer": ("ti_torch/csrc/pair_layer_tf32x3.cu", "ti_tpu/ops/pair_layer_kernel.py:83"),
     "pair_layer_cb": ("ti_torch/csrc/pair_layer.cu", "ti_tpu/ops/pair_layer_kernel.py:190"),
     "pair_tangent": ("ti_torch/csrc/pair_tangent_mma.cu", "ti_tpu/ops/pair_tangent_kernel.py:76"),
     "fused_edge_mlp": ("ti_torch/csrc/fused_edge_mlp.cu", "ti_tpu/ops/pallas_kernels.py:180"),
@@ -136,8 +145,8 @@ def compare(outs, refs, dtype, what: str, bar=None) -> float:
     return worst_abs
 
 
-def layer_inputs(params, dtype, k: int, seed: int, b: int = CHAINS):
-    from ti_torch.ops.pair_layer_kernel import pack_layer
+def layer_inputs(params, dtype, k: int, seed: int, b: int = CHAINS, n: int = N_ATOMS):
+    from ti_torch.ops.pair_layer_kernel import pack_layer, with_tf32_weights
     from ti_torch.ops.pair_tangent_kernel import with_mma_weights
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -145,8 +154,7 @@ def layer_inputs(params, dtype, k: int, seed: int, b: int = CHAINS):
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
 
-    n = N_ATOMS
-    w = with_mma_weights(pack_layer(params, 0, F, dtype, "cuda"))
+    w = with_mma_weights(with_tf32_weights(pack_layer(params, 0, F, dtype, "cuda")))
     x = 0.3 * torch.randn(b, n, 3, generator=g, device="cuda")
     base = (x, rnd(b, n, F), rnd(b, 3, n, F, scale=0.3), rnd(b, n * n, F))
     lanes = (torch.randn(b, k, n, 3, generator=g, device="cuda"), rnd(b, k, n, F, scale=0.1),
@@ -560,9 +568,10 @@ def main() -> int:
         for line in r["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
-    spills = [ln.strip() for ln in report["pair_tangent_mma"]["ptxas"].splitlines() if "spill" in ln]
-    require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
-            f"pair_tangent_mma builds without register spills: {spills}")
+    for name in ("pair_tangent_mma", "pair_layer_tf32x3"):
+        spills = [ln.strip() for ln in report[name]["ptxas"].splitlines() if "spill" in ln]
+        require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                                     for ln in spills), f"{name} builds without register spills: {spills}")
 
     torch.manual_seed(0)
     model = CPaiNN(F, LAYERS, n_atoms=N_ATOMS)
@@ -572,20 +581,66 @@ def main() -> int:
     rows_kernels = {}
 
     # ---- 2. B1 against its plain version ----
-    for dtype in (torch.float32, torch.bfloat16):
-        w, base, _ = layer_inputs(params, dtype, 0, seed=1)
-        out = pair_layer(*base, w, LENGTH_SCALE)
+    # f32, the main path's trajectory profile: the 3xTF32 tensor-core kernel
+    # and, timed beside it in turns, the f32-FMA kernel
+    f32 = torch.float32
+    w, base, _ = layer_inputs(params, f32, 0, seed=1)
+    ref = pair_layer_plain(*base, w, LENGTH_SCALE)
+    errs = {}
+    for variant in ("tc", "fma"):
+        out = pair_layer(*base, w, LENGTH_SCALE, variant=variant)
         torch.cuda.synchronize()
-        err = compare(out, pair_layer_plain(*base, w, LENGTH_SCALE), dtype,
-                      f"B1 pair_layer {dtype} B={CHAINS}")
-        ms = cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE), 20)
-        plain = cuda_ms(lambda: pair_layer_plain(*base, w, LENGTH_SCALE), 10)
-        moved = nbytes(*base, w.mats, w.vecs, *out)
-        bnd, by = bound_ms(2.0 * mac_row * rows, H100_FP32 if dtype == torch.float32 else H100_BF16,
-                           moved)
-        log(f"[B1 {dtype}] kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
-        if dtype == torch.float32:  # the main path's trajectory profile
-            rows_kernels["pair_layer"] = dict(err=err, ms=ms, plain=plain, bound=bnd, by=by)
+        errs[variant] = compare(out, ref, f32, f"B1 pair_layer f32 B={CHAINS} variant={variant}")
+    require(_build.ROUTES["pair_layer"] == "pair_layer", "variant='fma' launches pair_layer.cu")
+    tc_out = pair_layer(*base, w, LENGTH_SCALE)
+    require(_build.ROUTES["pair_layer"] == "pair_layer_tf32x3",
+            "f32 launches pair_layer_tf32x3.cu by default")
+    compare(tc_out, out, f32, "B1 f32 variant=tc against variant=fma")
+    again = pair_layer(*base, w, LENGTH_SCALE)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, q) for a, q in zip(again, tc_out)),
+            "B1 variant=tc: two launches on the same inputs agree to the bit")
+    ms = {v: [] for v in ("tc", "fma")}
+    fmt = lambda ts: " and ".join(f"{t:.4f}" for t in ts)
+    for variant in ("tc", "fma", "fma", "tc"):
+        ms[variant].append(cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE, variant=variant), 20))
+    plain = cuda_ms(lambda: pair_layer_plain(*base, w, LENGTH_SCALE), 10)
+    tc_ms, fma_ms = min(ms["tc"]), min(ms["fma"])
+    moved = nbytes(*base, w.mats, w.vecs, *tc_out)
+    flops = 2.0 * mac_row * rows
+    bnd_fma, by_fma = bound_ms(flops, H100_FP32, moved)
+    bnd_tc, by_tc = bound_ms(3 * flops, H100_TF32, moved)
+    bnd, by = min((bnd_fma, by_fma), (bnd_tc, by_tc))
+    log(f"[B1 f32 B={CHAINS}] ms per launch, 20 launches a reading, in turns: variant=tc "
+        f"(3xTF32, tensor cores) {fmt(ms['tc'])}, variant=fma (f32 FMA) {fmt(ms['fma'])}; tc "
+        f"{fma_ms / tc_ms:.2f}x faster; plain {plain:.4f} ms; bound {bnd:.4f} ms ({by}, "
+        f"3 x {flops:.4e} FLOP at 495 TFLOP/s TF32), f32 FMA bound {bnd_fma:.4f} ms ({by_fma}, "
+        f"67 TFLOP/s); tc at {tc_ms / bnd:.2f}x its bound, fma at {fma_ms / bnd_fma:.2f}x its "
+        f"bound ({card})")
+    require(tc_ms < fma_ms, "the tensor-core kernel is faster than the f32-FMA kernel")
+    rows_kernels["pair_layer"] = dict(err=errs["tc"], ms=tc_ms, plain=plain, bound=bnd, by=by)
+    del w, base, out, ref, tc_out, again
+    # ragged shapes: 130 chains (the last tile not full) at 19 atoms (3 groups a
+    # tile) and at 29 (2 groups a tile)
+    for n in (N_ATOMS, 29):
+        w, base, _ = layer_inputs(params, f32, 0, seed=7, b=130, n=n)
+        out = pair_layer(*base, w, LENGTH_SCALE, variant="tc")
+        torch.cuda.synchronize()
+        compare(out, pair_layer_plain(*base, w, LENGTH_SCALE), f32,
+                f"B1 pair_layer f32 B=130 N={n} variant=tc")
+    del w, base, out
+    # bf16_agg: pair_layer.cu
+    w, base, _ = layer_inputs(params, torch.bfloat16, 0, seed=1)
+    out = pair_layer(*base, w, LENGTH_SCALE)
+    torch.cuda.synchronize()
+    compare(out, pair_layer_plain(*base, w, LENGTH_SCALE), torch.bfloat16,
+            f"B1 pair_layer bf16_agg B={CHAINS}")
+    ms16 = cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE), 20)
+    plain = cuda_ms(lambda: pair_layer_plain(*base, w, LENGTH_SCALE), 10)
+    bnd16, by16 = bound_ms(2.0 * mac_row * rows, H100_BF16, nbytes(*base, w.mats, w.vecs, *out))
+    log(f"[B1 bf16_agg] kernel {ms16:.4f} ms, plain {plain:.4f} ms, bound {bnd16:.4f} ms ({by16})")
+    del w, base, out
+    torch.cuda.empty_cache()
 
     # ---- 3. B3 against its plain version ----
     # bf16_agg, the main path's divergence profile: the tensor-core kernel and,
@@ -709,28 +764,49 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
+        route_launches = dict(_build.ROUTE_LAUNCHES)
         saved = sorted(os.listdir(tmp))
     log(f"[slice fast_profile] {len(x0)} chains in {n_batches} batches of {CHAINS}: {wall:.3f} s, "
-        f"{len(x0) / wall:.3f} samples/s (host clock, {card}); launches {launches}; "
-        f"artifacts {saved}")
+        f"{len(x0) / wall:.3f} samples/s (host clock, {card}); launches {launches}, by library "
+        f"{ {f'{k}:{lib}': n for (k, lib), n in route_launches.items()} }; artifacts {saved}")
     gaps = 1 + cfg.dlogp_quad_points  # GL-8: 9 trajectory gaps, one RK4 step each
     stages = {"rk4": 4}[cfg.solver_type]
     want = {k: 0 for k in launches}
     want.update(pair_layer=n_batches * gaps * stages * LAYERS,
                 pair_tangent=n_batches * cfg.dlogp_quad_points * LAYERS)
     require(launches == want, f"launch counts {launches} == {want}")
-    require(_build.ROUTES["pair_tangent"] == "pair_tangent_mma",
-            "the main path's B3 launches come from pair_tangent_mma.cu")
+    by_route = {k: n for k, n in route_launches.items() if n}
+    want_routes = {("pair_layer", "pair_layer_tf32x3"): want["pair_layer"],
+                   ("pair_tangent", "pair_tangent_mma"): want["pair_tangent"]}
+    require(by_route == want_routes, f"every B1 launch of the main path comes from "
+            f"pair_layer_tf32x3.cu and every B3 launch from pair_tangent_mma.cu: {by_route}")
     require(out["samples"].shape == (len(x0), 2, N_ATOMS, 3) and out["dlogps"].shape == (len(x0),),
             "fast slice: output shapes")
     require(np.isfinite(out["samples"]).all() and np.isfinite(out["dlogps"]).all(),
             "fast slice: finite samples and dlogp")
-    require(np.allclose(out["samples"][:CHAINS], exact["samples"], rtol=1e-6, atol=1e-7),
-            "fast slice: the f32 pair-kernel trajectory repeats the exact run's")
+    traj_diff = float(np.max(np.abs(out["samples"][:CHAINS] - exact["samples"])))
+    log(f"[slice fast_profile] trajectory against the exact slice's: max abs diff {traj_diff:.3e}")
+    require(np.array_equal(out["samples"][:CHAINS], exact["samples"]),
+            "fast slice: the f32 pair-kernel trajectory repeats the exact run's to the bit")
     require(len(saved) == 4, "fast slice: samples/dlogps/latent artifacts written")
     diff = out["dlogps"][:CHAINS] - exact["dlogps"]
     log(f"[slice fast_profile] dlogp (orthogonal-16, bf16_agg) minus exact: mean {diff.mean():.5f}, "
         f"rms {math.sqrt(float((diff ** 2).mean())):.5f}")
+    # the same divergence profile with the full orthogonal frame (K = 3N, the
+    # exact trace, no probe noise): what is left of the offset is bf16_agg
+    # rounding of the divergence
+    cfg57 = fast_profile(ambient_preset("00031"), divergence="exact")
+    require((cfg57.div_forward_impl, cfg57.compute_dtype) == ("pair_tangent_bf16", "bf16_agg"),
+            "fast_profile with the exact divergence keeps B3 in bf16_agg")
+    full = sample_ambient(cfg57, model, None, template, x0[:CHAINS], save=False,
+                          batch_size=CHAINS, device="cuda")
+    require(np.array_equal(full["samples"], exact["samples"]) and np.isfinite(full["dlogps"]).all(),
+            "bf16_agg full frame: the same trajectory, finite dlogp")
+    d57 = full["dlogps"] - exact["dlogps"]
+    log(f"[slice bf16_agg K={3 * N_ATOMS}] dlogp (full orthogonal frame, bf16_agg) minus exact "
+        f"(f32): mean {d57.mean():.5f}, rms {math.sqrt(float((d57 ** 2).mean())):.5f}, std error "
+        f"{d57.std(ddof=1) / math.sqrt(CHAINS):.5f}; orthogonal-16 minus the full frame: mean "
+        f"{(out['dlogps'][:CHAINS] - full['dlogps']).mean():.5f}")
     # one divergence node of that path beside its B3 launches: the rest is plain glue
     # (embeddings, update and readout JVPs, the probes' QR)
     div_fn = pair_tangent_div_fn(model, None, template, num_probes=cfg.num_probes,
@@ -744,6 +820,24 @@ def main() -> int:
     log(f"[divergence node B={CHAINS} K={cfg.num_probes} bf16_agg] {node_ms:.3f} ms a node, of which "
         f"{LAYERS} B3 launches x {b3_ms:.3f} ms = {LAYERS * b3_ms:.3f} ms; plain glue "
         f"{node_ms - LAYERS * b3_ms:.3f} ms ({card})")
+    # one trajectory forward of that path (5 B1 launches and the plain glue):
+    # the host's time to enqueue it beside its time synchronised. Where the two
+    # are close, the host sets the trajectory's pace, not the card
+    drift = pair_kernel_drift(model, None, template, device="cuda")
+    n_fwd, enqueue, forward = 20, 0.0, 0.0
+    with torch.no_grad():
+        for _ in range(3):
+            drift(xs_node, 0.5, temps_node)
+        torch.cuda.synchronize()
+        for _ in range(n_fwd):  # one at a time, so the launch queue never fills
+            t0 = time.perf_counter()
+            drift(xs_node, 0.5, temps_node)
+            enqueue += (time.perf_counter() - t0) / n_fwd
+            torch.cuda.synchronize()
+            forward += (time.perf_counter() - t0) / n_fwd
+    log(f"[trajectory forward B={CHAINS} f32] {1e3 * forward:.3f} ms synchronised, "
+        f"{1e3 * enqueue:.3f} ms for the host to enqueue; its {LAYERS} B1 launches x {tc_ms:.4f} ms "
+        f"= {LAYERS * tc_ms:.3f} ms on the card (host clock, {card})")
 
     # ---- 6-9. the SDE and fused-MLP slices ----
     phase_b2(params, rows_kernels)

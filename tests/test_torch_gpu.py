@@ -5,8 +5,8 @@ this file imports neither jax nor ti_tpu, so it runs where only PyTorch
 is installed:
 ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu``
 (``--noconftest`` skips tests/conftest.py, which imports JAX).
-Bars (max |kernel - plain| / max |plain|): 2e-5 in f32 (full f32 FMA in
-both), 2e-2 in bf16_agg (one bf16 rounding may flip where the two sum in
+Bars (max |kernel - plain| / max |plain|): 2e-5 in f32 (f32 FMA, or
+3xTF32 on the tensor cores, against f32), 2e-2 in bf16_agg (one bf16 rounding may flip where the two sum in
 another order).
 """
 
@@ -19,7 +19,13 @@ from ti_torch.models.cpainn import CPaiNN
 from ti_torch.ops import _build
 from ti_torch.ops import pallas_kernels as pk
 from ti_torch.ops.mlp_block import mlp_weights
-from ti_torch.ops.pair_layer_kernel import pack_layer, pair_layer, pair_layer_plain
+from ti_torch.ops.pair_layer_kernel import (
+    pack_layer,
+    pair_layer,
+    pair_layer_plain,
+    tc_smem_bytes,
+    with_tf32_weights,
+)
 from ti_torch.ops.pair_tangent_kernel import (
     pair_tangent,
     pair_tangent_plain,
@@ -43,7 +49,7 @@ def _params(n=N):
 
 
 def _layer(dtype, k=0, b=B, N=N):
-    w = with_mma_weights(pack_layer(_params(N), 0, F, dtype, "cuda"))
+    w = with_mma_weights(with_tf32_weights(pack_layer(_params(N), 0, F, dtype, "cuda")))
     g = torch.Generator(device="cuda").manual_seed(1)
 
     def rnd(*shape, scale=1.0):
@@ -85,13 +91,14 @@ def test_pair_layer_kernel_matches_plain(dtype):
 @pytest.mark.parametrize("dtype,chain_block", [(torch.float32, 2), (torch.float32, 4),
                                                (torch.bfloat16, 2), (torch.bfloat16, 4)])
 def test_chain_blocked_pair_layer_is_b1(dtype, chain_block):
-    """B2 on a batch C does not divide: B1's result to the bit, and the
-    plain version's within the bar."""
+    """B2 on a batch C does not divide: the result of B1 in the same source
+    (pair_layer.cu, ``variant="fma"``) to the bit, and the plain version's
+    within the bar."""
     _card()
     w, base, _ = _layer(dtype, b=13)
     before = dict(_build.LAUNCHES)
     out = pair_layer(*base, w, 10.0, chain_block)
-    b1 = pair_layer(*base, w, 10.0)
+    b1 = pair_layer(*base, w, 10.0, variant="fma")
     torch.cuda.synchronize()
     assert _build.LAUNCHES["pair_layer_cb"] == before["pair_layer_cb"] + 1
     assert _build.LAUNCHES["pair_layer"] == before["pair_layer"] + 1
@@ -138,6 +145,82 @@ def test_vmapped_lanes_launch_b5_once():
     assert _build.LAUNCHES["fused_edge_mlp_jvp"] == before + 1
     ref = pk.edge_mlp_jvp_reference(x, pe, z, torch.zeros(5, 64, F, device="cuda"), w.phi, w.w)
     _assert_close([lanes], [ref], torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3, 130])
+@pytest.mark.parametrize("n", [2, 5, 19, 29, 32])
+def test_pair_layer_tc_matches_plain(b, n):
+    """B1 in f32 on the tensor cores (3xTF32) against its plain version, at
+    2..32 atoms (32 down to 2 groups a 64-row tile) and batches whose groups
+    do and do not fill the last tile."""
+    _card()
+    w, base, _ = _layer(torch.float32, b=b, N=n)
+    before = _build.LAUNCHES["pair_layer"]
+    out = pair_layer(*base, w, 10.0, variant="tc")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["pair_layer"] == before + 1
+    assert _build.ROUTES["pair_layer"] == "pair_layer_tf32x3"
+    _assert_close(out, pair_layer_plain(*base, w, 10.0), torch.float32)
+
+
+@pytest.mark.gpu
+def test_pair_layer_routes_and_variants_agree():
+    """f32 takes the tensor-core kernel unless ``variant="fma"``; bf16_agg
+    and chain blocks take pair_layer.cu, each launch counted under its
+    library; "tc" and "fma" agree at the f32 bar."""
+    _card()
+    w, base, _ = _layer(torch.float32, b=13)
+    _build.reset_launches()
+    tc = pair_layer(*base, w, 10.0)
+    assert _build.ROUTES["pair_layer"] == "pair_layer_tf32x3"
+    fma = pair_layer(*base, w, 10.0, variant="fma")
+    assert _build.ROUTES["pair_layer"] == "pair_layer"
+    torch.cuda.synchronize()
+    _assert_close(tc, fma, torch.float32)
+    pair_layer(*base, w, 10.0, 2)
+    assert _build.ROUTES["pair_layer_cb"] == "pair_layer"
+    wb, bb, _ = _layer(torch.bfloat16, b=13)
+    pair_layer(*bb, wb, 10.0)
+    assert _build.ROUTES["pair_layer"] == "pair_layer"
+    assert _build.ROUTE_LAUNCHES == {("pair_layer", "pair_layer_tf32x3"): 1,
+                                     ("pair_layer", "pair_layer"): 2,
+                                     ("pair_layer_cb", "pair_layer"): 1}
+
+
+@pytest.mark.gpu
+def test_pair_layer_tc_is_deterministic():
+    """Two launches on the same inputs agree to the bit (no atomics)."""
+    _card()
+    w, base, _ = _layer(torch.float32, b=130)
+    first = pair_layer(*base, w, 10.0)
+    second = pair_layer(*base, w, 10.0)
+    torch.cuda.synchronize()
+    for a, r in zip(first, second):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.gpu
+def test_pair_layer_tc_refusals_and_smem_count():
+    import ctypes
+
+    _card()
+    w, base, _ = _layer(torch.float32)
+    with pytest.raises(ValueError, match="chain_block 1"):
+        pair_layer(*base, w, 10.0, 2, variant="tc")
+    wb, bb, _ = _layer(torch.bfloat16)
+    with pytest.raises(ValueError, match="f32 weights"):
+        pair_layer(*bb, wb, 10.0, variant="tc")
+    with pytest.raises(ValueError, match="with_tf32_weights"):
+        pair_layer(*base, w._replace(mma=None), 10.0)
+    with pytest.raises(ValueError, match="3xTF32 weights must be"):
+        pair_layer(*base, w._replace(mma=w.mma[:-4]), 10.0)
+    big = torch.zeros(1, 33, 3, device="cuda")
+    with pytest.raises(ValueError, match="2..32 atoms, got 33"):
+        pair_layer(big, *base[1:], w, 10.0)
+    lib = _build.load("pair_layer_tf32x3")
+    lib.pair_layer_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+    assert lib.pair_layer_tf32x3_smem_bytes() == tc_smem_bytes()
 
 
 _BF16_CASES = [(torch.bfloat16, k, lane_block, b, variant)

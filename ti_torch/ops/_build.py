@@ -8,12 +8,15 @@ in .gitignore) and is reused while it is newer than its sources.
 
 Every wrapper counts its launches in ``LAUNCHES``, under its kernel's own
 name: one per kernel launch and nowhere else, so a run can show that its
-path went through the kernels. ``pair_layer.cu`` holds two of them: B1
-(``pair_layer``, one chain per CTA) and B2 (``pair_layer_cb``, C > 1
-chains per CTA). B3 (``pair_tangent``) has two libraries:
-``pair_tangent_mma`` (bf16_agg on the tensor cores) and ``pair_tangent``
-(f32, and the earlier bf16 kernel kept for timing); ``ROUTES`` says which
-one a kernel's last launch came from.
+path went through the kernels. B1 (``pair_layer``, one chain per CTA) has
+two libraries: ``pair_layer_tf32x3`` (f32 on the tensor cores) and
+``pair_layer`` (bf16_agg, and the f32-FMA kernel kept for timing), which
+also holds B2 (``pair_layer_cb``, C > 1 chains per CTA). B3
+(``pair_tangent``) has two: ``pair_tangent_mma`` (bf16_agg on the tensor
+cores) and ``pair_tangent`` (f32, and the earlier bf16 kernel kept for
+timing). ``ROUTES`` says which library a kernel's last launch came from,
+and ``ROUTE_LAUNCHES`` counts the launches of each (kernel, library) pair,
+so a run can show that all of a kernel's launches took one library.
 """
 
 from __future__ import annotations
@@ -24,23 +27,33 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("pair_layer", "pair_tangent", "pair_tangent_mma", "fused_edge_mlp",
-           "fused_edge_mlp_jvp", "fused_mlp", "div_kernel")
+KERNELS = ("pair_layer", "pair_layer_tf32x3", "pair_tangent", "pair_tangent_mma",
+           "fused_edge_mlp", "fused_edge_mlp_jvp", "fused_mlp", "div_kernel")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "pair_layer", "pair_layer_cb", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp",
     "fused_mlp", "div_kernel")}
 ROUTES: Dict[str, str] = {}  # kernel name -> the library its last launch came from
+ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}  # (kernel name, library) -> launches
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTE_LAUNCHES.clear()
+
+
+def count_launch(kernel: str, library: str) -> None:
+    """Record one launch of ``kernel`` from ``library``; wrappers with more
+    than one library call it where they launch."""
+    LAUNCHES[kernel] += 1
+    ROUTES[kernel] = library
+    ROUTE_LAUNCHES[kernel, library] = ROUTE_LAUNCHES.get((kernel, library), 0) + 1
 
 
 def _nvcc() -> str:

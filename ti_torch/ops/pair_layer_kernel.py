@@ -1,6 +1,10 @@
 """One cPaiNN message layer on the dense pair grid — kernels B1 and B2,
-hand-written CUDA (csrc/pair_layer.cu), with their plain PyTorch version
-beside them.
+hand-written CUDA, with their plain PyTorch version beside them. B1 in f32
+runs on the tensor cores in split-precision TF32 ("3xTF32",
+csrc/pair_layer_tf32x3.cu) with the layer's matrices split and packed once
+in fragment order (``pack_tf32_weights``); B1 in bf16_agg and B2 are
+csrc/pair_layer.cu (f32 FMA), which also keeps the f32 instantiation,
+reachable as ``variant="fma"``.
 
 Port of ti_tpu/ops/pair_layer_kernel.py (the Pallas ``_pair_layer_kernel``,
 and ``_pair_layer_kernel_cb`` for ``chain_block`` > 1: C chains per CTA,
@@ -21,8 +25,8 @@ aggregated outputs).
 
 ``pair_layer`` launches the kernel on a CUDA tensor and takes the plain
 version only on a CPU tensor; there is no fallback between the two. The
-plain version has no chain blocks: on a CPU tensor ``chain_block`` changes
-nothing.
+plain version has no chain blocks: on a CPU tensor ``chain_block`` and
+``variant`` change nothing.
 """
 
 from __future__ import annotations
@@ -51,6 +55,9 @@ KERNEL_MAX_N = 32    # pair rows per thread group: one dst atom's N src atoms
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on Hopper
 MAX_CHAIN_BLOCK = 4   # 256 threads a chain, 1024 threads a CTA
 _R, _NW, _NGEO = 32, 8, 10  # tile rows, warps of a group, geometry rows (pair_common.cuh)
+TC_ROWS = 64         # pair rows of one CTA of csrc/pair_layer_tf32x3.cu
+_TC_GEO = 5          # its geometry rows: dist, mask, dir (3)
+VARIANTS = ("tc", "fma")  # B1 in f32: 3xTF32 on the tensor cores, or the f32-FMA kernel
 
 
 class PairLayerWeights(NamedTuple):
@@ -61,8 +68,10 @@ class PairLayerWeights(NamedTuple):
     row-major — 15F² values. ``vecs`` is flat f32: per MLP (phi, then w)
     b1, ln1 scale, ln1 bias, b2, ln2 scale, ln2 bias (F each), b3 (5F) —
     22F values. ``phi`` and ``w`` are views into both, for the plain
-    version. ``mma`` is ``mats`` once more in the fragment order of the
-    tensor-core kernel (``pair_tangent_kernel.with_mma_weights``), or None."""
+    version. ``mma`` is ``mats`` once more in the fragment order of a
+    tensor-core kernel, or None: bf16 for B3
+    (``pair_tangent_kernel.with_mma_weights``), f32 hi/lo TF32 pairs for B1
+    (``with_tf32_weights``)."""
 
     mats: torch.Tensor
     vecs: torch.Tensor
@@ -124,6 +133,85 @@ def pe_scale(length_scale: float) -> float:
     """π/length_scale, the positional-encoding angle per rank and unit
     distance (rounded to f32 where used, as in the TPU kernel)."""
     return math.pi / float(length_scale)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) with x ≈ hi + lo, both TF32 values (f32 with the low 13
+    mantissa bits zero): each rounds to nearest, ties away from zero, as
+    ``cvt.rna.tf32.f32`` does (integer ops on the int32 view). |x − hi − lo|
+    is at most 2^-22 |x| for normal f32 values."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _pack_tf32_matrix(w: torch.Tensor) -> torch.Tensor:
+    """One (in, out) f32 matrix in the order the 3xTF32 kernel reads it: per
+    8-row k-step ks and 8-column n-tile nt, per thread lane = 4g + t of a
+    warp, the four values hi(w[8ks + 2t, 8nt + g]), hi(w[8ks + 2t + 1, 8nt + g])
+    and the same two lo parts — the B fragment (b0, b1) of
+    ``mma.m16n8k8.tf32`` twice, with the k-step's logical rows t and t + 4
+    taken from the adjacent rows 2t and 2t + 1 (the A fragment is read the
+    same way, so the sum is unchanged)."""
+    k, n = w.shape
+    if k % 8 or n % 8:
+        raise ValueError(f"the fragment order needs multiples of 8, got a {k} x {n} matrix")
+    parts = [p.reshape(k // 8, 4, 2, n // 8, 8).permute(0, 3, 4, 1, 2)  # ks, nt, g, t, e
+             for p in split_tf32(w)]
+    return torch.stack(parts, dim=-2).reshape(-1)                        # ..., hi|lo, e
+
+
+def pack_tf32_weights(wts: PairLayerWeights) -> torch.Tensor:
+    """``wts.mats`` split into TF32 hi and lo parts in fragment order: the
+    six matrices at twice their offsets of the row-major buffer, each
+    permuted by ``_pack_tf32_matrix`` (2 x 15F² f32 values). A pure function
+    of the tensors; done once per layer, not per launch."""
+    if wts.bf16:
+        raise ValueError("the 3xTF32 kernel takes f32 weights (compute_dtype=None)")
+    mats = (wts.phi.w1, wts.phi.w2, wts.phi.w3, wts.w.w1, wts.w.w2, wts.w.w3)
+    return torch.cat([_pack_tf32_matrix(m) for m in mats]).contiguous()
+
+
+def with_tf32_weights(wts: PairLayerWeights) -> PairLayerWeights:
+    """``wts`` carrying its 3xTF32 packing (f32 weights only; bf16 weights
+    come back as they are)."""
+    if wts.bf16 or wts.mma is not None:
+        return wts
+    return wts._replace(mma=pack_tf32_weights(wts))
+
+
+class TilePlan(NamedTuple):
+    """How csrc/pair_layer_tf32x3.cu cuts the (B·N·N, F) pair rows: each CTA
+    takes ``groups`` whole (chain, dst atom) groups, ``rows`` = groups·N
+    consecutive pair rows of its TC_ROWS-row tile (the rest is padding);
+    ``ctas`` CTAs, ``smem`` bytes of dynamic shared memory each."""
+
+    groups: int
+    rows: int
+    ctas: int
+    smem: int
+
+
+def tc_smem_bytes() -> int:
+    """Shared memory of one CTA of csrc/pair_layer_tf32x3.cu: the f32 tiles
+    X = [s_j | e_ij] (TC_ROWS x 2F) and Y = PE (TC_ROWS x F), and the
+    geometry rows."""
+    return 4 * TC_ROWS * (3 * KERNEL_F + _TC_GEO)
+
+
+def tile_plan(b: int, n: int) -> TilePlan:
+    groups = TC_ROWS // n
+    return TilePlan(groups, groups * n, -(-b * n // groups), tc_smem_bytes())
+
+
+def tile_groups(plan: TilePlan, cta: int, b: int, n: int) -> range:
+    """The flat groups q = b·N + i of one CTA (its pair rows are q·N + j)."""
+    q0 = cta * plan.groups
+    return range(q0, min(q0 + plan.groups, b * n))
 
 
 # ---------------------------------------------------------------------------
@@ -270,15 +358,62 @@ def group_smem_bytes(bf16: bool) -> int:
                                         + _NGEO * _R + 7 * KERNEL_F)
 
 
-def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float, chain_block: int = 1):
+def _route(bf16: bool, chain_block: int, variant: Optional[str]) -> str:
+    """The kernel a launch takes: "tc" (csrc/pair_layer_tf32x3.cu) for f32
+    with one chain a CTA, "fma" (csrc/pair_layer.cu) for bf16_agg, chain
+    blocks and ``variant="fma"``. An explicit "tc" the kernel cannot take
+    raises."""
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"variant must be None or one of {VARIANTS}, got {variant!r}")
+    tc = not bf16 and chain_block == 1
+    if variant == "tc" and not tc:
+        raise ValueError("variant='tc' (the 3xTF32 kernel) takes f32 weights and chain_block 1, "
+                         f"got {'bf16' if bf16 else 'f32'} weights and chain_block {chain_block}")
+    return "tc" if tc and variant != "fma" else "fma"
+
+
+def _launch_tc(x, s, v, e, wts: PairLayerWeights, length_scale: float):
+    """Kernel B1 in f32 on the tensor cores (csrc/pair_layer_tf32x3.cu)."""
+    b, n, f, _ = _check_pair_inputs(x, s, v, e, wts)
+    mats = wts.mma
+    if mats is None:
+        raise ValueError("the weights carry no 3xTF32 packing (with_tf32_weights)")
+    if (mats.numel() != 2 * wts.mats.numel() or mats.dtype != torch.float32
+            or mats.device != x.device or not mats.is_contiguous()):
+        raise ValueError(f"the 3xTF32 weights must be {2 * wts.mats.numel()} contiguous f32 "
+                         f"values on {x.device}, got {mats.numel()} {mats.dtype} on {mats.device}")
+    lib = _build.load("pair_layer_tf32x3")
+    fn = lib.pair_layer_tf32x3
+    fn.argtypes = [_P] * 9 + [ctypes.c_int] * 2 + [ctypes.c_float, _P]
+    fn.restype = ctypes.c_int
+    dv = torch.empty((b, 3, n, f), device=x.device, dtype=torch.float32)
+    ds = torch.empty((b, n, f), device=x.device, dtype=torch.float32)
+    e_out = torch.empty_like(e)
+    rc = fn(x.data_ptr(), s.data_ptr(), v.data_ptr(), e.data_ptr(), mats.data_ptr(),
+            wts.vecs.data_ptr(), dv.data_ptr(), ds.data_ptr(), e_out.data_ptr(), b, n,
+            pe_scale(length_scale), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, "pair_layer_tf32x3 launch")
+    return dv, ds, e_out
+
+
+def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float, chain_block: int = 1,
+               variant: Optional[str] = None):
     """One message layer: (dv, ds, e_out). Launches kernel B1 on a CUDA
     tensor (B2 with ``chain_block`` > 1 chains per CTA), the plain version
-    on a CPU tensor."""
+    on a CPU tensor. B1 in f32 runs the 3xTF32 tensor-core kernel, which
+    needs ``with_tf32_weights``; ``variant="fma"`` takes the f32-FMA kernel
+    instead, and ``variant="tc"`` asks for the tensor-core one (raising
+    where it does not apply)."""
     c = check_chain_block(chain_block)
+    route = _route(wts.bf16, c, variant)
     if x.device.type == "cpu":
         return pair_layer_plain(x, s, v, e, wts, length_scale)
     if x.device.type != "cuda":
         raise ValueError(f"pair_layer runs on cuda or cpu, not {x.device}")
+    if route == "tc":
+        out = _launch_tc(x, s, v, e, wts, length_scale)
+        _build.count_launch("pair_layer", "pair_layer_tf32x3")
+        return out
     b, n, f, wd = _check_pair_inputs(x, s, v, e, wts)
     smem = c * group_smem_bytes(wts.bf16)
     if c > MAX_CHAIN_BLOCK or smem > SMEM_LIMIT:
@@ -298,7 +433,7 @@ def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float, chain_blo
             dv.data_ptr(), ds.data_ptr(), e_out.data_ptr(), b, n, c,
             pe_scale(length_scale), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "pair_layer launch")
-    _build.LAUNCHES["pair_layer" if c == 1 else "pair_layer_cb"] += 1
+    _build.count_launch("pair_layer" if c == 1 else "pair_layer_cb", "pair_layer")
     return dv, ds, e_out
 
 
@@ -309,7 +444,8 @@ def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float, chain_blo
 class PairModel(NamedTuple):
     """What the pair-kernel forwards need, resolved once when a drift or
     divergence function is built: the state dict on the device, the packed
-    message layers and the flat edge types."""
+    message layers (f32 ones with their 3xTF32 packing) and the flat edge
+    types."""
 
     model: object
     p: dict
@@ -334,7 +470,8 @@ def prepare(model, params, template, compute_dtype, device) -> PairModel:
     p = {k: t.detach().to(device) for k, t in state_of(model, params).items()}
     f = model.n_features
     wd = BF16 if bf16 else torch.float32
-    layers = [pack_layer(p, i, f, wd, device) for i in range(model.score_layers)]
+    layers = [with_tf32_weights(pack_layer(p, i, f, wd, device))
+              for i in range(model.score_layers)]
     n = template.n_atoms
     etype = torch.as_tensor(dense_edge_type_matrix(template.edges).reshape(n * n),
                             device=device).long()

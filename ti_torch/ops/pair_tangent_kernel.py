@@ -261,8 +261,7 @@ def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
     rc = fn(*(t.data_ptr() for t in bufs), b, n, k_lanes, L, pe_scale(length_scale),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "pair_tangent launch")
-    _build.LAUNCHES["pair_tangent"] += 1
-    _build.ROUTES["pair_tangent"] = libname
+    _build.count_launch("pair_tangent", libname)
     return dvp, dsp, ep, dvt, dst, et
 
 
