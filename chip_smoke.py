@@ -8,7 +8,9 @@ counts set to 0 just before each path and read just after, that the path
 went through its kernels:
 
 - MDQM9 ambient transport with dlogp under ``fast_profile`` at 128 chains
-  (``sample_ambient``: kernels B1, B3);
+  (``sample_ambient``: kernels B1 in f32, B3), and the same with the
+  bf16_agg trajectory (``traj_forward_impl="pair_kernel_bf16"``: B1 in
+  bf16_agg, B3);
 - the SDE at 8192 chains (``sample_molecular_sde``, pair-kernel drift,
   bf16_agg, ``chain_block=4``: kernel B2);
 - the fused-MLP path: ``fused_velocity_fn`` at 128 chains (B4, B6) and the
@@ -21,10 +23,11 @@ went through its kernels:
 
 Phases (any failure exits non-zero and prints no result):
   1. the card, TF32 off, the kernel build (seconds, ``-Xptxas -v``);
-  2. kernel B1 (pair layer) against its plain version: f32 on the tensor
-     cores in 3xTF32 (``variant="tc"``) at 128 chains and at ragged shapes
-     (130 chains at 19 and 29 atoms), timed in turns beside the f32-FMA
-     kernel (``variant="fma"``); bf16_agg;
+  2. kernel B1 (pair layer) against its plain version, each type on the
+     tensor cores (``variant="tc"``: 3xTF32 for f32, ``mma.sync`` bf16 for
+     bf16_agg) at 128 chains and at ragged shapes (130 chains at 19 and 29
+     atoms), timed in turns beside the f32-FMA kernel (``variant="fma"``),
+     with bounds and the tensor-core kernels' registers and spills;
   3. kernel B3 (pair tangent): bf16_agg K = 16 on the tensor cores
      (``variant="mma"``) against its plain version and timed beside the
      earlier f32-FMA kernel (``variant="fma"``); a ragged shape (130 chains,
@@ -39,15 +42,23 @@ Phases (any failure exits non-zero and prints no result):
      the dlogp of B3 in bf16_agg with the full orthogonal frame (K = 57)
      against the exact slice's; then one divergence node of that path
      (``pair_tangent_div_fn``, 128 chains, K = 16, bf16_agg) timed beside its
-     5 B3 launches: the rest is plain glue; and one trajectory forward's
-     host time to enqueue beside its time synchronised;
+     5 B3 launches: the rest is plain glue; one trajectory forward in f32
+     and in bf16_agg, in turns: the host's time to enqueue it beside its
+     time synchronised, and the aten ops of its glue; and the slice with the
+     bf16_agg trajectory (every B1 launch from pair_layer_mma), its
+     samples/s beside the headline's and its dlogp against the exact
+     slice's;
   6. kernel B2 (chain-blocked pair layer) against its plain version and
-     against B1, C = 2 and 4, f32 and bf16_agg, at 130 chains; its time at
-     8192 chains for C = 1, 2, 4 beside the bound;
+     against B1 at 130 chains: f32 (pair_layer.cu, C = 2 and 4) within the
+     bar, bf16_agg (pair_layer_mma.cu, C = 2, 3 and 4) to the bit; at 8192
+     chains bf16_agg C = 4 against its plain version and C = 2, 3 and 4
+     against B1 to the bit; its time there for C = 1, 2, 3 and 4 in turns
+     beside ``variant="fma"`` at C = 4, with the bound and the weight bytes
+     each launch streams;
   7. the SDE: at 256 chains in f32 (C = 2) against the same SDE built from
      the plain version on the same noise; then at 8192 chains, bf16_agg,
-     C = 4, 20 steps (``bench.py`` takes 100), with B2's launch count,
-     samples/s and the centre-of-mass checks;
+     C = 4, 20 steps (``bench.py`` takes 100), with B2's launch count (all
+     from pair_layer_mma), samples/s and the centre-of-mass checks;
   8. kernels B4, B5 and B6 against their plain versions at full width, with
      their times and bounds;
   9. the fused paths: ``fused_velocity_fn`` against ``dense_velocity_fn``
@@ -85,9 +96,12 @@ H100_HBM = 3.35e12    # bytes/s
 BAR = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # max |kernel - plain| / max |plain|
 SDE_CHAINS, SDE_STEPS, BENCH_SDE_STEPS = 8192, 20, 100  # bench.py:378 runs 100 steps
 FUSED_CHAINS = 32  # the dense_fused exact sampler's batch
+LAYER_WEIGHT_BYTES = 2 * 15 * F * F  # one message layer's bf16 matrices, streamed a CTA
 SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
     "pair_layer": ("ti_torch/csrc/pair_layer_tf32x3.cu", "ti_tpu/ops/pair_layer_kernel.py:83"),
-    "pair_layer_cb": ("ti_torch/csrc/pair_layer.cu", "ti_tpu/ops/pair_layer_kernel.py:190"),
+    "pair_layer_bf16_agg": ("ti_torch/csrc/pair_layer_mma.cu",
+                            "ti_tpu/ops/pair_layer_kernel.py:83"),
+    "pair_layer_cb": ("ti_torch/csrc/pair_layer_mma.cu", "ti_tpu/ops/pair_layer_kernel.py:190"),
     "pair_tangent": ("ti_torch/csrc/pair_tangent_mma.cu", "ti_tpu/ops/pair_tangent_kernel.py:76"),
     "fused_edge_mlp": ("ti_torch/csrc/fused_edge_mlp.cu", "ti_tpu/ops/pallas_kernels.py:180"),
     "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp.cu",
@@ -146,8 +160,7 @@ def compare(outs, refs, dtype, what: str, bar=None) -> float:
 
 
 def layer_inputs(params, dtype, k: int, seed: int, b: int = CHAINS, n: int = N_ATOMS):
-    from ti_torch.ops.pair_layer_kernel import pack_layer, with_tf32_weights
-    from ti_torch.ops.pair_tangent_kernel import with_mma_weights
+    from ti_torch.ops.pair_layer_kernel import pack_layer, with_mma_weights, with_tf32_weights
 
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -162,6 +175,19 @@ def layer_inputs(params, dtype, k: int, seed: int, b: int = CHAINS, n: int = N_A
     return w, base, lanes
 
 
+def ptxas_kernels(text: str) -> list:
+    """(entry function, its registers line, its spill line) from ``-Xptxas -v``."""
+    found, name, spill = [], "?", ""
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            found.append((name, ln.strip(), spill))
+    return found
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -169,6 +195,39 @@ def nbytes(*tensors) -> int:
 def bound_ms(flops: float, peak: float, moved: int):
     t_ops, t_bytes = flops / peak, moved / H100_HBM
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def forward_costs(drift, xs, temps, n_fwd: int = 20) -> tuple:
+    """One trajectory forward's host time to enqueue and its time
+    synchronised, in ms (means over n_fwd forwards run one at a time, so the
+    launch queue never fills), and the aten ops it dispatches that are
+    neither views nor allocations: each launches about one kernel on the
+    card (the pair-layer kernels, called through ctypes, are not among them)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view and func.overloadpacket.__name__ not in ("empty", "empty_strided"):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    enqueue = forward = 0.0
+    with torch.no_grad():
+        for _ in range(3):
+            drift(xs, 0.5, temps)
+        torch.cuda.synchronize()
+        for _ in range(n_fwd):
+            t0 = time.perf_counter()
+            drift(xs, 0.5, temps)
+            enqueue += (time.perf_counter() - t0) / n_fwd
+            torch.cuda.synchronize()
+            forward += (time.perf_counter() - t0) / n_fwd
+        with Ops() as ops:
+            drift(xs, 0.5, temps)
+        torch.cuda.synchronize()
+    return 1e3 * enqueue, 1e3 * forward, ops.n
 
 
 def zero_com_x0(rng, b: int) -> np.ndarray:
@@ -182,31 +241,66 @@ def ambient_temps(b: int) -> np.ndarray:
 
 
 def phase_b2(params, rows_kernels) -> None:
-    """6. B2 against its plain version and B1; its time at 8192 chains."""
-    from ti_torch.ops.pair_layer_kernel import pair_layer, pair_layer_plain
+    """6. B2 against its plain version and B1 at 130 and 8192 chains; its
+    time at 8192 chains."""
+    from ti_torch.ops.pair_layer_kernel import mma_tile_plan, pair_layer, pair_layer_plain
 
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, blocks in ((torch.float32, (2, 4)), (torch.bfloat16, (2, 3, 4))):
         w, base, _ = layer_inputs(params, dtype, 0, seed=3, b=130)  # 130: not a multiple of 4
         ref = pair_layer_plain(*base, w, LENGTH_SCALE)
         b1 = pair_layer(*base, w, LENGTH_SCALE)
-        for c in (2, 4):
+        for c in blocks:
             out = pair_layer(*base, w, LENGTH_SCALE, c)
             torch.cuda.synchronize()
-            errs[dtype, c] = compare(out, ref, dtype, f"B2 pair_layer_cb {dtype} C={c} B=130")
+            compare(out, ref, dtype, f"B2 pair_layer_cb {dtype} C={c} B=130")
             diff = max((a.float() - q.float()).abs().max().item() for a, q in zip(out, b1))
             log(f"[B2 {dtype} C={c}] max |B2 - B1| on the same inputs: {diff:.3e}")
-            compare(out, b1, dtype, f"B2 against B1 {dtype} C={c}")
+            if dtype == torch.bfloat16:
+                require(all(torch.equal(a, q) for a, q in zip(out, b1)),
+                        f"B2 bf16_agg C={c} equals B1 to the bit")
+            else:
+                compare(out, b1, dtype, f"B2 against B1 {dtype} C={c}")
+    # at the SDE's 8192 chains: C = 4 (the SDE's) against the plain version,
+    # and every C against C = 1 to the bit
     w, base, _ = layer_inputs(params, torch.bfloat16, 0, seed=4, b=SDE_CHAINS)
+    blocks = (1, 2, 3, 4)
     out = pair_layer(*base, w, LENGTH_SCALE, 4)
+    torch.cuda.synchronize()
+    ref = pair_layer_plain(*base, w, LENGTH_SCALE)
+    err = compare(out, ref, torch.bfloat16, f"B2 pair_layer_cb bf16_agg C=4 B={SDE_CHAINS}")
+    del ref
+    b1 = pair_layer(*base, w, LENGTH_SCALE)
+    for c in blocks[1:]:
+        again = pair_layer(*base, w, LENGTH_SCALE, c)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, q) for a, q in zip(again, b1)),
+                f"B2 bf16_agg C={c} B={SDE_CHAINS} equals B1 to the bit")
+    log(f"[B2 bf16_agg B={SDE_CHAINS}] C=2, 3 and 4 equal C=1 (B1) to the bit")
+    del again, b1
     bnd, by = bound_ms(2.0 * 15 * F * F * SDE_CHAINS * N_ATOMS ** 2, H100_BF16,
                        nbytes(*base, w.mats, w.vecs, *out))
-    ms = {c: cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE, c), 3, warm=1) for c in (1, 2, 4)}
+    ms = {c: [] for c in blocks}
+    fma = []
+    for turn in ("mma", "fma", "fma", "mma"):  # in turns
+        if turn == "fma":
+            fma.append(cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE, 4, variant="fma"), 2, warm=1))
+        else:
+            for c in blocks:
+                ms[c].append(cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE, c), 5, warm=1))
     plain = cuda_ms(lambda: pair_layer_plain(*base, w, LENGTH_SCALE), 2, warm=1)
-    log(f"[B2 bf16_agg B={SDE_CHAINS}] ms per launch: C=1 (B1) {ms[1]:.3f}, C=2 {ms[2]:.3f}, "
-        f"C=4 {ms[4]:.3f}; plain {plain:.3f}; bound {bnd:.4f} ms ({by})")
-    rows_kernels["pair_layer_cb"] = dict(err=errs[torch.bfloat16, 4], ms=ms[4], plain=plain,
-                                         bound=bnd, by=by)
+    best = {c: min(t) for c, t in ms.items()}
+    for c in blocks:
+        plan = mma_tile_plan(SDE_CHAINS, N_ATOMS, c)
+        streamed = plan.ctas * LAYER_WEIGHT_BYTES
+        log(f"[B2 bf16_agg B={SDE_CHAINS} C={c}] {' and '.join(f'{t:.3f}' for t in ms[c])} ms per "
+            f"launch ({best[c] / bnd:.2f}x the bound); {plan.ctas} CTAs of {plan.tiles} row tiles, "
+            f"{plan.smem} bytes of shared memory; weights streamed from L2 "
+            f"{streamed / 1e9:.3f} GB a launch")
+    log(f"[B2 bf16_agg B={SDE_CHAINS}] variant=fma C=4 (f32 FMA, pair_layer.cu) "
+        f"{' and '.join(f'{t:.3f}' for t in fma)} ms, in turns with the above; plain {plain:.3f} ms; "
+        f"bound {bnd:.4f} ms ({by}); C=4 {min(fma) / best[4]:.2f}x faster than fma")
+    require(best[4] < min(fma), "B2 on the tensor cores is faster than the f32-FMA kernel")
+    rows_kernels["pair_layer_cb"] = dict(err=err, ms=best[4], plain=plain, bound=bnd, by=by)
     del w, base, out
     torch.cuda.empty_cache()
 
@@ -255,6 +349,9 @@ def phase_sde(model, template, card: str) -> dict:
     want = {k: 0 for k in launches}
     want["pair_layer_cb"] = SDE_STEPS * LAYERS
     require(launches == want, f"SDE launch counts {launches} == {want}")
+    by_route = {k: n for k, n in _build.ROUTE_LAUNCHES.items() if n}
+    require(by_route == {("pair_layer_cb", "pair_layer_mma"): want["pair_layer_cb"]},
+            f"every B2 launch of the SDE comes from pair_layer_mma.cu: {by_route}")
     require(xs.shape == (SDE_CHAINS, 2, N_ATOMS, 3) and bool(torch.isfinite(xs).all()),
             "SDE: finite samples of the expected shape")
     com = xs.mean(dim=2).abs().amax(dim=(0, 2))
@@ -568,7 +665,7 @@ def main() -> int:
         for line in r["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
-    for name in ("pair_tangent_mma", "pair_layer_tf32x3"):
+    for name in ("pair_tangent_mma", "pair_layer_tf32x3", "pair_layer_mma"):
         spills = [ln.strip() for ln in report[name]["ptxas"].splitlines() if "spill" in ln]
         require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
                                      for ln in spills), f"{name} builds without register spills: {spills}")
@@ -629,16 +726,47 @@ def main() -> int:
         compare(out, pair_layer_plain(*base, w, LENGTH_SCALE), f32,
                 f"B1 pair_layer f32 B=130 N={n} variant=tc")
     del w, base, out
-    # bf16_agg: pair_layer.cu
-    w, base, _ = layer_inputs(params, torch.bfloat16, 0, seed=1)
-    out = pair_layer(*base, w, LENGTH_SCALE)
+    # bf16_agg: mma.sync bf16 on the tensor cores (pair_layer_mma.cu) and, timed
+    # beside it in turns, the f32-FMA kernel
+    bf = torch.bfloat16
+    w, base, _ = layer_inputs(params, bf, 0, seed=1)
+    ref = pair_layer_plain(*base, w, LENGTH_SCALE)
+    errs16, outs = {}, {}
+    for variant, lib in (("tc", "pair_layer_mma"), ("fma", "pair_layer")):
+        outs[variant] = pair_layer(*base, w, LENGTH_SCALE, variant=variant)
+        torch.cuda.synchronize()
+        require(_build.ROUTES["pair_layer"] == lib, f"bf16_agg variant={variant} launches {lib}")
+        errs16[variant] = compare(outs[variant], ref, bf,
+                                  f"B1 pair_layer bf16_agg B={CHAINS} variant={variant}")
+    compare(outs["tc"], outs["fma"], bf, "B1 bf16_agg variant=tc against variant=fma")
+    again = pair_layer(*base, w, LENGTH_SCALE)
     torch.cuda.synchronize()
-    compare(out, pair_layer_plain(*base, w, LENGTH_SCALE), torch.bfloat16,
-            f"B1 pair_layer bf16_agg B={CHAINS}")
-    ms16 = cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE), 20)
+    require(_build.ROUTES["pair_layer"] == "pair_layer_mma", "bf16_agg launches pair_layer_mma.cu")
+    require(all(torch.equal(a, q) for a, q in zip(again, outs["tc"])),
+            "B1 bf16_agg: two launches on the same inputs agree to the bit")
+    ms = {v: [] for v in ("tc", "fma")}
+    for variant in ("tc", "fma", "fma", "tc"):
+        ms[variant].append(cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE, variant=variant), 20))
     plain = cuda_ms(lambda: pair_layer_plain(*base, w, LENGTH_SCALE), 10)
-    bnd16, by16 = bound_ms(2.0 * mac_row * rows, H100_BF16, nbytes(*base, w.mats, w.vecs, *out))
-    log(f"[B1 bf16_agg] kernel {ms16:.4f} ms, plain {plain:.4f} ms, bound {bnd16:.4f} ms ({by16})")
+    mma_ms, fma16 = min(ms["tc"]), min(ms["fma"])
+    bnd16, by16 = bound_ms(2.0 * mac_row * rows, H100_BF16, nbytes(*base, w.mats, w.vecs, *again))
+    log(f"[B1 bf16_agg B={CHAINS}] ms per launch, 20 launches a reading, in turns: variant=tc "
+        f"(mma.sync bf16, tensor cores) {fmt(ms['tc'])}, variant=fma (f32 FMA) {fmt(ms['fma'])}; "
+        f"tc {fma16 / mma_ms:.2f}x faster; plain {plain:.4f} ms; bound {bnd16:.4f} ms ({by16}, "
+        f"{2.0 * mac_row * rows:.4e} FLOP at 989 TFLOP/s bf16); tc at {mma_ms / bnd16:.2f}x its "
+        f"bound ({card})")
+    for fn, regs, spill in ptxas_kernels(report["pair_layer_mma"]["ptxas"]):
+        log(f"[B1 bf16_agg build] {fn}: {regs}; {spill}")
+    require(mma_ms < fma16, "the bf16 tensor-core kernel is faster than the f32-FMA kernel")
+    rows_kernels["pair_layer_bf16_agg"] = dict(err=errs16["tc"], ms=mma_ms, plain=plain,
+                                               bound=bnd16, by=by16)
+    del w, base, ref, outs, again
+    for n in (N_ATOMS, 29):
+        w, base, _ = layer_inputs(params, bf, 0, seed=7, b=130, n=n)
+        out = pair_layer(*base, w, LENGTH_SCALE, variant="tc")
+        torch.cuda.synchronize()
+        compare(out, pair_layer_plain(*base, w, LENGTH_SCALE), bf,
+                f"B1 pair_layer bf16_agg B=130 N={n} variant=tc")
     del w, base, out
     torch.cuda.empty_cache()
 
@@ -820,24 +948,50 @@ def main() -> int:
     log(f"[divergence node B={CHAINS} K={cfg.num_probes} bf16_agg] {node_ms:.3f} ms a node, of which "
         f"{LAYERS} B3 launches x {b3_ms:.3f} ms = {LAYERS * b3_ms:.3f} ms; plain glue "
         f"{node_ms - LAYERS * b3_ms:.3f} ms ({card})")
-    # one trajectory forward of that path (5 B1 launches and the plain glue):
-    # the host's time to enqueue it beside its time synchronised. Where the two
-    # are close, the host sets the trajectory's pace, not the card
-    drift = pair_kernel_drift(model, None, template, device="cuda")
-    n_fwd, enqueue, forward = 20, 0.0, 0.0
-    with torch.no_grad():
-        for _ in range(3):
-            drift(xs_node, 0.5, temps_node)
-        torch.cuda.synchronize()
-        for _ in range(n_fwd):  # one at a time, so the launch queue never fills
-            t0 = time.perf_counter()
-            drift(xs_node, 0.5, temps_node)
-            enqueue += (time.perf_counter() - t0) / n_fwd
-            torch.cuda.synchronize()
-            forward += (time.perf_counter() - t0) / n_fwd
-    log(f"[trajectory forward B={CHAINS} f32] {1e3 * forward:.3f} ms synchronised, "
-        f"{1e3 * enqueue:.3f} ms for the host to enqueue; its {LAYERS} B1 launches x {tc_ms:.4f} ms "
-        f"= {LAYERS * tc_ms:.3f} ms on the card (host clock, {card})")
+    # one trajectory forward of that path (5 B1 launches and the plain glue),
+    # in f32 and in bf16_agg in turns: the host's time to enqueue it beside its
+    # time synchronised, and the glue's aten ops. Where the two times are
+    # close, the host sets the trajectory's pace, not the card
+    drifts = {"f32": pair_kernel_drift(model, None, template, device="cuda"),
+              "bf16_agg": pair_kernel_drift(model, None, template, compute_dtype="bf16_agg",
+                                            device="cuda")}
+    costs = {k: [] for k in drifts}
+    for k in ("f32", "bf16_agg", "bf16_agg", "f32"):
+        costs[k].append(forward_costs(drifts[k], xs_node, temps_node))
+    for k, b1_ms in (("f32", tc_ms), ("bf16_agg", mma_ms)):
+        log(f"[trajectory forward B={CHAINS} {k}] "
+            f"{' and '.join(f'{fw:.3f}' for _, fw, _ in costs[k])} ms synchronised, "
+            f"{' and '.join(f'{eq:.3f}' for eq, _, _ in costs[k])} ms for the host to enqueue "
+            f"(two readings, in turns f32, bf16_agg, bf16_agg, f32); {costs[k][0][2]} aten ops "
+            f"besides its {LAYERS} B1 launches x {b1_ms:.4f} ms = {LAYERS * b1_ms:.3f} ms on the "
+            f"card (host clock, {card})")
+    # the same slice with the bf16_agg trajectory (B1 in pair_layer_mma.cu): its
+    # samples/s beside the headline's, its dlogp against the exact slice's
+    cfg16 = fast_profile(ambient_preset("00031"), traj_forward_impl="pair_kernel_bf16")
+    sample_ambient(cfg16, model, None, template, x0[:CHAINS], save=False, batch_size=CHAINS,
+                   device="cuda")  # warm-up, not counted
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out16 = sample_ambient(cfg16, model, None, template, x0, save=False, batch_size=CHAINS,
+                           device="cuda")
+    torch.cuda.synchronize()
+    wall16 = time.perf_counter() - t0
+    launches16 = dict(_build.LAUNCHES)
+    by_route16 = {k: n for k, n in _build.ROUTE_LAUNCHES.items() if n}
+    require(launches16 == want, f"bf16_agg trajectory launch counts {launches16} == {want}")
+    require(by_route16 == {("pair_layer", "pair_layer_mma"): want["pair_layer"],
+                           ("pair_tangent", "pair_tangent_mma"): want["pair_tangent"]},
+            f"every B1 launch of the bf16_agg trajectory comes from pair_layer_mma.cu: {by_route16}")
+    require(np.isfinite(out16["samples"]).all() and np.isfinite(out16["dlogps"]).all(),
+            "bf16_agg trajectory: finite samples and dlogp")
+    traj16 = float(np.max(np.abs(out16["samples"][:CHAINS] - exact["samples"])))
+    d16 = out16["dlogps"][:CHAINS] - exact["dlogps"]
+    log(f"[slice bf16_agg trajectory] {len(x0)} chains: {wall16:.3f} s, {len(x0) / wall16:.3f} "
+        f"samples/s against the headline's {len(x0) / wall:.3f} (host clock, {card}); launches by "
+        f"library { {f'{k}:{lib}': n for (k, lib), n in by_route16.items()} }; samples minus the "
+        f"exact slice's: max abs {traj16:.3e}; dlogp minus exact: mean {d16.mean():.5f}, rms "
+        f"{math.sqrt(float((d16 ** 2).mean())):.5f}")
 
     # ---- 6-9. the SDE and fused-MLP slices ----
     phase_b2(params, rows_kernels)
@@ -850,6 +1004,7 @@ def main() -> int:
 
     # ---- 11. result lines ----
     path_launches = {"pair_layer": launches["pair_layer"],
+                     "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_tangent": launches["pair_tangent"],
                      "pair_layer_cb": sde_launches["pair_layer_cb"],
                      "fused_edge_mlp": smp_launches["fused_edge_mlp"],

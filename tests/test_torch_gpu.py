@@ -20,17 +20,18 @@ from ti_torch.ops import _build
 from ti_torch.ops import pallas_kernels as pk
 from ti_torch.ops.mlp_block import mlp_weights
 from ti_torch.ops.pair_layer_kernel import (
+    MMA_MAX_TILES,
+    mma_smem_bytes,
+    mma_tile_plan,
+    mma_tiles,
     pack_layer,
     pair_layer,
     pair_layer_plain,
     tc_smem_bytes,
+    with_mma_weights,
     with_tf32_weights,
 )
-from ti_torch.ops.pair_tangent_kernel import (
-    pair_tangent,
-    pair_tangent_plain,
-    with_mma_weights,
-)
+from ti_torch.ops.pair_tangent_kernel import pair_tangent, pair_tangent_plain
 
 N, F, B = 19, 128, 6
 BARS = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -89,17 +90,23 @@ def test_pair_layer_kernel_matches_plain(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,chain_block", [(torch.float32, 2), (torch.float32, 4),
-                                               (torch.bfloat16, 2), (torch.bfloat16, 4)])
+                                               (torch.bfloat16, 2), (torch.bfloat16, 3),
+                                               (torch.bfloat16, 4)])
 def test_chain_blocked_pair_layer_is_b1(dtype, chain_block):
     """B2 on a batch C does not divide: the result of B1 in the same source
-    (pair_layer.cu, ``variant="fma"``) to the bit, and the plain version's
-    within the bar."""
+    to the bit (bf16_agg: pair_layer_mma.cu, min(C, 3) row tiles a CTA,
+    the last CTA's last tile empty; f32: pair_layer.cu with
+    ``variant="fma"``, C chains a CTA), and the plain version's within the
+    bar."""
     _card()
     w, base, _ = _layer(dtype, b=13)
+    bf16 = dtype == torch.bfloat16
     before = dict(_build.LAUNCHES)
     out = pair_layer(*base, w, 10.0, chain_block)
-    b1 = pair_layer(*base, w, 10.0, variant="fma")
+    b1 = pair_layer(*base, w, 10.0, variant=None if bf16 else "fma")
     torch.cuda.synchronize()
+    lib = "pair_layer_mma" if bf16 else "pair_layer"
+    assert _build.ROUTES["pair_layer_cb"] == lib and _build.ROUTES["pair_layer"] == lib
     assert _build.LAUNCHES["pair_layer_cb"] == before["pair_layer_cb"] + 1
     assert _build.LAUNCHES["pair_layer"] == before["pair_layer"] + 1
     for a, r in zip(out, b1):
@@ -166,9 +173,9 @@ def test_pair_layer_tc_matches_plain(b, n):
 
 @pytest.mark.gpu
 def test_pair_layer_routes_and_variants_agree():
-    """f32 takes the tensor-core kernel unless ``variant="fma"``; bf16_agg
-    and chain blocks take pair_layer.cu, each launch counted under its
-    library; "tc" and "fma" agree at the f32 bar."""
+    """f32 takes the 3xTF32 kernel unless ``variant="fma"`` and f32 chain
+    blocks take pair_layer.cu; bf16_agg takes pair_layer_mma.cu, each
+    launch counted under its library; "tc" and "fma" agree at the f32 bar."""
     _card()
     w, base, _ = _layer(torch.float32, b=13)
     _build.reset_launches()
@@ -182,10 +189,14 @@ def test_pair_layer_routes_and_variants_agree():
     assert _build.ROUTES["pair_layer_cb"] == "pair_layer"
     wb, bb, _ = _layer(torch.bfloat16, b=13)
     pair_layer(*bb, wb, 10.0)
-    assert _build.ROUTES["pair_layer"] == "pair_layer"
+    assert _build.ROUTES["pair_layer"] == "pair_layer_mma"
+    pair_layer(*bb, wb, 10.0, 4)
+    assert _build.ROUTES["pair_layer_cb"] == "pair_layer_mma"
     assert _build.ROUTE_LAUNCHES == {("pair_layer", "pair_layer_tf32x3"): 1,
-                                     ("pair_layer", "pair_layer"): 2,
-                                     ("pair_layer_cb", "pair_layer"): 1}
+                                     ("pair_layer", "pair_layer"): 1,
+                                     ("pair_layer_cb", "pair_layer"): 1,
+                                     ("pair_layer", "pair_layer_mma"): 1,
+                                     ("pair_layer_cb", "pair_layer_mma"): 1}
 
 
 @pytest.mark.gpu
@@ -209,8 +220,8 @@ def test_pair_layer_tc_refusals_and_smem_count():
     with pytest.raises(ValueError, match="chain_block 1"):
         pair_layer(*base, w, 10.0, 2, variant="tc")
     wb, bb, _ = _layer(torch.bfloat16)
-    with pytest.raises(ValueError, match="f32 weights"):
-        pair_layer(*bb, wb, 10.0, variant="tc")
+    with pytest.raises(ValueError, match="chain_block 1..4 with bf16_agg"):
+        pair_layer(*bb, wb, 10.0, 5, variant="tc")
     with pytest.raises(ValueError, match="with_tf32_weights"):
         pair_layer(*base, w._replace(mma=None), 10.0)
     with pytest.raises(ValueError, match="3xTF32 weights must be"):
@@ -221,6 +232,66 @@ def test_pair_layer_tc_refusals_and_smem_count():
     lib = _build.load("pair_layer_tf32x3")
     lib.pair_layer_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
     assert lib.pair_layer_tf32x3_smem_bytes() == tc_smem_bytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chain_block", [1, 2, 3, 4])
+@pytest.mark.parametrize("b,n", [(128, 19), (130, 19), (130, 29), (3, 2), (5, 32)])
+def test_pair_layer_mma_matches_plain(b, n, chain_block):
+    """B1 (C = 1) and B2 in bf16_agg on the tensor cores against the plain
+    version: the main path's 128 chains, 130 chains whose groups do not fill
+    the last tile (19 and 29 atoms, 3 and 2 groups a tile), 32 groups a tile
+    (2 atoms) and 2 (32 atoms)."""
+    _card()
+    w, base, _ = _layer(torch.bfloat16, b=b, N=n)
+    out = pair_layer(*base, w, 10.0, chain_block)
+    torch.cuda.synchronize()
+    assert _build.ROUTES["pair_layer" if chain_block == 1 else "pair_layer_cb"] == "pair_layer_mma"
+    _assert_close(out, pair_layer_plain(*base, w, 10.0), torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_pair_layer_mma_is_deterministic_and_b2_is_b1():
+    """Two launches on the same inputs agree to the bit, and every chain
+    block gives B1's outputs to the bit (no atomics, one order of sums)."""
+    _card()
+    w, base, _ = _layer(torch.bfloat16, b=130)
+    first = pair_layer(*base, w, 10.0)
+    for c in (1, 2, 3, 4):
+        again = pair_layer(*base, w, 10.0, c)
+        torch.cuda.synchronize()
+        for a, r in zip(again, first):
+            assert torch.equal(a, r)
+
+
+@pytest.mark.gpu
+def test_pair_layer_mma_variants_refusals_and_counts():
+    """The tensor-core kernel against the f32-FMA one on the same inputs (the
+    same rounding sites, another order of sums: bar 2e-2); what the wrapper
+    refuses; the shared memory and CTAs the CUDA source counts against the
+    tile plan."""
+    import ctypes
+
+    _card()
+    w, base, _ = _layer(torch.bfloat16, b=13)
+    new = pair_layer(*base, w, 10.0, variant="tc")
+    old = pair_layer(*base, w, 10.0, variant="fma")
+    torch.cuda.synchronize()
+    _assert_close(new, old, torch.bfloat16)
+    with pytest.raises(ValueError, match="with_mma_weights"):
+        pair_layer(*base, w._replace(mma=None), 10.0)
+    with pytest.raises(ValueError, match="fragment-order weights must be"):
+        pair_layer(*base, w._replace(mma=w.mma[:-8]), 10.0, 2)
+    with pytest.raises(ValueError, match="cannot launch"):
+        pair_layer(*base, w, 10.0, 5)
+    lib = _build.load("pair_layer_mma")
+    lib.pair_layer_mma_smem_bytes.restype = ctypes.c_ulonglong
+    lib.pair_layer_mma_ctas.restype = ctypes.c_longlong
+    assert lib.pair_layer_mma_max_tiles() == MMA_MAX_TILES
+    for c in (1, 2, 3, 4):
+        assert lib.pair_layer_mma_smem_bytes(mma_tiles(c)) == mma_smem_bytes(c)
+        for b, n in ((128, 19), (130, 29), (8192, 19), (3, 2)):
+            assert lib.pair_layer_mma_ctas(b, n, mma_tiles(c)) == mma_tile_plan(b, n, c).ctas
 
 
 _BF16_CASES = [(torch.bfloat16, k, lane_block, b, variant)

@@ -19,6 +19,7 @@ from ti_torch.ops.pair_layer_kernel import (
     TC_ROWS,
     VARIANTS,
     _pack_tf32_matrix,
+    pack_mma_weights,
     pack_pair_mlps,
     pack_tf32_weights,
     pair_layer,
@@ -259,8 +260,9 @@ def test_unknown_or_inapplicable_variant_raises():
         pair_layer(*base, wts, 10.0, variant="wgmma")
     with pytest.raises(ValueError, match="chain_block 1"):
         pair_layer(*base, wts, 10.0, 2, variant="tc")
-    with pytest.raises(ValueError, match="f32 weights"):
-        pair_layer(*_layer_inputs(dtype=BF16), _weights(16, BF16), 10.0, variant="tc")
+    # bf16_agg takes the tensor cores (csrc/pair_layer_mma.cu) at chain_block 1..4 only
+    with pytest.raises(ValueError, match="chain_block 1..4 with bf16_agg"):
+        pair_layer(*_layer_inputs(dtype=BF16), _weights(16, BF16), 10.0, 5, variant="tc")
 
 
 @pytest.mark.parametrize("variant,chain_block", [(None, 1), ("tc", 1), ("fma", 1), (None, 2),
@@ -288,8 +290,9 @@ def test_prepare_packs_f32_layers_once():
     template = graph_template(make_synthetic_molecule(5, seed=0), t_cond=2)
     pm = prepare(model, None, template, None, "cpu")
     assert all(torch.equal(w.mma, pack_tf32_weights(w)) for w in pm.layers)
+    # bf16_agg layers carry the bf16 fragment order instead (csrc/pair_layer_mma.cu)
     pmb = prepare(model, None, template, "bf16_agg", "cpu")
-    assert all(w.mma is None for w in pmb.layers)
+    assert all(torch.equal(w.mma, pack_mma_weights(w)) for w in pmb.layers)
 
 
 def test_launches_are_counted_per_library(monkeypatch):

@@ -12,16 +12,19 @@ import torch
 
 from ti_torch.ops import _build
 from ti_torch.ops.mlp_block import BF16, MLPWeights, dot_bf16
-from ti_torch.ops.pair_layer_kernel import SMEM_LIMIT, pack_pair_mlps
+from ti_torch.ops.pair_layer_kernel import (
+    SMEM_LIMIT,
+    pack_mma_weights,
+    pack_pair_mlps,
+    with_mma_weights,
+)
 from ti_torch.ops.pair_tangent_kernel import (
     VARIANTS,
     _check_lane_block,
     _pick_lane_block,
-    pack_mma_weights,
     pair_tangent,
     pair_tangent_plain,
     smem_bytes,
-    with_mma_weights,
 )
 
 

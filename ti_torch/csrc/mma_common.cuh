@@ -1,7 +1,8 @@
-// Tensor-core building blocks of the hand-written bf16 kernels (pair_tangent_mma.cu):
-// the swizzled shared-memory tile, ldmatrix and mma.sync wrappers, the weight
-// fragments read in the packed order of ops/pair_tangent_kernel.pack_mma_weights,
-// and LayerNorm and its tangent in the accumulator fragment's thread layout.
+// Tensor-core building blocks of the hand-written bf16 kernels
+// (pair_tangent_mma.cu, pair_layer_mma.cu): the swizzled shared-memory tile,
+// ldmatrix and mma.sync wrappers, the weight fragments read in the packed
+// order of ops/pair_layer_kernel.pack_mma_weights, and LayerNorm and its
+// tangent in the accumulator fragment's thread layout.
 //
 // One warp owns 16 rows of a product and NTL n-tiles of 8 columns. With
 // g = lane / 4 and t = lane % 4, accumulator acc[nt][c] is the element at

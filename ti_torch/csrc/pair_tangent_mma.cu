@@ -19,7 +19,7 @@
 // - every product is mma.sync.m16n8k16 (bf16 operands, f32 accumulators). The
 //   A operand comes from swizzled shared memory through ldmatrix; the B
 //   operand straight from global memory, packed once by the wrapper in
-//   fragment order (ops/pair_tangent_kernel.pack_mma_weights), so no shared
+//   fragment order (ops/pair_layer_kernel.pack_mma_weights), so no shared
 //   memory is spent on weights;
 // - one CTA owns one (dst atom i, chain b): the sums over the source atoms j
 //   stay inside the CTA, no atomics. The primal runs once and keeps its

@@ -8,10 +8,11 @@ in .gitignore) and is reused while it is newer than its sources.
 
 Every wrapper counts its launches in ``LAUNCHES``, under its kernel's own
 name: one per kernel launch and nowhere else, so a run can show that its
-path went through the kernels. B1 (``pair_layer``, one chain per CTA) has
-two libraries: ``pair_layer_tf32x3`` (f32 on the tensor cores) and
-``pair_layer`` (bf16_agg, and the f32-FMA kernel kept for timing), which
-also holds B2 (``pair_layer_cb``, C > 1 chains per CTA). B3
+path went through the kernels. B1 (``pair_layer``) has three libraries:
+``pair_layer_tf32x3`` (f32 on the tensor cores), ``pair_layer_mma``
+(bf16_agg on the tensor cores) and ``pair_layer`` (the f32-FMA kernels of
+both types, kept for timing); B2 (``pair_layer_cb``, chain_block > 1) has
+two: ``pair_layer_mma`` (bf16_agg) and ``pair_layer`` (f32). B3
 (``pair_tangent``) has two: ``pair_tangent_mma`` (bf16_agg on the tensor
 cores) and ``pair_tangent`` (f32, and the earlier bf16 kernel kept for
 timing). ``ROUTES`` says which library a kernel's last launch came from,
@@ -31,8 +32,8 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("pair_layer", "pair_layer_tf32x3", "pair_tangent", "pair_tangent_mma",
-           "fused_edge_mlp", "fused_edge_mlp_jvp", "fused_mlp", "div_kernel")
+KERNELS = ("pair_layer", "pair_layer_tf32x3", "pair_layer_mma", "pair_tangent",
+           "pair_tangent_mma", "fused_edge_mlp", "fused_edge_mlp_jvp", "fused_mlp", "div_kernel")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "pair_layer", "pair_layer_cb", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp",

@@ -1,14 +1,19 @@
 """One cPaiNN message layer on the dense pair grid — kernels B1 and B2,
-hand-written CUDA, with their plain PyTorch version beside them. B1 in f32
-runs on the tensor cores in split-precision TF32 ("3xTF32",
-csrc/pair_layer_tf32x3.cu) with the layer's matrices split and packed once
-in fragment order (``pack_tf32_weights``); B1 in bf16_agg and B2 are
-csrc/pair_layer.cu (f32 FMA), which also keeps the f32 instantiation,
-reachable as ``variant="fma"``.
+hand-written CUDA, with their plain PyTorch version beside them. On the
+tensor cores: B1 in f32 in split-precision TF32 ("3xTF32",
+csrc/pair_layer_tf32x3.cu, the layer's matrices split and packed once in
+fragment order by ``pack_tf32_weights``), and B1 and B2 in bf16_agg
+(csrc/pair_layer_mma.cu, ``mma.sync`` bf16, the matrices packed once by
+``pack_mma_weights``). csrc/pair_layer.cu (f32 FMA) keeps B2 in f32 and both
+types of B1 as ``variant="fma"``.
 
 Port of ti_tpu/ops/pair_layer_kernel.py (the Pallas ``_pair_layer_kernel``,
-and ``_pair_layer_kernel_cb`` for ``chain_block`` > 1: C chains per CTA,
-which share each weight read; the per-chain result is B1's).
+and ``_pair_layer_kernel_cb`` for ``chain_block`` > 1). On this card the
+tensor-core kernels cut the (B·N·N, F) pair rows into 64-row tiles of whole
+(chain, dst atom) groups; ``chain_block`` C sets how many such tiles a
+CTA of csrc/pair_layer_mma.cu takes, min(C, 3), sharing each weight
+fragment it loads (in csrc/pair_layer.cu it is C chains a CTA). The
+per-chain result is B1's.
 Per chain and pair row p = i·N + j (dst i, src j) the layer computes the
 geometry r = x_j − x_i, dist and dir = r/(1+|r|); the positional encoding
 of dist; h = phi([s_j | e_ij]) · w(PE(dist)) with both MLPs
@@ -55,9 +60,14 @@ KERNEL_MAX_N = 32    # pair rows per thread group: one dst atom's N src atoms
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on Hopper
 MAX_CHAIN_BLOCK = 4   # 256 threads a chain, 1024 threads a CTA
 _R, _NW, _NGEO = 32, 8, 10  # tile rows, warps of a group, geometry rows (pair_common.cuh)
-TC_ROWS = 64         # pair rows of one CTA of csrc/pair_layer_tf32x3.cu
-_TC_GEO = 5          # its geometry rows: dist, mask, dir (3)
-VARIANTS = ("tc", "fma")  # B1 in f32: 3xTF32 on the tensor cores, or the f32-FMA kernel
+TC_ROWS = 64         # pair rows of a row tile of the tensor-core kernels
+_TC_GEO = 5          # geometry rows of csrc/pair_layer_tf32x3.cu: dist, mask, dir (3)
+# one row tile of csrc/pair_layer_mma.cu: X = [s_j | e_ij], Y = PE, H (bf16, 4F
+# columns in all) and the rows' dist, mask and dir (5 x 4 bytes); three fill
+# the shared memory of a CTA
+MMA_TILE_BYTES = TC_ROWS * (2 * 4 * KERNEL_F + 4 * 5)
+MMA_MAX_TILES = 3
+VARIANTS = ("tc", "fma")  # the tensor-core kernel of the weights' type, or the f32-FMA one
 
 
 class PairLayerWeights(NamedTuple):
@@ -69,9 +79,8 @@ class PairLayerWeights(NamedTuple):
     b1, ln1 scale, ln1 bias, b2, ln2 scale, ln2 bias (F each), b3 (5F) —
     22F values. ``phi`` and ``w`` are views into both, for the plain
     version. ``mma`` is ``mats`` once more in the fragment order of a
-    tensor-core kernel, or None: bf16 for B3
-    (``pair_tangent_kernel.with_mma_weights``), f32 hi/lo TF32 pairs for B1
-    (``with_tf32_weights``)."""
+    tensor-core kernel, or None: bf16 for B1, B2 and B3 (``with_mma_weights``),
+    f32 hi/lo TF32 pairs for B1 (``with_tf32_weights``)."""
 
     mats: torch.Tensor
     vecs: torch.Tensor
@@ -184,6 +193,37 @@ def with_tf32_weights(wts: PairLayerWeights) -> PairLayerWeights:
     return wts._replace(mma=pack_tf32_weights(wts))
 
 
+def _pack_mma_matrix(w: torch.Tensor) -> torch.Tensor:
+    """One (in, out) matrix in the order the bf16 tensor-core kernels read it:
+    per 16-row k-tile kt and pair np of 8-column n-tiles, per thread
+    lane = 4g + t of a warp, the eight values
+    w[16kt + 8h + 2t + e, 16np + 8q + g] for q, h, e in {0, 1} — the B
+    fragments (b0, b1) of ``mma.m16n8k16`` for n-tiles 2np and 2np + 1."""
+    k, n = w.shape
+    if k % 16 or n % 16:
+        raise ValueError(f"the fragment order needs multiples of 16, got a {k} x {n} matrix")
+    v = w.reshape(k // 16, 2, 4, 2, n // 16, 2, 8)      # kt, h, t, e, np, q, g
+    return v.permute(0, 4, 6, 2, 5, 1, 3).reshape(-1)   # kt, np, g, t, q, h, e
+
+
+def pack_mma_weights(wts: PairLayerWeights) -> torch.Tensor:
+    """``wts.mats`` in fragment order: the six matrices at their offsets of
+    the row-major buffer, each permuted by ``_pack_mma_matrix``. A pure
+    function of the tensors; done once per layer, not per launch."""
+    if not wts.bf16:
+        raise ValueError("the tensor-core kernel takes bf16 weights (compute_dtype='bf16_agg')")
+    mats = (wts.phi.w1, wts.phi.w2, wts.phi.w3, wts.w.w1, wts.w.w2, wts.w.w3)
+    return torch.cat([_pack_mma_matrix(m) for m in mats]).contiguous()
+
+
+def with_mma_weights(wts: PairLayerWeights) -> PairLayerWeights:
+    """``wts`` carrying its fragment-order packing (bf16 weights only; f32
+    weights come back as they are)."""
+    if not wts.bf16 or wts.mma is not None:
+        return wts
+    return wts._replace(mma=pack_mma_weights(wts))
+
+
 class TilePlan(NamedTuple):
     """How csrc/pair_layer_tf32x3.cu cuts the (B·N·N, F) pair rows: each CTA
     takes ``groups`` whole (chain, dst atom) groups, ``rows`` = groups·N
@@ -212,6 +252,43 @@ def tile_groups(plan: TilePlan, cta: int, b: int, n: int) -> range:
     """The flat groups q = b·N + i of one CTA (its pair rows are q·N + j)."""
     q0 = cta * plan.groups
     return range(q0, min(q0 + plan.groups, b * n))
+
+
+class MmaPlan(NamedTuple):
+    """How csrc/pair_layer_mma.cu cuts the (B·N·N, F) pair rows: row tiles
+    of ``groups`` whole (chain, dst atom) groups (groups·N consecutive pair
+    rows of TC_ROWS), ``tiles`` of them a CTA (``mma_tiles``), ``ctas``
+    CTAs of ``smem`` bytes of dynamic shared memory."""
+
+    groups: int
+    tiles: int
+    ctas: int
+    smem: int
+
+
+def mma_tiles(chain_block: int) -> int:
+    """Row tiles a CTA of csrc/pair_layer_mma.cu takes for ``chain_block``:
+    as many, up to the three that fit its shared memory. Four walked in two
+    rounds of two were slower than three at once, so chain_block 4 takes
+    three (PERF.md, section 6)."""
+    return min(chain_block, MMA_MAX_TILES)
+
+
+def mma_smem_bytes(chain_block: int) -> int:
+    return mma_tiles(chain_block) * MMA_TILE_BYTES
+
+
+def mma_tile_plan(b: int, n: int, chain_block: int) -> MmaPlan:
+    groups, tiles = TC_ROWS // n, mma_tiles(chain_block)
+    row_tiles = -(-b * n // groups)
+    return MmaPlan(groups, tiles, -(-row_tiles // tiles), mma_smem_bytes(chain_block))
+
+
+def mma_tile_groups(plan: MmaPlan, cta: int, slot: int, b: int, n: int) -> range:
+    """The flat groups q = b·N + i of row tile ``slot`` of one CTA (empty
+    past the last group)."""
+    q0 = (cta * plan.tiles + slot) * plan.groups
+    return range(min(q0, b * n), min(q0 + plan.groups, b * n))
 
 
 # ---------------------------------------------------------------------------
@@ -359,82 +436,90 @@ def group_smem_bytes(bf16: bool) -> int:
 
 
 def _route(bf16: bool, chain_block: int, variant: Optional[str]) -> str:
-    """The kernel a launch takes: "tc" (csrc/pair_layer_tf32x3.cu) for f32
-    with one chain a CTA, "fma" (csrc/pair_layer.cu) for bf16_agg, chain
-    blocks and ``variant="fma"``. An explicit "tc" the kernel cannot take
-    raises."""
+    """The library a launch takes: the tensor-core kernel of the weights'
+    type where it applies ("pair_layer_tf32x3" for f32 with one tile a CTA,
+    "pair_layer_mma" for bf16_agg with 1..MAX_CHAIN_BLOCK tiles a CTA),
+    else, and for ``variant="fma"``, "pair_layer" (csrc/pair_layer.cu). An
+    explicit "tc" the tensor-core kernels cannot take raises."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"variant must be None or one of {VARIANTS}, got {variant!r}")
-    tc = not bf16 and chain_block == 1
-    if variant == "tc" and not tc:
-        raise ValueError("variant='tc' (the 3xTF32 kernel) takes f32 weights and chain_block 1, "
-                         f"got {'bf16' if bf16 else 'f32'} weights and chain_block {chain_block}")
-    return "tc" if tc and variant != "fma" else "fma"
+    if bf16:
+        tc = "pair_layer_mma" if chain_block <= MAX_CHAIN_BLOCK else None
+    else:
+        tc = "pair_layer_tf32x3" if chain_block == 1 else None
+    if variant == "tc" and tc is None:
+        need = (f"chain_block 1..{MAX_CHAIN_BLOCK} with bf16_agg weights (the mma.sync bf16 kernel)"
+                if bf16 else "chain_block 1 with f32 weights (the 3xTF32 kernel)")
+        raise ValueError(f"variant='tc' takes {need}, got chain_block {chain_block}")
+    return tc if tc is not None and variant != "fma" else "pair_layer"
 
 
-def _launch_tc(x, s, v, e, wts: PairLayerWeights, length_scale: float):
-    """Kernel B1 in f32 on the tensor cores (csrc/pair_layer_tf32x3.cu)."""
-    b, n, f, _ = _check_pair_inputs(x, s, v, e, wts)
+def _packed(wts: PairLayerWeights, x, numel: int, dtype, what: str, how: str) -> torch.Tensor:
+    """The weights' fragment-order packing, checked against what the kernel reads."""
     mats = wts.mma
     if mats is None:
-        raise ValueError("the weights carry no 3xTF32 packing (with_tf32_weights)")
-    if (mats.numel() != 2 * wts.mats.numel() or mats.dtype != torch.float32
-            or mats.device != x.device or not mats.is_contiguous()):
-        raise ValueError(f"the 3xTF32 weights must be {2 * wts.mats.numel()} contiguous f32 "
-                         f"values on {x.device}, got {mats.numel()} {mats.dtype} on {mats.device}")
-    lib = _build.load("pair_layer_tf32x3")
-    fn = lib.pair_layer_tf32x3
-    fn.argtypes = [_P] * 9 + [ctypes.c_int] * 2 + [ctypes.c_float, _P]
+        raise ValueError(f"the weights carry no {what} packing ({how})")
+    if (mats.numel() != numel or mats.dtype != dtype or mats.device != x.device
+            or not mats.is_contiguous()):
+        raise ValueError(f"the {what} weights must be {numel} contiguous {dtype} values on "
+                         f"{x.device}, got {mats.numel()} {mats.dtype} on {mats.device}")
+    return mats
+
+
+def _launch(lib: str, x, s, v, e, wts: PairLayerWeights, length_scale: float, c: int):
+    """One launch of library ``lib``: pair_layer_tf32x3 (B1 f32 on the tensor
+    cores), pair_layer_mma (B1/B2 bf16_agg on the tensor cores, min(C, 3)
+    row tiles a CTA) or pair_layer (f32 FMA, C chains a CTA)."""
+    b, n, f, _ = _check_pair_inputs(x, s, v, e, wts)
+    if lib == "pair_layer_tf32x3":
+        mats = _packed(wts, x, 2 * wts.mats.numel(), torch.float32, "3xTF32", "with_tf32_weights")
+        args = ()
+    elif lib == "pair_layer_mma":
+        mats = _packed(wts, x, wts.mats.numel(), BF16, "fragment-order", "with_mma_weights")
+        args = (mma_tiles(c),)
+    else:
+        smem = c * group_smem_bytes(wts.bf16)
+        if c > MAX_CHAIN_BLOCK or smem > SMEM_LIMIT:
+            raise ValueError(
+                f"chain_block {c} cannot launch: it needs {256 * c} threads and {smem} bytes of "
+                f"shared memory per CTA ({group_smem_bytes(wts.bf16)} a chain); the card allows "
+                f"1024 threads and {SMEM_LIMIT} bytes (chain_block <= {MAX_CHAIN_BLOCK})")
+        mats, args = wts.mats, (c,)
+    handle = _build.load(lib)
+    fn = getattr(handle, lib if lib != "pair_layer" else
+                 "pair_layer_bf16" if wts.bf16 else "pair_layer_f32")
+    fn.argtypes = [_P] * 9 + [ctypes.c_int] * (2 + len(args)) + [ctypes.c_float, _P]
     fn.restype = ctypes.c_int
     dv = torch.empty((b, 3, n, f), device=x.device, dtype=torch.float32)
     ds = torch.empty((b, n, f), device=x.device, dtype=torch.float32)
     e_out = torch.empty_like(e)
     rc = fn(x.data_ptr(), s.data_ptr(), v.data_ptr(), e.data_ptr(), mats.data_ptr(),
-            wts.vecs.data_ptr(), dv.data_ptr(), ds.data_ptr(), e_out.data_ptr(), b, n,
+            wts.vecs.data_ptr(), dv.data_ptr(), ds.data_ptr(), e_out.data_ptr(), b, n, *args,
             pe_scale(length_scale), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "pair_layer_tf32x3 launch")
+    _build.check(handle, rc, f"{lib} launch")
     return dv, ds, e_out
 
 
 def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float, chain_block: int = 1,
                variant: Optional[str] = None):
     """One message layer: (dv, ds, e_out). Launches kernel B1 on a CUDA
-    tensor (B2 with ``chain_block`` > 1 chains per CTA), the plain version
-    on a CPU tensor. B1 in f32 runs the 3xTF32 tensor-core kernel, which
-    needs ``with_tf32_weights``; ``variant="fma"`` takes the f32-FMA kernel
-    instead, and ``variant="tc"`` asks for the tensor-core one (raising
-    where it does not apply)."""
+    tensor (B2 with ``chain_block`` > 1), the plain version on a CPU tensor.
+    By default the tensor-core kernel of the weights' type runs where it
+    applies: 3xTF32 for f32 with ``chain_block`` 1 (``with_tf32_weights``),
+    ``mma.sync`` bf16 for bf16_agg with ``chain_block`` 1..4
+    (``with_mma_weights``; ``mma_tiles``: min(C, 3) 64-row tiles a CTA,
+    every C giving B1's bits); f32 chain blocks take the f32-FMA kernel.
+    ``variant="fma"`` takes the f32-FMA kernel, ``variant="tc"`` asks for
+    the tensor-core one (raising where it does not apply)."""
     c = check_chain_block(chain_block)
-    route = _route(wts.bf16, c, variant)
+    lib = _route(wts.bf16, c, variant)
     if x.device.type == "cpu":
         return pair_layer_plain(x, s, v, e, wts, length_scale)
     if x.device.type != "cuda":
         raise ValueError(f"pair_layer runs on cuda or cpu, not {x.device}")
-    if route == "tc":
-        out = _launch_tc(x, s, v, e, wts, length_scale)
-        _build.count_launch("pair_layer", "pair_layer_tf32x3")
-        return out
-    b, n, f, wd = _check_pair_inputs(x, s, v, e, wts)
-    smem = c * group_smem_bytes(wts.bf16)
-    if c > MAX_CHAIN_BLOCK or smem > SMEM_LIMIT:
-        raise ValueError(
-            f"chain_block {c} cannot launch: it needs {256 * c} threads and {smem} bytes of "
-            f"shared memory per CTA ({group_smem_bytes(wts.bf16)} a chain); the card allows "
-            f"1024 threads and {SMEM_LIMIT} bytes (chain_block <= {MAX_CHAIN_BLOCK})")
-    lib = _build.load("pair_layer")
-    fn = lib.pair_layer_bf16 if wts.bf16 else lib.pair_layer_f32
-    fn.argtypes = [_P] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, _P]
-    fn.restype = ctypes.c_int
-    dv = torch.empty((b, 3, n, f), device=x.device, dtype=torch.float32)
-    ds = torch.empty((b, n, f), device=x.device, dtype=torch.float32)
-    e_out = torch.empty_like(e)
-    rc = fn(x.data_ptr(), s.data_ptr(), v.data_ptr(), e.data_ptr(),
-            wts.mats.data_ptr(), wts.vecs.data_ptr(),
-            dv.data_ptr(), ds.data_ptr(), e_out.data_ptr(), b, n, c,
-            pe_scale(length_scale), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, rc, "pair_layer launch")
-    _build.count_launch("pair_layer" if c == 1 else "pair_layer_cb", "pair_layer")
-    return dv, ds, e_out
+    out = _launch(lib, x, s, v, e, wts, length_scale, c)
+    _build.count_launch("pair_layer" if c == 1 else "pair_layer_cb", lib)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -444,8 +529,8 @@ def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float, chain_blo
 class PairModel(NamedTuple):
     """What the pair-kernel forwards need, resolved once when a drift or
     divergence function is built: the state dict on the device, the packed
-    message layers (f32 ones with their 3xTF32 packing) and the flat edge
-    types."""
+    message layers (f32 ones with their 3xTF32 packing, bf16_agg ones with
+    their fragment-order bf16 packing) and the flat edge types."""
 
     model: object
     p: dict
@@ -470,7 +555,7 @@ def prepare(model, params, template, compute_dtype, device) -> PairModel:
     p = {k: t.detach().to(device) for k, t in state_of(model, params).items()}
     f = model.n_features
     wd = BF16 if bf16 else torch.float32
-    layers = [with_tf32_weights(pack_layer(p, i, f, wd, device))
+    layers = [with_mma_weights(with_tf32_weights(pack_layer(p, i, f, wd, device)))
               for i in range(model.score_layers)]
     n = template.n_atoms
     etype = torch.as_tensor(dense_edge_type_matrix(template.edges).reshape(n * n),
@@ -542,7 +627,8 @@ def apply_dense_pair_kernel(pm: PairModel, x, t, temps, *, kernel: bool = True,
 def pair_kernel_drift(model, params, template, *, compute_dtype=None,
                       device=None, kernel: bool = True, chain_block: int = 1):
     """Batched drift ``(xs (B,N,3), t, temps (B,K)) -> (B,N,3)`` through
-    kernel B1, or B2 with ``chain_block`` > 1 chains per CTA — the
+    kernel B1, or B2 with ``chain_block`` > 1 (min(C, 3) 64-row tiles a
+    CTA in bf16_agg, C chains a CTA in f32) — the
     velocity-only trajectory segments of the Gauss quadrature-dlogp path
     and the SDE drift. Packs the weights once, here. Runs on ``cuda``
     unless ``device`` says otherwise; ``kernel=False`` builds the same

@@ -2,7 +2,8 @@
 hand-written CUDA, with its plain PyTorch version beside it. In the
 bf16_agg profile the kernel runs on the tensor cores
 (csrc/pair_tangent_mma.cu, ``mma.sync``), with the layer's matrices packed
-once in fragment order (``pack_mma_weights``); in f32 it is
+once in fragment order (``pair_layer_kernel.pack_mma_weights``, which
+``prepare`` applies to every bf16_agg layer); in f32 it is
 csrc/pair_tangent.cu (f32 FMA), which also keeps the earlier bf16 kernel,
 reachable as ``variant="fma"`` to be timed beside the new one.
 
@@ -68,37 +69,6 @@ def smem_bytes(bf16: bool, lane_block: int, variant: str = "mma") -> int:
     t = 2 if bf16 else 4
     return (t * (9 + 3 * L) * _R * f
             + 4 * (_NW * 3 * f + _NGEO * _R + 4 * L * _R + 7 * f + 7 * f * L))
-
-
-def _pack_mma_matrix(w: torch.Tensor) -> torch.Tensor:
-    """One (in, out) matrix in the order the tensor-core kernel reads it:
-    per 16-row k-tile kt and pair np of 8-column n-tiles, per thread
-    lane = 4g + t of a warp, the eight values
-    w[16kt + 8h + 2t + e, 16np + 8q + g] for q, h, e in {0, 1} — the B
-    fragments (b0, b1) of ``mma.m16n8k16`` for n-tiles 2np and 2np + 1."""
-    k, n = w.shape
-    if k % 16 or n % 16:
-        raise ValueError(f"the fragment order needs multiples of 16, got a {k} x {n} matrix")
-    v = w.reshape(k // 16, 2, 4, 2, n // 16, 2, 8)      # kt, h, t, e, np, q, g
-    return v.permute(0, 4, 6, 2, 5, 1, 3).reshape(-1)   # kt, np, g, t, q, h, e
-
-
-def pack_mma_weights(wts: PairLayerWeights) -> torch.Tensor:
-    """``wts.mats`` in fragment order: the six matrices at their offsets of
-    the row-major buffer, each permuted by ``_pack_mma_matrix``. A pure
-    function of the tensors; done once per layer, not per launch."""
-    if not wts.bf16:
-        raise ValueError("the tensor-core kernel takes bf16 weights (compute_dtype='bf16_agg')")
-    mats = (wts.phi.w1, wts.phi.w2, wts.phi.w3, wts.w.w1, wts.w.w2, wts.w.w3)
-    return torch.cat([_pack_mma_matrix(m) for m in mats]).contiguous()
-
-
-def with_mma_weights(wts: PairLayerWeights) -> PairLayerWeights:
-    """``wts`` carrying its fragment-order packing (bf16 weights only; f32
-    weights come back as they are)."""
-    if not wts.bf16 or wts.mma is not None:
-        return wts
-    return wts._replace(mma=pack_mma_weights(wts))
 
 
 def _pick_lane_block(k_lanes: int, bf16: bool) -> int:
@@ -355,8 +325,7 @@ def pair_tangent_div_fn(model, params, template, *, num_probes: int = 16,
     from ti_torch import resolve_device
 
     dev = resolve_device(device)
-    pm = prepare(model, params, template, compute_dtype, dev)
-    pm = pm._replace(layers=[with_mma_weights(w) for w in pm.layers])
+    pm = prepare(model, params, template, compute_dtype, dev)  # packs bf16_agg layers for B3 too
     n = template.n_atoms
     d = 3 * n
 
