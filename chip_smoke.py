@@ -7,10 +7,11 @@ their entry points, checking what comes out and showing, with the launch
 counts set to 0 just before each path and read just after, that the path
 went through its kernels:
 
-- MDQM9 ambient transport with dlogp under ``fast_profile`` at 128 chains
-  (``sample_ambient``: kernels B1 in f32, B3), and the same with the
-  bf16_agg trajectory (``traj_forward_impl="pair_kernel_bf16"``: B1 in
-  bf16_agg, B3);
+- MDQM9 ambient transport with dlogp at 128 chains (``sample_ambient``):
+  with the exact divergence in f32 (``div_forward_impl="pair_tangent"``:
+  kernels B1 and B3 in f32), under ``fast_profile`` (B1 in f32, B3 in
+  bf16_agg), and with the bf16_agg trajectory
+  (``traj_forward_impl="pair_kernel_bf16"``: B1 and B3 in bf16_agg);
 - the SDE at 8192 chains (``sample_molecular_sde``, pair-kernel drift,
   bf16_agg, ``chain_block=4``: kernel B2);
 - the fused-MLP path: ``fused_velocity_fn`` at 128 chains (B4, B6) and the
@@ -22,19 +23,26 @@ went through its kernels:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
-  1. the card, TF32 off, the kernel build (seconds, ``-Xptxas -v``);
+  1. the card, TF32 off, the kernel build (seconds, ``-Xptxas -v``; the
+     tensor-core kernels must build without register spills);
   2. kernel B1 (pair layer) against its plain version, each type on the
      tensor cores (``variant="tc"``: 3xTF32 for f32, ``mma.sync`` bf16 for
      bf16_agg) at 128 chains and at ragged shapes (130 chains at 19 and 29
      atoms), timed in turns beside the f32-FMA kernel (``variant="fma"``),
      with bounds and the tensor-core kernels' registers and spills;
   3. kernel B3 (pair tangent): bf16_agg K = 16 on the tensor cores
-     (``variant="mma"``) against its plain version and timed beside the
-     earlier f32-FMA kernel (``variant="fma"``); a ragged shape (130 chains,
-     K = 8, L = 2); K = 57 f32;
-  4. the exact slice (full orthogonal frame) against the same sampler
-     built from the plain versions: samples rtol 1e-4 / atol 1e-5,
-     dlogp rtol 1e-3 (atol 1e-3 x max |dlogp| for chains near 0);
+     (``mma.sync`` bf16) against its plain version, timed, and a ragged
+     shape (130 chains, K = 8, L = 2); f32 K = 57 at 128 chains on the
+     tensor cores (3xTF32, ``pair_tangent_tf32x3``) against its plain version,
+     two launches to the bit, timed in turns beside the f32-FMA kernel
+     (``variant="fma"``) with both bounds and its registers, and ragged
+     shapes (130 chains; K = 16 and 5, partial last tiles; N = 29 and 32,
+     2 lanes a tile);
+  4. the exact slice (full orthogonal frame, B3 in f32) against the same
+     sampler built from the plain versions: samples rtol 1e-4 / atol 1e-5,
+     dlogp rtol 1e-3 (atol 1e-3 x max |dlogp| for chains near 0); its launch
+     counts (every B1 launch from pair_layer_tf32x3, every B3 launch from
+     pair_tangent_tf32x3), seconds and samples/s;
   5. the slice as users run it (``fast_profile``), artifacts written to a
      temporary directory, launch counts (counted per library: every B1
      launch from pair_layer_tf32x3, every B3 launch from pair_tangent_mma)
@@ -67,7 +75,8 @@ Phases (any failure exits non-zero and prints no result):
  10. kernel B7 against its plain version at 130 chains, L = 4 and 6 (bar
      1e-4); ``divergence_kernel_batch`` at 128 chains, t = 0.5, launching
      B7 once, against ``divergence_exact(chunk=19)`` over the dense forward
-     and B3's full orthogonal frame (rtol 3e-4); the times of B7, its plain
+     and B3's full orthogonal frame in f32 (5 launches, all from
+     pair_tangent_tf32x3) (rtol 3e-4); the times of B7, its plain
      version, the whole call and both yardsticks, and ``dense_divergence``
      chain by chain;
  11. the ``kernels`` line, the card line and the result line.
@@ -103,6 +112,8 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
                             "ti_tpu/ops/pair_layer_kernel.py:83"),
     "pair_layer_cb": ("ti_torch/csrc/pair_layer_mma.cu", "ti_tpu/ops/pair_layer_kernel.py:190"),
     "pair_tangent": ("ti_torch/csrc/pair_tangent_mma.cu", "ti_tpu/ops/pair_tangent_kernel.py:76"),
+    "pair_tangent_f32": ("ti_torch/csrc/pair_tangent_tf32x3.cu",
+                         "ti_tpu/ops/pair_tangent_kernel.py:76"),
     "fused_edge_mlp": ("ti_torch/csrc/fused_edge_mlp.cu", "ti_tpu/ops/pallas_kernels.py:180"),
     "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp.cu",
                            "ti_tpu/ops/pallas_kernels.py:232"),
@@ -592,13 +603,24 @@ def phase_div(model, template, card: str, rows_kernels) -> dict:
     div_fn = pair_tangent_div_fn(model, None, template, num_probes=3 * N_ATOMS,
                                  probe_mode="orthogonal", device="cuda")
     frame_fn = lambda: div_fn(xs, 0.5, temps, torch.Generator(device="cuda").manual_seed(0))
+    _build.reset_launches()
     frame = frame_fn()
+    torch.cuda.synchronize()
+    frame_routes = {k: n for k, n in _build.ROUTE_LAUNCHES.items() if n}
+    require(frame_routes == {("pair_tangent", "pair_tangent_tf32x3"): LAYERS},
+            f"the K=57 frame node launches B3 from pair_tangent_tf32x3.cu once a layer: "
+            f"{frame_routes}")
     for name, ref in (("divergence_exact(chunk=19)", exact), ("B3 orthogonal K=57", frame)):
         err = ((divs - ref).abs() / ref.abs()).max().item()
         log(f"[B7 entry B={CHAINS} L={lanes}] against {name}: max rel err {err:.3e} (bar 3e-4); "
             f"max |div| {ref.abs().max().item():.4f}")
         require(bool(torch.allclose(divs, ref, rtol=3e-4, atol=0)),
                 f"divergence_kernel_batch agrees with {name} (rtol 3e-4)")
+    err = ((frame - exact).abs() / exact.abs()).max().item()
+    log(f"[B3 frame node B={CHAINS} K=57 f32] against divergence_exact(chunk=19): max rel err "
+        f"{err:.3e} (bar 3e-4)")
+    require(bool(torch.allclose(frame, exact, rtol=3e-4, atol=0)),
+            "B3's K=57 f32 frame agrees with divergence_exact(chunk=19) (rtol 3e-4)")
 
     # times, CUDA events after warm-up
     with torch.no_grad():
@@ -626,7 +648,8 @@ def phase_div(model, template, card: str, rows_kernels) -> dict:
         f"+ L·(7·SL + 8·(SL-1))) + 12·L·N·SL), {2e-9 * own / ms:.3f} TFLOP/s")
     log(f"[exact node B={CHAINS}] divergence_kernel_batch {whole:.3f} ms (primal states, B7, "
         f"readout); divergence_exact(chunk=19) over dense_velocity_fn {t_exact:.3f} ms; "
-        f"pair_tangent_div_fn K=57 f32 (5 B3 launches + glue) {t_frame:.3f} ms; "
+        f"pair_tangent_div_fn K=57 f32 (5 B3 launches from pair_tangent_tf32x3 + glue) "
+        f"{t_frame:.3f} ms; "
         f"dense_divergence {t_one:.3f} ms per chain, {t_all:.3f} ms for the {CHAINS} chains "
         f"one by one ({card})")
     rows_kernels["div_kernel"] = dict(err=errs[4], ms=ms, plain=plain, bound=bnd, by=by)
@@ -665,7 +688,7 @@ def main() -> int:
         for line in r["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
-    for name in ("pair_tangent_mma", "pair_layer_tf32x3", "pair_layer_mma"):
+    for name in ("pair_tangent_mma", "pair_tangent_tf32x3", "pair_layer_tf32x3", "pair_layer_mma"):
         spills = [ln.strip() for ln in report[name]["ptxas"].splitlines() if "spill" in ln]
         require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
                                      for ln in spills), f"{name} builds without register spills: {spills}")
@@ -771,38 +794,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3. B3 against its plain version ----
-    # bf16_agg, the main path's divergence profile: the tensor-core kernel and,
-    # timed beside it in turns, the earlier f32-FMA kernel
+    # bf16_agg, the main path's divergence profile: the tensor-core kernel
     k, lane_block, reps = 16, 4, 5
     w, base, lanes = layer_inputs(params, torch.bfloat16, k, seed=2)
     ref = pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, lane_block)
-    errs = {}
-    for variant in ("mma", "fma"):
-        out = pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block, variant=variant)
-        torch.cuda.synchronize()
-        errs[variant] = compare(out, ref, torch.bfloat16,
-                                f"B3 pair_tangent bf16 K={k} L={lane_block} variant={variant}")
-    require(_build.ROUTES["pair_tangent"] == "pair_tangent", "variant='fma' launches pair_tangent.cu")
-    compare(pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block), out, torch.bfloat16,
-            "B3 variant=mma against variant=fma")
+    out = pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block)
+    torch.cuda.synchronize()
     require(_build.ROUTES["pair_tangent"] == "pair_tangent_mma",
-            "the default variant launches pair_tangent_mma.cu")
-    ms = {v: [] for v in ("mma", "fma")}
-    fmt = lambda ts: " and ".join(f"{t:.3f}" for t in ts)
-    for variant in ("mma", "fma", "fma", "mma"):
-        ms[variant].append(cuda_ms(lambda: pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block,
-                                                        variant=variant), reps, warm=1))
+            "bf16_agg launches pair_tangent_mma.cu")
+    err16 = compare(out, ref, torch.bfloat16, f"B3 pair_tangent bf16 K={k} L={lane_block}")
+    ms = [cuda_ms(lambda: pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block), reps, warm=1)
+          for _ in range(2)]
     plain = cuda_ms(lambda: pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, lane_block), reps,
                     warm=1)
-    b3_ms, fma_ms = min(ms["mma"]), min(ms["fma"])
+    b3_ms = min(ms)
+    fmt = lambda ts: " and ".join(f"{t:.3f}" for t in ts)
     bnd, by = bound_ms(2.0 * mac_row * rows * (1 + k), H100_BF16,
                        nbytes(*base, *lanes, w.mats, w.vecs, *out))
-    log(f"[B3 bf16 K={k} L={lane_block} B={CHAINS}] ms per launch, {reps} launches a reading, in "
-        f"turns: variant=mma (mma.sync, tensor cores) {fmt(ms['mma'])}, variant=fma (f32 FMA) "
-        f"{fmt(ms['fma'])}; mma {fma_ms / b3_ms:.2f}x faster; plain {plain:.3f} ms; bound {bnd:.4f} ms "
-        f"({by}), mma at {b3_ms / bnd:.1f}x the bound ({card})")
-    require(b3_ms < fma_ms, "the tensor-core kernel is faster than the f32-FMA kernel")
-    rows_kernels["pair_tangent"] = dict(err=errs["mma"], ms=b3_ms, plain=plain, bound=bnd, by=by)
+    log(f"[B3 bf16 K={k} L={lane_block} B={CHAINS}] mma.sync bf16 (tensor cores) {fmt(ms)} ms per "
+        f"launch ({reps} launches a reading); plain {plain:.3f} ms; bound {bnd:.4f} ms ({by}), "
+        f"at {b3_ms / bnd:.1f}x the bound ({card})")
+    rows_kernels["pair_tangent"] = dict(err=err16, ms=b3_ms, plain=plain, bound=bnd, by=by)
     del w, base, lanes, out, ref
     torch.cuda.empty_cache()
     # a ragged shape: 130 chains (a multiple of nothing), K = 8 in lane blocks of 2
@@ -810,23 +822,61 @@ def main() -> int:
     out = pair_tangent(*base, *lanes, w, LENGTH_SCALE, 2)
     torch.cuda.synchronize()
     compare(out, pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, 2), torch.bfloat16,
-            "B3 pair_tangent bf16 K=8 L=2 B=130 variant=mma")
+            "B3 pair_tangent bf16 K=8 L=2 B=130")
     del w, base, lanes, out
     torch.cuda.empty_cache()
-    # f32, the exact slice's frame: the f32-FMA kernel
-    k, lane_block, reps = 3 * N_ATOMS, 1, 2
-    w, base, lanes = layer_inputs(params, torch.float32, k, seed=2)
-    out = pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block)
+    # f32, the exact slice's frame (K = 3N): the 3xTF32 tensor-core kernel and,
+    # timed beside it in turns, the f32-FMA kernel; the plain version takes one
+    # lane a block to bound its memory
+    k, reps = 3 * N_ATOMS, 2
+    w, base, lanes = layer_inputs(params, f32, k, seed=2)
+    ref = pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, 1)
+    out = pair_tangent(*base, *lanes, w, LENGTH_SCALE)
     torch.cuda.synchronize()
-    compare(out, pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, lane_block), torch.float32,
-            f"B3 pair_tangent f32 K={k} L={lane_block}")
-    ms32 = cuda_ms(lambda: pair_tangent(*base, *lanes, w, LENGTH_SCALE, lane_block), reps, warm=1)
-    plain = cuda_ms(lambda: pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, lane_block), reps,
-                    warm=1)
-    bnd, by = bound_ms(2.0 * mac_row * rows * (1 + k), H100_FP32,
-                       nbytes(*base, *lanes, w.mats, w.vecs, *out))
-    log(f"[B3 f32 K={k} L={lane_block}] kernel {ms32:.3f} ms, plain {plain:.3f} ms, "
-        f"bound {bnd:.4f} ms ({by})")
+    require(_build.ROUTES["pair_tangent"] == "pair_tangent_tf32x3",
+            "f32 launches pair_tangent_tf32x3.cu by default")
+    err32 = compare(out, ref, f32, f"B3 pair_tangent f32 K={k} B={CHAINS} (3xTF32)")
+    old = pair_tangent(*base, *lanes, w, LENGTH_SCALE, 1, variant="fma")
+    torch.cuda.synchronize()
+    require(_build.ROUTES["pair_tangent"] == "pair_tangent", "variant='fma' launches pair_tangent.cu")
+    compare(old, ref, f32, f"B3 pair_tangent f32 K={k} B={CHAINS} variant=fma")
+    compare(out, old, f32, "B3 f32 3xTF32 against variant=fma")
+    again = pair_tangent(*base, *lanes, w, LENGTH_SCALE)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, q) for a, q in zip(again, out)),
+            "B3 f32: two launches on the same inputs agree to the bit")
+    del old, again, ref
+    ms = {v: [] for v in ("mma", "fma")}
+    for variant in ("mma", "fma", "fma", "mma"):
+        ms[variant].append(cuda_ms(lambda: pair_tangent(*base, *lanes, w, LENGTH_SCALE, 1,
+                                                        variant=variant), reps, warm=1))
+    plain = cuda_ms(lambda: pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, 1), reps, warm=1)
+    t32_ms, fma32 = min(ms["mma"]), min(ms["fma"])
+    moved = nbytes(*base, *lanes, w.mats, w.vecs, *out)
+    flops = 2.0 * mac_row * rows * (1 + k)
+    bnd_fma, by_fma = bound_ms(flops, H100_FP32, moved)
+    bnd_tc, by_tc = bound_ms(3 * flops, H100_TF32, moved)
+    log(f"[B3 f32 K={k} B={CHAINS}] ms per launch, {reps} launches a reading, in turns: 3xTF32 "
+        f"(tensor cores, pair_tangent_tf32x3) {fmt(ms['mma'])}, variant=fma (f32 FMA) "
+        f"{fmt(ms['fma'])}; 3xTF32 {fma32 / t32_ms:.2f}x faster; plain {plain:.3f} ms; bound "
+        f"{bnd_tc:.4f} ms ({by_tc}, 3 x {flops:.4e} FLOP at 495 TFLOP/s TF32), f32 FMA bound "
+        f"{bnd_fma:.4f} ms ({by_fma}, 67 TFLOP/s); 3xTF32 at {t32_ms / bnd_tc:.2f}x its bound, fma "
+        f"at {fma32 / bnd_fma:.2f}x its bound; {moved / 1e9:.3f} GB moved ({card})")
+    for fn, regs, spill in ptxas_kernels(report["pair_tangent_tf32x3"]["ptxas"]):
+        log(f"[B3 f32 build] {fn}: {regs}; {spill}")
+    require(t32_ms < fma32, "B3 f32 on the tensor cores is faster than the f32-FMA kernel")
+    rows_kernels["pair_tangent_f32"] = dict(err=err32, ms=t32_ms, plain=plain, bound=bnd_tc,
+                                            by=by_tc)
+    del w, base, lanes, out
+    torch.cuda.empty_cache()
+    # ragged shapes: 130 chains; K = 16 and 5 leave the last tile of 3 lanes
+    # part full; 29 and 32 atoms take 2 lanes a tile
+    for n, k in ((N_ATOMS, 16), (N_ATOMS, 5), (29, 5), (32, 16)):
+        w, base, lanes = layer_inputs(params, f32, k, seed=8, b=130, n=n)
+        out = pair_tangent(*base, *lanes, w, LENGTH_SCALE)
+        torch.cuda.synchronize()
+        compare(out, pair_tangent_plain(*base, *lanes, w, LENGTH_SCALE, 1), f32,
+                f"B3 pair_tangent f32 B=130 N={n} K={k} (3xTF32)")
     del w, base, lanes, out
     torch.cuda.empty_cache()
 
@@ -840,10 +890,27 @@ def main() -> int:
                              div_forward_impl="pair_tangent")
     require((cfg_exact.n_features, cfg_exact.traj_forward_impl) == (F, "pair_kernel"),
             "fast_profile at 00031")
+    sample_ambient(cfg_exact, model, None, template, x0[:CHAINS], save=False, batch_size=CHAINS,
+                   device="cuda")  # warm-up, not counted
+    torch.cuda.synchronize()
+    _build.reset_launches()
     t0 = time.perf_counter()
     exact = sample_ambient(cfg_exact, model, None, template, x0[:CHAINS], save=False,
                            batch_size=CHAINS, device="cuda")
+    torch.cuda.synchronize()
     t_exact = time.perf_counter() - t0
+    exact_launches = dict(_build.LAUNCHES)
+    exact_routes = {k: n for k, n in _build.ROUTE_LAUNCHES.items() if n}
+    # GL-8: 9 trajectory gaps of one RK4 step, 8 divergence nodes; one launch a layer
+    n_b1 = (1 + cfg_exact.dlogp_quad_points) * {"rk4": 4}[cfg_exact.solver_type] * LAYERS
+    n_b3 = cfg_exact.dlogp_quad_points * LAYERS
+    log(f"[slice exact] {CHAINS} chains in {t_exact:.3f} s, {CHAINS / t_exact:.3f} samples/s "
+        f"(host clock, {card}); launches by library "
+        f"{ {f'{k}:{lib}': n for (k, lib), n in exact_routes.items()} }")
+    require(exact_routes == {("pair_layer", "pair_layer_tf32x3"): n_b1,
+                             ("pair_tangent", "pair_tangent_tf32x3"): n_b3},
+            f"every B1 launch of the exact slice comes from pair_layer_tf32x3.cu and every B3 "
+            f"launch from pair_tangent_tf32x3.cu: {exact_routes}")
     plain_sampler = make_ode_sampler(
         molecular_v_fn_of(model, None, template, device="cuda"),
         solver=cfg_exact.solver_type, n_steps=cfg_exact.n_steps, n_save=2,
@@ -1006,6 +1073,7 @@ def main() -> int:
     path_launches = {"pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_tangent": launches["pair_tangent"],
+                     "pair_tangent_f32": exact_launches["pair_tangent"],
                      "pair_layer_cb": sde_launches["pair_layer_cb"],
                      "fused_edge_mlp": smp_launches["fused_edge_mlp"],
                      "fused_edge_mlp_jvp": smp_launches["fused_edge_mlp_jvp"],

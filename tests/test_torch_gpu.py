@@ -294,26 +294,27 @@ def test_pair_layer_mma_variants_refusals_and_counts():
             assert lib.pair_layer_mma_ctas(b, n, mma_tiles(c)) == mma_tile_plan(b, n, c).ctas
 
 
-_BF16_CASES = [(torch.bfloat16, k, lane_block, b, variant)
-               for (k, lane_block) in ((8, 4), (16, 4), (6, 2), (3, 1))
-               for b in (B, 130) for variant in ("mma", "fma")]
+_BF16_CASES = [(torch.bfloat16, k, lane_block, b, "mma")
+               for (k, lane_block) in ((8, 4), (16, 4), (6, 2), (3, 1)) for b in (B, 130)]
+_LIBS = {(torch.bfloat16, "mma"): "pair_tangent_mma", (torch.float32, "mma"): "pair_tangent_tf32x3",
+         (torch.float32, "fma"): "pair_tangent"}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,k,lane_block,b,variant",
-                         [(torch.float32, 3, 1, B, "mma")] + _BF16_CASES)
+                         [(torch.float32, 3, 1, B, "mma"), (torch.float32, 3, 1, B, "fma")]
+                         + _BF16_CASES)
 def test_pair_tangent_kernel_matches_plain(dtype, k, lane_block, b, variant):
-    """B3 against its plain version: in bf16_agg the tensor-core kernel
-    (``"mma"``) and the earlier f32-FMA one (``"fma"``), at batches that are
-    and are not multiples of anything; f32 has the one kernel."""
+    """B3 against its plain version: bf16_agg on the tensor cores at batches
+    that are and are not multiples of anything; f32 on the tensor cores
+    (3xTF32, ``"mma"``) and the f32-FMA kernel (``"fma"``)."""
     _card()
     w, base, lanes = _layer(dtype, k, b)
     before = _build.LAUNCHES["pair_tangent"]
     out = pair_tangent(*base, *lanes, w, 10.0, lane_block, variant=variant)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["pair_tangent"] == before + 1
-    mma = dtype == torch.bfloat16 and variant == "mma"
-    assert _build.ROUTES["pair_tangent"] == ("pair_tangent_mma" if mma else "pair_tangent")
+    assert _build.ROUTES["pair_tangent"] == _LIBS[dtype, variant]
     _assert_close(out, pair_tangent_plain(*base, *lanes, w, 10.0, lane_block), dtype)
 
 
@@ -330,29 +331,88 @@ def test_pair_tangent_mma_other_atom_counts(n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,k,b", [(19, 57, 3), (19, 16, 130), (29, 5, 7), (32, 1, 2), (5, 7, 2),
+                                   (2, 40, 3)])
+def test_pair_tangent_tf32x3_matches_plain(n, k, b):
+    """B3 in f32 on the tensor cores against its plain version: the exact
+    frame (K = 3N, 19 full tiles of 3 lanes), partial last tiles (K = 16, 5),
+    2 lanes a tile (29 and 32 atoms), one lane, and 12 and 32 lanes a tile
+    (5 and 2 atoms)."""
+    _card()
+    w, base, lanes = _layer(torch.float32, k, b, N=n)
+    out = pair_tangent(*base, *lanes, w, 10.0)
+    torch.cuda.synchronize()
+    assert _build.ROUTES["pair_tangent"] == "pair_tangent_tf32x3"
+    _assert_close(out, pair_tangent_plain(*base, *lanes, w, 10.0, 1), torch.float32)
+
+
+@pytest.mark.gpu
+def test_pair_tangent_tf32x3_is_deterministic():
+    """No atomics: two launches on the same inputs agree to the bit."""
+    _card()
+    w, base, lanes = _layer(torch.float32, 16, 5)
+    one = pair_tangent(*base, *lanes, w, 10.0)
+    two = pair_tangent(*base, *lanes, w, 10.0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, q) for a, q in zip(one, two))
+
+
+@pytest.mark.gpu
 def test_pair_tangent_smem_count_is_the_kernels_own():
-    """``smem_bytes`` of the wrapper against the count the CUDA source exports."""
+    """``smem_bytes`` and ``tf32_smem_bytes`` of the wrapper, and the lanes a
+    tile of ``lane_tile_plan``, against what the CUDA sources export."""
     import ctypes
 
-    from ti_torch.ops.pair_tangent_kernel import smem_bytes
+    from ti_torch.ops.pair_tangent_kernel import lane_tile_plan, smem_bytes, tf32_smem_bytes
 
     _card()
     lib = _build.load("pair_tangent_mma")
     lib.pair_tangent_mma_smem_bytes.restype = ctypes.c_ulonglong
     for lane_block in (1, 2, 4):
-        assert lib.pair_tangent_mma_smem_bytes(lane_block) == smem_bytes(True, lane_block, "mma")
+        assert lib.pair_tangent_mma_smem_bytes(lane_block) == smem_bytes(True, lane_block)
+    lib = _build.load("pair_tangent_tf32x3")
+    lib.pair_tangent_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+    assert lib.pair_tangent_tf32x3_smem_bytes() == tf32_smem_bytes()
+    for n in (2, 5, 19, 29, 32):
+        assert lib.pair_tangent_tf32x3_lanes(n) == lane_tile_plan(n, 57).lanes
 
 
 @pytest.mark.gpu
 def test_pair_tangent_variants_agree():
-    """The tensor-core kernel against the f32-FMA kernel on the same inputs:
-    the same rounding sites, another order of summation (bar 2e-2)."""
+    """B3 in f32: the 3xTF32 tensor-core kernel against the f32-FMA kernel on
+    the same inputs (another order of summation; bar 2e-5)."""
     _card()
-    w, base, lanes = _layer(torch.bfloat16, 16, 13)
-    new = pair_tangent(*base, *lanes, w, 10.0, 4, variant="mma")
-    old = pair_tangent(*base, *lanes, w, 10.0, 4, variant="fma")
+    w, base, lanes = _layer(torch.float32, 16, 13)
+    new = pair_tangent(*base, *lanes, w, 10.0, variant="mma")
+    old = pair_tangent(*base, *lanes, w, 10.0, 1, variant="fma")
     torch.cuda.synchronize()
-    _assert_close(new, old, torch.bfloat16)
+    _assert_close(new, old, torch.float32)
+
+
+@pytest.mark.gpu
+def test_pair_tangent_div_fn_f32_frame_matches_plain():
+    """``pair_tangent_div_fn`` in f32 with the full orthogonal frame (K = 3N)
+    through B3 on the tensor cores against its ``kernel=False`` twin on the
+    same probes (bar 2e-5 of max |plain|)."""
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+    from ti_torch.ops.pair_tangent_kernel import pair_tangent_div_fn
+
+    _card()
+    torch.manual_seed(0)
+    model = CPaiNN(F, 2, n_atoms=N)
+    template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=2)
+    xs = 0.1 * _rows(4, N, 3, seed=7)
+    temps = torch.tensor([[1000.0, 300.0]], device="cuda").expand(4, 2)
+    divs = []
+    for kernel in (True, False):
+        div_fn = pair_tangent_div_fn(model, None, template, num_probes=3 * N,
+                                     probe_mode="orthogonal", device="cuda", kernel=kernel)
+        _build.reset_launches()
+        divs.append(div_fn(xs, 0.5, temps, torch.Generator(device="cuda").manual_seed(0)))
+        torch.cuda.synchronize()
+        assert dict(_build.ROUTE_LAUNCHES) == ({("pair_tangent", "pair_tangent_tf32x3"): 2}
+                                               if kernel else {})
+    _assert_close([divs[0]], [divs[1]], torch.float32)
 
 
 @pytest.mark.gpu
@@ -366,12 +426,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="must be"):
         pair_layer(x, s.to(torch.bfloat16), v, e, w, 10.0)
     with pytest.raises(ValueError, match="lane_block"):
-        pair_tangent(x, s, v, e, *lanes, w, 10.0, 3)
+        pair_tangent(x, s, v, e, *lanes, w, 10.0, 3, variant="fma")
     with pytest.raises(ValueError, match="shared memory"):
-        pair_tangent(x, s, v, e, *lanes, w, 10.0, 2)
+        pair_tangent(x, s, v, e, *lanes, w, 10.0, 2, variant="fma")
+    with pytest.raises(ValueError, match="with_tf32_weights"):
+        pair_tangent(x, s, v, e, *lanes, w._replace(mma=None), 10.0)
     wb, (xb, sb, vb, eb), lb = _layer(torch.bfloat16, 8)
     with pytest.raises(ValueError, match="1, 2 or 4"):
         pair_tangent(xb, sb, vb, eb, *lb, wb, 10.0, 8)
+    with pytest.raises(ValueError, match="takes f32 weights"):
+        pair_tangent(xb, sb, vb, eb, *lb, wb, 10.0, variant="fma")
     with pytest.raises(ValueError, match="must divide"):
         pair_tangent(xb, sb, vb, eb, *lb, wb, 10.0, 3)
     with pytest.raises(ValueError, match="with_mma_weights"):

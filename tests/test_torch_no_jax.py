@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: ``ti_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor ``ti_tpu``."""
+"""The PyTorch port stands alone: ``ti_torch``, its measurement scripts in
+``tools/`` and ``chip_smoke.py`` import neither ``jax`` nor ``ti_tpu``."""
 
 import ast
 import pkgutil
@@ -14,6 +14,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def _port_sources():
     yield from sorted((ROOT / "ti_torch").rglob("*.py"))
+    yield from sorted((ROOT / "tools").rglob("*.py"))
     yield ROOT / "chip_smoke.py"
 
 

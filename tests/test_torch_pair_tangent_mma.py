@@ -19,7 +19,6 @@ from ti_torch.ops.pair_layer_kernel import (
     with_mma_weights,
 )
 from ti_torch.ops.pair_tangent_kernel import (
-    VARIANTS,
     _check_lane_block,
     _pick_lane_block,
     pair_tangent,
@@ -164,20 +163,18 @@ def test_every_lane_block_fits_shared_memory():
     blocks = {_pick_lane_block(k, bf16=True) for k in range(1, 65)}
     assert blocks == {1, 2, 4}
     for L in blocks:
-        for variant in VARIANTS:
-            assert smem_bytes(True, L, variant) <= SMEM_LIMIT
-            _check_lane_block(True, 4 * L, L, variant)
-    assert smem_bytes(True, 4) == smem_bytes(True, 4, "mma") == 222_976
-    assert smem_bytes(True, 4, "fma") == 205_568
-    assert smem_bytes(False, 1, "mma") == smem_bytes(False, 1, "fma")
+        assert smem_bytes(True, L) <= SMEM_LIMIT
+        _check_lane_block(True, 4 * L, L)
+    assert smem_bytes(True, 4) == 222_976
+    # the f32-FMA kernel (variant "fma") fits one lane a block, not two
+    assert smem_bytes(False, 1) <= SMEM_LIMIT < smem_bytes(False, 2)
+    _check_lane_block(False, 57, 1)
     with pytest.raises(ValueError, match="1, 2 or 4"):
-        _check_lane_block(True, 16, 8, "mma")
+        _check_lane_block(True, 16, 8)
     with pytest.raises(ValueError, match="shared memory"):
-        _check_lane_block(True, 16, 8, "fma")
-    with pytest.raises(ValueError, match="shared memory"):
-        _check_lane_block(False, 4, 2, "mma")
+        _check_lane_block(False, 4, 2)
     with pytest.raises(ValueError, match="must divide"):
-        _check_lane_block(True, 6, 4, "mma")
+        _check_lane_block(True, 6, 4)
 
 
 def _layer_inputs(f=16, n=5, b=2, k=4, seed=3):
@@ -194,17 +191,25 @@ def _layer_inputs(f=16, n=5, b=2, k=4, seed=3):
 
 
 def test_unknown_variant_raises():
+    """An unknown variant raises, and so does ``"fma"`` with bf16 weights: the
+    f32-FMA kernel takes f32 only (its bf16 instantiation is gone)."""
     base, lanes = _layer_inputs()
     with pytest.raises(ValueError, match="variant"):
         pair_tangent(*base, *lanes, _weights(16), 10.0, variant="nonsense")
+    with pytest.raises(ValueError, match="takes f32 weights"):
+        pair_tangent(*base, *lanes, _weights(16), 10.0, 2, variant="fma")
 
 
-@pytest.mark.parametrize("variant", VARIANTS)
-def test_cpu_tensors_take_the_plain_version(variant):
-    """On the CPU either variant is the plain version, bit for bit, and no
+@pytest.mark.parametrize("dtype,variant", [(BF16, "mma"), (torch.float32, "mma"),
+                                           (torch.float32, "fma")])
+def test_cpu_tensors_take_the_plain_version(dtype, variant):
+    """On the CPU every route (bf16_agg on the tensor cores; f32 on the tensor
+    cores or the f32-FMA kernel) is the plain version, bit for bit, and no
     kernel is launched or built (the weights need no packing there)."""
     base, lanes = _layer_inputs()
-    wts = _weights(16)
+    base = (base[0],) + tuple(t.to(dtype) for t in base[1:])
+    lanes = (lanes[0],) + tuple(t.to(dtype) for t in lanes[1:])
+    wts = _weights(16, dtype)
     before = dict(_build.LAUNCHES)
     out = pair_tangent(*base, *lanes, wts, 10.0, 2, variant=variant)
     ref = pair_tangent_plain(*base, *lanes, wts, 10.0, 2)

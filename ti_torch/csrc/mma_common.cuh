@@ -79,16 +79,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 16 bytes from global to shared memory without passing through registers
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 template <int NTL>
 __device__ __forceinline__ void frag_zero(float (&acc)[NTL][4]) {
 #pragma unroll

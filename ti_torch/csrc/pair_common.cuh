@@ -87,6 +87,16 @@ __device__ __forceinline__ void st4(bf16* p, const float v[4]) {
   *reinterpret_cast<uint2*>(p) = q;
 }
 
+// 16 bytes from global to shared memory without passing through registers
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // thread index within the thread's 256-thread group, and its warp there
 __device__ __forceinline__ int ltid() { return threadIdx.x & (NT - 1); }
 __device__ __forceinline__ int warp_id() { return ltid() >> 5; }

@@ -49,178 +49,17 @@
 // - the epilogues are f32 (bias, LayerNorm with f32 statistics and eps 1e-5,
 //   SiLU, the mask, sincosf), as the plain version computes them.
 // 99,584 bytes of shared memory and 128 registers a thread, no spills: two
-// CTAs of 8 warps an SM. Only F = 128 is built.
+// CTAs of 8 warps an SM. Only F = 128 is built. The tile, mma3 and the
+// epilogues live in tf32_common.cuh, shared with B3 in f32.
 
-#include "pair_common.cuh"
+#include "tf32_common.cuh"
 
 namespace pk {
 namespace tf32x3 {
 
-constexpr int TR = 64;       // pair rows of a CTA's tile
-constexpr int LDX = 2 * F;   // row stride of X = [s_j | e_ij]
-constexpr int FN = F / 8;    // n-tiles of an F-wide product
 // geometry rows kept in shared memory, TGEO arrays of TR floats
 enum { T_DIST, T_MASK, T_DIR0, T_DIR1, T_DIR2, TGEO };
 constexpr size_t SMEM = sizeof(float) * ((size_t)TR * (LDX + F) + TGEO * TR);
-
-// element offset of (row, col) in a swizzled f32 tile of row stride ld:
-// 16-byte chunk c of row r lives at chunk c ^ 2 (r & 3), so the 8-byte
-// fragment accesses of a half-warp (4 rows x 2 chunks) and a row's 16-byte
-// accesses fall on 32 distinct banks
-__device__ __forceinline__ int swz(int row, int col, int ld) {
-  return row * ld + ((((col >> 2) ^ ((row & 3) << 1)) << 2) | (col & 3));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// c += a (16 x 8, row) * b (8 x 8, col), TF32 operands, f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A warp's accumulators: acc[rt][p][c] is the element at row
-// row0 + 16 rt + g + 8 (c / 2), column 8 p + 2 t + (c % 2) of its 32 x 32 block
-using Acc = float[2][4][4];
-
-__device__ __forceinline__ void acc_zero(Acc& acc) {
-#pragma unroll
-  for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[rt][p][c] = 0.f;
-}
-
-// acc += A[row0 .. row0 + 31][0 .. 8 KS) * W[:, n-tiles nt0 .. nt0 + 3] in
-// 3xTF32 (KS even). A is a swizzled f32 tile of row stride lda; W is one
-// packed matrix of NTM n-tiles a k-step: the uint4 at ((ks * NTM + nt) * 32 +
-// lane) holds this thread's (b0, b1) hi and lo of n-tile nt at k-step ks.
-// Two k-steps at a time: their weight fragments load first; per row tile the
-// six products of each n-tile go into a fresh accumulator, which is then
-// added to acc in f32. The tensor core truncates its sums: with all 96 mma of
-// a K = 256 product into acc, the kernel erred at 2.1e-6 of max |plain| a
-// layer (f32 FMA: 4.8e-7) and the trajectory of the exact slice left its bar
-// of rtol 1e-4 / atol 1e-5; this way 5.7e-7.
-template <int KS, int NTM>
-__device__ __forceinline__ void mma3(Acc& acc, const float* A, int lda, int row0,
-                                     const uint4* __restrict__ W, int nt0) {
-  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
-  const uint4* wp = W + (size_t)nt0 * 32 + lane;
-#pragma unroll 1
-  for (int ks = 0; ks < KS; ks += 2) {
-    uint4 b[2][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const size_t kw = ks + h;
-#pragma unroll
-      for (int p = 0; p < 4; ++p) b[h][p] = __ldg(wp + (kw * NTM + p) * 32);
-    }
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt) {
-      const int r = row0 + 16 * rt + g;
-      float z[4][4] = {};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = 8 * (ks + h) + 2 * t;
-        const float2 u = *reinterpret_cast<const float2*>(A + swz(r, k, lda));
-        const float2 w = *reinterpret_cast<const float2*>(A + swz(r + 8, k, lda));
-        const float a[4] = {u.x, w.x, u.y, w.y};  // (g, k), (g + 8, k), (g, k + 4), (g + 8, k + 4)
-        uint32_t hi[4], lo[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          hi[c] = to_tf32(a[c]);
-          lo[c] = to_tf32(a[c] - __uint_as_float(hi[c]));
-        }
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          mma_tf32(z[p], lo, b[h][p].x, b[h][p].y);  // a_lo b_hi
-          mma_tf32(z[p], hi, b[h][p].z, b[h][p].w);  // a_hi b_lo
-          mma_tf32(z[p], hi, b[h][p].x, b[h][p].y);  // a_hi b_hi
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[rt][p][c] += z[p][c];
-    }
-  }
-}
-
-// acc + bias into the warp's block of a swizzled tile (bias indexed by the
-// tile's column)
-__device__ __forceinline__ void acc_store(float* T, int ld, int row0, int col0, const Acc& acc,
-                                          const float* __restrict__ bias) {
-  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int col = col0 + 8 * p + 2 * t;
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + 16 * rt + g + 8 * h;
-        *reinterpret_cast<float2*>(T + swz(r, col, ld)) =
-            make_float2(acc[rt][p][2 * h] + bb.x, acc[rt][p][2 * h + 1] + bb.y);
-      }
-  }
-}
-
-// h = p * (acc + bias) * mask, in place over p in the warp's block of T
-// (the same thread stored p there)
-__device__ __forceinline__ void acc_gate(float* T, int row0, int col0, const Acc& acc,
-                                         const float* __restrict__ bias, const float* mask) {
-  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int col = col0 + 8 * p + 2 * t;
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + 16 * rt + g + 8 * h;
-        float2* at = reinterpret_cast<float2*>(T + swz(r, col, F));
-        const float2 pv = *at;
-        const float m = mask[r];
-        *at = make_float2(pv.x * (acc[rt][p][2 * h] + bb.x) * m,
-                          pv.y * (acc[rt][p][2 * h + 1] + bb.y) * m);
-      }
-  }
-}
-
-// LayerNorm (f32 statistics, eps 1e-5) -> SiLU in place on a swizzled
-// TR x F tile: warp w takes rows 8w .. 8w + 7, lane l columns 4l .. 4l + 3
-__device__ __forceinline__ void ln_silu_rows(float* T, int ld, const float* __restrict__ scale,
-                                             const float* __restrict__ bias) {
-  const int lane = lane_id(), w = warp_id();
-  const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + 4 * lane));
-  const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + 4 * lane));
-#pragma unroll 1
-  for (int rr = 0; rr < TR / NW; ++rr) {
-    float4* at = reinterpret_cast<float4*>(T + swz(8 * w + rr, 4 * lane, ld));
-    const float4 v = *at;
-    const float mu = warp_sum(v.x + v.y + v.z + v.w) * (1.f / F);
-    const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
-    const float rstd = 1.f / sqrtf(warp_sum(d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3) * (1.f / F) + 1e-5f);
-    *at = make_float4(silu(d0 * rstd * sc.x + bi.x), silu(d1 * rstd * sc.y + bi.y),
-                      silu(d2 * rstd * sc.z + bi.z), silu(d3 * rstd * sc.w + bi.w));
-  }
-}
-
-// a packed matrix: it starts at twice its offset of the row-major buffer
-__device__ __forceinline__ const uint4* wmat(const float* wpk, size_t off) {
-  return reinterpret_cast<const uint4*>(wpk + 2 * off);
-}
 
 __global__ void __launch_bounds__(NT, 2)
 pair_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ s,

@@ -10,8 +10,8 @@
 //
 // What bounds it on this card: operations. Each lane repeats the layer's
 // 15F² multiply-adds per pair row, so one launch at 128 chains, N = 19,
-// F = 128 and K = 16 lanes is about 17 x 22.7 GFLOP, against about 390 MB of
-// bf16 lane tangents in and out — compute-bound on any unit of the card.
+// F = 128 and K = 57 lanes is about 58 x 22.7 GFLOP, against about 3.3 GB of
+// f32 lane tangents in and out — compute-bound on any unit of the card.
 //
 // What the design does about it: the TPU kernel carried its residuals from
 // grid step kb = 0 to later steps; blocks on this card run in no order, so
@@ -22,13 +22,12 @@
 // each in f32 at 32 rows), so each lane block recomputes the primal 5F
 // product chunk by chunk next to the L lanes' tangent chunks — 1/L of the
 // last Dense's work extra. L is a launch parameter; the shared memory it
-// needs is (9 + 3L) x 32 x F x sizeof(T) plus small buffers (L = 1 in f32,
-// up to 4 in bf16). Only tangent inputs and outputs reach device memory.
+// needs is (9 + 3L) x 32 x F x 4 bytes plus small buffers (only L = 1 fits).
+// Only tangent inputs and outputs reach device memory.
 // Every product here is an f32 FMA on the CUDA cores. This file builds the
-// f32 instantiation (pair_tangent_f32: the exact slice and the parity
-// default, where tensor cores would mean TF32 and other numbers) and keeps the
-// bf16 one of this design as pair_tangent_bf16_fma, to be timed beside the
-// tensor-core kernel that the bf16_agg profile runs (pair_tangent_mma.cu).
+// f32 instantiation only (pair_tangent_f32, reached as variant "fma"), kept to
+// be timed beside the 3xTF32 tensor-core kernel that f32 layers run
+// (pair_tangent_tf32x3.cu); bf16_agg runs pair_tangent_mma.cu.
 
 #include "pair_common.cuh"
 
@@ -264,20 +263,11 @@ int launch(const void* const* p, int B, int N, int K, int L, float pe_scale, voi
 
 }  // namespace pk
 
-#define PK_TANGENT_ARGS                                                                     \
-  const void *x, const void *s, const void *v, const void *e, const void *dx,             \
-      const void *ds, const void *dv, const void *de, const void *mats, const void *vecs, \
-      void *dvp, void *dsp, void *ep, void *dvt, void *dst, void *et, int B, int N, int K, \
-      int L, float pe_scale, void *stream
-#define PK_TANGENT_PTRS \
-  const void* p[16] = {x, s, v, e, dx, ds, dv, de, mats, vecs, dvp, dsp, ep, dvt, dst, et}
-
-extern "C" int pair_tangent_f32(PK_TANGENT_ARGS) {
-  PK_TANGENT_PTRS;
+extern "C" int pair_tangent_f32(const void* x, const void* s, const void* v, const void* e,
+                                const void* dx, const void* ds, const void* dv, const void* de,
+                                const void* mats, const void* vecs, void* dvp, void* dsp, void* ep,
+                                void* dvt, void* dst, void* et, int B, int N, int K, int L,
+                                float pe_scale, void* stream) {
+  const void* p[16] = {x, s, v, e, dx, ds, dv, de, mats, vecs, dvp, dsp, ep, dvt, dst, et};
   return pk::launch<float>(p, B, N, K, L, pe_scale, stream);
-}
-
-extern "C" int pair_tangent_bf16_fma(PK_TANGENT_ARGS) {
-  PK_TANGENT_PTRS;
-  return pk::launch<pk::bf16>(p, B, N, K, L, pe_scale, stream);
 }

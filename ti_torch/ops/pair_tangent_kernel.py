@@ -1,11 +1,12 @@
 """The message layer with K forward-mode probe lanes — kernel B3,
-hand-written CUDA, with its plain PyTorch version beside it. In the
-bf16_agg profile the kernel runs on the tensor cores
-(csrc/pair_tangent_mma.cu, ``mma.sync``), with the layer's matrices packed
-once in fragment order (``pair_layer_kernel.pack_mma_weights``, which
-``prepare`` applies to every bf16_agg layer); in f32 it is
-csrc/pair_tangent.cu (f32 FMA), which also keeps the earlier bf16 kernel,
-reachable as ``variant="fma"`` to be timed beside the new one.
+hand-written CUDA, with its plain PyTorch version beside it. Both types run
+on the tensor cores, over the layer's matrices packed once by ``prepare``:
+bf16_agg in csrc/pair_tangent_mma.cu (``mma.sync`` bf16, the fragment order
+of ``pair_layer_kernel.pack_mma_weights``), f32 in
+csrc/pair_tangent_tf32x3.cu (``mma.sync`` in 3xTF32, the split of
+``pair_layer_kernel.pack_tf32_weights``, lanes stacked into 64-row tiles).
+csrc/pair_tangent.cu keeps the f32-FMA kernel, reachable as
+``variant="fma"`` to be timed beside the f32 one.
 
 Port of ti_tpu/ops/pair_tangent_kernel.py (the Pallas
 ``_pair_tangent_kernel``). Per chain the layer computes kernel B1's primal
@@ -29,7 +30,7 @@ version only on a CPU tensor; there is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -42,8 +43,10 @@ from ti_torch.ops.pair_layer_kernel import (
     _R,
     KERNEL_F,
     SMEM_LIMIT,
+    TC_ROWS,
     PairLayerWeights,
     _check_pair_inputs,
+    _packed,
     agg,
     embed,
     pe_scale,
@@ -53,22 +56,50 @@ from ti_torch.ops.pair_layer_kernel import (
 )
 
 
-VARIANTS = ("mma", "fma")  # the bf16_agg kernel: tensor cores, or the earlier f32-FMA one
+VARIANTS = ("mma", "fma")  # the tensor-core kernel of the weights' type, or the f32-FMA one
+_TC_GEO = 14  # geometry rows of csrc/pair_tangent_tf32x3.cu: 10 of the atoms, 4 of a tile
 
 
-def smem_bytes(bf16: bool, lane_block: int, variant: str = "mma") -> int:
-    """Dynamic shared memory of one B3 CTA: csrc/pair_tangent_mma.cu for the
-    bf16_agg tensor-core kernel, csrc/pair_tangent.cu otherwise."""
+def smem_bytes(bf16: bool, lane_block: int) -> int:
+    """Dynamic shared memory of one CTA of the lane-block kernels:
+    csrc/pair_tangent_mma.cu for bf16_agg, csrc/pair_tangent.cu (f32,
+    ``variant="fma"``) for f32."""
     f, L = KERNEL_F, lane_block
-    if bf16 and variant == "mma":
+    if bf16:
         # 7 residual tiles and the primal gates, the stacked work buffer, 2L a2-tangent
         # tiles; per-lane sums, geometry, lane geometry (4 lanes), primal sums, LayerNorm
         # statistics and vectors
         return (2 * (8 + max(2 * L, L + 4) + 2 * L) * _R * f
                 + 4 * (4 * 7 * f + _NGEO * _R + 4 * 4 * _R + 7 * f + 8 * _R + 8 * f))
-    t = 2 if bf16 else 4
-    return (t * (9 + 3 * L) * _R * f
+    return (4 * (9 + 3 * L) * _R * f
             + 4 * (_NW * 3 * f + _NGEO * _R + 4 * L * _R + 7 * f + 7 * f * L))
+
+
+def tf32_smem_bytes() -> int:
+    """Dynamic shared memory of one CTA of csrc/pair_tangent_tf32x3.cu, for
+    any N: the stacked input (TC_ROWS x 2F f32), the a2 tangents of both
+    MLPs (2 x TC_ROWS x F), five residual tiles of 32 rows (h1, h2 of both
+    MLPs, dPE/ddist), the geometry, the LayerNorm statistics, the primal's
+    chirality sums and the row map."""
+    f = KERNEL_F
+    return 4 * (4 * TC_ROWS * f + 5 * _R * f + _TC_GEO * TC_ROWS + 8 * _R + 3 * f + TC_ROWS)
+
+
+class LaneTilePlan(NamedTuple):
+    """How csrc/pair_tangent_tf32x3.cu stacks the K lanes of one (chain,
+    dst atom): ``lanes`` whole lanes a TC_ROWS-row tile (stacked row l·N + j
+    is source atom j of the tile's lane l), ``tiles`` tiles, the last with
+    ``last`` lanes."""
+
+    lanes: int
+    tiles: int
+    last: int
+
+
+def lane_tile_plan(n: int, k_lanes: int) -> LaneTilePlan:
+    lanes = TC_ROWS // n
+    tiles = -(-k_lanes // lanes)
+    return LaneTilePlan(lanes, tiles, k_lanes - (tiles - 1) * lanes)
 
 
 def _pick_lane_block(k_lanes: int, bf16: bool) -> int:
@@ -163,13 +194,38 @@ def pair_tangent_plain(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
 _P = ctypes.c_void_p
 
 
-def _check_lane_block(bf16: bool, k_lanes: int, L: int, variant: str) -> None:
-    """Raise on a lane block the kernel cannot launch with."""
+def _route(bf16: bool, variant: str) -> str:
+    """The library a launch takes: the tensor-core kernel of the weights'
+    type ("pair_tangent_mma" for bf16_agg, "pair_tangent_tf32x3" for f32),
+    or for ``variant="fma"`` the f32-FMA kernel ("pair_tangent", f32 only)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    if variant == "fma":
+        if bf16:
+            raise ValueError("variant='fma' is the f32-FMA kernel and takes f32 weights; "
+                             "bf16_agg runs on the tensor cores (variant='mma')")
+        return "pair_tangent"
+    return "pair_tangent_mma" if bf16 else "pair_tangent_tf32x3"
+
+
+def _kernel_weights(lib: str, wts: PairLayerWeights, x) -> torch.Tensor:
+    """The matrices library ``lib`` reads: the packing ``prepare`` attached
+    (3xTF32 hi/lo pairs for pair_tangent_tf32x3, the bf16 fragment order for
+    pair_tangent_mma), checked; the row-major ones for pair_tangent."""
+    if lib == "pair_tangent_tf32x3":
+        return _packed(wts, x, 2 * wts.mats.numel(), torch.float32, "3xTF32", "with_tf32_weights")
+    if lib == "pair_tangent_mma":
+        return _packed(wts, x, wts.mats.numel(), BF16, "fragment-order", "with_mma_weights")
+    return wts.mats
+
+
+def _check_lane_block(bf16: bool, k_lanes: int, L: int) -> None:
+    """Raise on a lane block a lane-block kernel cannot launch with."""
     if k_lanes < 1 or L < 1 or k_lanes % L:
         raise ValueError(f"lane_block {L} must divide the lane count {k_lanes}")
-    if bf16 and variant == "mma" and L not in (1, 2, 4):
+    if bf16 and L not in (1, 2, 4):
         raise ValueError(f"the tensor-core kernel takes lane_block 1, 2 or 4, got {L}")
-    need = smem_bytes(bf16, L, variant)
+    need = smem_bytes(bf16, L)
     if need > SMEM_LIMIT:
         raise ValueError(f"lane_block {L} needs {need} bytes of shared memory per CTA; "
                          f"the card has {SMEM_LIMIT}")
@@ -178,19 +234,21 @@ def _check_lane_block(bf16: bool, k_lanes: int, L: int, variant: str) -> None:
 def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
                  length_scale: float, lane_block: Optional[int] = None, variant: str = "mma"):
     """Primal and K-lane JVP of one message layer. Launches kernel B3 on a
-    CUDA tensor, the plain version on a CPU tensor. With bf16 weights
-    ``variant`` picks the tensor-core kernel (``"mma"``, which needs
-    ``with_mma_weights``) or the earlier f32-FMA one (``"fma"``, kept for
-    timing); f32 weights have the one f32 kernel."""
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    CUDA tensor, the plain version on a CPU tensor. ``variant="mma"`` takes
+    the tensor-core kernel of the weights' type: bf16_agg in
+    csrc/pair_tangent_mma.cu (which needs ``with_mma_weights``), f32 in
+    csrc/pair_tangent_tf32x3.cu (which needs ``with_tf32_weights``, and
+    stacks the lanes it is given into 64-row tiles of 64 // N whole lanes:
+    it ignores ``lane_block``). ``variant="fma"`` takes the f32-FMA kernel
+    (f32 weights only; bf16 raises), kept for timing. ``lane_block`` is the
+    lanes a block of the plain version and of the lane-block kernels."""
+    lib = _route(wts.bf16, variant)
     if x.device.type == "cpu":
         return pair_tangent_plain(x, s, v, e, dx, ds, dv, de, wts, length_scale, lane_block)
     if x.device.type != "cuda":
         raise ValueError(f"pair_tangent runs on cuda or cpu, not {x.device}")
     b, n, f, wd = _check_pair_inputs(x, s, v, e, wts)
     k_lanes = dx.shape[1] if dx.dim() == 4 else -1
-    L = lane_block or _pick_lane_block(k_lanes, wts.bf16)
     want = {"dx": (dx, (b, k_lanes, n, 3), torch.float32),
             "ds": (ds, (b, k_lanes, n, f), wd),
             "dv": (dv, (b, k_lanes, 3, n, f), wd),
@@ -200,23 +258,20 @@ def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
             raise ValueError(f"{name} must be {shape} {dt}, got {tuple(t.shape)} {t.dtype}")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {x.device}")
-    _check_lane_block(wts.bf16, k_lanes, L, variant)
-    mma = wts.bf16 and variant == "mma"
-    mats = wts.mats
-    if mma:
-        mats = wts.mma
-        if mats is None:
-            raise ValueError("the weights carry no fragment-order packing (with_mma_weights)")
-        if (mats.numel() != wts.mats.numel() or mats.dtype != BF16 or mats.device != x.device
-                or not mats.is_contiguous()):
-            raise ValueError(f"the fragment-order weights must be {wts.mats.numel()} contiguous "
-                             f"bf16 values on {x.device}, got {mats.numel()} {mats.dtype} on "
-                             f"{mats.device}")
-    libname = "pair_tangent_mma" if mma else "pair_tangent"
-    lib = _build.load(libname)
-    fn = (lib.pair_tangent_bf16 if mma
-          else lib.pair_tangent_bf16_fma if wts.bf16 else lib.pair_tangent_f32)
-    fn.argtypes = [_P] * (17 if mma else 16) + [ctypes.c_int] * 4 + [ctypes.c_float, _P]
+    if k_lanes < 1:
+        raise ValueError(f"pair_tangent needs at least one lane, got {k_lanes}")
+    args = ()
+    if lib != "pair_tangent_tf32x3":
+        L = lane_block or _pick_lane_block(k_lanes, wts.bf16)
+        _check_lane_block(wts.bf16, k_lanes, L)
+        args = (L,)
+    mats = _kernel_weights(lib, wts, x)
+    handle = _build.load(lib)
+    fn = getattr(handle, "pair_tangent_f32" if lib == "pair_tangent" else
+                 "pair_tangent_bf16" if lib == "pair_tangent_mma" else lib)
+    scratch = lib != "pair_tangent"
+    fn.argtypes = ([_P] * (17 if scratch else 16) + [ctypes.c_int] * (3 + len(args))
+                   + [ctypes.c_float, _P])
     fn.restype = ctypes.c_int
     dev = x.device
     dvp = torch.empty((b, 3, n, f), device=dev, dtype=torch.float32)
@@ -226,12 +281,14 @@ def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
     dst = torch.empty((b, k_lanes, n, f), device=dev, dtype=torch.float32)
     et = torch.empty_like(de)
     bufs = [x, s, v, e, dx, ds, dv, de, mats, wts.vecs, dvp, dsp, ep, dvt, dst, et]
-    if mma:  # each CTA's primal 5F products, kept in L2 between its lane blocks
+    if lib == "pair_tangent_mma":  # each CTA's primal 5F products, kept in L2 between its lane blocks
         bufs.append(torch.empty((b * n, 5 * 2 * _R * f), device=dev, dtype=BF16))
-    rc = fn(*(t.data_ptr() for t in bufs), b, n, k_lanes, L, pe_scale(length_scale),
+    elif scratch:  # each CTA's primal p, q of its N source atoms, read back by every lane tile
+        bufs.append(torch.empty((b * n, 5 * 2 * n * f), device=dev, dtype=torch.float32))
+    rc = fn(*(t.data_ptr() for t in bufs), b, n, k_lanes, *args, pe_scale(length_scale),
             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "pair_tangent launch")
-    _build.count_launch("pair_tangent", libname)
+    _build.check(handle, rc, f"{lib} launch")
+    _build.count_launch("pair_tangent", lib)
     return dvp, dsp, ep, dvt, dst, et
 
 
