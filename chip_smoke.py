@@ -68,10 +68,15 @@ Phases (any failure exits non-zero and prints no result):
      C = 4, 20 steps (``bench.py`` takes 100), with B2's launch count (all
      from pair_layer_mma), samples/s and the centre-of-mass checks;
   8. kernels B4, B5 and B6 against their plain versions at full width, with
-     their times and bounds;
+     their times and bounds; B5 at K = 57, R = 11,552 on the tensor cores
+     (3xTF32, ``fused_edge_mlp_jvp_tf32x3``) against its plain version and
+     the f32-FMA kernel (``variant="fma"``), two launches to the bit, timed
+     in turns beside it with both bounds and its registers, and ragged
+     shapes (R = 5, 65 and 4,097; K = 1, 3 and 87);
   9. the fused paths: ``fused_velocity_fn`` against ``dense_velocity_fn``
      with its B4/B6 launch counts, and the ``dense_fused`` exact sampler
-     against the ``dense`` one with its B4/B5 launch counts;
+     against the ``dense`` one with its B4/B5 launch counts (every B5
+     launch from fused_edge_mlp_jvp_tf32x3), seconds and samples/s;
  10. kernel B7 against its plain version at 130 chains, L = 4 and 6 (bar
      1e-4); ``divergence_kernel_batch`` at 128 chains, t = 0.5, launching
      B7 once, against ``divergence_exact(chunk=19)`` over the dense forward
@@ -115,7 +120,7 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
     "pair_tangent_f32": ("ti_torch/csrc/pair_tangent_tf32x3.cu",
                          "ti_tpu/ops/pair_tangent_kernel.py:76"),
     "fused_edge_mlp": ("ti_torch/csrc/fused_edge_mlp.cu", "ti_tpu/ops/pallas_kernels.py:180"),
-    "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp.cu",
+    "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp_tf32x3.cu",
                            "ti_tpu/ops/pallas_kernels.py:232"),
     "fused_mlp": ("ti_torch/csrc/fused_mlp.cu", "ti_tpu/ops/pallas_kernels.py:343"),
     "div_kernel": ("ti_torch/csrc/div_kernel.cu", "ti_tpu/ops/div_kernel.py:117"),
@@ -382,11 +387,13 @@ def phase_sde(model, template, card: str) -> dict:
     return launches
 
 
-def phase_fused_kernels(params, rows_kernels) -> None:
-    """8. B4, B5, B6 against their plain versions at full width."""
+def phase_fused_kernels(params, rows_kernels, report, card: str) -> None:
+    """8. B4, B5, B6 against their plain versions at full width; B5 on the
+    tensor cores against the f32-FMA kernel, timed in turns."""
+    from ti_torch.ops import _build
     from ti_torch.ops import pallas_kernels as pk
     from ti_torch.ops.mlp_block import mlp_weights
-    from ti_torch.ops.pair_layer_kernel import pack_layer
+    from ti_torch.ops.pair_layer_kernel import pack_layer, with_tf32_weights
 
     f32 = torch.float32
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -394,7 +401,7 @@ def phase_fused_kernels(params, rows_kernels) -> None:
     def rn(*shape):
         return torch.randn(*shape, generator=g, device="cuda")
 
-    w = pack_layer(params, 0, F, f32, "cuda")
+    w = with_tf32_weights(pack_layer(params, 0, F, f32, "cuda"))
     mac_row = 15 * F * F
     r = CHAINS * N_ATOMS ** 2  # the dense pair rows of 128 chains
     in_feat, pe = rn(r, 2 * F), rn(r, F)
@@ -409,19 +416,62 @@ def phase_fused_kernels(params, rows_kernels) -> None:
     rows_kernels["fused_edge_mlp"] = dict(err=err, ms=ms, plain=plain, bound=bnd, by=by)
     del in_feat, pe, out
 
-    r, k = FUSED_CHAINS * N_ATOMS ** 2, 3 * N_ATOMS  # one exact node of 32 chains
+    # B5 at one exact node of 32 chains: the 3xTF32 tensor-core kernel and,
+    # timed beside it in turns, the f32-FMA kernel
+    r, k = FUSED_CHAINS * N_ATOMS ** 2, 3 * N_ATOMS
     in_feat, pe, din, dpe = rn(r, 2 * F), rn(r, F), rn(k, r, 2 * F), rn(k, r, F)
+    ref = pk.edge_mlp_jvp_reference(in_feat, pe, din, dpe, w.phi, w.w)
     out = pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w)
     torch.cuda.synchronize()
-    err = compare([out], [pk.edge_mlp_jvp_reference(in_feat, pe, din, dpe, w.phi, w.w)], f32,
-                  f"B5 fused_edge_mlp_jvp K={k} R={r}")
-    ms = cuda_ms(lambda: pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w), 3, warm=1)
+    require(_build.ROUTES["fused_edge_mlp_jvp"] == "fused_edge_mlp_jvp_tf32x3",
+            "B5 launches fused_edge_mlp_jvp_tf32x3.cu by default")
+    err = compare([out], [ref], f32, f"B5 fused_edge_mlp_jvp K={k} R={r} (3xTF32)")
+    old = pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w, variant="fma")
+    torch.cuda.synchronize()
+    require(_build.ROUTES["fused_edge_mlp_jvp"] == "fused_edge_mlp_jvp",
+            "variant='fma' launches fused_edge_mlp_jvp.cu")
+    compare([old], [ref], f32, f"B5 fused_edge_mlp_jvp K={k} R={r} variant=fma")
+    compare([out], [old], f32, "B5 3xTF32 against variant=fma")
+    again = pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w)
+    torch.cuda.synchronize()
+    require(torch.equal(again, out), "B5 3xTF32: two launches on the same inputs agree to the bit")
+    del ref, old, again
+    reps = 3
+    fmt = lambda ts: " and ".join(f"{t:.3f}" for t in ts)
+    ms = {v: [] for v in ("tc", "fma")}
+    for variant in ("tc", "fma", "fma", "tc"):
+        ms[variant].append(cuda_ms(lambda: pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w,
+                                                                 variant=variant), reps, warm=1))
     plain = cuda_ms(lambda: pk.edge_mlp_jvp_reference(in_feat, pe, din, dpe, w.phi, w.w), 2,
                     warm=1)
-    bnd, by = bound_ms(2.0 * mac_row * r * (k + 1), H100_FP32,
-                       nbytes(in_feat, pe, din, dpe, w.mats, w.vecs, out))
-    log(f"[B5 K={k} R={r}] kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
-    rows_kernels["fused_edge_mlp_jvp"] = dict(err=err, ms=ms, plain=plain, bound=bnd, by=by)
+    tc_ms, fma_ms = min(ms["tc"]), min(ms["fma"])
+    moved = nbytes(in_feat, pe, din, dpe, w.mats, w.vecs, out)
+    flops = 2.0 * mac_row * r * (k + 1)
+    bnd_fma, by_fma = bound_ms(flops, H100_FP32, moved)
+    bnd_tc, by_tc = bound_ms(3 * flops, H100_TF32, moved)
+    log(f"[B5 K={k} R={r}] ms per launch, {reps} launches a reading, in turns: 3xTF32 (tensor "
+        f"cores, fused_edge_mlp_jvp_tf32x3) {fmt(ms['tc'])}, variant=fma (f32 FMA) "
+        f"{fmt(ms['fma'])}; 3xTF32 {fma_ms / tc_ms:.2f}x faster; plain {plain:.3f} ms; bound "
+        f"{bnd_tc:.4f} ms ({by_tc}, 3 x {flops:.4e} FLOP at 495 TFLOP/s TF32), f32 FMA bound "
+        f"{bnd_fma:.4f} ms ({by_fma}, 67 TFLOP/s); 3xTF32 at {tc_ms / bnd_tc:.2f}x its bound, "
+        f"fma at {fma_ms / bnd_fma:.2f}x its bound; {moved / 1e9:.3f} GB moved ({card})")
+    for fn, regs, spill in ptxas_kernels(report["fused_edge_mlp_jvp_tf32x3"]["ptxas"]):
+        log(f"[B5 build] {fn}: {regs}; {spill}")
+    require(tc_ms < fma_ms, "B5 on the tensor cores is faster than the f32-FMA kernel")
+    require(tc_ms < plain, "B5 on the tensor cores is faster than its plain version")
+    rows_kernels["fused_edge_mlp_jvp"] = dict(err=err, ms=tc_ms, plain=plain, bound=bnd_tc,
+                                              by=by_tc)
+    del in_feat, pe, din, dpe, out
+    torch.cuda.empty_cache()
+    # ragged shapes: one row and a partial tile (R = 5), a tile and one row
+    # (65), a partial last tile (4,097 = 64 x 64 + 1); one lane, 3 and 87 (the
+    # exact node at 29 atoms)
+    for r, k in ((5, 1), (65, 3), (4097, 87)):
+        in_feat, pe, din, dpe = rn(r, 2 * F), rn(r, F), rn(k, r, 2 * F), rn(k, r, F)
+        out = pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w)
+        torch.cuda.synchronize()
+        compare([out], [pk.edge_mlp_jvp_reference(in_feat, pe, din, dpe, w.phi, w.w)], f32,
+                f"B5 fused_edge_mlp_jvp K={k} R={r} (3xTF32)")
     del in_feat, pe, din, dpe, out
     torch.cuda.empty_cache()
 
@@ -493,6 +543,7 @@ def phase_fused_paths(model, template, card: str) -> tuple:
     torch.cuda.synchronize()
     wall_f = time.perf_counter() - t0
     smp_launches = dict(_build.LAUNCHES)
+    smp_routes = {key: n for key, n in _build.ROUTE_LAUNCHES.items() if n}
     t0 = time.perf_counter()
     out_d = dense_sampler(x0, temps, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -508,8 +559,13 @@ def phase_fused_paths(model, template, card: str) -> tuple:
     log(f"[dense_fused exact sampler B={b}] {wall_f:.3f} s, {b / wall_f:.3f} samples/s "
         f"(dense: {wall_d:.3f} s, {b / wall_d:.3f} samples/s; host clock, {card}); samples max "
         f"abs err {s_err:.3e}, dlogp max abs err {d_err:.3e} (max |dlogp| "
-        f"{d_ref.abs().max().item():.4f}); launches {smp_launches}")
+        f"{d_ref.abs().max().item():.4f}); launches {smp_launches}, B5 by library "
+        f"{ {f'{k}:{lib}': n for (k, lib), n in smp_routes.items()} }")
     require(smp_launches == want, f"dense_fused sampler launch counts {smp_launches} == {want}")
+    require(_build.ROUTES["fused_edge_mlp_jvp"] == "fused_edge_mlp_jvp_tf32x3" and smp_routes == {
+        ("fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3"): want["fused_edge_mlp_jvp"]},
+            f"every B5 launch of the dense_fused sampler comes from fused_edge_mlp_jvp_tf32x3.cu: "
+            f"{smp_routes}")
     require(bool(torch.isfinite(out_f.xs).all() and torch.isfinite(out_f.dlogp).all()),
             "dense_fused sampler: finite")
     require(bool(torch.allclose(out_f.xs, out_d.xs, rtol=1e-4, atol=1e-5)),
@@ -688,7 +744,8 @@ def main() -> int:
         for line in r["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
-    for name in ("pair_tangent_mma", "pair_tangent_tf32x3", "pair_layer_tf32x3", "pair_layer_mma"):
+    for name in ("pair_tangent_mma", "pair_tangent_tf32x3", "pair_layer_tf32x3", "pair_layer_mma",
+                 "fused_edge_mlp_jvp_tf32x3"):
         spills = [ln.strip() for ln in report[name]["ptxas"].splitlines() if "spill" in ln]
         require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
                                      for ln in spills), f"{name} builds without register spills: {spills}")
@@ -1063,7 +1120,7 @@ def main() -> int:
     # ---- 6-9. the SDE and fused-MLP slices ----
     phase_b2(params, rows_kernels)
     sde_launches = phase_sde(model, template, card)
-    phase_fused_kernels(params, rows_kernels)
+    phase_fused_kernels(params, rows_kernels, report, card)
     fwd_launches, smp_launches = phase_fused_paths(model, template, card)
 
     # ---- 10. kernel B7 and the exact-divergence node ----

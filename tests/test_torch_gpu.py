@@ -116,11 +116,11 @@ def test_chain_blocked_pair_layer_is_b1(dtype, chain_block):
 
 @pytest.mark.gpu
 def test_fused_mlp_kernels_match_plain():
-    """B4 and B5 at a ragged row count, B5 at every lane block, B6 at the
-    combine, update and readout widths."""
+    """B4 and B5 at a ragged row count, B5 on the tensor cores and in f32
+    FMA at every lane block, B6 at the combine, update and readout widths."""
     _card()
     params = _params()
-    w = pack_layer(params, 0, F, torch.float32, "cuda")
+    w = with_tf32_weights(pack_layer(params, 0, F, torch.float32, "cuda"))
     r = 1000 + 7
     in_feat, pe = _rows(r, 2 * F), _rows(r, F, seed=3)
     before = dict(_build.LAUNCHES)
@@ -128,9 +128,10 @@ def test_fused_mlp_kernels_match_plain():
     _assert_close([out], [pk.fused_edge_mlp_reference(in_feat, pe, w.phi, w.w)], torch.float32)
     din, dpe = _rows(6, r, 2 * F, seed=4), _rows(6, r, F, seed=5)
     ref = pk.edge_mlp_jvp_reference(in_feat, pe, din, dpe, w.phi, w.w)
+    _assert_close([pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w)], [ref], torch.float32)
     for lane_block in (1, 2, 3):
-        _assert_close([pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w, lane_block)], [ref],
-                      torch.float32)
+        _assert_close([pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w, lane_block, variant="fma")],
+                      [ref], torch.float32)
     for name, f_in in (("combine", 4 * F), ("update_0.mlp", 2 * F), ("readout.mlp", F)):
         pack = pk.pack_mlp(mlp_weights(params, name), "cuda")
         x = _rows(r, f_in, seed=6)
@@ -138,20 +139,110 @@ def test_fused_mlp_kernels_match_plain():
     torch.cuda.synchronize()
     got = {k: _build.LAUNCHES[k] - before[k] for k in ("fused_edge_mlp", "fused_edge_mlp_jvp",
                                                         "fused_mlp")}
-    assert got == {"fused_edge_mlp": 1, "fused_edge_mlp_jvp": 3, "fused_mlp": 3}
+    assert got == {"fused_edge_mlp": 1, "fused_edge_mlp_jvp": 4, "fused_mlp": 3}
 
 
 @pytest.mark.gpu
 def test_vmapped_lanes_launch_b5_once():
     _card()
-    w = pack_layer(_params(), 0, F, torch.float32, "cuda")
+    w = with_tf32_weights(pack_layer(_params(), 0, F, torch.float32, "cuda"))
     x, pe, z = _rows(64, 2 * F), _rows(64, F, seed=3), _rows(5, 64, 2 * F, seed=4)
     before = _build.LAUNCHES["fused_edge_mlp_jvp"]
     lanes = vmap(lambda zz: jvp(lambda a: pk.fused_edge_mlp_diff(a, pe, w), (x,), (zz,))[1])(z)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["fused_edge_mlp_jvp"] == before + 1
+    assert _build.ROUTES["fused_edge_mlp_jvp"] == "fused_edge_mlp_jvp_tf32x3"
     ref = pk.edge_mlp_jvp_reference(x, pe, z, torch.zeros(5, 64, F, device="cuda"), w.phi, w.w)
     _assert_close([lanes], [ref], torch.float32)
+
+
+def _jvp_inputs(r, k, seed=2):
+    return _rows(r, 2 * F, seed=seed), _rows(r, F, seed=seed + 1), \
+        _rows(k, r, 2 * F, seed=seed + 2), _rows(k, r, F, seed=seed + 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 57, 87])
+@pytest.mark.parametrize("r", [5, 65, 11_552])
+def test_fused_edge_mlp_jvp_tc_matches_plain(r, k):
+    """B5 on the tensor cores (3xTF32) against its plain version: one partial
+    tile, a full tile and one row, and the exact node of 32 chains (180.5
+    tiles); one lane, 3, and the exact frames at 19 and 29 atoms."""
+    _card()
+    w = with_tf32_weights(pack_layer(_params(), 0, F, torch.float32, "cuda"))
+    args = _jvp_inputs(r, k)
+    out = pk.fused_edge_mlp_jvp(*args, w)
+    torch.cuda.synchronize()
+    assert _build.ROUTES["fused_edge_mlp_jvp"] == "fused_edge_mlp_jvp_tf32x3"
+    _assert_close([out], [pk.edge_mlp_jvp_reference(*args, w.phi, w.w)], torch.float32)
+
+
+@pytest.mark.gpu
+def test_fused_edge_mlp_jvp_tc_is_deterministic_and_agrees_with_fma():
+    """No atomics: two launches agree to the bit; the f32-FMA kernel on the
+    same inputs agrees within the f32 bar (another order of summation)."""
+    _card()
+    w = with_tf32_weights(pack_layer(_params(), 0, F, torch.float32, "cuda"))
+    args = _jvp_inputs(1000 + 7, 6)
+    one = pk.fused_edge_mlp_jvp(*args, w)
+    two = pk.fused_edge_mlp_jvp(*args, w)
+    old = pk.fused_edge_mlp_jvp(*args, w, variant="fma")
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    _assert_close([one], [old], torch.float32)
+
+
+@pytest.mark.gpu
+def test_fused_edge_mlp_jvp_tc_counts_and_refusals():
+    """The shared memory and scratch of the wrapper are the kernel's own; a
+    layer without its 3xTF32 packing raises on the card (no fallback), and
+    so does an unknown variant."""
+    import ctypes
+
+    _card()
+    lib = _build.load("fused_edge_mlp_jvp_tf32x3")
+    lib.fused_edge_mlp_jvp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+    assert lib.fused_edge_mlp_jvp_tf32x3_smem_bytes() == pk.tc_jvp_smem_bytes()
+    assert lib.fused_edge_mlp_jvp_tf32x3_scratch_floats() == pk.TC_JVP_SCRATCH
+    w = pack_layer(_params(), 0, F, torch.float32, "cuda")
+    args = _jvp_inputs(70, 2)
+    with pytest.raises(ValueError, match="with_tf32_weights"):
+        pk.fused_edge_mlp_jvp(*args, w)
+    with pytest.raises(ValueError, match="variant"):
+        pk.fused_edge_mlp_jvp(*args, with_tf32_weights(w), variant="mma")
+
+
+@pytest.mark.gpu
+def test_dense_fused_exact_sampler_takes_b5_on_the_tensor_cores():
+    """Every B5 launch of a ``dense_fused`` exact batch comes from
+    fused_edge_mlp_jvp_tf32x3, and its samples and dlogp agree with the
+    ``dense`` sampler's (rtol 1e-4 / atol 1e-5; rtol 1e-3)."""
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+    from ti_torch.sampling.drivers import make_ode_sampler, molecular_v_fn_of
+
+    _card()
+    torch.manual_seed(0)
+    model = CPaiNN(F, 2, n_atoms=N)
+    template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=2)
+    x0 = (0.1 * _rows(4, N, 3, seed=8)).cpu().numpy()
+    x0 -= x0.mean(axis=1, keepdims=True)
+    temps = torch.tensor([[1000.0, 300.0]]).expand(4, 2).numpy()
+    kw = dict(solver="rk4", n_steps=2, dlogp_quad="gauss", dlogp_quad_points=2,
+              steps_per_dispatch=25, divergence="exact", device="cuda")
+    outs = []
+    for impl in ("dense_fused", "dense"):
+        sampler = make_ode_sampler(molecular_v_fn_of(model, None, template, impl=impl,
+                                                     device="cuda"), **kw)
+        _build.reset_launches()
+        outs.append(sampler(x0, temps, torch.Generator(device="cuda").manual_seed(0)))
+        torch.cuda.synchronize()
+        if impl == "dense_fused":
+            routes = {key: n for key, n in _build.ROUTE_LAUNCHES.items() if n}
+            assert routes == {("fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3"): 2 * 2}
+    fused, dense = outs
+    assert torch.allclose(fused.xs, dense.xs, rtol=1e-4, atol=1e-5)
+    assert torch.allclose(fused.dlogp, dense.dlogp, rtol=1e-3,
+                          atol=1e-3 * dense.dlogp.abs().max().item())
 
 
 @pytest.mark.gpu

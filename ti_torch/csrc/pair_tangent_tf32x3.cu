@@ -63,19 +63,6 @@ constexpr int NRES = 5;         // h1, h2 of phi and of w; dPE/ddist
 constexpr int SIDE_F = (PGEO + LGEO) * TR + 4 * 2 * R + 3 * F + TR;
 constexpr size_t TANGENT_SMEM = sizeof(float) * (size_t)(XB_F + 2 * DA_F + NRES * RES_F + SIDE_F);
 
-// acc into the warp's block of a swizzled tile (a tangent product: no bias)
-__device__ __forceinline__ void acc_put(float* T, int ld, int row0, int col0, const Acc& acc) {
-  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int rt = 0; rt < 2; ++rt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(T + swz(row0 + 16 * rt + g + 8 * h, col0 + 8 * p + 2 * t, ld)) =
-            make_float2(acc[rt][p][2 * h], acc[rt][p][2 * h + 1]);
-}
-
 // p = acc + bias into the warp's block of the swizzled F-wide tile T, and
 // its rows below nrows into the scratch rows scr (row stride F)
 __device__ __forceinline__ void acc_store_keep(float* T, int row0, int col0, const Acc& acc,

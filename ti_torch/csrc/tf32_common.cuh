@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the hand-written f32 kernels in
-// split-precision TF32 ("3xTF32": pair_layer_tf32x3.cu, kernel B1, and
-// pair_tangent_tf32x3.cu, kernel B3): the swizzled f32 shared-memory tile,
+// split-precision TF32 ("3xTF32": pair_layer_tf32x3.cu, kernel B1,
+// pair_tangent_tf32x3.cu, kernel B3, and fused_edge_mlp_jvp_tf32x3.cu, kernel
+// B5): the swizzled f32 shared-memory tile,
 // the mma.sync TF32 wrapper, the 3xTF32 product of a warp's 32 x 32 block
 // over the weights as ops/pair_layer_kernel.pack_tf32_weights packs them,
 // its epilogues, and LayerNorm -> SiLU on the rows of a 64-row tile.
@@ -172,6 +173,19 @@ __device__ __forceinline__ void acc_store(float* T, int ld, int row0, int col0, 
             make_float2(acc[rt][p][2 * h] + bb.x, acc[rt][p][2 * h + 1] + bb.y);
       }
   }
+}
+
+// acc into the warp's block of a swizzled tile (a tangent product: no bias)
+__device__ __forceinline__ void acc_put(float* T, int ld, int row0, int col0, const Acc& acc) {
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(T + swz(row0 + 16 * rt + g + 8 * h, col0 + 8 * p + 2 * t, ld)) =
+            make_float2(acc[rt][p][2 * h], acc[rt][p][2 * h + 1]);
 }
 
 // h = p * (acc + bias) * mask, in place over p in the warp's block of T

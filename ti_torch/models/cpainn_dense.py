@@ -164,11 +164,13 @@ def apply_dense(
 
 
 def pack_message_layers(model, params, device) -> list:
-    """The message layers' MLPs packed once, in f32, for the fused kernels."""
-    from ti_torch.ops.pair_layer_kernel import pack_layer
+    """The message layers' MLPs packed once, in f32, for the fused kernels,
+    each carrying its 3xTF32 split (``with_tf32_weights``), which B5 on the
+    tensor cores reads."""
+    from ti_torch.ops.pair_layer_kernel import pack_layer, with_tf32_weights
 
     p = state_of(model, params)
-    return [pack_layer(p, i, model.n_features, torch.float32, device)
+    return [with_tf32_weights(pack_layer(p, i, model.n_features, torch.float32, device))
             for i in range(model.score_layers)]
 
 

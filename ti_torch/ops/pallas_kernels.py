@@ -1,7 +1,9 @@
 """The fused MLP kernels — B4 (``fused_edge_mlp``), B5
 (``fused_edge_mlp_jvp``) and B6 (``fused_mlp``), hand-written CUDA
-(csrc/fused_edge_mlp.cu, fused_edge_mlp_jvp.cu, fused_mlp.cu) — with
-their plain PyTorch versions beside them.
+(csrc/fused_edge_mlp.cu; csrc/fused_edge_mlp_jvp_tf32x3.cu, B5 on the
+tensor cores in 3xTF32, with csrc/fused_edge_mlp_jvp.cu, its f32-FMA
+kernel, as ``variant="fma"``; csrc/fused_mlp.cu) — with their plain
+PyTorch versions beside them.
 
 Port of ti_tpu/ops/pallas_kernels.py (named after it). B4 computes
 phi(in) · w(pe) per row, both MLPs Dense-LN-SiLU ×2 → Dense 5F, keeping
@@ -21,7 +23,11 @@ the plain version's own JVP; reverse mode raises.
 
 Every wrapper launches its kernel on a CUDA tensor and takes the plain
 version only on a CPU tensor; there is no fallback between the two.
-``PLAIN_CALLS`` counts the plain versions' calls on that route.
+``PLAIN_CALLS`` counts the plain versions' calls on that route. B5 on the
+tensor cores reads the layer's matrices as ``pack_tf32_weights`` splits
+them (``with_tf32_weights``, done once per layer by
+``cpainn_dense.pack_message_layers``); that packing rides along as one
+more tensor through ``fused_edge_mlp_diff`` and its custom op.
 """
 
 from __future__ import annotations
@@ -38,12 +44,16 @@ from ti_torch.ops.pair_layer_kernel import (
     _R,
     KERNEL_F,
     SMEM_LIMIT,
+    TC_ROWS,
     PairLayerWeights,
+    _packed,
     unpack_pair_mlps,
 )
 
 PLAIN_CALLS = {"fused_edge_mlp": 0, "fused_edge_mlp_jvp": 0, "fused_mlp": 0}
 _P = ctypes.c_void_p
+VARIANTS = ("tc", "fma")  # B5: the 3xTF32 tensor-core kernel, or the f32-FMA one
+JVP_LIBS = {"tc": "fused_edge_mlp_jvp_tf32x3", "fma": "fused_edge_mlp_jvp"}
 
 
 class MLPPack(NamedTuple):
@@ -163,24 +173,109 @@ def fused_edge_mlp(in_feat, pe, wts: PairLayerWeights):
 
 
 def jvp_smem_bytes(lane_block: int) -> int:
-    """Dynamic shared memory of one B5 CTA (csrc/fused_edge_mlp_jvp.cu)."""
+    """Dynamic shared memory of one CTA of B5's f32-FMA kernel
+    (csrc/fused_edge_mlp_jvp.cu)."""
     return 4 * (8 + 2 * lane_block) * _R * KERNEL_F
 
 
+def tc_jvp_smem_bytes() -> int:
+    """Dynamic shared memory of one CTA of csrc/fused_edge_mlp_jvp_tf32x3.cu:
+    four residual tiles (TC_ROWS x F), the mean and 1/std of four
+    LayerNorms per row, the [in | din] tile (TC_ROWS x 2F) and the
+    [pe | dpe] tile (TC_ROWS x F), all f32."""
+    f = KERNEL_F
+    return 4 * TC_ROWS * (4 * f + 8 + 2 * f + f)
+
+
+TC_JVP_SCRATCH = 10 * TC_ROWS * KERNEL_F  # floats of one CTA's p, q (5F each, 64 rows)
+
+
+class JvpPlan(NamedTuple):
+    """How csrc/fused_edge_mlp_jvp_tf32x3.cu splits a launch: ``units`` =
+    ``tiles`` row tiles of TC_ROWS rows times K lanes, tile-major (unit u
+    is lane u % K of tile u // K), over ``ctas`` persistent CTAs; CTA c
+    takes units [units·c // ctas, units·(c + 1) // ctas)."""
+
+    tiles: int
+    units: int
+    ctas: int
+
+
+def jvp_plan(rows: int, k_lanes: int, sms: int) -> JvpPlan:
+    tiles = -(-rows // TC_ROWS)
+    units = tiles * k_lanes
+    return JvpPlan(tiles, units, min(sms, units))
+
+
+def jvp_units(plan: JvpPlan, cta: int) -> range:
+    return range(plan.units * cta // plan.ctas, plan.units * (cta + 1) // plan.ctas)
+
+
+def _jvp_route(variant: str) -> str:
+    """The library a B5 launch takes: ``"tc"`` the 3xTF32 tensor-core
+    kernel, ``"fma"`` the f32-FMA kernel."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    return JVP_LIBS[variant]
+
+
 def _pick_lane_block(k_lanes: int) -> int:
-    """Lanes whose tangent chains are kept together per primal recompute:
-    the most of 3, 2, 1 that divides K and fits shared memory."""
+    """Lanes whose tangent chains the f32-FMA kernel keeps together per
+    primal recompute: the most of 3, 2, 1 that divides K and fits shared
+    memory."""
     for cand in (3, 2):
         if k_lanes % cand == 0 and jvp_smem_bytes(cand) <= SMEM_LIMIT:
             return cand
     return 1
 
 
+def _launch_jvp_fma(in_feat, pe, din, dpe, wts, lane_block, out, r, k_lanes):
+    L = lane_block or _pick_lane_block(k_lanes)
+    if k_lanes % L:
+        raise ValueError(f"lane_block {L} must divide the lane count {k_lanes}")
+    if jvp_smem_bytes(L) > SMEM_LIMIT:
+        raise ValueError(f"lane_block {L} needs {jvp_smem_bytes(L)} bytes of shared memory "
+                         f"per CTA; the card has {SMEM_LIMIT}")
+    lib = _build.load("fused_edge_mlp_jvp")
+    fn = lib.fused_edge_mlp_jvp_f32
+    fn.argtypes = [_P] * 7 + [ctypes.c_int] * 3 + [_P]
+    fn.restype = ctypes.c_int
+    rc = fn(*(t.data_ptr() for t in (in_feat, pe, din, dpe, wts.mats, wts.vecs, out)),
+            r, k_lanes, L, torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(lib, rc, "fused_edge_mlp_jvp launch")
+
+
+def _jvp_tc_weights(wts: PairLayerWeights, x) -> torch.Tensor:
+    """The 3xTF32 packing the tensor-core kernel reads (``with_tf32_weights``),
+    checked; raises where the layer carries none."""
+    return _packed(wts, x, 2 * wts.mats.numel(), torch.float32, "3xTF32", "with_tf32_weights")
+
+
+def _launch_jvp_tc(in_feat, pe, din, dpe, wts, out, r, k_lanes):
+    dev = out.device
+    mats = _jvp_tc_weights(wts, in_feat)
+    plan = jvp_plan(r, k_lanes, torch.cuda.get_device_properties(dev).multi_processor_count)
+    scratch = torch.empty(plan.ctas * TC_JVP_SCRATCH, device=dev, dtype=torch.float32)
+    lib = _build.load("fused_edge_mlp_jvp_tf32x3")
+    fn = lib.fused_edge_mlp_jvp_tf32x3
+    fn.argtypes = [_P] * 8 + [ctypes.c_int] * 3 + [_P]
+    fn.restype = ctypes.c_int
+    rc = fn(*(t.data_ptr() for t in (in_feat, pe, din, dpe, mats, wts.vecs, out, scratch)),
+            r, k_lanes, plan.ctas, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "fused_edge_mlp_jvp_tf32x3 launch")
+
+
 def fused_edge_mlp_jvp(in_feat, pe, din, dpe, wts: PairLayerWeights,
-                       lane_block: Optional[int] = None):
+                       lane_block: Optional[int] = None, variant: str = "tc"):
     """Tangent of ``fused_edge_mlp`` under K lanes: primal in_feat (R, 2F),
     pe (R, F); tangents din (K, R, 2F), dpe (K, R, F) -> (K, R, 5F), f32.
-    Launches kernel B5 on a CUDA tensor, the plain version on a CPU one."""
+    Launches kernel B5 on a CUDA tensor, the plain version on a CPU one
+    (under either variant). ``variant="tc"`` takes the 3xTF32 tensor-core
+    kernel (csrc/fused_edge_mlp_jvp_tf32x3.cu, which needs
+    ``with_tf32_weights`` and ignores ``lane_block``); ``variant="fma"``
+    the f32-FMA kernel (csrc/fused_edge_mlp_jvp.cu, ``lane_block`` lanes a
+    primal recompute), kept for timing."""
+    lib = _jvp_route(variant)
     if not _on_card(in_feat, "fused_edge_mlp_jvp"):
         PLAIN_CALLS["fused_edge_mlp_jvp"] += 1
         return edge_mlp_jvp_reference(in_feat, pe, din, dpe, wts.phi, wts.w)
@@ -191,21 +286,14 @@ def fused_edge_mlp_jvp(in_feat, pe, din, dpe, wts: PairLayerWeights,
     _check("din", din, (k_lanes, r, 2 * f), dev)
     _check("dpe", dpe, (k_lanes, r, f), dev)
     _check_pair_mlps(wts, dev)
-    L = lane_block or _pick_lane_block(k_lanes)
-    if k_lanes < 1 or k_lanes % L:
-        raise ValueError(f"lane_block {L} must divide the lane count {k_lanes}")
-    if jvp_smem_bytes(L) > SMEM_LIMIT:
-        raise ValueError(f"lane_block {L} needs {jvp_smem_bytes(L)} bytes of shared memory "
-                         f"per CTA; the card has {SMEM_LIMIT}")
-    lib = _build.load("fused_edge_mlp_jvp")
-    fn = lib.fused_edge_mlp_jvp_f32
-    fn.argtypes = [_P] * 7 + [ctypes.c_int] * 3 + [_P]
-    fn.restype = ctypes.c_int
+    if k_lanes < 1:
+        raise ValueError(f"din and dpe need at least one lane, got {tuple(din.shape)}")
     out = torch.empty((k_lanes, r, 5 * f), device=dev, dtype=torch.float32)
-    rc = fn(*(t.data_ptr() for t in (in_feat, pe, din, dpe, wts.mats, wts.vecs, out)),
-            r, k_lanes, L, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "fused_edge_mlp_jvp launch")
-    _build.LAUNCHES["fused_edge_mlp_jvp"] += 1
+    if variant == "tc":
+        _launch_jvp_tc(in_feat, pe, din, dpe, wts, out, r, k_lanes)
+    else:
+        _launch_jvp_fma(in_feat, pe, din, dpe, wts, lane_block, out, r, k_lanes)
+    _build.count_launch("fused_edge_mlp_jvp", lib)
     return out
 
 
@@ -243,29 +331,32 @@ def fused_mlp(x, pack: MLPPack):
 
 @torch.library.custom_op("ti_torch::fused_edge_mlp_jvp", mutates_args=())
 def _edge_mlp_jvp_op(in_feat: torch.Tensor, pe: torch.Tensor, din: torch.Tensor,
-                     dpe: torch.Tensor, mats: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
-    return fused_edge_mlp_jvp(in_feat, pe, din, dpe, unpack_pair_mlps(mats, vecs))
+                     dpe: torch.Tensor, mats: torch.Tensor, vecs: torch.Tensor,
+                     tf32: Optional[torch.Tensor]) -> torch.Tensor:
+    return fused_edge_mlp_jvp(in_feat, pe, din, dpe, unpack_pair_mlps(mats, vecs)._replace(mma=tf32))
 
 
 @_edge_mlp_jvp_op.register_fake
-def _(in_feat, pe, din, dpe, mats, vecs):
+def _(in_feat, pe, din, dpe, mats, vecs, tf32):
     return din.new_empty(din.shape[0], din.shape[1], 5 * (vecs.shape[0] // 22))
 
 
-def _edge_mlp_jvp_vmap(info, in_dims, in_feat, pe, din, dpe, mats, vecs):
+def _edge_mlp_jvp_vmap(info, in_dims, in_feat, pe, din, dpe, mats, vecs, tf32):
     """Vmapped lanes (the divergence's vmap over its JVP lanes) fold into
-    B5's K: one launch for all of them."""
-    if any(d is not None for d in (in_dims[0], in_dims[1], in_dims[4], in_dims[5])):
+    B5's K: one launch for all of them. The primal, the weights and their
+    3xTF32 packing pass as they are, never batched or expanded."""
+    if any(d is not None for d in (in_dims[0], in_dims[1], in_dims[4], in_dims[5], in_dims[6])):
         raise NotImplementedError(
             "the fused edge MLP's tangent rule vmaps over tangent lanes only, not over its "
-            "primal rows or weights")
+            "primal rows, its weights or their packing")
     bs = info.batch_size
 
     def lanes(t, dim):  # (bs, K, R, W) -> (bs·K, R, W)
         t = t.movedim(dim, 0) if dim is not None else t.expand(bs, *t.shape)
         return t.reshape(bs * t.shape[1], *t.shape[2:]).contiguous()
 
-    out = _edge_mlp_jvp_op(in_feat, pe, lanes(din, in_dims[2]), lanes(dpe, in_dims[3]), mats, vecs)
+    out = _edge_mlp_jvp_op(in_feat, pe, lanes(din, in_dims[2]), lanes(dpe, in_dims[3]), mats, vecs,
+                           tf32)
     return out.reshape(bs, -1, *out.shape[1:]), 0
 
 
@@ -276,17 +367,19 @@ class _FusedEdgeMLP(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(in_feat, pe, mats, vecs):
+    def forward(in_feat, pe, mats, vecs, tf32=None):
+        """B4; ``tf32`` (the 3xTF32 packing of ``mats``, or None) is for
+        the tangent rule only."""
         return fused_edge_mlp(in_feat, pe, unpack_pair_mlps(mats, vecs))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.set_materialize_grads(False)  # an input without a tangent arrives as None
-        ctx.save_for_forward(*inputs)
+        ctx.save_for_forward(*inputs[:4], inputs[4] if len(inputs) > 4 else None)
 
     @staticmethod
-    def jvp(ctx, din, dpe, dmats, dvecs):
-        in_feat, pe, mats, vecs = ctx.saved_tensors
+    def jvp(ctx, din, dpe, dmats, dvecs, *_):
+        in_feat, pe, mats, vecs, tf32 = ctx.saved_tensors
         if dmats is not None or dvecs is not None:
             # tangents on the weights: the plain version's own JVP (never on
             # the sampling paths), as the JAX fallback
@@ -297,7 +390,7 @@ class _FusedEdgeMLP(torch.autograd.Function):
         din = torch.zeros_like(in_feat) if din is None else din
         dpe = torch.zeros_like(pe) if dpe is None else dpe
         return _edge_mlp_jvp_op(in_feat, pe, din.unsqueeze(0).contiguous(),
-                                dpe.unsqueeze(0).contiguous(), mats, vecs).squeeze(0)
+                                dpe.unsqueeze(0).contiguous(), mats, vecs, tf32).squeeze(0)
 
     @staticmethod
     def backward(ctx, grad):
@@ -308,7 +401,8 @@ class _FusedEdgeMLP(torch.autograd.Function):
 
 def fused_edge_mlp_diff(in_feat, pe, wts: PairLayerWeights):
     """Differentiable fused edge MLP ``(R, 2F), (R, F) -> (R, 5F)``:
-    forward = B4, JVP in (in_feat, pe) = B5 (on a CPU tensor, their plain
-    versions through the same rule); JVP in the weights = the plain
-    version's; no reverse mode."""
-    return _FusedEdgeMLP.apply(in_feat, pe, wts.mats, wts.vecs)
+    forward = B4, JVP in (in_feat, pe) = B5 on the tensor cores, reading
+    ``wts.mma`` (``with_tf32_weights``; on a CPU tensor, the plain versions
+    through the same rule, with or without it); JVP in the weights = the
+    plain version's; no reverse mode."""
+    return _FusedEdgeMLP.apply(in_feat, pe, wts.mats, wts.vecs, wts.mma)
