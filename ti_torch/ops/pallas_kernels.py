@@ -52,7 +52,7 @@ from ti_torch.ops.pair_layer_kernel import (
 
 PLAIN_CALLS = {"fused_edge_mlp": 0, "fused_edge_mlp_jvp": 0, "fused_mlp": 0}
 _P = ctypes.c_void_p
-VARIANTS = ("tc", "fma")  # B5: the 3xTF32 tensor-core kernel, or the f32-FMA one
+# B5's variants: the 3xTF32 tensor-core kernel, or the f32-FMA one
 JVP_LIBS = {"tc": "fused_edge_mlp_jvp_tf32x3", "fma": "fused_edge_mlp_jvp"}
 
 
@@ -207,15 +207,11 @@ def jvp_plan(rows: int, k_lanes: int, sms: int) -> JvpPlan:
     return JvpPlan(tiles, units, min(sms, units))
 
 
-def jvp_units(plan: JvpPlan, cta: int) -> range:
-    return range(plan.units * cta // plan.ctas, plan.units * (cta + 1) // plan.ctas)
-
-
 def _jvp_route(variant: str) -> str:
     """The library a B5 launch takes: ``"tc"`` the 3xTF32 tensor-core
     kernel, ``"fma"`` the f32-FMA kernel."""
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    if variant not in JVP_LIBS:
+        raise ValueError(f"variant must be one of {tuple(JVP_LIBS)}, got {variant!r}")
     return JVP_LIBS[variant]
 
 
