@@ -18,7 +18,7 @@ went through its kernels:
   exact-dlogp sampler through ``molecular_v_fn_of(impl="dense_fused")``
   at 32 chains (B4, B5);
 - the whole-network exact divergence ``divergence_kernel_batch`` at 128
-  chains (B7).
+  chains (B7, on the tensor cores).
 
     python3 chip_smoke.py
 
@@ -62,7 +62,8 @@ Phases (any failure exits non-zero and prints no result):
      chains bf16_agg C = 4 against its plain version and C = 2, 3 and 4
      against B1 to the bit; its time there for C = 1, 2, 3 and 4 in turns
      beside ``variant="fma"`` at C = 4, with the bound and the weight bytes
-     each launch streams;
+     each launch streams; B2 in f32 (C = 4) timed once at 8192 chains beside
+     its f32-FMA bound;
   7. the SDE: at 256 chains in f32 (C = 2) against the same SDE built from
      the plain version on the same noise; then at 8192 chains, bf16_agg,
      C = 4, 20 steps (``bench.py`` takes 100), with B2's launch count (all
@@ -77,13 +78,17 @@ Phases (any failure exits non-zero and prints no result):
      with its B4/B6 launch counts, and the ``dense_fused`` exact sampler
      against the ``dense`` one with its B4/B5 launch counts (every B5
      launch from fused_edge_mlp_jvp_tf32x3), seconds and samples/s;
- 10. kernel B7 against its plain version at 130 chains, L = 4 and 6 (bar
-     1e-4); ``divergence_kernel_batch`` at 128 chains, t = 0.5, launching
-     B7 once, against ``divergence_exact(chunk=19)`` over the dense forward
-     and B3's full orthogonal frame in f32 (5 launches, all from
-     pair_tangent_tf32x3) (rtol 3e-4); the times of B7, its plain
-     version, the whole call and both yardsticks, and ``dense_divergence``
-     chain by chain;
+ 10. kernel B7 on the tensor cores (3xTF32, div_kernel_tf32x3) against its
+     plain version at 130 chains, L = 4 and 6, and at ragged shapes (N = 5,
+     29 and 32; L = 1, 3 and 57; one chain) (bar 1e-4), two launches to the
+     bit; ``divergence_kernel_batch`` at 128 chains, t = 0.5, launching B7
+     once, from div_kernel_tf32x3, against ``divergence_exact(chunk=19)``
+     over the dense forward and B3's full orthogonal frame in f32 (5
+     launches, all from pair_tangent_tf32x3) (rtol 3e-4); B7 timed in turns
+     beside the f32-FMA kernel (``variant="fma"``) at the plan's chunks a
+     CTA and at 3, with both bounds, its registers and the MACs each kernel
+     computes; the times of its plain version, the whole call and both
+     yardsticks, and ``dense_divergence`` chain by chain;
  11. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
@@ -123,7 +128,7 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
     "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp_tf32x3.cu",
                            "ti_tpu/ops/pallas_kernels.py:232"),
     "fused_mlp": ("ti_torch/csrc/fused_mlp.cu", "ti_tpu/ops/pallas_kernels.py:343"),
-    "div_kernel": ("ti_torch/csrc/div_kernel.cu", "ti_tpu/ops/div_kernel.py:117"),
+    "div_kernel": ("ti_torch/csrc/div_kernel_tf32x3.cu", "ti_tpu/ops/div_kernel.py:117"),
 }
 
 
@@ -259,6 +264,7 @@ def ambient_temps(b: int) -> np.ndarray:
 def phase_b2(params, rows_kernels) -> None:
     """6. B2 against its plain version and B1 at 130 and 8192 chains; its
     time at 8192 chains."""
+    from ti_torch.ops import _build
     from ti_torch.ops.pair_layer_kernel import mma_tile_plan, pair_layer, pair_layer_plain
 
     for dtype, blocks in ((torch.float32, (2, 4)), (torch.bfloat16, (2, 3, 4))):
@@ -317,6 +323,21 @@ def phase_b2(params, rows_kernels) -> None:
         f"bound {bnd:.4f} ms ({by}); C=4 {min(fma) / best[4]:.2f}x faster than fma")
     require(best[4] < min(fma), "B2 on the tensor cores is faster than the f32-FMA kernel")
     rows_kernels["pair_layer_cb"] = dict(err=err, ms=best[4], plain=plain, bound=bnd, by=by)
+    del w, base, out
+    torch.cuda.empty_cache()
+    # B2 in f32 (pair_layer.cu, C chains a CTA, f32 FMA) at the same 8192 chains, once
+    w, base, _ = layer_inputs(params, torch.float32, 0, seed=4, b=SDE_CHAINS)
+    out = pair_layer(*base, w, LENGTH_SCALE, 4)
+    torch.cuda.synchronize()
+    require(_build.ROUTES["pair_layer_cb"] == "pair_layer", "B2 in f32 launches pair_layer.cu")
+    f32_ms = cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE, 4), 2, warm=1)
+    plain32 = cuda_ms(lambda: pair_layer_plain(*base, w, LENGTH_SCALE), 1, warm=1)
+    bnd32, by32 = bound_ms(2.0 * 15 * F * F * SDE_CHAINS * N_ATOMS ** 2, H100_FP32,
+                           nbytes(*base, w.mats, w.vecs, *out))
+    log(f"[B2 f32 B={SDE_CHAINS} C=4] {f32_ms:.3f} ms per launch (pair_layer.cu, f32 FMA, 4 chains "
+        f"a CTA), {f32_ms / bnd32:.2f}x its bound {bnd32:.4f} ms ({by32}: 2 x 15F² x B x N² = "
+        f"{2.0 * 15 * F * F * SDE_CHAINS * N_ATOMS ** 2:.4e} FLOP at 67 TFLOP/s f32); plain "
+        f"{plain32:.3f} ms")
     del w, base, out
     torch.cuda.empty_cache()
 
@@ -588,22 +609,59 @@ def b7_macs(c: int, n: int, layers: int) -> float:
 
 
 def b7_kernel_macs(c: int, n: int, layers: int, lanes: int) -> float:
-    """Multiply-adds kernel B7 itself computes (csrc/div_kernel.cu), counted
-    on the N² real pair rows (not the tiles' padding to 32) and L·N node rows
-    of each (chain, chunk): per layer the primal fronts of phi and w once per
-    chunk (5F²), the primal 5F products once per sub-block of 2 lanes
-    (10F²), and per lane, the padded ones of the last chunk included, the
-    tangents of ``b7_macs``."""
+    """Multiply-adds B7's f32-FMA kernel (csrc/div_kernel.cu, ``variant="fma"``)
+    computes, counted on the N² real pair rows (not the tiles' padding to
+    32) and L·N node rows of each (chain, chunk): per layer the primal fronts
+    of phi and w once per chunk (5F²), the primal 5F products once per
+    sub-block of 2 lanes (10F²), and per lane, the padded ones of the last
+    chunk included, the tangents of ``b7_macs``."""
     n_chunks = -(-3 * n // lanes)
     pair = (5 + 10 * -(-lanes // 2)) * layers + lanes * (7 * layers + 8 * (layers - 1))
     return float(c * n_chunks * F * F * (pair * n * n + 12 * lanes * n * layers))
 
 
-def phase_div(model, template, card: str, rows_kernels) -> dict:
-    """10. Kernel B7 and the exact-divergence node: B7 against its plain
-    version at 130 chains, L = 4 and 6; ``divergence_kernel_batch`` at 128
-    chains with its launch count, against the torch.func exact divergence
-    and B3's full orthogonal frame; their times. Returns the launch counts."""
+def b7_tc_kernel_macs(c: int, n: int, layers: int, lanes: int, chunks: int) -> float:
+    """Multiply-adds B7 on the tensor cores (csrc/div_kernel_tf32x3.cu)
+    computes at ``chunks`` (G) chunks a CTA, on the N² real pair rows (not
+    the tiles' padding to 64) and N node rows of each lane: per CTA and layer
+    the primal message MLPs once (15F² a pair row), per real lane (the 3N
+    below the padding, which it skips) the tangents of ``b7_macs``."""
+    n_chunks = -(-3 * n // lanes)
+    groups = -(-n_chunks // chunks)
+    pair = 15 * layers * groups + 3 * n * (7 * layers + 8 * (layers - 1))
+    return float(c * F * F * (pair * n * n + 12 * 3 * n * n * layers))
+
+
+def div_inputs(n: int, c: int, lanes: int, seed: int):
+    """Kernel B7's packed inputs and stacks for c chains of an n-atom
+    synthetic molecule (random weights and coordinates from the seed)."""
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+    from ti_torch.models.cpainn import CPaiNN
+    from ti_torch.models.cpainn_dense import dense_edge_type_matrix
+    from ti_torch.ops import div_kernel as dk
+
+    torch.manual_seed(seed)
+    model = CPaiNN(F, LAYERS, n_atoms=n)
+    p = {k: w.detach().to("cuda") for k, w in model.state_dict().items()}
+    template = graph_template(make_synthetic_molecule(n, seed=seed), t_cond=2)
+    etype = torch.as_tensor(dense_edge_type_matrix(template.edges), device="cuda").long()
+    x = 0.1 * np.random.default_rng(seed).standard_normal((c, n, 3))
+    xs = torch.as_tensor(x - x.mean(axis=1, keepdims=True), dtype=torch.float32, device="cuda")
+    temps = torch.as_tensor(ambient_temps(c), device="cuda")
+    with torch.no_grad():
+        st = dk._primal_layer_states(model, p, xs, 0.5, temps,
+                                     torch.as_tensor(template.atom_ids, device="cuda"), etype)
+    return dk.pack_inputs(st, lanes), dk._pack_mlp_stacks(p, LAYERS)
+
+
+def phase_div(model, template, card: str, rows_kernels, report) -> dict:
+    """10. Kernel B7 and the exact-divergence node: B7 on the tensor cores
+    against its plain version at 130 chains (L = 4 and 6) and at ragged
+    shapes, two launches to the bit; ``divergence_kernel_batch`` at 128
+    chains with its launch count and library, against the torch.func exact
+    divergence and B3's full orthogonal frame; B7 timed in turns beside the
+    f32-FMA kernel at two chunk counts a CTA, with both bounds; the other
+    times. Returns the launch counts."""
     from ti_torch.models.cpainn import state_of
     from ti_torch.models.cpainn_dense import dense_edge_type_matrix, dense_velocity_fn
     from ti_torch.ops import _build
@@ -616,6 +674,7 @@ def phase_div(model, template, card: str, rows_kernels) -> dict:
     etype = torch.as_tensor(dense_edge_type_matrix(template.edges), device="cuda").long()
     atom_ids = torch.as_tensor(template.atom_ids, device="cuda")
     stacks = dk._pack_mlp_stacks(p, LAYERS)
+    tf32 = dk.pack_tf32_stacks(stacks)
     rng = np.random.default_rng(4)
 
     def states(b):
@@ -630,11 +689,29 @@ def phase_div(model, template, card: str, rows_kernels) -> dict:
         _, _, st = states(130)  # 130: not a multiple of anything
         for lanes in (4, 6):
             inp = dk.pack_inputs(st, lanes)
-            out = dk.div_kernel(inp, stacks, lanes)
+            out = dk.div_kernel(inp, stacks, lanes, tf32=tf32)
             torch.cuda.synchronize()
+            require(_build.ROUTES["div_kernel"] == "div_kernel_tf32x3",
+                    "B7 launches div_kernel_tf32x3.cu by default")
             errs[lanes] = compare([out], [dk.div_kernel_plain(inp, stacks, lanes)], torch.float32,
-                                  f"B7 div_kernel L={lanes} B=130", bar=b7_bar)
+                                  f"B7 div_kernel L={lanes} B=130 (3xTF32)", bar=b7_bar)
+            if lanes == 4:
+                again = dk.div_kernel(inp, stacks, lanes, tf32=tf32)
+                torch.cuda.synchronize()
+                require(torch.equal(again, out), "B7 3xTF32: two launches on the same inputs agree "
+                                                 "to the bit")
+                del again
         del st, inp, out
+        torch.cuda.empty_cache()
+        # ragged shapes: 5, 29 and 32 atoms (12, 2 and 2 lanes a tile); 1, 3 and 57
+        # lanes a chunk (57 at N = 32: 96 real lanes in two chunks of 57); one chain
+        for n, c, lanes in ((5, 3, 1), (29, 2, 3), (32, 2, 57), (N_ATOMS, 1, 4)):
+            inp, stk = div_inputs(n, c, lanes, seed=10 + n)
+            out = dk.div_kernel(inp, stk, lanes)
+            torch.cuda.synchronize()
+            compare([out], [dk.div_kernel_plain(inp, stk, lanes)], torch.float32,
+                    f"B7 div_kernel N={n} B={c} L={lanes} (3xTF32)", bar=b7_bar)
+        del inp, stk, out
         torch.cuda.empty_cache()
 
     # the entry point at 128 chains, counted
@@ -647,9 +724,12 @@ def phase_div(model, template, card: str, rows_kernels) -> dict:
                                       device="cuda")
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    routes = {k: n for k, n in _build.ROUTE_LAUNCHES.items() if n}
     want = {k: 0 for k in launches}
     want["div_kernel"] = 1
     require(launches == want, f"divergence_kernel_batch launch counts {launches} == {want}")
+    require(routes == {("div_kernel", "div_kernel_tf32x3"): 1},
+            f"divergence_kernel_batch launches B7 from div_kernel_tf32x3.cu: {routes}")
     require(divs.shape == (CHAINS,) and bool(torch.isfinite(divs).all()),
             "divergence_kernel_batch: finite (128,) divergences")
     drift = dense_velocity_fn(model, p, template)
@@ -678,11 +758,21 @@ def phase_div(model, template, card: str, rows_kernels) -> dict:
     require(bool(torch.allclose(frame, exact, rtol=3e-4, atol=0)),
             "B3's K=57 f32 frame agrees with divergence_exact(chunk=19) (rtol 3e-4)")
 
-    # times, CUDA events after warm-up
+    # times, CUDA events after warm-up: B7 on the tensor cores at the plan's G
+    # and at G = 3, in turns with the f32-FMA kernel
+    n_chunks = -(-3 * N_ATOMS // lanes)
+    g_plan = dk.div_tc_plan(CHAINS, N_ATOMS, lanes, n_chunks,
+                            torch.cuda.get_device_properties(0).multi_processor_count).chunks
+    g_alt = 3 if g_plan != 3 else 1
     with torch.no_grad():
         inp = dk.pack_inputs(st, lanes)
-        out = dk.div_kernel(inp, stacks, lanes)
-        ms = cuda_ms(lambda: dk.div_kernel(inp, stacks, lanes), 3, warm=1)
+        out = dk.div_kernel(inp, stacks, lanes, tf32=tf32)
+        runs = {"tc": lambda: dk.div_kernel(inp, stacks, lanes, tf32=tf32),
+                "alt": lambda: dk.div_kernel(inp, stacks, lanes, tf32=tf32, chunks_per_cta=g_alt),
+                "fma": lambda: dk.div_kernel(inp, stacks, lanes, variant="fma")}
+        ms = {k: [] for k in runs}
+        for k in ("tc", "alt", "fma", "fma", "alt", "tc"):
+            ms[k].append(cuda_ms(runs[k], 2, warm=1))
         plain = cuda_ms(lambda: dk.div_kernel_plain(inp, stacks, lanes), 2, warm=1)
         whole = cuda_ms(lambda: dk.divergence_kernel_batch(model, None, xs, 0.5, temps, template,
                                                            lanes, device="cuda"), 3, warm=1)
@@ -692,23 +782,40 @@ def phase_div(model, template, card: str, rows_kernels) -> dict:
                                          template.edges)
         t_one = cuda_ms(lambda: one(0), 3, warm=1)
         t_all = cuda_ms(lambda: [one(i) for i in range(CHAINS)], 1, warm=0)
+    tc_ms, alt_ms, fma_ms = (min(ms[k]) for k in runs)
     macs = b7_macs(CHAINS, N_ATOMS, LAYERS)
+    moved = nbytes(*inp, *stacks, out)
+    bnd_tc, by_tc = bound_ms(3 * 2.0 * macs, H100_TF32, moved)
+    bnd_fma, by_fma = bound_ms(2.0 * macs, H100_FP32, moved)
+    fmt = lambda ts: " and ".join(f"{t:.3f}" for t in ts)
+    log(f"[B7 B={CHAINS} L={lanes}] ms per launch, 2 launches a reading, in turns: 3xTF32 (tensor "
+        f"cores, div_kernel_tf32x3) G={g_plan} chunks a CTA {fmt(ms['tc'])}, G={g_alt} "
+        f"{fmt(ms['alt'])}, variant=fma (f32 FMA, div_kernel.cu) {fmt(ms['fma'])}; 3xTF32 "
+        f"{fma_ms / tc_ms:.2f}x faster; plain {plain:.3f} ms; bound {bnd_tc:.3f} ms ({by_tc}, 3 x 2 x "
+        f"{macs:.4e} MACs at 495 TFLOP/s TF32), f32 FMA bound {bnd_fma:.3f} ms ({by_fma}, 67 TFLOP/s; "
+        f"MACs = C·F²·(N²·(15·SL + 3N·(7·SL + 8·(SL-1))) + 12·3N·N·SL)); 3xTF32 at "
+        f"{tc_ms / bnd_tc:.2f}x its bound, fma at {fma_ms / bnd_fma:.2f}x its bound ({card})")
+    for fn, regs, spill in ptxas_kernels(report["div_kernel_tf32x3"]["ptxas"]):
+        log(f"[B7 3xTF32 build] {fn}: {regs}; {spill}")
+    for g, t in ((g_plan, tc_ms), (g_alt, alt_ms)):
+        own = b7_tc_kernel_macs(CHAINS, N_ATOMS, LAYERS, lanes, g)
+        log(f"[B7 B={CHAINS} L={lanes} G={g}] the 3xTF32 kernel computes {own:.4e} MACs "
+            f"({own / macs:.3f}x the function's: the primal once per CTA, layer and dst atom, "
+            f"{-(-n_chunks // g)} CTAs a chain; the padded lanes skipped), "
+            f"{2e-9 * own / t:.3f} TFLOP/s of products (each three TF32 passes)")
     own = b7_kernel_macs(CHAINS, N_ATOMS, LAYERS, lanes)
-    bnd, by = bound_ms(2.0 * macs, H100_FP32, nbytes(*inp, *stacks, out))
-    log(f"[B7 B={CHAINS} L={lanes}] kernel {ms:.3f} ms per launch ({ms / bnd:.2f}x the bound), "
-        f"plain {plain:.3f} ms, bound {bnd:.3f} ms ({by}: 2 x {macs:.4e} MACs = "
-        f"2·C·F²·(N²·(15·SL + 3N·(7·SL + 8·(SL-1))) + 12·3N·N·SL) at 67 TFLOP/s f32; {card})")
-    log(f"[B7 B={CHAINS} L={lanes}] the kernel itself computes {own:.4e} MACs "
+    log(f"[B7 B={CHAINS} L={lanes}] the f32-FMA kernel computes {own:.4e} MACs "
         f"({own / macs:.3f}x the function's: primal recomputed per chunk and per 2-lane "
         f"sub-block, padded lanes) = C·ceil(3N/L)·F²·(N²·((5 + 10·ceil(L/2))·SL "
-        f"+ L·(7·SL + 8·(SL-1))) + 12·L·N·SL), {2e-9 * own / ms:.3f} TFLOP/s")
-    log(f"[exact node B={CHAINS}] divergence_kernel_batch {whole:.3f} ms (primal states, B7, "
-        f"readout); divergence_exact(chunk=19) over dense_velocity_fn {t_exact:.3f} ms; "
+        f"+ L·(7·SL + 8·(SL-1))) + 12·L·N·SL), {2e-9 * own / fma_ms:.3f} TFLOP/s")
+    log(f"[exact node B={CHAINS}] divergence_kernel_batch {whole:.3f} ms (primal states, packing, "
+        f"B7, readout); divergence_exact(chunk=19) over dense_velocity_fn {t_exact:.3f} ms; "
         f"pair_tangent_div_fn K=57 f32 (5 B3 launches from pair_tangent_tf32x3 + glue) "
         f"{t_frame:.3f} ms; "
         f"dense_divergence {t_one:.3f} ms per chain, {t_all:.3f} ms for the {CHAINS} chains "
         f"one by one ({card})")
-    rows_kernels["div_kernel"] = dict(err=errs[4], ms=ms, plain=plain, bound=bnd, by=by)
+    require(tc_ms < fma_ms, "B7 on the tensor cores is faster than the f32-FMA kernel")
+    rows_kernels["div_kernel"] = dict(err=errs[4], ms=tc_ms, plain=plain, bound=bnd_tc, by=by_tc)
     return launches
 
 
@@ -745,7 +852,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
     for name in ("pair_tangent_mma", "pair_tangent_tf32x3", "pair_layer_tf32x3", "pair_layer_mma",
-                 "fused_edge_mlp_jvp_tf32x3"):
+                 "fused_edge_mlp_jvp_tf32x3", "div_kernel_tf32x3"):
         spills = [ln.strip() for ln in report[name]["ptxas"].splitlines() if "spill" in ln]
         require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
                                      for ln in spills), f"{name} builds without register spills: {spills}")
@@ -1124,7 +1231,7 @@ def main() -> int:
     fwd_launches, smp_launches = phase_fused_paths(model, template, card)
 
     # ---- 10. kernel B7 and the exact-divergence node ----
-    div_launches = phase_div(model, template, card, rows_kernels)
+    div_launches = phase_div(model, template, card, rows_kernels, report)
 
     # ---- 11. result lines ----
     path_launches = {"pair_layer": launches["pair_layer"],

@@ -567,22 +567,47 @@ def _div_setup(n, f, layers, c, L):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,layers,c,L", [(6, 2, 3, 4), (6, 2, 3, 3), (19, 5, 5, 4), (19, 5, 4, 6)])
-def test_div_kernel_matches_plain(n, layers, c, L):
-    """B7 against its plain version; bar 1e-4 (five layers of f32 tangent
-    sums taken in another order)."""
+@pytest.mark.parametrize("variant", ["tc", "fma"])
+@pytest.mark.parametrize("n,layers,c,L", [(6, 2, 3, 4), (6, 2, 3, 3), (19, 5, 5, 4), (19, 5, 4, 6),
+                                          (29, 5, 2, 3), (32, 5, 2, 57), (5, 3, 3, 1),
+                                          (19, 5, 1, 4), (19, 2, 130, 4)])
+def test_div_kernel_matches_plain(n, layers, c, L, variant):
+    """B7 against its plain version, on the tensor cores (3xTF32) and in f32
+    FMA; bar 1e-4 (five layers of f32 tangent sums taken in another order)."""
     from ti_torch.ops import div_kernel as dk
 
     _card()
     *_, inp, stacks = _div_setup(n, F, layers, c, L)
     before = _build.LAUNCHES["div_kernel"]
     with torch.no_grad():
-        out = dk.div_kernel(inp, stacks, L)
+        out = dk.div_kernel(inp, stacks, L, variant=variant)
         torch.cuda.synchronize()
         ref = dk.div_kernel_plain(inp, stacks, L)
     assert _build.LAUNCHES["div_kernel"] == before + 1
+    assert _build.ROUTES["div_kernel"] == dk.DIV_LIBS[variant]
     assert out.shape == ref.shape and torch.isfinite(out).all()
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_div_kernel_tc_is_deterministic_at_every_chunk_count():
+    """Two launches of the tensor-core B7 agree to the bit; G = 1, 3 and
+    every chunk of a chain a CTA agree with the plain version."""
+    from ti_torch.ops import div_kernel as dk
+
+    _card()
+    *_, inp, stacks = _div_setup(19, F, 3, 4, 4)
+    tf32 = dk.pack_tf32_stacks(stacks)
+    with torch.no_grad():
+        out = dk.div_kernel(inp, stacks, 4, tf32=tf32)
+        again = dk.div_kernel(inp, stacks, 4, tf32=tf32)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        ref = dk.div_kernel_plain(inp, stacks, 4)
+        for g in (1, 3, 15):
+            got = dk.div_kernel(inp, stacks, 4, tf32=tf32, chunks_per_cta=g)
+            torch.cuda.synchronize()
+            assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-4
 
 
 @pytest.mark.gpu
@@ -597,24 +622,46 @@ def test_divergence_kernel_batch_launches_b7_once():
     divs = divergence_kernel_batch(model, None, xs, 0.5, temps, template)
     torch.cuda.synchronize()
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"div_kernel": 1}
+    assert _build.ROUTE_LAUNCHES == {("div_kernel", "div_kernel_tf32x3"): 1}
     ref = torch.stack([dense_divergence(model, None, xs[i], 0.5, temps[i], template.atom_ids,
                                         template.edges)[1].detach() for i in range(3)])
     torch.testing.assert_close(divs, ref, rtol=3e-4, atol=0)
 
 
 @pytest.mark.gpu
-def test_div_kernel_rejects_what_it_does_not_take():
+@pytest.mark.parametrize("variant", ["tc", "fma"])
+def test_div_kernel_rejects_what_it_does_not_take(variant):
     from ti_torch.ops import div_kernel as dk
 
     _card()
     *_, inp, stacks = _div_setup(6, 256, 1, 2, 4)
     with pytest.raises(ValueError, match="F=128"):
-        dk.div_kernel(inp, stacks, 4)
+        dk.div_kernel(inp, stacks, 4, variant=variant)
     *_, inp, stacks = _div_setup(33, F, 1, 1, 4)
     with pytest.raises(ValueError, match="2..32 atoms, got 33"):
-        dk.div_kernel(inp, stacks, 4)
+        dk.div_kernel(inp, stacks, 4, variant=variant)
     *_, inp, stacks = _div_setup(6, F, 1, 2, 4)
     with pytest.raises(ValueError, match="lanes_per_chunk"):
-        dk.div_kernel(inp, stacks, 3)
+        dk.div_kernel(inp, stacks, 3, variant=variant)
     with pytest.raises(ValueError, match="contiguous"):
-        dk.div_kernel(inp._replace(e=inp.e.transpose(2, 3).contiguous().transpose(2, 3)), stacks, 4)
+        dk.div_kernel(inp._replace(e=inp.e.transpose(2, 3).contiguous().transpose(2, 3)), stacks, 4,
+                      variant=variant)
+    if variant == "tc":
+        with pytest.raises(ValueError, match="chunks_per_cta"):
+            dk.div_kernel(inp, stacks, 4, chunks_per_cta=99)
+        with pytest.raises(ValueError, match="pack_tf32_stacks"):
+            dk.div_kernel(inp, stacks, 4, tf32=dk.pack_tf32_stacks(stacks)[:, :-4].contiguous())
+
+
+@pytest.mark.gpu
+def test_div_kernel_tc_smem_and_tile_counts_are_the_kernels_own():
+    import ctypes
+
+    from ti_torch.ops import div_kernel as dk
+
+    _card()
+    lib = _build.load("div_kernel_tf32x3")
+    lib.div_kernel_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+    assert lib.div_kernel_tf32x3_smem_bytes() == dk.tc_smem_bytes()
+    for n in (2, 5, 19, 29, 32):
+        assert lib.div_kernel_tf32x3_lanes(n) == dk.div_tc_plan(1, n, 4, -(-3 * n // 4), 132).lanes_per_tile

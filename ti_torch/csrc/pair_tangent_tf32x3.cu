@@ -109,76 +109,6 @@ __device__ __forceinline__ void acc_gate_keep(float* T, int row0, int col0, cons
   }
 }
 
-// LayerNorm (f32 statistics, eps 1e-5) -> SiLU in place on the rows below
-// nrows of a swizzled tile, as ln_silu_rows; each row's pre-LN values go to
-// H (a residual tile) and its mean and 1/std to stat[r], stat[R + r]
-__device__ __forceinline__ void ln_silu_keep(float* T, int ld, float* H, float* stat, int nrows,
-                                             const float* __restrict__ scale,
-                                             const float* __restrict__ bias) {
-  const int lane = lane_id(), w = warp_id();
-  const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + 4 * lane));
-  const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + 4 * lane));
-#pragma unroll 1
-  for (int rr = 0; rr < TR / NW; ++rr) {
-    const int r = 8 * w + rr;
-    if (r >= nrows) break;
-    float4* at = reinterpret_cast<float4*>(T + swz(r, 4 * lane, ld));
-    const float4 v = *at;
-    *reinterpret_cast<float4*>(H + swz(r, 4 * lane, F)) = v;
-    const float mu = warp_sum(v.x + v.y + v.z + v.w) * (1.f / F);
-    const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
-    const float rstd = 1.f / sqrtf(warp_sum(d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3) * (1.f / F) + 1e-5f);
-    if (lane == 0) {
-      stat[r] = mu;
-      stat[R + r] = rstd;
-    }
-    *at = make_float4(silu(d0 * rstd * sc.x + bi.x), silu(d1 * rstd * sc.y + bi.y),
-                      silu(d2 * rstd * sc.z + bi.z), silu(d3 * rstd * sc.w + bi.w));
-  }
-}
-
-// Tangent of LayerNorm -> SiLU in place on a swizzled TR-row tile: row r is
-// replayed at the pre-LN primal H[rowj[r]] and its statistics; padding rows
-// (rowj < 0) become zero. Warp w takes rows 8w .. 8w + 7, lane l columns
-// 4l .. 4l + 3.
-__device__ __forceinline__ void ln_silu_tan_rows(float* T, int ld, const float* H,
-                                                 const float* stat, const int* rowj,
-                                                 const float* __restrict__ scale,
-                                                 const float* __restrict__ bias) {
-  const int lane = lane_id(), w = warp_id();
-  const float4 s4 = __ldg(reinterpret_cast<const float4*>(scale + 4 * lane));
-  const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + 4 * lane));
-  const float sc[4] = {s4.x, s4.y, s4.z, s4.w}, bi[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll 2
-  for (int rr = 0; rr < TR / NW; ++rr) {
-    const int r = 8 * w + rr, j = rowj[r];
-    float4* at = reinterpret_cast<float4*>(T + swz(r, 4 * lane, ld));
-    if (j < 0) {
-      *at = make_float4(0.f, 0.f, 0.f, 0.f);
-      continue;
-    }
-    const float4 d4 = *at, h4 = *reinterpret_cast<const float4*>(H + swz(j, 4 * lane, F));
-    const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-    const float mu = stat[j], rstd = stat[R + j];
-    const float cen[4] = {h4.x - mu, h4.y - mu, h4.z - mu, h4.w - mu};
-    float cd = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) cd += cen[c] * dv[c];
-    const float dmu = warp_sum(dv[0] + dv[1] + dv[2] + dv[3]) * (1.f / F);
-    const float dvar = 2.f * (warp_sum(cd) * (1.f / F));
-    const float drstd = -0.5f * rstd * rstd * rstd * dvar;
-    float o[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float dl = ((dv[c] - dmu) * rstd + cen[c] * drstd) * sc[c];
-      const float l = cen[c] * rstd * sc[c] + bi[c];
-      const float sig = 1.f / (1.f + expf(-l));
-      o[c] = sig * (1.f + l * (1.f - sig)) * dl;
-    }
-    *at = make_float4(o[0], o[1], o[2], o[3]);
-  }
-}
-
 __global__ void __launch_bounds__(NT, 1)
 pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ s,
                            const float* __restrict__ v, const float* __restrict__ e,

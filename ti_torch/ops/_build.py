@@ -18,7 +18,9 @@ cores), ``pair_tangent_tf32x3`` (f32 on the tensor cores) and
 ``pair_tangent`` (the f32-FMA kernel, kept for timing). B5
 (``fused_edge_mlp_jvp``) has two: ``fused_edge_mlp_jvp_tf32x3`` (on the
 tensor cores) and ``fused_edge_mlp_jvp`` (the f32-FMA kernel, kept for
-timing). ``ROUTES`` says which library a kernel's last launch came from,
+timing). B7 (``div_kernel``) has two: ``div_kernel_tf32x3`` (on the tensor
+cores) and ``div_kernel`` (the f32-FMA kernel, kept for timing). ``ROUTES``
+says which library a kernel's last launch came from,
 and ``ROUTE_LAUNCHES`` counts the launches of each (kernel, library) pair,
 so a run can show that all of a kernel's launches took one library.
 """
@@ -37,7 +39,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("pair_layer", "pair_layer_tf32x3", "pair_layer_mma", "pair_tangent",
            "pair_tangent_mma", "pair_tangent_tf32x3", "fused_edge_mlp", "fused_edge_mlp_jvp",
-           "fused_edge_mlp_jvp_tf32x3", "fused_mlp", "div_kernel")
+           "fused_edge_mlp_jvp_tf32x3", "fused_mlp", "div_kernel", "div_kernel_tf32x3")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "pair_layer", "pair_layer_cb", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp",

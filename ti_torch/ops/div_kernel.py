@@ -1,6 +1,8 @@
 """Whole-network exact divergence of the dense-pair cPaiNN — kernel B7,
-hand-written CUDA (csrc/div_kernel.cu), with its plain PyTorch version
-beside it.
+hand-written CUDA, with its plain PyTorch version beside it: on the tensor
+cores in 3xTF32 (csrc/div_kernel_tf32x3.cu, ``variant="tc"``, every
+layer's matrices split and packed by ``pack_tf32_stacks``) or in f32 FMA
+(csrc/div_kernel.cu, ``variant="fma"``, kept to be timed beside it).
 
 Port of ti_tpu/ops/div_kernel.py (the Pallas ``_make_kernel``, run by
 ``_div_kernel_run``). For a batch of chains, the 3N identity-basis tangent
@@ -21,14 +23,15 @@ p = i·N + j, LP = n_chunks·L lanes): s (C,SL,N,F); v (C,SL,3,N,F); e
 tangent replays (``NODE_ROWS``). Output (C, n_chunks, L, 4, N, F): per lane
 d_v (components 0-2) and d_s (3).
 
-``div_kernel`` launches the kernel on a CUDA tensor and takes the plain
-version only on a CPU tensor; there is no fallback between the two.
+``div_kernel`` launches a kernel on a CUDA tensor and takes the plain
+version only on a CPU tensor (under either variant); there is no fallback
+between the routes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as Fn
@@ -39,7 +42,15 @@ from ti_torch.models.cpainn_dense import _cross, dense_edge_type_matrix, node_fe
 from ti_torch.models.embeddings import positional_encoding
 from ti_torch.ops import _build
 from ti_torch.ops.mlp_block import MLPWeights, _mlp_block, _mlp_block_jvp, mlp_weights
-from ti_torch.ops.pair_layer_kernel import KERNEL_F, KERNEL_MAX_N, _mlp_store, agg, tile_src
+from ti_torch.ops.pair_layer_kernel import (
+    KERNEL_F,
+    KERNEL_MAX_N,
+    TC_ROWS,
+    _mlp_store,
+    _pack_tf32_matrix,
+    agg,
+    tile_src,
+)
 from ti_torch.ops.pair_tangent_kernel import _mlp_tan
 
 # rows of DivInputs.node per layer: chirality aggregate q, u(v1), v(v1),
@@ -47,6 +58,8 @@ from ti_torch.ops.pair_tangent_kernel import _mlp_tan
 NODE_ROWS = ("q0", "q1", "q2", "uv0", "uv1", "uv2", "vv0", "vv1", "vv2", "vvn", "hu_h1",
              "hu_h2", "g_u", "scale_sq")
 _LB, _R, _NW = 2, 32, 8  # lanes per sub-block, tile rows, warps (csrc/div_kernel.cu)
+# B7's variants: the 3xTF32 tensor-core kernel, or the f32-FMA one
+DIV_LIBS = {"tc": "div_kernel_tf32x3", "fma": "div_kernel"}
 
 
 class MLPStacks(NamedTuple):
@@ -308,26 +321,146 @@ def _check_div_inputs(inp: DivInputs, stacks: MLPStacks, lanes_per_chunk: int):
     return c, n, sl, lp // L
 
 
-def div_kernel(inp: DivInputs, stacks: MLPStacks, lanes_per_chunk: int) -> torch.Tensor:
+def pack_tf32_stacks(stacks: MLPStacks) -> torch.Tensor:
+    """Every layer's matrices split into TF32 hi and lo parts in fragment
+    order, as csrc/div_kernel_tf32x3.cu reads them: (SL, 2·23F²), per layer
+    phi's w1 (2F x F), w2, w3 (F x 5F), w's w1 (its first F rows: the rest is
+    MLPStacks' zero padding), w2, w3 (the layout of ``pack_tf32_weights``),
+    then the update MLP's w1 (2F x F), w2 and the first 3F columns of its w3
+    (the others are never read), then U and V; each permuted by
+    ``pair_layer_kernel._pack_tf32_matrix``. A pure function of the
+    tensors; done once per ``divergence_kernel_batch`` call. Each kind of
+    matrix is packed for all layers at once: the fragment order is
+    k-step-major, so packing the layers' matrices stacked row-wise gives
+    the layers' packings one after the other."""
+    f, sl = stacks.w2.shape[-1], stacks.uk.shape[0]
+    phi, w, up = slice(0, None, 3), slice(1, None, 3), slice(2, None, 3)
+    mats = (stacks.w1[phi], stacks.w2[phi], stacks.w3[phi], stacks.w1[w, :f], stacks.w2[w],
+            stacks.w3[w], stacks.w1[up], stacks.w2[up], stacks.w3[up, :, :3 * f], stacks.uk,
+            stacks.vk)
+    return torch.cat([_pack_tf32_matrix(m.reshape(-1, m.shape[-1])).reshape(sl, -1)
+                      for m in mats], dim=1).contiguous()
+
+
+def tc_smem_bytes() -> int:
+    """Dynamic shared memory of one CTA of csrc/div_kernel_tf32x3.cu: the
+    stacked [ds | de] tile (TC_ROWS x 2F f32), the a2 tangents of both MLPs
+    (2 x TC_ROWS x F), five residual tiles of 32 x F, the source geometry
+    (4 x 32), the tile rows' geometry tangents (4 x TC_ROWS), the four
+    LayerNorms' statistics (8 x 32) and the rows' source atoms (TC_ROWS)."""
+    f = KERNEL_F
+    return 4 * (TC_ROWS * 2 * f + 2 * TC_ROWS * f + 5 * _R * f + 4 * _R + 4 * TC_ROWS + 8 * _R
+                + TC_ROWS)
+
+
+class DivTcPlan(NamedTuple):
+    """How csrc/div_kernel_tf32x3.cu cuts a launch: a CTA takes ``chunks``
+    (G) consecutive chunks of one chain, ``groups`` = ceil(n_chunks / G)
+    CTAs a chain, ``ctas`` in all; per (layer, dst atom) it stacks its real
+    lanes (those below 3N) ``lanes_per_tile`` to a TC_ROWS-row tile."""
+
+    chunks: int
+    groups: int
+    ctas: int
+    lanes_per_tile: int
+
+
+def _group_tiles(n: int, lanes_per_chunk: int, n_chunks: int, chunks: int, group: int) -> int:
+    """Lane tiles of one (layer, dst atom) for the CTA of chunk group ``group``."""
+    lb = group * chunks * lanes_per_chunk
+    real = min(chunks * lanes_per_chunk, n_chunks * lanes_per_chunk - lb, 3 * n - lb)
+    return -(-real // (TC_ROWS // n))
+
+
+def div_tc_plan(c: int, n: int, lanes_per_chunk: int, n_chunks: int, sms: int,
+                chunks: Optional[int] = None) -> DivTcPlan:
+    """The plan at ``chunks`` chunks a CTA, or, by default, the G that
+    minimises waves x the longest CTA's work (one tile pass for the primal
+    of each (layer, dst atom) plus one for each of its lane tiles): at 128
+    chains, N = 19, L = 4 all 15 chunks of a chain, one CTA a chain."""
+    def plan(g: int) -> DivTcPlan:
+        groups = -(-n_chunks // g)
+        return DivTcPlan(g, groups, groups * c, TC_ROWS // n)
+
+    if chunks is not None:
+        if not 1 <= chunks <= n_chunks:
+            raise ValueError(f"chunks_per_cta must be 1..{n_chunks}, got {chunks}")
+        return plan(chunks)
+
+    def cost(g: int) -> int:
+        p = plan(g)
+        longest = max(_group_tiles(n, lanes_per_chunk, n_chunks, g, q) for q in range(p.groups))
+        return -(-p.ctas // sms) * (1 + longest)
+
+    return plan(min(range(1, n_chunks + 1), key=lambda g: (cost(g), -g)))
+
+
+def _div_route(variant: str) -> str:
+    """The library a B7 launch takes: ``"tc"`` the 3xTF32 tensor-core
+    kernel, ``"fma"`` the f32-FMA kernel."""
+    if variant not in DIV_LIBS:
+        raise ValueError(f"variant must be one of {tuple(DIV_LIBS)}, got {variant!r}")
+    return DIV_LIBS[variant]
+
+
+def _launch_fma(inp, stacks, L, c, n, sl, n_chunks, out, nodes, d_e):
+    lib = _build.load("div_kernel")
+    fn = lib.div_kernel_f32
+    fn.argtypes = [_P] * 18 + [ctypes.c_int] * 5 + [_P]
+    fn.restype = ctypes.c_int
+    rc = fn(*(t.data_ptr() for t in (*inp, *stacks, out, nodes, d_e)),
+            c, n, sl, L, n_chunks, torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(lib, rc, "div_kernel launch")
+
+
+def _launch_tc(inp, stacks, L, c, n, sl, n_chunks, out, nodes, d_e, tf32, chunks):
+    dev, f = out.device, KERNEL_F
+    if tf32 is None:
+        tf32 = pack_tf32_stacks(stacks)
+    want = (sl, 2 * 23 * f * f)
+    if tuple(tf32.shape) != want or tf32.dtype != torch.float32 or tf32.device != dev \
+            or not tf32.is_contiguous():
+        raise ValueError(f"the 3xTF32 stacks must be {want} float32, contiguous on {dev} "
+                         f"(pack_tf32_stacks), got {tuple(tf32.shape)} {tf32.dtype} on {tf32.device}")
+    plan = div_tc_plan(c, n, L, n_chunks, torch.cuda.get_device_properties(dev).multi_processor_count,
+                       chunks)
+    scratch = torch.empty(plan.ctas * 10 * n * f, device=dev, dtype=torch.float32)
+    lib = _build.load("div_kernel_tf32x3")
+    fn = lib.div_kernel_tf32x3
+    fn.argtypes = [_P] * 15 + [ctypes.c_int] * 6 + [_P]
+    fn.restype = ctypes.c_int
+    rc = fn(*(t.data_ptr() for t in (*inp, tf32, stacks.vecs, stacks.b3, out, nodes, d_e, scratch)),
+            c, n, sl, L, n_chunks, plan.chunks, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "div_kernel_tf32x3 launch")
+
+
+def div_kernel(inp: DivInputs, stacks: MLPStacks, lanes_per_chunk: int, variant: str = "tc",
+               tf32: Optional[torch.Tensor] = None,
+               chunks_per_cta: Optional[int] = None) -> torch.Tensor:
     """The final-layer node tangents of every lane, (C, n_chunks, L, 4, N, F).
-    Launches kernel B7 on a CUDA tensor, the plain version on a CPU tensor."""
+    Launches kernel B7 on a CUDA tensor, the plain version on a CPU tensor
+    (under either variant). ``variant="tc"`` takes the 3xTF32 tensor-core
+    kernel (csrc/div_kernel_tf32x3.cu) over ``tf32``, the packing
+    ``pack_tf32_stacks(stacks)`` (made here when not given), with
+    ``chunks_per_cta`` chunks of a chain a CTA (``div_tc_plan``'s choice by
+    default); it takes the lanes from 3N on as the zero padding
+    ``pack_inputs`` adds. ``variant="fma"`` takes the f32-FMA kernel
+    (csrc/div_kernel.cu), kept for timing."""
+    lib = _div_route(variant)
     if inp.s.device.type == "cpu":
         return div_kernel_plain(inp, stacks, lanes_per_chunk)
     if inp.s.device.type != "cuda":
         raise ValueError(f"div_kernel runs on cuda or cpu, not {inp.s.device}")
     c, n, sl, n_chunks = _check_div_inputs(inp, stacks, lanes_per_chunk)
     L, f, dev = lanes_per_chunk, KERNEL_F, inp.s.device
-    lib = _build.load("div_kernel")
-    fn = lib.div_kernel_f32
-    fn.argtypes = [_P] * 18 + [ctypes.c_int] * 5 + [_P]
-    fn.restype = ctypes.c_int
     out = torch.empty((c, n_chunks, L, 4, n, f), device=dev, dtype=torch.float32)
     nodes = torch.empty_like(out)  # the other half of the node-tangent ping-pong
     d_e = torch.empty((c, n_chunks, L, n * n, f), device=dev, dtype=torch.float32)
-    rc = fn(*(t.data_ptr() for t in (*inp, *stacks, out, nodes, d_e)),
-            c, n, sl, L, n_chunks, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "div_kernel launch")
-    _build.LAUNCHES["div_kernel"] += 1
+    if variant == "tc":
+        _launch_tc(inp, stacks, L, c, n, sl, n_chunks, out, nodes, d_e, tf32, chunks_per_cta)
+    else:
+        _launch_fma(inp, stacks, L, c, n, sl, n_chunks, out, nodes, d_e)
+    _build.count_launch("div_kernel", lib)
     return out
 
 
@@ -378,5 +511,6 @@ def divergence_kernel_batch(model, params, xs, t, temps, template, lanes_per_chu
         atom_ids = torch.as_tensor(template.atom_ids, device=dev)
         st = _primal_layer_states(model, p, xs, t, temps, atom_ids, etype)
         stacks = _pack_mlp_stacks(p, model.score_layers)
-        out = div_kernel(pack_inputs(st, lanes_per_chunk), stacks, lanes_per_chunk)
+        tf32 = None if dev.type == "cpu" else pack_tf32_stacks(stacks)
+        out = div_kernel(pack_inputs(st, lanes_per_chunk), stacks, lanes_per_chunk, tf32=tf32)
         return readout_diag(p, st["s_fin"], st["v_fin"], out)
