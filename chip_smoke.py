@@ -16,7 +16,7 @@ went through its kernels:
   bf16_agg, ``chain_block=4``: kernel B2);
 - the fused-MLP path: ``fused_velocity_fn`` at 128 chains (B4, B6) and the
   exact-dlogp sampler through ``molecular_v_fn_of(impl="dense_fused")``
-  at 32 chains (B4, B5);
+  at 32 chains (B4, B5), B4 and B5 on the tensor cores;
 - the whole-network exact divergence ``divergence_kernel_batch`` at 128
   chains (B7, on the tensor cores).
 
@@ -69,15 +69,23 @@ Phases (any failure exits non-zero and prints no result):
      C = 4, 20 steps (``bench.py`` takes 100), with B2's launch count (all
      from pair_layer_mma), samples/s and the centre-of-mass checks;
   8. kernels B4, B5 and B6 against their plain versions at full width, with
-     their times and bounds; B5 at K = 57, R = 11,552 on the tensor cores
+     their times and bounds; B4 on the tensor cores (3xTF32,
+     ``fused_edge_mlp_tf32x3``) at every path's row count (46,208, 43,776
+     and 11,552) and at ragged ones (R = 1, 5, 63, 64, 65, 1,007 and 4,097),
+     two launches to the bit, against the f32-FMA kernel
+     (``variant="fma"``) and timed in turns beside it at each path's row
+     count with both bounds, its registers and CTAs an SM; B5 at K = 57,
+     R = 11,552 on the tensor cores
      (3xTF32, ``fused_edge_mlp_jvp_tf32x3``) against its plain version and
      the f32-FMA kernel (``variant="fma"``), two launches to the bit, timed
      in turns beside it with both bounds and its registers, and ragged
      shapes (R = 5, 65 and 4,097; K = 1, 3 and 87);
   9. the fused paths: ``fused_velocity_fn`` against ``dense_velocity_fn``
-     with its B4/B6 launch counts, and the ``dense_fused`` exact sampler
-     against the ``dense`` one with its B4/B5 launch counts (every B5
-     launch from fused_edge_mlp_jvp_tf32x3), seconds and samples/s;
+     with its B4/B6 launch counts (every B4 launch from
+     fused_edge_mlp_tf32x3), and the ``dense_fused`` exact sampler against
+     the ``dense`` one with its B4/B5 launch counts (every B4 launch from
+     fused_edge_mlp_tf32x3, every B5 launch from fused_edge_mlp_jvp_tf32x3),
+     seconds and samples/s;
  10. kernel B7 on the tensor cores (3xTF32, div_kernel_tf32x3) against its
      plain version at 130 chains, L = 4 and 6, and at ragged shapes (N = 5,
      29 and 32; L = 1, 3 and 57; one chain) (bar 1e-4), two launches to the
@@ -124,7 +132,8 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
     "pair_tangent": ("ti_torch/csrc/pair_tangent_mma.cu", "ti_tpu/ops/pair_tangent_kernel.py:76"),
     "pair_tangent_f32": ("ti_torch/csrc/pair_tangent_tf32x3.cu",
                          "ti_tpu/ops/pair_tangent_kernel.py:76"),
-    "fused_edge_mlp": ("ti_torch/csrc/fused_edge_mlp.cu", "ti_tpu/ops/pallas_kernels.py:180"),
+    "fused_edge_mlp": ("ti_torch/csrc/fused_edge_mlp_tf32x3.cu",
+                       "ti_tpu/ops/pallas_kernels.py:180"),
     "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp_tf32x3.cu",
                            "ti_tpu/ops/pallas_kernels.py:232"),
     "fused_mlp": ("ti_torch/csrc/fused_mlp.cu", "ti_tpu/ops/pallas_kernels.py:343"),
@@ -409,8 +418,10 @@ def phase_sde(model, template, card: str) -> dict:
 
 
 def phase_fused_kernels(params, rows_kernels, report, card: str) -> None:
-    """8. B4, B5, B6 against their plain versions at full width; B5 on the
-    tensor cores against the f32-FMA kernel, timed in turns."""
+    """8. B4, B5, B6 against their plain versions at full width; B4 and B5
+    on the tensor cores against the f32-FMA kernels, timed in turns."""
+    import ctypes
+
     from ti_torch.ops import _build
     from ti_torch.ops import pallas_kernels as pk
     from ti_torch.ops.mlp_block import mlp_weights
@@ -424,18 +435,73 @@ def phase_fused_kernels(params, rows_kernels, report, card: str) -> None:
 
     w = with_tf32_weights(pack_layer(params, 0, F, f32, "cuda"))
     mac_row = 15 * F * F
-    r = CHAINS * N_ATOMS ** 2  # the dense pair rows of 128 chains
-    in_feat, pe = rn(r, 2 * F), rn(r, F)
-    out = pk.fused_edge_mlp(in_feat, pe, w)
-    torch.cuda.synchronize()
-    err = compare([out], [pk.fused_edge_mlp_reference(in_feat, pe, w.phi, w.w)], f32,
-                  f"B4 fused_edge_mlp R={r}")
-    ms = cuda_ms(lambda: pk.fused_edge_mlp(in_feat, pe, w), 10)
-    plain = cuda_ms(lambda: pk.fused_edge_mlp_reference(in_feat, pe, w.phi, w.w), 5)
-    bnd, by = bound_ms(2.0 * mac_row * r, H100_FP32, nbytes(in_feat, pe, w.mats, w.vecs, out))
-    log(f"[B4 R={r}] kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
-    rows_kernels["fused_edge_mlp"] = dict(err=err, ms=ms, plain=plain, bound=bnd, by=by)
+    fmt = lambda ts: " and ".join(f"{t:.4f}" for t in ts)
+    # B4 at the row counts its paths give it: the 3xTF32 tensor-core kernel
+    # and, timed beside it in turns, the f32-FMA kernel
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for r, what in ((CHAINS * N_ATOMS ** 2, f"the dense grid of {CHAINS} chains"),
+                    (CHAINS * N_ATOMS * (N_ATOMS - 1), f"fused_velocity_fn's edges, {CHAINS} chains"),
+                    (FUSED_CHAINS * N_ATOMS ** 2, f"the dense_fused sampler's {FUSED_CHAINS} chains")):
+        in_feat, pe = rn(r, 2 * F), rn(r, F)
+        ref = pk.fused_edge_mlp_reference(in_feat, pe, w.phi, w.w)
+        out = pk.fused_edge_mlp(in_feat, pe, w)
+        torch.cuda.synchronize()
+        require(_build.ROUTES["fused_edge_mlp"] == "fused_edge_mlp_tf32x3",
+                "B4 launches fused_edge_mlp_tf32x3.cu by default")
+        err = compare([out], [ref], f32, f"B4 fused_edge_mlp R={r} (3xTF32)")
+        old = pk.fused_edge_mlp(in_feat, pe, w, variant="fma")
+        torch.cuda.synchronize()
+        require(_build.ROUTES["fused_edge_mlp"] == "fused_edge_mlp",
+                "variant='fma' launches fused_edge_mlp.cu")
+        compare([old], [ref], f32, f"B4 fused_edge_mlp R={r} variant=fma")
+        compare([out], [old], f32, f"B4 R={r} 3xTF32 against variant=fma")
+        again = pk.fused_edge_mlp(in_feat, pe, w)
+        torch.cuda.synchronize()
+        require(torch.equal(again, out), "B4 3xTF32: two launches on the same inputs agree to the bit")
+        del ref, old, again
+        reps = 20
+        ms = {v: [] for v in ("tc", "fma")}
+        for variant in ("tc", "fma", "fma", "tc"):
+            ms[variant].append(cuda_ms(lambda: pk.fused_edge_mlp(in_feat, pe, w, variant=variant),
+                                       reps, warm=2))
+        plain = cuda_ms(lambda: pk.fused_edge_mlp_reference(in_feat, pe, w.phi, w.w), 5)
+        tc_ms, fma_ms = min(ms["tc"]), min(ms["fma"])
+        moved = nbytes(in_feat, pe, w.mats, w.vecs, out)
+        flops = 2.0 * mac_row * r
+        bnd_fma, by_fma = bound_ms(flops, H100_FP32, moved)
+        bnd_tc, by_tc = bound_ms(3 * flops, H100_TF32, moved)
+        plan = pk.edge_plan(r, sms)
+        log(f"[B4 R={r}] ({what}; {plan.ctas} CTAs, {plan.resident} resident, {plan.waves} "
+            f"wave(s)) ms per launch, {reps} launches a reading, in turns: 3xTF32 (tensor cores, "
+            f"fused_edge_mlp_tf32x3) {fmt(ms['tc'])}, variant=fma (f32 FMA) {fmt(ms['fma'])}; "
+            f"3xTF32 {fma_ms / tc_ms:.2f}x faster; plain {plain:.4f} ms; bound {bnd_tc:.4f} ms "
+            f"({by_tc}, 3 x {flops:.4e} FLOP at 495 TFLOP/s TF32), f32 FMA bound {bnd_fma:.4f} ms "
+            f"({by_fma}, 67 TFLOP/s); 3xTF32 at {tc_ms / bnd_tc:.2f}x its bound, fma at "
+            f"{fma_ms / bnd_fma:.2f}x its bound; {moved / 1e6:.1f} MB moved ({card})")
+        require(tc_ms < fma_ms, f"B4 on the tensor cores is faster than the f32-FMA kernel at R={r}")
+        require(tc_ms < plain, f"B4 on the tensor cores is faster than its plain version at R={r}")
+        if r == FUSED_CHAINS * N_ATOMS ** 2:  # the shape of the launches counted on its path
+            rows_kernels["fused_edge_mlp"] = dict(err=err, ms=tc_ms, plain=plain, bound=bnd_tc,
+                                                  by=by_tc)
+        del in_feat, pe, out
+    for fn, regs, spill in ptxas_kernels(report["fused_edge_mlp_tf32x3"]["ptxas"]):
+        log(f"[B4 build] {fn}: {regs}; {spill}")
+    lib = _build.load("fused_edge_mlp_tf32x3")
+    lib.fused_edge_mlp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+    per_sm = lib.fused_edge_mlp_tf32x3_ctas_per_sm()
+    log(f"[B4 occupancy] {per_sm} CTAs of 256 threads an SM, "
+        f"{lib.fused_edge_mlp_tf32x3_smem_bytes()} bytes of shared memory each")
+    require(per_sm == pk.EDGE_CTAS_PER_SM, f"B4 runs {pk.EDGE_CTAS_PER_SM} CTAs an SM: {per_sm}")
+    # ragged counts: one row, partial tiles, a tile, a tile and one row,
+    # 1,007 and 4,097
+    for r in (1, 5, 63, 64, 65, 1007, 4097):
+        in_feat, pe = rn(r, 2 * F), rn(r, F)
+        out = pk.fused_edge_mlp(in_feat, pe, w)
+        torch.cuda.synchronize()
+        compare([out], [pk.fused_edge_mlp_reference(in_feat, pe, w.phi, w.w)], f32,
+                f"B4 fused_edge_mlp R={r} (3xTF32)")
     del in_feat, pe, out
+    torch.cuda.empty_cache()
 
     # B5 at one exact node of 32 chains: the 3xTF32 tensor-core kernel and,
     # timed beside it in turns, the f32-FMA kernel
@@ -458,7 +524,6 @@ def phase_fused_kernels(params, rows_kernels, report, card: str) -> None:
     require(torch.equal(again, out), "B5 3xTF32: two launches on the same inputs agree to the bit")
     del ref, old, again
     reps = 3
-    fmt = lambda ts: " and ".join(f"{t:.3f}" for t in ts)
     ms = {v: [] for v in ("tc", "fma")}
     for variant in ("tc", "fma", "fma", "tc"):
         ms[variant].append(cuda_ms(lambda: pk.fused_edge_mlp_jvp(in_feat, pe, din, dpe, w,
@@ -535,16 +600,20 @@ def phase_fused_paths(model, template, card: str) -> tuple:
     v_fused = fused(xs, 0.5, conds)
     torch.cuda.synchronize()
     fwd_launches = dict(_build.LAUNCHES)
+    fwd_routes = {key: n for key, n in _build.ROUTE_LAUNCHES.items() if n}
     with torch.no_grad():
         v_dense = dense(xs, 0.5, conds)
         ms_f = cuda_ms(lambda: fused(xs, 0.5, conds), 5)
         ms_d = cuda_ms(lambda: dense(xs, 0.5, conds), 5)
     err = (v_fused - v_dense).abs().max().item()
     log(f"[fused_velocity_fn B={CHAINS}] against dense_velocity_fn: max abs err {err:.3e}; "
-        f"{ms_f:.3f} ms per forward (dense {ms_d:.3f} ms); launches {fwd_launches}")
+        f"{ms_f:.3f} ms per forward (dense {ms_d:.3f} ms; {card}); launches {fwd_launches}, B4 by "
+        f"library { {f'{k}:{lib}': n for (k, lib), n in fwd_routes.items()} }")
     want = {k: 0 for k in fwd_launches}
     want.update(fused_edge_mlp=LAYERS, fused_mlp=LAYERS + 2)
     require(fwd_launches == want, f"fused forward launch counts {fwd_launches} == {want}")
+    require(fwd_routes == {("fused_edge_mlp", "fused_edge_mlp_tf32x3"): LAYERS},
+            f"every B4 launch of fused_velocity_fn comes from fused_edge_mlp_tf32x3.cu: {fwd_routes}")
     require(bool(torch.allclose(v_fused, v_dense, rtol=1e-4, atol=1e-5)),
             "fused_velocity_fn agrees with dense_velocity_fn (rtol 1e-4, atol 1e-5)")
 
@@ -580,13 +649,13 @@ def phase_fused_paths(model, template, card: str) -> tuple:
     log(f"[dense_fused exact sampler B={b}] {wall_f:.3f} s, {b / wall_f:.3f} samples/s "
         f"(dense: {wall_d:.3f} s, {b / wall_d:.3f} samples/s; host clock, {card}); samples max "
         f"abs err {s_err:.3e}, dlogp max abs err {d_err:.3e} (max |dlogp| "
-        f"{d_ref.abs().max().item():.4f}); launches {smp_launches}, B5 by library "
+        f"{d_ref.abs().max().item():.4f}); launches {smp_launches}, B4 and B5 by library "
         f"{ {f'{k}:{lib}': n for (k, lib), n in smp_routes.items()} }")
     require(smp_launches == want, f"dense_fused sampler launch counts {smp_launches} == {want}")
-    require(_build.ROUTES["fused_edge_mlp_jvp"] == "fused_edge_mlp_jvp_tf32x3" and smp_routes == {
-        ("fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3"): want["fused_edge_mlp_jvp"]},
-            f"every B5 launch of the dense_fused sampler comes from fused_edge_mlp_jvp_tf32x3.cu: "
-            f"{smp_routes}")
+    require(smp_routes == {("fused_edge_mlp", "fused_edge_mlp_tf32x3"): want["fused_edge_mlp"],
+                           ("fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3"): want["fused_edge_mlp_jvp"]},
+            f"every B4 launch of the dense_fused sampler comes from fused_edge_mlp_tf32x3.cu and "
+            f"every B5 launch from fused_edge_mlp_jvp_tf32x3.cu: {smp_routes}")
     require(bool(torch.isfinite(out_f.xs).all() and torch.isfinite(out_f.dlogp).all()),
             "dense_fused sampler: finite")
     require(bool(torch.allclose(out_f.xs, out_d.xs, rtol=1e-4, atol=1e-5)),
@@ -852,7 +921,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
     for name in ("pair_tangent_mma", "pair_tangent_tf32x3", "pair_layer_tf32x3", "pair_layer_mma",
-                 "fused_edge_mlp_jvp_tf32x3", "div_kernel_tf32x3"):
+                 "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3", "div_kernel_tf32x3"):
         spills = [ln.strip() for ln in report[name]["ptxas"].splitlines() if "spill" in ln]
         require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
                                      for ln in spills), f"{name} builds without register spills: {spills}")

@@ -192,13 +192,13 @@ def test_a_layer_without_its_packing_raises():
     x = torch.zeros(5, 32)
     wts = _weights(16)
     with pytest.raises(ValueError, match="with_tf32_weights"):
-        tpk._jvp_tc_weights(wts, x)
+        tpk._tc_weights(wts, x)
     packed = with_tf32_weights(wts)
-    assert tpk._jvp_tc_weights(packed, x) is packed.mma
+    assert tpk._tc_weights(packed, x) is packed.mma
     with pytest.raises(ValueError, match="3xTF32 weights must be"):
-        tpk._jvp_tc_weights(packed._replace(mma=packed.mma[:-4]), x)
+        tpk._tc_weights(packed._replace(mma=packed.mma[:-4]), x)
     with pytest.raises(ValueError, match="3xTF32 weights must be"):  # the bf16 order is not it
-        tpk._jvp_tc_weights(packed._replace(mma=with_mma_weights(_weights(16, BF16)).mma), x)
+        tpk._tc_weights(packed._replace(mma=with_mma_weights(_weights(16, BF16)).mma), x)
 
 
 def _trunc(x: torch.Tensor) -> torch.Tensor:

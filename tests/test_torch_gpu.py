@@ -116,8 +116,9 @@ def test_chain_blocked_pair_layer_is_b1(dtype, chain_block):
 
 @pytest.mark.gpu
 def test_fused_mlp_kernels_match_plain():
-    """B4 and B5 at a ragged row count, B5 on the tensor cores and in f32
-    FMA at every lane block, B6 at the combine, update and readout widths."""
+    """B4 and B5 at a ragged row count, B4 on the tensor cores, B5 on the
+    tensor cores and in f32 FMA at every lane block, B6 at the combine,
+    update and readout widths."""
     _card()
     params = _params()
     w = with_tf32_weights(pack_layer(params, 0, F, torch.float32, "cuda"))
@@ -125,6 +126,7 @@ def test_fused_mlp_kernels_match_plain():
     in_feat, pe = _rows(r, 2 * F), _rows(r, F, seed=3)
     before = dict(_build.LAUNCHES)
     out = pk.fused_edge_mlp(in_feat, pe, w)
+    assert _build.ROUTES["fused_edge_mlp"] == "fused_edge_mlp_tf32x3"
     _assert_close([out], [pk.fused_edge_mlp_reference(in_feat, pe, w.phi, w.w)], torch.float32)
     din, dpe = _rows(6, r, 2 * F, seed=4), _rows(6, r, F, seed=5)
     ref = pk.edge_mlp_jvp_reference(in_feat, pe, din, dpe, w.phi, w.w)
@@ -213,9 +215,94 @@ def test_fused_edge_mlp_jvp_tc_counts_and_refusals():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("r", [5, 65, 1007, 11_552, 46_208])
+def test_fused_edge_mlp_tc_matches_plain(r):
+    """B4 on the tensor cores (3xTF32) against its plain version: one partial
+    tile, a tile and one row, a ragged count, the ``dense_fused`` sampler's
+    32 chains (180.5 tiles) and the dense grid of 128 chains."""
+    _card()
+    w = with_tf32_weights(pack_layer(_params(), 0, F, torch.float32, "cuda"))
+    in_feat, pe = _rows(r, 2 * F), _rows(r, F, seed=3)
+    key = ("fused_edge_mlp", "fused_edge_mlp_tf32x3")
+    before = _build.ROUTE_LAUNCHES.get(key, 0)
+    out = pk.fused_edge_mlp(in_feat, pe, w)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[key] == before + 1
+    _assert_close([out], [pk.fused_edge_mlp_reference(in_feat, pe, w.phi, w.w)], torch.float32)
+
+
+@pytest.mark.gpu
+def test_fused_edge_mlp_tc_is_deterministic_and_agrees_with_fma():
+    """No atomics: two launches agree to the bit; the f32-FMA kernel on the
+    same inputs agrees within the f32 bar (another order of summation)."""
+    _card()
+    w = with_tf32_weights(pack_layer(_params(), 0, F, torch.float32, "cuda"))
+    in_feat, pe = _rows(1007, 2 * F), _rows(1007, F, seed=3)
+    one = pk.fused_edge_mlp(in_feat, pe, w)
+    two = pk.fused_edge_mlp(in_feat, pe, w)
+    old = pk.fused_edge_mlp(in_feat, pe, w, variant="fma")
+    torch.cuda.synchronize()
+    assert _build.ROUTES["fused_edge_mlp"] == "fused_edge_mlp"
+    assert torch.equal(one, two)
+    _assert_close([one], [old], torch.float32)
+
+
+@pytest.mark.gpu
+def test_fused_edge_mlp_tc_counts_and_refusals():
+    """The wrapper's shared-memory count is the kernel's own and the card
+    holds EDGE_CTAS_PER_SM of its CTAs an SM (so it builds within 128
+    registers); a layer without its 3xTF32 packing raises on the card (no
+    fallback), and so does an unknown variant."""
+    import ctypes
+
+    _card()
+    lib = _build.load("fused_edge_mlp_tf32x3")
+    lib.fused_edge_mlp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+    assert lib.fused_edge_mlp_tf32x3_smem_bytes() == pk.tc_edge_smem_bytes()
+    assert lib.fused_edge_mlp_tf32x3_ctas_per_sm() == pk.EDGE_CTAS_PER_SM
+    w = pack_layer(_params(), 0, F, torch.float32, "cuda")
+    in_feat, pe = _rows(70, 2 * F), _rows(70, F, seed=3)
+    with pytest.raises(ValueError, match="with_tf32_weights"):
+        pk.fused_edge_mlp(in_feat, pe, w)
+    with pytest.raises(ValueError, match="variant"):
+        pk.fused_edge_mlp(in_feat, pe, with_tf32_weights(w), variant="mma")
+
+
+@pytest.mark.gpu
+def test_fused_velocity_fn_takes_b4_on_the_tensor_cores():
+    """Every B4 launch of a ``fused_velocity_fn`` forward (one a layer)
+    comes from fused_edge_mlp_tf32x3, and the forward agrees with
+    ``dense_velocity_fn`` (rtol 1e-4, atol 1e-5)."""
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+    from ti_torch.models.cpainn import state_of
+    from ti_torch.models.cpainn_dense import dense_velocity_fn
+    from ti_torch.models.cpainn_fused import fused_velocity_fn
+
+    _card()
+    torch.manual_seed(0)
+    model = CPaiNN(F, 2, n_atoms=N)
+    template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=2)
+    xs = 0.1 * _rows(4, N, 3, seed=8)
+    xs = xs - xs.mean(dim=1, keepdim=True)
+    temps = torch.tensor([[1000.0, 300.0]], device="cuda").expand(4, 2)
+    fused = fused_velocity_fn(model, None, template, device="cuda")
+    p = {k: t.detach().to("cuda") for k, t in state_of(model, None).items()}
+    _build.reset_launches()
+    v = fused(xs, 0.5, temps)
+    torch.cuda.synchronize()
+    routes = {key: n for key, n in _build.ROUTE_LAUNCHES.items() if n}
+    assert routes == {("fused_edge_mlp", "fused_edge_mlp_tf32x3"): 2}
+    assert _build.LAUNCHES["fused_edge_mlp"] == 2 and _build.LAUNCHES["fused_mlp"] == 4
+    with torch.no_grad():
+        ref = dense_velocity_fn(model, p, template)(xs, 0.5, temps)
+    assert torch.allclose(v, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
 def test_dense_fused_exact_sampler_takes_b5_on_the_tensor_cores():
     """Every B5 launch of a ``dense_fused`` exact batch comes from
-    fused_edge_mlp_jvp_tf32x3, and its samples and dlogp agree with the
+    fused_edge_mlp_jvp_tf32x3 and every B4 launch from
+    fused_edge_mlp_tf32x3, and its samples and dlogp agree with the
     ``dense`` sampler's (rtol 1e-4 / atol 1e-5; rtol 1e-3)."""
     from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
     from ti_torch.sampling.drivers import make_ode_sampler, molecular_v_fn_of
@@ -238,7 +325,10 @@ def test_dense_fused_exact_sampler_takes_b5_on_the_tensor_cores():
         torch.cuda.synchronize()
         if impl == "dense_fused":
             routes = {key: n for key, n in _build.ROUTE_LAUNCHES.items() if n}
-            assert routes == {("fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3"): 2 * 2}
+            assert _build.LAUNCHES["fused_edge_mlp"] > 0
+            assert routes == {("fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3"): 2 * 2,
+                              ("fused_edge_mlp", "fused_edge_mlp_tf32x3"):
+                                  _build.LAUNCHES["fused_edge_mlp"]}
     fused, dense = outs
     assert torch.allclose(fused.xs, dense.xs, rtol=1e-4, atol=1e-5)
     assert torch.allclose(fused.dlogp, dense.dlogp, rtol=1e-3,

@@ -1,9 +1,11 @@
 // Tensor-core building blocks of the hand-written f32 kernels in
 // split-precision TF32 ("3xTF32": pair_layer_tf32x3.cu, kernel B1,
-// pair_tangent_tf32x3.cu, kernel B3, fused_edge_mlp_jvp_tf32x3.cu, kernel B5,
-// and div_kernel_tf32x3.cu, kernel B7): the swizzled f32 shared-memory tile,
-// the mma.sync TF32 wrapper, the 3xTF32 product of a warp's 32 x 32 block
-// over the weights as ops/pair_layer_kernel.pack_tf32_weights packs them,
+// pair_tangent_tf32x3.cu, kernel B3, fused_edge_mlp_tf32x3.cu, kernel B4,
+// fused_edge_mlp_jvp_tf32x3.cu, kernel B5, and div_kernel_tf32x3.cu, kernel
+// B7): the swizzled f32 shared-memory tile, the mma.sync TF32 wrapper, the
+// 3xTF32 product of a warp's 32 x 32 block over the weights as
+// ops/pair_layer_kernel.pack_tf32_weights packs them (A split by rounding,
+// or by truncation in B4 and B5), the staging of row tiles by cp.async,
 // its epilogues, LayerNorm -> SiLU on the rows of a 64-row tile, and for the
 // tangent kernels the same keeping its pre-LN rows and statistics, and its
 // tangent replayed at them.
@@ -154,6 +156,85 @@ __device__ __forceinline__ void mma3_ahead(Acc& acc, const float* A, int lda, in
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int p = 0; p < 4; ++p) b[h][p] = nb[h][p];
+  }
+}
+
+// acc += the products of k-steps ks, ks + 1 for the warp's two row tiles, as
+// mma3_pair, with A split by truncation: hi is a with its low 13 bits
+// cleared (a TF32 value), lo = a - hi (exact in f32; the tensor core reads
+// its top bits), so |a - hi - lo_tf32| <= 2^-21 |a|
+__device__ __forceinline__ void mma3t_pair(Acc& acc, const float* A, int lda, int row0, int ks,
+                                           const uint4 (&b)[2][4]) {
+  const int lane = lane_id(), g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt) {
+    const int r = row0 + 16 * rt + g;
+    float z[4][4] = {};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 8 * (ks + h) + 2 * t;
+      const float2 u = *reinterpret_cast<const float2*>(A + swz(r, k, lda));
+      const float2 w = *reinterpret_cast<const float2*>(A + swz(r + 8, k, lda));
+      const float a[4] = {u.x, w.x, u.y, w.y};  // (g, k), (g + 8, k), (g, k + 4), (g + 8, k + 4)
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        hi[c] = __float_as_uint(a[c]) & 0xffffe000u;
+        lo[c] = __float_as_uint(a[c] - __uint_as_float(hi[c]));
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        mma_tf32(z[p], lo, b[h][p].x, b[h][p].y);  // a_lo b_hi
+        mma_tf32(z[p], hi, b[h][p].z, b[h][p].w);  // a_hi b_lo
+        mma_tf32(z[p], hi, b[h][p].x, b[h][p].y);  // a_hi b_hi
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[rt][p][c] += z[p][c];
+  }
+}
+
+// acc += A[row0 .. row0 + 31][0 .. 8 KS) * W[:, n-tiles nt0 .. nt0 + 3] with
+// the truncation split of mma3t_pair: as mma3_ahead (the next two k-steps'
+// weight fragments loaded first) where AHEAD, else as mma3 (32 registers
+// fewer)
+template <int KS, int NTM, bool AHEAD = true>
+__device__ __forceinline__ void mma3t(Acc& acc, const float* A, int lda, int row0,
+                                      const uint4* __restrict__ W, int nt0) {
+  const uint4* wp = W + (size_t)nt0 * 32 + lane_id();
+  uint4 b[2][4];
+  if constexpr (AHEAD) load_b2<NTM>(b, wp, 0);
+#pragma unroll 1
+  for (int ks = 0; ks < KS; ks += 2) {
+    if constexpr (AHEAD) {
+      uint4 nb[2][4];
+      load_b2<NTM>(nb, wp, ks + 2 < KS ? ks + 2 : ks);
+      mma3t_pair(acc, A, lda, row0, ks, b);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int p = 0; p < 4; ++p) b[h][p] = nb[h][p];
+    } else {
+      load_b2<NTM>(b, wp, ks);
+      mma3t_pair(acc, A, lda, row0, ks, b);
+    }
+  }
+}
+
+// rows r0 .. r0 + TR - 1 of a (rows x W) matrix into a swizzled TR-row tile
+// of row stride ld by cp.async, zero from row nrows on (no commit, no wait)
+__device__ __forceinline__ void stage_rows(float* T, int ld, const float* __restrict__ src, int W,
+                                           size_t r0, int nrows) {
+  const int w4 = W / 4;
+  for (int idx = threadIdx.x; idx < TR * w4; idx += NT) {
+    const int r = idx / w4, f = 4 * (idx % w4);
+    float* d = T + swz(r, f, ld);
+    if (r < nrows)
+      cp_async16(d, src + (r0 + r) * W + f);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 

@@ -25,12 +25,14 @@ from ti_torch.models.cpainn_dense import _cross, node_features
 from ti_torch.models.embeddings import positional_encoding
 from ti_torch.ops.graph import EdgeTable
 from ti_torch.ops.mlp_block import mlp_weights
-from ti_torch.ops.pair_layer_kernel import PairLayerWeights, pack_layer
+from ti_torch.ops.pair_layer_kernel import PairLayerWeights, pack_layer, with_tf32_weights
 from ti_torch.ops.pallas_kernels import MLPPack, fused_edge_mlp, fused_mlp, pack_mlp
 
 
 class FusedWeights(NamedTuple):
-    """Every MLP of a CPaiNN packed once for kernels B4 and B6."""
+    """Every MLP of a CPaiNN packed once for kernels B4 and B6; each message
+    layer carries its 3xTF32 split (``with_tf32_weights``), which B4 on the
+    tensor cores reads."""
 
     combine: MLPPack
     messages: List[PairLayerWeights]
@@ -43,7 +45,7 @@ def pack_fused(model, params, device) -> FusedWeights:
     f, layers = model.n_features, range(model.score_layers)
     return FusedWeights(
         combine=pack_mlp(mlp_weights(p, "combine"), device),
-        messages=[pack_layer(p, i, f, torch.float32, device) for i in layers],
+        messages=[with_tf32_weights(pack_layer(p, i, f, torch.float32, device)) for i in layers],
         updates=[pack_mlp(mlp_weights(p, f"update_{i}.mlp"), device) for i in layers],
         readout=pack_mlp(mlp_weights(p, "readout.mlp"), device),
     )

@@ -15,7 +15,9 @@ both types, kept for timing); B2 (``pair_layer_cb``, chain_block > 1) has
 two: ``pair_layer_mma`` (bf16_agg) and ``pair_layer`` (f32). B3
 (``pair_tangent``) has three: ``pair_tangent_mma`` (bf16_agg on the tensor
 cores), ``pair_tangent_tf32x3`` (f32 on the tensor cores) and
-``pair_tangent`` (the f32-FMA kernel, kept for timing). B5
+``pair_tangent`` (the f32-FMA kernel, kept for timing). B4
+(``fused_edge_mlp``) has two: ``fused_edge_mlp_tf32x3`` (on the tensor
+cores) and ``fused_edge_mlp`` (the f32-FMA kernel, kept for timing); B5
 (``fused_edge_mlp_jvp``) has two: ``fused_edge_mlp_jvp_tf32x3`` (on the
 tensor cores) and ``fused_edge_mlp_jvp`` (the f32-FMA kernel, kept for
 timing). B7 (``div_kernel``) has two: ``div_kernel_tf32x3`` (on the tensor
@@ -38,8 +40,9 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("pair_layer", "pair_layer_tf32x3", "pair_layer_mma", "pair_tangent",
-           "pair_tangent_mma", "pair_tangent_tf32x3", "fused_edge_mlp", "fused_edge_mlp_jvp",
-           "fused_edge_mlp_jvp_tf32x3", "fused_mlp", "div_kernel", "div_kernel_tf32x3")
+           "pair_tangent_mma", "pair_tangent_tf32x3", "fused_edge_mlp", "fused_edge_mlp_tf32x3",
+           "fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3", "fused_mlp", "div_kernel",
+           "div_kernel_tf32x3")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "pair_layer", "pair_layer_cb", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp",

@@ -1,9 +1,9 @@
 """The fused MLP kernels — B4 (``fused_edge_mlp``), B5
 (``fused_edge_mlp_jvp``) and B6 (``fused_mlp``), hand-written CUDA
-(csrc/fused_edge_mlp.cu; csrc/fused_edge_mlp_jvp_tf32x3.cu, B5 on the
-tensor cores in 3xTF32, with csrc/fused_edge_mlp_jvp.cu, its f32-FMA
-kernel, as ``variant="fma"``; csrc/fused_mlp.cu) — with their plain
-PyTorch versions beside them.
+(csrc/fused_edge_mlp_tf32x3.cu and csrc/fused_edge_mlp_jvp_tf32x3.cu, B4
+and B5 on the tensor cores in 3xTF32, with csrc/fused_edge_mlp.cu and
+csrc/fused_edge_mlp_jvp.cu, their f32-FMA kernels, as ``variant="fma"``;
+csrc/fused_mlp.cu) — with their plain PyTorch versions beside them.
 
 Port of ti_tpu/ops/pallas_kernels.py (named after it). B4 computes
 phi(in) · w(pe) per row, both MLPs Dense-LN-SiLU ×2 → Dense 5F, keeping
@@ -23,11 +23,12 @@ the plain version's own JVP; reverse mode raises.
 
 Every wrapper launches its kernel on a CUDA tensor and takes the plain
 version only on a CPU tensor; there is no fallback between the two.
-``PLAIN_CALLS`` counts the plain versions' calls on that route. B5 on the
-tensor cores reads the layer's matrices as ``pack_tf32_weights`` splits
-them (``with_tf32_weights``, done once per layer by
-``cpainn_dense.pack_message_layers``); that packing rides along as one
-more tensor through ``fused_edge_mlp_diff`` and its custom op.
+``PLAIN_CALLS`` counts the plain versions' calls on that route. B4 and B5
+on the tensor cores read the layer's matrices as ``pack_tf32_weights``
+splits them (``with_tf32_weights``, done once per layer by
+``cpainn_dense.pack_message_layers`` and ``cpainn_fused.pack_fused``);
+that packing rides along as one more tensor through
+``fused_edge_mlp_diff`` and its custom op.
 """
 
 from __future__ import annotations
@@ -52,8 +53,10 @@ from ti_torch.ops.pair_layer_kernel import (
 
 PLAIN_CALLS = {"fused_edge_mlp": 0, "fused_edge_mlp_jvp": 0, "fused_mlp": 0}
 _P = ctypes.c_void_p
-# B5's variants: the 3xTF32 tensor-core kernel, or the f32-FMA one
+# B4's and B5's variants: the 3xTF32 tensor-core kernel, or the f32-FMA one
+EDGE_LIBS = {"tc": "fused_edge_mlp_tf32x3", "fma": "fused_edge_mlp"}
 JVP_LIBS = {"tc": "fused_edge_mlp_jvp_tf32x3", "fma": "fused_edge_mlp_jvp"}
+EDGE_CTAS_PER_SM = 2  # CTAs of csrc/fused_edge_mlp_tf32x3.cu an SM holds at once
 
 
 class MLPPack(NamedTuple):
@@ -150,9 +153,54 @@ def _rows(t: torch.Tensor) -> int:
     return t.shape[0]
 
 
-def fused_edge_mlp(in_feat, pe, wts: PairLayerWeights):
+def _route(libs: dict, variant: str) -> str:
+    if variant not in libs:
+        raise ValueError(f"variant must be one of {tuple(libs)}, got {variant!r}")
+    return libs[variant]
+
+
+def _edge_route(variant: str) -> str:
+    """The library a B4 launch takes: ``"tc"`` the 3xTF32 tensor-core
+    kernel, ``"fma"`` the f32-FMA kernel."""
+    return _route(EDGE_LIBS, variant)
+
+
+def _tc_weights(wts: PairLayerWeights, x) -> torch.Tensor:
+    """The 3xTF32 packing B4 and B5 on the tensor cores read
+    (``with_tf32_weights``), checked; raises where the layer carries none."""
+    return _packed(wts, x, 2 * wts.mats.numel(), torch.float32, "3xTF32", "with_tf32_weights")
+
+
+def tc_edge_smem_bytes() -> int:
+    """Dynamic shared memory of one CTA of csrc/fused_edge_mlp_tf32x3.cu:
+    the [in] tile (TC_ROWS x 2F) and the [pe] tile (TC_ROWS x F), f32."""
+    return 4 * TC_ROWS * 3 * KERNEL_F
+
+
+class EdgePlan(NamedTuple):
+    """How csrc/fused_edge_mlp_tf32x3.cu splits a launch: CTA c takes rows
+    [TC_ROWS·c, min(TC_ROWS·(c + 1), R)), ``ctas`` of them; ``resident``
+    fit the card at once (EDGE_CTAS_PER_SM an SM), so they run in
+    ``waves`` rounds."""
+
+    ctas: int
+    resident: int
+    waves: int
+
+
+def edge_plan(rows: int, sms: int) -> EdgePlan:
+    ctas, resident = -(-rows // TC_ROWS), sms * EDGE_CTAS_PER_SM
+    return EdgePlan(ctas, resident, -(-ctas // resident))
+
+
+def fused_edge_mlp(in_feat, pe, wts: PairLayerWeights, variant: str = "tc"):
     """phi(in_feat) · w(pe): in_feat (R, 2F), pe (R, F) -> (R, 5F), f32.
-    Launches kernel B4 on a CUDA tensor, the plain version on a CPU one."""
+    Launches kernel B4 on a CUDA tensor, the plain version on a CPU one
+    (under either variant). ``variant="tc"`` takes the 3xTF32 tensor-core
+    kernel (csrc/fused_edge_mlp_tf32x3.cu, which needs
+    ``with_tf32_weights``); ``variant="fma"`` the f32-FMA kernel
+    (csrc/fused_edge_mlp.cu), kept for timing."""
+    lib = _edge_route(variant)
     if not _on_card(in_feat, "fused_edge_mlp"):
         PLAIN_CALLS["fused_edge_mlp"] += 1
         return fused_edge_mlp_reference(in_feat, pe, wts.phi, wts.w)
@@ -160,15 +208,16 @@ def fused_edge_mlp(in_feat, pe, wts: PairLayerWeights):
     _check("in_feat", in_feat, (r, 2 * f), dev)
     _check("pe", pe, (r, f), dev)
     _check_pair_mlps(wts, dev)
-    lib = _build.load("fused_edge_mlp")
-    fn = lib.fused_edge_mlp_f32
+    mats = _tc_weights(wts, in_feat) if variant == "tc" else wts.mats
+    handle = _build.load(lib)
+    fn = getattr(handle, "fused_edge_mlp_tf32x3" if variant == "tc" else "fused_edge_mlp_f32")
     fn.argtypes = [_P] * 5 + [ctypes.c_int, _P]
     fn.restype = ctypes.c_int
     out = torch.empty((r, 5 * f), device=dev, dtype=torch.float32)
-    rc = fn(in_feat.data_ptr(), pe.data_ptr(), wts.mats.data_ptr(), wts.vecs.data_ptr(),
+    rc = fn(in_feat.data_ptr(), pe.data_ptr(), mats.data_ptr(), wts.vecs.data_ptr(),
             out.data_ptr(), r, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "fused_edge_mlp launch")
-    _build.LAUNCHES["fused_edge_mlp"] += 1
+    _build.check(handle, rc, f"{lib} launch")
+    _build.count_launch("fused_edge_mlp", lib)
     return out
 
 
@@ -210,9 +259,7 @@ def jvp_plan(rows: int, k_lanes: int, sms: int) -> JvpPlan:
 def _jvp_route(variant: str) -> str:
     """The library a B5 launch takes: ``"tc"`` the 3xTF32 tensor-core
     kernel, ``"fma"`` the f32-FMA kernel."""
-    if variant not in JVP_LIBS:
-        raise ValueError(f"variant must be one of {tuple(JVP_LIBS)}, got {variant!r}")
-    return JVP_LIBS[variant]
+    return _route(JVP_LIBS, variant)
 
 
 def _pick_lane_block(k_lanes: int) -> int:
@@ -241,15 +288,9 @@ def _launch_jvp_fma(in_feat, pe, din, dpe, wts, lane_block, out, r, k_lanes):
     _build.check(lib, rc, "fused_edge_mlp_jvp launch")
 
 
-def _jvp_tc_weights(wts: PairLayerWeights, x) -> torch.Tensor:
-    """The 3xTF32 packing the tensor-core kernel reads (``with_tf32_weights``),
-    checked; raises where the layer carries none."""
-    return _packed(wts, x, 2 * wts.mats.numel(), torch.float32, "3xTF32", "with_tf32_weights")
-
-
 def _launch_jvp_tc(in_feat, pe, din, dpe, wts, out, r, k_lanes):
     dev = out.device
-    mats = _jvp_tc_weights(wts, in_feat)
+    mats = _tc_weights(wts, in_feat)
     plan = jvp_plan(r, k_lanes, torch.cuda.get_device_properties(dev).multi_processor_count)
     scratch = torch.empty(plan.ctas * TC_JVP_SCRATCH, device=dev, dtype=torch.float32)
     lib = _build.load("fused_edge_mlp_jvp_tf32x3")
@@ -364,9 +405,9 @@ class _FusedEdgeMLP(torch.autograd.Function):
 
     @staticmethod
     def forward(in_feat, pe, mats, vecs, tf32=None):
-        """B4; ``tf32`` (the 3xTF32 packing of ``mats``, or None) is for
-        the tangent rule only."""
-        return fused_edge_mlp(in_feat, pe, unpack_pair_mlps(mats, vecs))
+        """B4; ``tf32`` is the 3xTF32 packing of ``mats`` (or None) that B4
+        and the tangent rule's B5 read on the tensor cores."""
+        return fused_edge_mlp(in_feat, pe, unpack_pair_mlps(mats, vecs)._replace(mma=tf32))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -397,8 +438,8 @@ class _FusedEdgeMLP(torch.autograd.Function):
 
 def fused_edge_mlp_diff(in_feat, pe, wts: PairLayerWeights):
     """Differentiable fused edge MLP ``(R, 2F), (R, F) -> (R, 5F)``:
-    forward = B4, JVP in (in_feat, pe) = B5 on the tensor cores, reading
-    ``wts.mma`` (``with_tf32_weights``; on a CPU tensor, the plain versions
-    through the same rule, with or without it); JVP in the weights = the
-    plain version's; no reverse mode."""
+    forward = B4, JVP in (in_feat, pe) = B5, both on the tensor cores,
+    reading ``wts.mma`` (``with_tf32_weights``; on a CPU tensor, the plain
+    versions through the same rule, with or without it); JVP in the weights
+    = the plain version's; no reverse mode."""
     return _FusedEdgeMLP.apply(in_feat, pe, wts.mats, wts.vecs, wts.mma)

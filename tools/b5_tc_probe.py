@@ -43,7 +43,7 @@ COMMON = os.path.join(str(_build.CSRC), "tf32_common.cuh")
 N_ATOMS, F, CHAINS = 19, 128, 32
 K, ROWS = 3 * N_ATOMS, CHAINS * N_ATOMS ** 2
 DIAGNOSTICS = {  # name: (file, its text, the replacement)
-    "one_pass": (KERNEL, """        mma_tf32(z[p], lo, b[h][p].x, b[h][p].y);  // a_lo b_hi
+    "one_pass": (COMMON, """        mma_tf32(z[p], lo, b[h][p].x, b[h][p].y);  // a_lo b_hi
         mma_tf32(z[p], hi, b[h][p].z, b[h][p].w);  // a_hi b_lo
 """, ""),
     "l1_weights": (COMMON, "b[h][p] = __ldg(wp + (kw * NTM + p) * 32);",
