@@ -13,10 +13,10 @@ went through its kernels:
   bf16_agg), and with the bf16_agg trajectory
   (``traj_forward_impl="pair_kernel_bf16"``: B1 and B3 in bf16_agg);
 - the SDE at 8192 chains (``sample_molecular_sde``, pair-kernel drift,
-  bf16_agg, ``chain_block=4``: kernel B2);
+  ``chain_block=4``: kernel B2), in bf16_agg and in f32;
 - the fused-MLP path: ``fused_velocity_fn`` at 128 chains (B4, B6) and the
   exact-dlogp sampler through ``molecular_v_fn_of(impl="dense_fused")``
-  at 32 chains (B4, B5), B4 and B5 on the tensor cores;
+  at 32 chains (B4, B5), B4, B5 and B6 on the tensor cores;
 - the whole-network exact divergence ``divergence_kernel_batch`` at 128
   chains (B7, on the tensor cores).
 
@@ -57,17 +57,21 @@ Phases (any failure exits non-zero and prints no result):
      samples/s beside the headline's and its dlogp against the exact
      slice's;
   6. kernel B2 (chain-blocked pair layer) against its plain version and
-     against B1 at 130 chains: f32 (pair_layer.cu, C = 2 and 4) within the
-     bar, bf16_agg (pair_layer_mma.cu, C = 2, 3 and 4) to the bit; at 8192
-     chains bf16_agg C = 4 against its plain version and C = 2, 3 and 4
-     against B1 to the bit; its time there for C = 1, 2, 3 and 4 in turns
-     beside ``variant="fma"`` at C = 4, with the bound and the weight bytes
-     each launch streams; B2 in f32 (C = 4) timed once at 8192 chains beside
-     its f32-FMA bound;
+     against B1 at 130 chains, C = 2, 3, 4, 5 and 8: f32 (on B1's 3xTF32
+     kernel, pair_layer_tf32x3.cu) and bf16_agg (pair_layer_mma.cu) within
+     the bar and equal to B1 to the bit; at 8192 chains bf16_agg C = 4
+     against its plain version and every C against B1 to the bit; its time
+     there for C = 1, 2, 3 and 4 in turns beside ``variant="fma"`` at C = 4,
+     with the bound and the weight bytes each launch streams; B2 in f32 at
+     8192 chains, C = 4, against its plain version and every C against B1 to
+     the bit, timed in turns beside ``variant="fma"`` (pair_layer.cu, f32
+     FMA, 4 chains a CTA) with both bounds;
   7. the SDE: at 256 chains in f32 (C = 2) against the same SDE built from
      the plain version on the same noise; then at 8192 chains, bf16_agg,
      C = 4, 20 steps (``bench.py`` takes 100), with B2's launch count (all
-     from pair_layer_mma), samples/s and the centre-of-mass checks;
+     from pair_layer_mma), samples/s and the centre-of-mass checks; then the
+     same in f32 (all 100 B2 launches from pair_layer_tf32x3), its
+     samples/s;
   8. kernels B4, B5 and B6 against their plain versions at full width, with
      their times and bounds; B4 on the tensor cores (3xTF32,
      ``fused_edge_mlp_tf32x3``) at every path's row count (46,208, 43,776
@@ -79,10 +83,18 @@ Phases (any failure exits non-zero and prints no result):
      (3xTF32, ``fused_edge_mlp_jvp_tf32x3``) against its plain version and
      the f32-FMA kernel (``variant="fma"``), two launches to the bit, timed
      in turns beside it with both bounds and its registers, and ragged
-     shapes (R = 5, 65 and 4,097; K = 1, 3 and 87);
+     shapes (R = 5, 65 and 4,097; K = 1, 3 and 87); B6 on the tensor cores
+     (3xTF32, ``fused_mlp_tf32x3``, 16-row tiles) at the combine (4F -> F),
+     latent combine (3F -> F), update (2F -> 3F) and readout (F -> 2)
+     widths, at the 2432 node rows of 128 chains and at R = 1, 5, 15, 16,
+     17, 63, 64, 65 and 4,097, two launches to the bit, against the f32-FMA
+     kernel (``variant="fma"``) and timed in turns beside it at 2432 rows
+     (device time, from CUDA-graph replays) with both bounds, its registers,
+     cluster and the clusters the card holds at once;
   9. the fused paths: ``fused_velocity_fn`` against ``dense_velocity_fn``
      with its B4/B6 launch counts (every B4 launch from
-     fused_edge_mlp_tf32x3), and the ``dense_fused`` exact sampler against
+     fused_edge_mlp_tf32x3, every B6 launch from fused_mlp_tf32x3), and the
+     ``dense_fused`` exact sampler against
      the ``dense`` one with its B4/B5 launch counts (every B4 launch from
      fused_edge_mlp_tf32x3, every B5 launch from fused_edge_mlp_jvp_tf32x3),
      seconds and samples/s;
@@ -136,7 +148,7 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
                        "ti_tpu/ops/pallas_kernels.py:180"),
     "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp_tf32x3.cu",
                            "ti_tpu/ops/pallas_kernels.py:232"),
-    "fused_mlp": ("ti_torch/csrc/fused_mlp.cu", "ti_tpu/ops/pallas_kernels.py:343"),
+    "fused_mlp": ("ti_torch/csrc/fused_mlp_tf32x3.cu", "ti_tpu/ops/pallas_kernels.py:343"),
     "div_kernel": ("ti_torch/csrc/div_kernel_tf32x3.cu", "ti_tpu/ops/div_kernel.py:117"),
 }
 
@@ -170,6 +182,31 @@ def cuda_ms(fn, n: int, warm: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n: int, replays: int = 5) -> float:
+    """Mean device time of ``fn`` over n calls captured in a CUDA graph and
+    replayed, CUDA events: the kernels' time without the host's enqueue
+    time between them, which back-to-back calls of a small kernel's
+    wrapper measure instead."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()  # warm-up outside the graph
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * replays)
 
 
 def compare(outs, refs, dtype, what: str, bar=None) -> float:
@@ -270,27 +307,42 @@ def ambient_temps(b: int) -> np.ndarray:
     return np.tile(np.array([1000.0, 300.0], np.float32), (b, 1))
 
 
-def phase_b2(params, rows_kernels) -> None:
-    """6. B2 against its plain version and B1 at 130 and 8192 chains; its
-    time at 8192 chains."""
+CHAIN_BLOCKS = (2, 3, 4, 5, 8)  # B2's chain blocks held to B1's bits; pair_layer.cu takes 1..4
+B2_LIBS = {torch.float32: "pair_layer_tf32x3", torch.bfloat16: "pair_layer_mma"}
+
+
+def b2_is_b1(base, w, dtype, b: int) -> None:
+    """Every chain block of CHAIN_BLOCKS launches the tensor-core kernel of
+    the weights' type and gives B1's outputs to the bit."""
+    from ti_torch.ops import _build
+    from ti_torch.ops.pair_layer_kernel import pair_layer
+
+    b1 = pair_layer(*base, w, LENGTH_SCALE)
+    for c in CHAIN_BLOCKS:
+        again = pair_layer(*base, w, LENGTH_SCALE, c)
+        torch.cuda.synchronize()
+        require(_build.ROUTES["pair_layer_cb"] == B2_LIBS[dtype],
+                f"B2 {dtype} C={c} launches {B2_LIBS[dtype]}: {_build.ROUTES['pair_layer_cb']}")
+        require(all(torch.equal(a, q) for a, q in zip(again, b1)),
+                f"B2 {dtype} C={c} B={b} equals B1 to the bit")
+    log(f"[B2 {dtype} B={b}] C={', '.join(map(str, CHAIN_BLOCKS))} ({B2_LIBS[dtype]}) equal C=1 "
+        f"(B1) to the bit")
+
+
+def phase_b2(params, rows_kernels, card: str) -> None:
+    """6. B2 against its plain version and B1 at 130 and 8192 chains, in
+    bf16_agg and f32; its times at 8192 chains."""
     from ti_torch.ops import _build
     from ti_torch.ops.pair_layer_kernel import mma_tile_plan, pair_layer, pair_layer_plain
 
-    for dtype, blocks in ((torch.float32, (2, 4)), (torch.bfloat16, (2, 3, 4))):
+    for dtype in (torch.float32, torch.bfloat16):
         w, base, _ = layer_inputs(params, dtype, 0, seed=3, b=130)  # 130: not a multiple of 4
         ref = pair_layer_plain(*base, w, LENGTH_SCALE)
-        b1 = pair_layer(*base, w, LENGTH_SCALE)
-        for c in blocks:
+        for c in CHAIN_BLOCKS:
             out = pair_layer(*base, w, LENGTH_SCALE, c)
             torch.cuda.synchronize()
             compare(out, ref, dtype, f"B2 pair_layer_cb {dtype} C={c} B=130")
-            diff = max((a.float() - q.float()).abs().max().item() for a, q in zip(out, b1))
-            log(f"[B2 {dtype} C={c}] max |B2 - B1| on the same inputs: {diff:.3e}")
-            if dtype == torch.bfloat16:
-                require(all(torch.equal(a, q) for a, q in zip(out, b1)),
-                        f"B2 bf16_agg C={c} equals B1 to the bit")
-            else:
-                compare(out, b1, dtype, f"B2 against B1 {dtype} C={c}")
+        b2_is_b1(base, w, dtype, 130)
     # at the SDE's 8192 chains: C = 4 (the SDE's) against the plain version,
     # and every C against C = 1 to the bit
     w, base, _ = layer_inputs(params, torch.bfloat16, 0, seed=4, b=SDE_CHAINS)
@@ -300,14 +352,7 @@ def phase_b2(params, rows_kernels) -> None:
     ref = pair_layer_plain(*base, w, LENGTH_SCALE)
     err = compare(out, ref, torch.bfloat16, f"B2 pair_layer_cb bf16_agg C=4 B={SDE_CHAINS}")
     del ref
-    b1 = pair_layer(*base, w, LENGTH_SCALE)
-    for c in blocks[1:]:
-        again = pair_layer(*base, w, LENGTH_SCALE, c)
-        torch.cuda.synchronize()
-        require(all(torch.equal(a, q) for a, q in zip(again, b1)),
-                f"B2 bf16_agg C={c} B={SDE_CHAINS} equals B1 to the bit")
-    log(f"[B2 bf16_agg B={SDE_CHAINS}] C=2, 3 and 4 equal C=1 (B1) to the bit")
-    del again, b1
+    b2_is_b1(base, w, torch.bfloat16, SDE_CHAINS)
     bnd, by = bound_ms(2.0 * 15 * F * F * SDE_CHAINS * N_ATOMS ** 2, H100_BF16,
                        nbytes(*base, w.mats, w.vecs, *out))
     ms = {c: [] for c in blocks}
@@ -334,26 +379,46 @@ def phase_b2(params, rows_kernels) -> None:
     rows_kernels["pair_layer_cb"] = dict(err=err, ms=best[4], plain=plain, bound=bnd, by=by)
     del w, base, out
     torch.cuda.empty_cache()
-    # B2 in f32 (pair_layer.cu, C chains a CTA, f32 FMA) at the same 8192 chains, once
+    # B2 in f32 at the same 8192 chains: on B1's 3xTF32 kernel, timed in
+    # turns beside variant="fma" (pair_layer.cu, 4 chains a CTA, f32 FMA)
     w, base, _ = layer_inputs(params, torch.float32, 0, seed=4, b=SDE_CHAINS)
     out = pair_layer(*base, w, LENGTH_SCALE, 4)
     torch.cuda.synchronize()
-    require(_build.ROUTES["pair_layer_cb"] == "pair_layer", "B2 in f32 launches pair_layer.cu")
-    f32_ms = cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE, 4), 2, warm=1)
+    require(_build.ROUTES["pair_layer_cb"] == "pair_layer_tf32x3",
+            "B2 in f32 launches pair_layer_tf32x3.cu")
+    ref = pair_layer_plain(*base, w, LENGTH_SCALE)
+    err32 = compare(out, ref, torch.float32, f"B2 pair_layer_cb f32 C=4 B={SDE_CHAINS} (3xTF32)")
+    del ref
+    b2_is_b1(base, w, torch.float32, SDE_CHAINS)
+    ms32 = {"tc": [], "fma": []}
+    for turn in ("tc", "fma", "fma", "tc"):  # in turns
+        variant = None if turn == "tc" else "fma"
+        ms32[turn].append(cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE, 4, variant=variant),
+                                  3 if turn == "tc" else 2, warm=1))
+    require(_build.ROUTES["pair_layer_cb"] == "pair_layer_tf32x3", "B2 in f32 timed on the tensor cores")
     plain32 = cuda_ms(lambda: pair_layer_plain(*base, w, LENGTH_SCALE), 1, warm=1)
-    bnd32, by32 = bound_ms(2.0 * 15 * F * F * SDE_CHAINS * N_ATOMS ** 2, H100_FP32,
-                           nbytes(*base, w.mats, w.vecs, *out))
-    log(f"[B2 f32 B={SDE_CHAINS} C=4] {f32_ms:.3f} ms per launch (pair_layer.cu, f32 FMA, 4 chains "
-        f"a CTA), {f32_ms / bnd32:.2f}x its bound {bnd32:.4f} ms ({by32}: 2 x 15F² x B x N² = "
-        f"{2.0 * 15 * F * F * SDE_CHAINS * N_ATOMS ** 2:.4e} FLOP at 67 TFLOP/s f32); plain "
-        f"{plain32:.3f} ms")
+    flops = 2.0 * 15 * F * F * SDE_CHAINS * N_ATOMS ** 2
+    moved = nbytes(*base, w.mats, w.vecs, *out)
+    bnd_tc, by_tc = bound_ms(3 * flops, H100_TF32, moved)
+    bnd_fma, by_fma = bound_ms(flops, H100_FP32, moved)
+    tc_ms, fma_ms = min(ms32["tc"]), min(ms32["fma"])
+    log(f"[B2 f32 B={SDE_CHAINS} C=4] ms per launch, in turns: 3xTF32 (tensor cores, "
+        f"pair_layer_tf32x3, B1's tiles) {' and '.join(f'{t:.3f}' for t in ms32['tc'])}, "
+        f"variant=fma (pair_layer.cu, f32 FMA, 4 chains a CTA) "
+        f"{' and '.join(f'{t:.3f}' for t in ms32['fma'])}; 3xTF32 {fma_ms / tc_ms:.2f}x faster; "
+        f"plain {plain32:.3f} ms; bound {bnd_tc:.4f} ms ({by_tc}, 3 x {flops:.4e} FLOP at 495 "
+        f"TFLOP/s TF32), f32 FMA bound {bnd_fma:.4f} ms ({by_fma}, 67 TFLOP/s); 3xTF32 at "
+        f"{tc_ms / bnd_tc:.2f}x its bound, fma at {fma_ms / bnd_fma:.2f}x its bound; max abs err "
+        f"{err32:.3e} ({card})")
+    require(tc_ms < fma_ms, "B2 in f32 on the tensor cores is faster than the f32-FMA kernel")
     del w, base, out
     torch.cuda.empty_cache()
 
 
 def phase_sde(model, template, card: str) -> dict:
     """7. The SDE path: f32 C=2 against the plain version, then the 8192-chain
-    run through sample_molecular_sde. Returns its launch counts."""
+    runs through sample_molecular_sde, bf16_agg and f32. Returns the
+    bf16_agg run's launch counts."""
     from ti_torch.ops import _build
     from ti_torch.ops.pair_layer_kernel import pair_kernel_drift
     from ti_torch.sampling.drivers import sample_molecular_sde
@@ -414,12 +479,30 @@ def phase_sde(model, template, card: str) -> dict:
     log(f"[SDE] one step with and without noise: positions differ by up to {moved:.3e}, "
         f"centres of mass by {dcom:.3e}")
     require(moved > 1e-3 and dcom <= 1e-6, "SDE: the projected noise keeps each chain's COM")
+    # the same SDE in f32: B2 on B1's 3xTF32 kernel
+    sde32 = dict(forward_impl="pair_kernel", chain_block=4, device="cuda")
+    sample_molecular_sde(model, None, template, x0, temps, gen, g_fn=0.1, n_steps=1, n_save=2,
+                         **sde32)  # warm-up, not counted
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    xs32 = sample_molecular_sde(model, None, template, x0, temps, gen, **kw, **sde32)
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+    routes32 = {k: n for k, n in _build.ROUTE_LAUNCHES.items() if n}
+    log(f"[SDE f32 C=4] {SDE_CHAINS} chains, {SDE_STEPS} Euler-Maruyama steps, g=0.1: "
+        f"{wall32:.3f} s, {SDE_CHAINS / wall32:.3f} samples/s (host clock, {card}); launches by "
+        f"library { {f'{k}:{lib}': n for (k, lib), n in routes32.items()} }")
+    require(routes32 == {("pair_layer_cb", "pair_layer_tf32x3"): SDE_STEPS * LAYERS},
+            f"every B2 launch of the f32 SDE comes from pair_layer_tf32x3.cu: {routes32}")
+    require(xs32.shape == (SDE_CHAINS, 2, N_ATOMS, 3) and bool(torch.isfinite(xs32).all()),
+            "f32 SDE: finite samples of the expected shape")
     return launches
 
 
 def phase_fused_kernels(params, rows_kernels, report, card: str) -> None:
-    """8. B4, B5, B6 against their plain versions at full width; B4 and B5
-    on the tensor cores against the f32-FMA kernels, timed in turns."""
+    """8. B4, B5, B6 against their plain versions at full width; B4, B5 and
+    B6 on the tensor cores against the f32-FMA kernels, timed in turns."""
     import ctypes
 
     from ti_torch.ops import _build
@@ -561,22 +644,80 @@ def phase_fused_kernels(params, rows_kernels, report, card: str) -> None:
     del in_feat, pe, din, dpe, out
     torch.cuda.empty_cache()
 
-    r = CHAINS * N_ATOMS  # the node rows of 128 chains
-    for name, f_in in (("combine", 4 * F), ("update_0.mlp", 2 * F), ("readout.mlp", F)):
-        pack = pk.pack_mlp(mlp_weights(params, name), "cuda")
+    # B6 at the node rows of 128 chains, each MLP of fused_velocity_fn (and
+    # the latent conditioning's 3F -> F combine: the combine's first 3F rows):
+    # the 3xTF32 tensor-core kernel and, timed beside it in turns, the
+    # f32-FMA kernel; then ragged row counts
+    r = CHAINS * N_ATOMS
+    combine = mlp_weights(params, "combine")
+    mlps = (("combine", combine), ("latent combine", combine._replace(w1=combine.w1[:3 * F])),
+            ("update_0.mlp", mlp_weights(params, "update_0.mlp")),
+            ("readout.mlp", mlp_weights(params, "readout.mlp")))
+    reps = 50
+    for name, mw in mlps:
+        pack = pk.pack_mlp(mw, "cuda")
+        f_in, f_out = pack.f_in, pack.f_out
+        what = f"B6 fused_mlp {name} {f_in}->{f_out}"
         x = rn(r, f_in)
+        ref = pk._mlp_block(x, pack.w)
         out = pk.fused_mlp(x, pack)
         torch.cuda.synchronize()
-        err = compare([out], [pk._mlp_block(x, pack.w)], f32,
-                      f"B6 fused_mlp {name} {f_in}->{pack.f_out} R={r}")
-        ms = cuda_ms(lambda: pk.fused_mlp(x, pack), 50, warm=5)
-        plain = cuda_ms(lambda: pk._mlp_block(x, pack.w), 50, warm=5)
-        bnd, by = bound_ms(2.0 * r * (f_in + F + pack.f_out) * F, H100_FP32,
-                           nbytes(x, pack.mats, pack.vecs, out))
-        log(f"[B6 {name} {f_in}->{pack.f_out} R={r}] kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bnd:.5f} ms ({by})")
+        require(_build.ROUTES["fused_mlp"] == "fused_mlp_tf32x3",
+                "B6 launches fused_mlp_tf32x3.cu by default")
+        err = compare([out], [ref], f32, f"{what} R={r} (3xTF32)")
+        old = pk.fused_mlp(x, pack, variant="fma")
+        torch.cuda.synchronize()
+        require(_build.ROUTES["fused_mlp"] == "fused_mlp", "variant='fma' launches fused_mlp.cu")
+        compare([old], [ref], f32, f"{what} R={r} variant=fma")
+        compare([out], [old], f32, f"{what} R={r} 3xTF32 against variant=fma")
+        again = pk.fused_mlp(x, pack)
+        torch.cuda.synchronize()
+        require(torch.equal(again, out), "B6 3xTF32: two launches on the same inputs agree to the bit")
+        # device time from CUDA-graph replays: back to back, the wrapper's
+        # host time (about 0.02 ms) is of the order of the kernel's
+        ms = {v: [] for v in ("tc", "fma")}
+        for variant in ("tc", "fma", "fma", "tc"):
+            ms[variant].append(graph_ms(lambda: pk.fused_mlp(x, pack, variant=variant), reps))
+        wrapper = cuda_ms(lambda: pk.fused_mlp(x, pack), reps, warm=5)
+        plain = graph_ms(lambda: pk._mlp_block(x, pack.w), reps)
+        tc_ms, fma_ms = min(ms["tc"]), min(ms["fma"])
+        moved = nbytes(x, *pack.w, out)
+        flops = 2.0 * r * (f_in + F + f_out) * F
+        bnd_fma, by_fma = bound_ms(flops, H100_FP32, moved)
+        bnd_tc, by_tc = bound_ms(3 * flops, H100_TF32, moved)
+        plan = pk.mlp_plan(r, f_in, f_out)
+        log(f"[B6 {name} {f_in}->{f_out} R={r}] ({plan.ctas} CTAs of {pk.MLP_ROWS} rows) device ms "
+            f"per launch, {reps} launches a CUDA graph, in turns: 3xTF32 (tensor cores, "
+            f"fused_mlp_tf32x3) {fmt(ms['tc'])}, variant=fma (f32 FMA) {fmt(ms['fma'])}; 3xTF32 "
+            f"{fma_ms / tc_ms:.2f}x faster; the 3xTF32 wrapper back to back {wrapper:.4f} ms (the "
+            f"host's pace); plain {plain:.4f} ms; bound {bnd_tc:.5f} ms ({by_tc}, "
+            f"3 x {flops:.4e} FLOP at 495 TFLOP/s TF32), f32 FMA bound {bnd_fma:.5f} ms ({by_fma}, "
+            f"67 TFLOP/s); 3xTF32 at {tc_ms / bnd_tc:.2f}x its bound, fma at "
+            f"{fma_ms / bnd_fma:.2f}x its bound; {moved / 1e6:.2f} MB moved ({card})")
+        require(tc_ms < fma_ms, f"B6 {name} on the tensor cores is faster than the f32-FMA kernel")
+        require(tc_ms < plain, f"B6 {name} on the tensor cores is faster than its plain version")
         if name == "update_0.mlp":  # 5 of the 7 launches of a forward
-            rows_kernels["fused_mlp"] = dict(err=err, ms=ms, plain=plain, bound=bnd, by=by)
+            rows_kernels["fused_mlp"] = dict(err=err, ms=tc_ms, plain=plain, bound=bnd_tc, by=by_tc)
+        # ragged counts: one row, parts of a tile, a tile and one row, 4,097
+        for rr in (1, 5, 15, 16, 17, 63, 64, 65, 4097):
+            xr = rn(rr, f_in)
+            out = pk.fused_mlp(xr, pack)
+            torch.cuda.synchronize()
+            compare([out], [pk._mlp_block(xr, pack.w)], f32, f"{what} R={rr} (3xTF32)")
+        del x, ref, out, old, again
+    for fn, regs, spill in ptxas_kernels(report["fused_mlp_tf32x3"]["ptxas"]):
+        log(f"[B6 build] {fn}: {regs}; {spill}")
+    lib = _build.load("fused_mlp_tf32x3")
+    lib.fused_mlp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+    held = lib.fused_mlp_tf32x3_max_active_clusters()
+    plan = pk.mlp_plan(r, 2 * F, 3 * F)
+    log(f"[B6 occupancy] clusters of {lib.fused_mlp_tf32x3_cluster()} CTA(s) of 256 threads, "
+        f"{lib.fused_mlp_tf32x3_smem_bytes()} bytes of shared memory each; the card holds {held} "
+        f"clusters at once, {plan.clusters} ({plan.ctas} CTAs of {pk.MLP_ROWS} rows) at {r} rows")
+    require(lib.fused_mlp_tf32x3_cluster() == pk.MLP_CLUSTER
+            and lib.fused_mlp_tf32x3_smem_bytes() == pk.tc_mlp_smem_bytes(),
+            "B6's cluster and shared memory are the wrapper's")
+    require(held >= plan.clusters, f"every cluster of B6 at {r} rows is resident at once: {held}")
 
 
 def phase_fused_paths(model, template, card: str) -> tuple:
@@ -607,13 +748,15 @@ def phase_fused_paths(model, template, card: str) -> tuple:
         ms_d = cuda_ms(lambda: dense(xs, 0.5, conds), 5)
     err = (v_fused - v_dense).abs().max().item()
     log(f"[fused_velocity_fn B={CHAINS}] against dense_velocity_fn: max abs err {err:.3e}; "
-        f"{ms_f:.3f} ms per forward (dense {ms_d:.3f} ms; {card}); launches {fwd_launches}, B4 by "
-        f"library { {f'{k}:{lib}': n for (k, lib), n in fwd_routes.items()} }")
+        f"{ms_f:.3f} ms per forward (dense {ms_d:.3f} ms; {card}); launches {fwd_launches}, B4 and "
+        f"B6 by library { {f'{k}:{lib}': n for (k, lib), n in fwd_routes.items()} }")
     want = {k: 0 for k in fwd_launches}
     want.update(fused_edge_mlp=LAYERS, fused_mlp=LAYERS + 2)
     require(fwd_launches == want, f"fused forward launch counts {fwd_launches} == {want}")
-    require(fwd_routes == {("fused_edge_mlp", "fused_edge_mlp_tf32x3"): LAYERS},
-            f"every B4 launch of fused_velocity_fn comes from fused_edge_mlp_tf32x3.cu: {fwd_routes}")
+    require(fwd_routes == {("fused_edge_mlp", "fused_edge_mlp_tf32x3"): LAYERS,
+                           ("fused_mlp", "fused_mlp_tf32x3"): LAYERS + 2},
+            f"every B4 launch of fused_velocity_fn comes from fused_edge_mlp_tf32x3.cu and every "
+            f"B6 launch from fused_mlp_tf32x3.cu: {fwd_routes}")
     require(bool(torch.allclose(v_fused, v_dense, rtol=1e-4, atol=1e-5)),
             "fused_velocity_fn agrees with dense_velocity_fn (rtol 1e-4, atol 1e-5)")
 
@@ -921,7 +1064,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
     for name in ("pair_tangent_mma", "pair_tangent_tf32x3", "pair_layer_tf32x3", "pair_layer_mma",
-                 "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3", "div_kernel_tf32x3"):
+                 "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3", "fused_mlp_tf32x3",
+                 "div_kernel_tf32x3"):
         spills = [ln.strip() for ln in report[name]["ptxas"].splitlines() if "spill" in ln]
         require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
                                      for ln in spills), f"{name} builds without register spills: {spills}")
@@ -1294,7 +1438,7 @@ def main() -> int:
         f"{math.sqrt(float((d16 ** 2).mean())):.5f}")
 
     # ---- 6-9. the SDE and fused-MLP slices ----
-    phase_b2(params, rows_kernels)
+    phase_b2(params, rows_kernels, card)
     sde_launches = phase_sde(model, template, card)
     phase_fused_kernels(params, rows_kernels, report, card)
     fwd_launches, smp_launches = phase_fused_paths(model, template, card)

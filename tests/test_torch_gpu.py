@@ -89,23 +89,25 @@ def test_pair_layer_kernel_matches_plain(dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,chain_block", [(torch.float32, 2), (torch.float32, 4),
-                                               (torch.bfloat16, 2), (torch.bfloat16, 3),
-                                               (torch.bfloat16, 4)])
+@pytest.mark.parametrize("dtype,chain_block", [(torch.float32, 2), (torch.float32, 3),
+                                               (torch.float32, 4), (torch.float32, 5),
+                                               (torch.float32, 8), (torch.bfloat16, 2),
+                                               (torch.bfloat16, 3), (torch.bfloat16, 4),
+                                               (torch.bfloat16, 5), (torch.bfloat16, 8)])
 def test_chain_blocked_pair_layer_is_b1(dtype, chain_block):
     """B2 on a batch C does not divide: the result of B1 in the same source
     to the bit (bf16_agg: pair_layer_mma.cu, min(C, 3) row tiles a CTA,
-    the last CTA's last tile empty; f32: pair_layer.cu with
-    ``variant="fma"``, C chains a CTA), and the plain version's within the
-    bar."""
+    the last CTA's last tile empty; f32: pair_layer_tf32x3.cu, whose tiles
+    C does not change), past csrc/pair_layer.cu's limit of 4 too, and the
+    plain version's within the bar."""
     _card()
     w, base, _ = _layer(dtype, b=13)
     bf16 = dtype == torch.bfloat16
     before = dict(_build.LAUNCHES)
     out = pair_layer(*base, w, 10.0, chain_block)
-    b1 = pair_layer(*base, w, 10.0, variant=None if bf16 else "fma")
+    b1 = pair_layer(*base, w, 10.0)
     torch.cuda.synchronize()
-    lib = "pair_layer_mma" if bf16 else "pair_layer"
+    lib = "pair_layer_mma" if bf16 else "pair_layer_tf32x3"
     assert _build.ROUTES["pair_layer_cb"] == lib and _build.ROUTES["pair_layer"] == lib
     assert _build.LAUNCHES["pair_layer_cb"] == before["pair_layer_cb"] + 1
     assert _build.LAUNCHES["pair_layer"] == before["pair_layer"] + 1
@@ -268,11 +270,102 @@ def test_fused_edge_mlp_tc_counts_and_refusals():
         pk.fused_edge_mlp(in_feat, pe, with_tf32_weights(w), variant="mma")
 
 
+_MLP_SHAPES = [("combine", 4 * F), ("latent combine", 3 * F), ("update_0.mlp", 2 * F),
+               ("readout.mlp", F)]
+
+
+def _mlp_pack(name, f_in):
+    """B6's packing of one MLP of the model: the latent combine (3F -> F) is
+    the combine with the first 3F rows of its first matrix."""
+    w = mlp_weights(_params(), "combine" if name == "latent combine" else name)
+    if name == "latent combine":
+        w = w._replace(w1=w.w1[:f_in])
+    return pk.pack_mlp(w, "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,f_in", _MLP_SHAPES)
+def test_fused_mlp_tc_matches_plain(name, f_in):
+    """B6 on the tensor cores (csrc/fused_mlp_tf32x3.cu, the default) at the
+    node rows of 128 chains (2432) and at ragged row counts: one row, part
+    of a tile, a tile and one row, 4,097."""
+    _card()
+    pack = _mlp_pack(name, f_in)
+    for r in (1, 5, 15, 16, 17, 63, 64, 65, 2432, 4097):
+        x = _rows(r, f_in, seed=r)
+        out = pk.fused_mlp(x, pack)
+        torch.cuda.synchronize()
+        assert _build.ROUTES["fused_mlp"] == "fused_mlp_tf32x3"
+        _assert_close([out], [pk._mlp_block(x, pack.w)], torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,f_in", _MLP_SHAPES)
+def test_fused_mlp_tc_is_deterministic_and_agrees_with_fma(name, f_in):
+    """Two launches on the same inputs agree to the bit (no atomics), and
+    the tensor-core kernel agrees with the f32-FMA one at the f32 bar."""
+    _card()
+    pack = _mlp_pack(name, f_in)
+    x = _rows(2432, f_in, seed=9)
+    first, second = pk.fused_mlp(x, pack), pk.fused_mlp(x, pack)
+    old = pk.fused_mlp(x, pack, variant="fma")
+    torch.cuda.synchronize()
+    assert _build.ROUTES["fused_mlp"] == "fused_mlp"
+    assert torch.equal(first, second)
+    _assert_close([first], [old], torch.float32)
+
+
+@pytest.mark.gpu
+def test_fused_mlp_tc_counts_and_refusals():
+    """The wrapper's shared-memory and cluster counts are the kernel's own,
+    and the card holds every cluster of 2432 rows at once; a pack without
+    its 3xTF32 packing, or of another hidden width, raises on the card (no
+    fallback), and so does an unknown variant; an f_in that is not a
+    multiple of the k-step (or of 4) is padded in the packing, not refused,
+    where ``variant="fma"`` refuses one that is not a multiple of 4."""
+    import ctypes
+
+    from ti_torch.ops.mlp_block import MLPWeights
+
+    _card()
+    lib = _build.load("fused_mlp_tf32x3")
+    lib.fused_mlp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+    assert lib.fused_mlp_tf32x3_smem_bytes() == pk.tc_mlp_smem_bytes()
+    assert lib.fused_mlp_tf32x3_cluster() == pk.MLP_CLUSTER
+    assert lib.fused_mlp_tf32x3_max_active_clusters() >= pk.mlp_plan(2432, 2 * F, 3 * F).clusters
+    pack = _mlp_pack("update_0.mlp", 2 * F)
+    x = _rows(70, 2 * F)
+    with pytest.raises(ValueError, match="no 3xTF32 packing"):
+        pk.fused_mlp(x, pack._replace(tc=None))
+    with pytest.raises(ValueError, match="3xTF32 MLP weights must be"):
+        pk.fused_mlp(x, pack._replace(tc=pack.tc[:-4]))
+    with pytest.raises(ValueError, match="variant"):
+        pk.fused_mlp(x, pack, variant="mma")
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g) / shape[0] ** 0.5
+
+    def mlp(f_in, f, f_out):
+        return MLPWeights(rnd(f_in, f), rnd(f), 1 + rnd(f), rnd(f), rnd(f, f), rnd(f), 1 + rnd(f),
+                          rnd(f), rnd(f, f_out), rnd(f_out))
+
+    with pytest.raises(ValueError, match="hidden width F=128"):
+        pk.fused_mlp(_rows(70, 64), pk.pack_mlp(mlp(64, 64, 64), "cuda"))
+    for f_in in (20, 130):
+        odd = pk.pack_mlp(mlp(f_in, F, 3), "cuda")
+        x = _rows(70, f_in, seed=f_in)
+        _assert_close([pk.fused_mlp(x, odd)], [pk._mlp_block(x, odd.w)], torch.float32)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pk.fused_mlp(x, odd, variant="fma")
+
+
 @pytest.mark.gpu
 def test_fused_velocity_fn_takes_b4_on_the_tensor_cores():
     """Every B4 launch of a ``fused_velocity_fn`` forward (one a layer)
-    comes from fused_edge_mlp_tf32x3, and the forward agrees with
-    ``dense_velocity_fn`` (rtol 1e-4, atol 1e-5)."""
+    comes from fused_edge_mlp_tf32x3 and every B6 launch (combine, one
+    update a layer, readout) from fused_mlp_tf32x3, and the forward agrees
+    with ``dense_velocity_fn`` (rtol 1e-4, atol 1e-5)."""
     from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
     from ti_torch.models.cpainn import state_of
     from ti_torch.models.cpainn_dense import dense_velocity_fn
@@ -291,7 +384,8 @@ def test_fused_velocity_fn_takes_b4_on_the_tensor_cores():
     v = fused(xs, 0.5, temps)
     torch.cuda.synchronize()
     routes = {key: n for key, n in _build.ROUTE_LAUNCHES.items() if n}
-    assert routes == {("fused_edge_mlp", "fused_edge_mlp_tf32x3"): 2}
+    assert routes == {("fused_edge_mlp", "fused_edge_mlp_tf32x3"): 2,
+                      ("fused_mlp", "fused_mlp_tf32x3"): 4}
     assert _build.LAUNCHES["fused_edge_mlp"] == 2 and _build.LAUNCHES["fused_mlp"] == 4
     with torch.no_grad():
         ref = dense_velocity_fn(model, p, template)(xs, 0.5, temps)
@@ -354,9 +448,9 @@ def test_pair_layer_tc_matches_plain(b, n):
 
 @pytest.mark.gpu
 def test_pair_layer_routes_and_variants_agree():
-    """f32 takes the 3xTF32 kernel unless ``variant="fma"`` and f32 chain
-    blocks take pair_layer.cu; bf16_agg takes pair_layer_mma.cu, each
-    launch counted under its library; "tc" and "fma" agree at the f32 bar."""
+    """f32 takes the 3xTF32 kernel unless ``variant="fma"``, f32 chain blocks
+    too; bf16_agg takes pair_layer_mma.cu, each launch counted under its
+    library; "tc" and "fma" agree at the f32 bar."""
     _card()
     w, base, _ = _layer(torch.float32, b=13)
     _build.reset_launches()
@@ -367,7 +461,7 @@ def test_pair_layer_routes_and_variants_agree():
     torch.cuda.synchronize()
     _assert_close(tc, fma, torch.float32)
     pair_layer(*base, w, 10.0, 2)
-    assert _build.ROUTES["pair_layer_cb"] == "pair_layer"
+    assert _build.ROUTES["pair_layer_cb"] == "pair_layer_tf32x3"
     wb, bb, _ = _layer(torch.bfloat16, b=13)
     pair_layer(*bb, wb, 10.0)
     assert _build.ROUTES["pair_layer"] == "pair_layer_mma"
@@ -375,7 +469,7 @@ def test_pair_layer_routes_and_variants_agree():
     assert _build.ROUTES["pair_layer_cb"] == "pair_layer_mma"
     assert _build.ROUTE_LAUNCHES == {("pair_layer", "pair_layer_tf32x3"): 1,
                                      ("pair_layer", "pair_layer"): 1,
-                                     ("pair_layer_cb", "pair_layer"): 1,
+                                     ("pair_layer_cb", "pair_layer_tf32x3"): 1,
                                      ("pair_layer", "pair_layer_mma"): 1,
                                      ("pair_layer_cb", "pair_layer_mma"): 1}
 
@@ -398,11 +492,15 @@ def test_pair_layer_tc_refusals_and_smem_count():
 
     _card()
     w, base, _ = _layer(torch.float32)
-    with pytest.raises(ValueError, match="chain_block 1"):
-        pair_layer(*base, w, 10.0, 2, variant="tc")
+    b1 = pair_layer(*base, w, 10.0)
+    for a, r in zip(pair_layer(*base, w, 10.0, 2, variant="tc"), b1):  # f32 chain blocks: B1's kernel
+        assert torch.equal(a, r)
+    assert _build.ROUTES["pair_layer_cb"] == "pair_layer_tf32x3"
     wb, bb, _ = _layer(torch.bfloat16)
-    with pytest.raises(ValueError, match="chain_block 1..4 with bf16_agg"):
-        pair_layer(*bb, wb, 10.0, 5, variant="tc")
+    b1 = pair_layer(*bb, wb, 10.0)
+    for a, r in zip(pair_layer(*bb, wb, 10.0, 5, variant="tc"), b1):  # bf16_agg past 4 as well
+        assert torch.equal(a, r)
+    assert _build.ROUTES["pair_layer_cb"] == "pair_layer_mma"
     with pytest.raises(ValueError, match="with_tf32_weights"):
         pair_layer(*base, w._replace(mma=None), 10.0)
     with pytest.raises(ValueError, match="3xTF32 weights must be"):
@@ -463,8 +561,8 @@ def test_pair_layer_mma_variants_refusals_and_counts():
         pair_layer(*base, w._replace(mma=None), 10.0)
     with pytest.raises(ValueError, match="fragment-order weights must be"):
         pair_layer(*base, w._replace(mma=w.mma[:-8]), 10.0, 2)
-    with pytest.raises(ValueError, match="cannot launch"):
-        pair_layer(*base, w, 10.0, 5)
+    with pytest.raises(ValueError, match="cannot launch"):  # csrc/pair_layer.cu takes C <= 4
+        pair_layer(*base, w, 10.0, 5, variant="fma")
     lib = _build.load("pair_layer_mma")
     lib.pair_layer_mma_smem_bytes.restype = ctypes.c_ulonglong
     lib.pair_layer_mma_ctas.restype = ctypes.c_longlong
@@ -631,7 +729,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="2..32 atoms, got 33"):
         pair_tangent(big, sb, vb, eb, *lb, wb, 10.0)
     with pytest.raises(ValueError, match="cannot launch.*shared memory"):
-        pair_layer(x, s, v, e, w, 10.0, 5)
+        pair_layer(x, s, v, e, w, 10.0, 5, variant="fma")
     with pytest.raises(ValueError, match="chain_block"):
         pair_layer(x, s, v, e, w, 10.0, 0)
     with pytest.raises(ValueError, match="float32"):

@@ -1,9 +1,10 @@
 """Kernels B1 and B2 in bf16_agg on the tensor cores (csrc/pair_layer_mma.cu),
-as far as the CPU reaches them: the wrapper's route table, the tile plan, the
-fragment-order packing done once in ``prepare``, a numpy walk of the packed
-fragments in the kernel's row mapping, and the CPU route. The plain version
-the kernel is held against on the card (tests/test_torch_gpu.py) is held
-here against the JAX package's chain-blocked Pallas kernel in interpret mode.
+as far as the CPU reaches them: the wrapper's route table (B2 in f32 on B1's
+3xTF32 kernel too), the tile plan, the fragment-order packing done once in
+``prepare``, a numpy walk of the packed fragments in the kernel's row
+mapping, and the CPU route. The plain version the kernels are held against
+on the card (tests/test_torch_gpu.py) is held here against the JAX package's
+chain-blocked Pallas kernel in interpret mode, in bf16_agg and in f32.
 """
 
 import jax
@@ -57,24 +58,32 @@ def _weights(f: int, dtype=BF16, seed: int = 0):
 @pytest.mark.parametrize("bf16,chain_block,variant,lib", [
     (True, 1, None, "pair_layer_mma"), (True, 2, None, "pair_layer_mma"),
     (True, 3, None, "pair_layer_mma"), (True, 4, "tc", "pair_layer_mma"),
-    (True, 1, "fma", "pair_layer"), (True, 4, "fma", "pair_layer"), (True, 5, None, "pair_layer"),
+    (True, 1, "fma", "pair_layer"), (True, 4, "fma", "pair_layer"),
+    (True, 5, None, "pair_layer_mma"), (True, 8, None, "pair_layer_mma"),
+    (True, 5, "fma", "pair_layer"),
     (False, 1, None, "pair_layer_tf32x3"), (False, 1, "tc", "pair_layer_tf32x3"),
-    (False, 1, "fma", "pair_layer"), (False, 2, None, "pair_layer"), (False, 4, None, "pair_layer"),
+    (False, 1, "fma", "pair_layer"), (False, 2, None, "pair_layer_tf32x3"),
+    (False, 4, None, "pair_layer_tf32x3"), (False, 5, None, "pair_layer_tf32x3"),
+    (False, 8, "tc", "pair_layer_tf32x3"), (False, 4, "fma", "pair_layer"),
 ])
 def test_route_table(bf16, chain_block, variant, lib):
-    """bf16_agg with 1..4 tiles a CTA takes pair_layer_mma.cu; f32 with one
-    takes pair_layer_tf32x3.cu; f32 chain blocks, ``variant="fma"`` and
-    what the tensor-core kernels do not take go to pair_layer.cu."""
+    """Every chain block takes the tensor-core kernel of the weights' type,
+    pair_layer_mma.cu for bf16_agg (min(C, 3) tiles a CTA) and
+    pair_layer_tf32x3.cu for f32 (B1's tiles whatever C); ``variant="fma"``
+    takes pair_layer.cu, which refuses C > 4 when it launches."""
     assert _route(bf16, chain_block, variant) == lib
 
 
-@pytest.mark.parametrize("bf16,chain_block,match", [
-    (True, MAX_CHAIN_BLOCK + 1, "chain_block 1..4 with bf16_agg"),
-    (False, 2, "chain_block 1 with f32"),
+@pytest.mark.parametrize("bf16,chain_block,lib", [
+    (True, MAX_CHAIN_BLOCK + 1, "pair_layer_mma"),
+    (True, 2 * MAX_CHAIN_BLOCK, "pair_layer_mma"),
+    (False, 2, "pair_layer_tf32x3"),
+    (False, MAX_CHAIN_BLOCK + 1, "pair_layer_tf32x3"),
 ])
-def test_inapplicable_tensor_core_variant_raises(bf16, chain_block, match):
-    with pytest.raises(ValueError, match=match):
-        _route(bf16, chain_block, "tc")
+def test_inapplicable_tensor_core_variant_raises(bf16, chain_block, lib):
+    """An explicit "tc" now applies at every chain block (past
+    csrc/pair_layer.cu's limit of 4 too); an unknown variant raises."""
+    assert _route(bf16, chain_block, "tc") == lib
     with pytest.raises(ValueError, match="variant must be"):
         _route(bf16, 1, "mma")
 
@@ -215,7 +224,7 @@ def _layer_inputs(f=16, n=5, b=3, seed=3):
 
 
 @pytest.mark.parametrize("variant", [None, "tc", "fma"])
-@pytest.mark.parametrize("chain_block", [1, 2, 3, 4])
+@pytest.mark.parametrize("chain_block", [1, 2, 3, 4, 5, 8])
 def test_cpu_tensors_take_the_plain_version(chain_block, variant):
     """On the CPU every chain block and variant of bf16_agg is the plain
     version, bit for bit, and no kernel is launched or built."""
@@ -246,6 +255,25 @@ def jax_setup():
     t = np.array([0.2, 0.5, 0.9], np.float32)
     temps = np.tile(np.array([700.0, 300.0], np.float32), (B, 1))
     return jm, jp, jt, params, model, template, x, t, temps
+
+
+@pytest.mark.parametrize("chain_block", [2, 4, 5])
+def test_plain_f32_forward_matches_jax_chain_blocks(jax_setup, chain_block):
+    """``apply_dense_pair_kernel`` in f32 with ``chain_block`` 2, 4 and 5 (3
+    chains: none divides the batch, and 5 is past csrc/pair_layer.cu's limit
+    of 4, which B2 in f32 no longer meets: it is B1's 3xTF32 kernel) against
+    the JAX package's chain-blocked Pallas kernel in interpret mode, at
+    tests/test_torch_pair_layer.py's f32 bar: rtol 1e-4, atol 1e-5."""
+    jm, jp, jt, params, model, template, x, t, temps = jax_setup
+    ref = np.asarray(jax_pair_kernel(jm, jp, jnp.asarray(x), jnp.asarray(t), jnp.asarray(temps),
+                                     jt.atom_ids, jt.edges, interpret=True,
+                                     chain_block=chain_block))
+    pm = prepare(model, params, template, None, torch.device("cpu"))
+    assert _route(False, chain_block, None) == "pair_layer_tf32x3"
+    out = apply_dense_pair_kernel(pm, torch.from_numpy(x), torch.from_numpy(t),
+                                  torch.from_numpy(temps), chain_block=chain_block).numpy()
+    assert out.dtype == np.float32 and np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("chain_block", [2, 4])

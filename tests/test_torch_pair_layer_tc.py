@@ -258,15 +258,20 @@ def test_unknown_or_inapplicable_variant_raises():
     wts = with_tf32_weights(_weights(16))
     with pytest.raises(ValueError, match="variant"):
         pair_layer(*base, wts, 10.0, variant="wgmma")
-    with pytest.raises(ValueError, match="chain_block 1"):
-        pair_layer(*base, wts, 10.0, 2, variant="tc")
-    # bf16_agg takes the tensor cores (csrc/pair_layer_mma.cu) at chain_block 1..4 only
-    with pytest.raises(ValueError, match="chain_block 1..4 with bf16_agg"):
-        pair_layer(*_layer_inputs(dtype=BF16), _weights(16, BF16), 10.0, 5, variant="tc")
+    # "tc" applies at every chain block: f32 chain blocks are B1's 3xTF32
+    # kernel, bf16_agg past 4 takes csrc/pair_layer_mma.cu (on the CPU, the
+    # plain version)
+    for a, r in zip(pair_layer(*base, wts, 10.0, 2, variant="tc"),
+                    pair_layer_plain(*base, wts, 10.0)):
+        assert torch.equal(a, r)
+    base16, w16 = _layer_inputs(dtype=BF16), _weights(16, BF16)
+    for a, r in zip(pair_layer(*base16, w16, 10.0, 5, variant="tc"),
+                    pair_layer_plain(*base16, w16, 10.0)):
+        assert torch.equal(a, r)
 
 
 @pytest.mark.parametrize("variant,chain_block", [(None, 1), ("tc", 1), ("fma", 1), (None, 2),
-                                                 ("fma", 2)])
+                                                 ("fma", 2), ("tc", 4), (None, 5), ("tc", 8)])
 def test_cpu_tensors_take_the_plain_version(variant, chain_block):
     """On the CPU every variant is the plain version, bit for bit, and no
     kernel is launched or built."""

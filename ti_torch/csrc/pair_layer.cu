@@ -34,8 +34,9 @@
 // 41,728 in bf16). The last block of a batch that C does not divide runs its
 // idle groups on the last chain without storing anything.
 //
-// This first version computes with f32 FMA on the CUDA cores; tensor cores
-// (wgmma) and TMA are later work.
+// It computes with f32 FMA on the CUDA cores. Both types of B1 and B2 now run
+// on the tensor cores (pair_layer_tf32x3.cu in f32, pair_layer_mma.cu in
+// bf16_agg); this file is their variant "fma", kept to be timed beside them.
 
 #include "pair_common.cuh"
 

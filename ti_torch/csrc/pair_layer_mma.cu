@@ -10,7 +10,7 @@
 // product accumulated in f32 and rounded once to bf16, plus its bf16 bias;
 // LayerNorm with f32 statistics), the diagonal mask, the sums over j in f32,
 // the chirality term and e + de. pair_layer.cu keeps its bf16_agg kernel
-// (variant "fma", timed beside this one), f32 with C > 1 and f32 as "fma".
+// (variant "fma", timed beside this one) and f32 as "fma".
 //
 // What bounds it on this card: operations, 15 F^2 multiply-adds per pair row
 // on the bf16 tensor cores (at 8192 chains, N = 19: 1.45 TFLOP, 1.47 ms at

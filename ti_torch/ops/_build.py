@@ -12,7 +12,8 @@ path went through the kernels. B1 (``pair_layer``) has three libraries:
 ``pair_layer_tf32x3`` (f32 on the tensor cores), ``pair_layer_mma``
 (bf16_agg on the tensor cores) and ``pair_layer`` (the f32-FMA kernels of
 both types, kept for timing); B2 (``pair_layer_cb``, chain_block > 1) has
-two: ``pair_layer_mma`` (bf16_agg) and ``pair_layer`` (f32). B3
+the same three: ``pair_layer_tf32x3`` (f32), ``pair_layer_mma`` (bf16_agg)
+and ``pair_layer`` (``variant="fma"``). B3
 (``pair_tangent``) has three: ``pair_tangent_mma`` (bf16_agg on the tensor
 cores), ``pair_tangent_tf32x3`` (f32 on the tensor cores) and
 ``pair_tangent`` (the f32-FMA kernel, kept for timing). B4
@@ -20,7 +21,9 @@ cores), ``pair_tangent_tf32x3`` (f32 on the tensor cores) and
 cores) and ``fused_edge_mlp`` (the f32-FMA kernel, kept for timing); B5
 (``fused_edge_mlp_jvp``) has two: ``fused_edge_mlp_jvp_tf32x3`` (on the
 tensor cores) and ``fused_edge_mlp_jvp`` (the f32-FMA kernel, kept for
-timing). B7 (``div_kernel``) has two: ``div_kernel_tf32x3`` (on the tensor
+timing); B6 (``fused_mlp``) has two: ``fused_mlp_tf32x3`` (on the tensor
+cores) and ``fused_mlp`` (the f32-FMA kernel, kept for timing). B7
+(``div_kernel``) has two: ``div_kernel_tf32x3`` (on the tensor
 cores) and ``div_kernel`` (the f32-FMA kernel, kept for timing). ``ROUTES``
 says which library a kernel's last launch came from,
 and ``ROUTE_LAUNCHES`` counts the launches of each (kernel, library) pair,
@@ -41,8 +44,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("pair_layer", "pair_layer_tf32x3", "pair_layer_mma", "pair_tangent",
            "pair_tangent_mma", "pair_tangent_tf32x3", "fused_edge_mlp", "fused_edge_mlp_tf32x3",
-           "fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3", "fused_mlp", "div_kernel",
-           "div_kernel_tf32x3")
+           "fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3", "fused_mlp", "fused_mlp_tf32x3",
+           "div_kernel", "div_kernel_tf32x3")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "pair_layer", "pair_layer_cb", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp",

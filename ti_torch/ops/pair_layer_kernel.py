@@ -4,16 +4,19 @@ tensor cores: B1 in f32 in split-precision TF32 ("3xTF32",
 csrc/pair_layer_tf32x3.cu, the layer's matrices split and packed once in
 fragment order by ``pack_tf32_weights``), and B1 and B2 in bf16_agg
 (csrc/pair_layer_mma.cu, ``mma.sync`` bf16, the matrices packed once by
-``pack_mma_weights``). csrc/pair_layer.cu (f32 FMA) keeps B2 in f32 and both
-types of B1 as ``variant="fma"``.
+``pack_mma_weights``). B2 in f32 is B1's 3xTF32 kernel. csrc/pair_layer.cu
+(f32 FMA) keeps both types of B1 and B2 as ``variant="fma"``.
 
 Port of ti_tpu/ops/pair_layer_kernel.py (the Pallas ``_pair_layer_kernel``,
-and ``_pair_layer_kernel_cb`` for ``chain_block`` > 1). On this card the
-tensor-core kernels cut the (B·N·N, F) pair rows into 64-row tiles of whole
-(chain, dst atom) groups; ``chain_block`` C sets how many such tiles a
-CTA of csrc/pair_layer_mma.cu takes, min(C, 3), sharing each weight
-fragment it loads (in csrc/pair_layer.cu it is C chains a CTA). The
-per-chain result is B1's.
+and ``_pair_layer_kernel_cb`` for ``chain_block`` > 1). The chain-blocked
+Pallas grid amortises a TPU grid step's overhead over C chains; a CUDA grid
+has no such overhead. On this card the tensor-core kernels cut the
+(B·N·N, F) pair rows into 64-row tiles of whole (chain, dst atom) groups;
+``chain_block`` C only sets how many such tiles a CTA of
+csrc/pair_layer_mma.cu takes, min(C, 3), sharing each weight fragment it
+loads, and changes nothing in csrc/pair_layer_tf32x3.cu (in
+csrc/pair_layer.cu it is C chains a CTA). Every C gives B1's result to the
+bit on the tensor cores.
 Per chain and pair row p = i·N + j (dst i, src j) the layer computes the
 geometry r = x_j − x_i, dist and dir = r/(1+|r|); the positional encoding
 of dist; h = phi([s_j | e_ij]) · w(PE(dist)) with both MLPs
@@ -58,7 +61,7 @@ from ti_torch.ops.mlp_block import (
 KERNEL_F = 128       # the feature width the CUDA kernels are built for
 KERNEL_MAX_N = 32    # pair rows per thread group: one dst atom's N src atoms
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on Hopper
-MAX_CHAIN_BLOCK = 4   # 256 threads a chain, 1024 threads a CTA
+MAX_CHAIN_BLOCK = 4   # of csrc/pair_layer.cu: 256 threads a chain, 1024 threads a CTA
 _R, _NW, _NGEO = 32, 8, 10  # tile rows, warps of a group, geometry rows (pair_common.cuh)
 TC_ROWS = 64         # pair rows of a row tile of the tensor-core kernels
 _TC_GEO = 5          # geometry rows of csrc/pair_layer_tf32x3.cu: dist, mask, dir (3)
@@ -437,21 +440,15 @@ def group_smem_bytes(bf16: bool) -> int:
 
 def _route(bf16: bool, chain_block: int, variant: Optional[str]) -> str:
     """The library a launch takes: the tensor-core kernel of the weights'
-    type where it applies ("pair_layer_tf32x3" for f32 with one tile a CTA,
-    "pair_layer_mma" for bf16_agg with 1..MAX_CHAIN_BLOCK tiles a CTA),
-    else, and for ``variant="fma"``, "pair_layer" (csrc/pair_layer.cu). An
-    explicit "tc" the tensor-core kernels cannot take raises."""
+    type for every ``chain_block`` ("pair_layer_tf32x3" for f32,
+    "pair_layer_mma" for bf16_agg, min(C, 3) tiles a CTA), or, for
+    ``variant="fma"``, "pair_layer" (csrc/pair_layer.cu, which refuses
+    chain_block > MAX_CHAIN_BLOCK when it launches)."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"variant must be None or one of {VARIANTS}, got {variant!r}")
-    if bf16:
-        tc = "pair_layer_mma" if chain_block <= MAX_CHAIN_BLOCK else None
-    else:
-        tc = "pair_layer_tf32x3" if chain_block == 1 else None
-    if variant == "tc" and tc is None:
-        need = (f"chain_block 1..{MAX_CHAIN_BLOCK} with bf16_agg weights (the mma.sync bf16 kernel)"
-                if bf16 else "chain_block 1 with f32 weights (the 3xTF32 kernel)")
-        raise ValueError(f"variant='tc' takes {need}, got chain_block {chain_block}")
-    return tc if tc is not None and variant != "fma" else "pair_layer"
+    if variant == "fma":
+        return "pair_layer"
+    return "pair_layer_mma" if bf16 else "pair_layer_tf32x3"
 
 
 def _packed(wts: PairLayerWeights, x, numel: int, dtype, what: str, how: str) -> torch.Tensor:
@@ -467,9 +464,10 @@ def _packed(wts: PairLayerWeights, x, numel: int, dtype, what: str, how: str) ->
 
 
 def _launch(lib: str, x, s, v, e, wts: PairLayerWeights, length_scale: float, c: int):
-    """One launch of library ``lib``: pair_layer_tf32x3 (B1 f32 on the tensor
-    cores), pair_layer_mma (B1/B2 bf16_agg on the tensor cores, min(C, 3)
-    row tiles a CTA) or pair_layer (f32 FMA, C chains a CTA)."""
+    """One launch of library ``lib``: pair_layer_tf32x3 (B1/B2 f32 on the
+    tensor cores, whatever C), pair_layer_mma (B1/B2 bf16_agg on the tensor
+    cores, min(C, 3) row tiles a CTA) or pair_layer (f32 FMA, C chains a
+    CTA)."""
     b, n, f, _ = _check_pair_inputs(x, s, v, e, wts)
     if lib == "pair_layer_tf32x3":
         mats = _packed(wts, x, 2 * wts.mats.numel(), torch.float32, "3xTF32", "with_tf32_weights")
@@ -504,13 +502,12 @@ def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float, chain_blo
                variant: Optional[str] = None):
     """One message layer: (dv, ds, e_out). Launches kernel B1 on a CUDA
     tensor (B2 with ``chain_block`` > 1), the plain version on a CPU tensor.
-    By default the tensor-core kernel of the weights' type runs where it
-    applies: 3xTF32 for f32 with ``chain_block`` 1 (``with_tf32_weights``),
-    ``mma.sync`` bf16 for bf16_agg with ``chain_block`` 1..4
-    (``with_mma_weights``; ``mma_tiles``: min(C, 3) 64-row tiles a CTA,
-    every C giving B1's bits); f32 chain blocks take the f32-FMA kernel.
-    ``variant="fma"`` takes the f32-FMA kernel, ``variant="tc"`` asks for
-    the tensor-core one (raising where it does not apply)."""
+    By default (``variant`` None or "tc") the tensor-core kernel of the
+    weights' type runs, for every ``chain_block``: 3xTF32 for f32
+    (``with_tf32_weights``; C changes nothing in it), ``mma.sync`` bf16 for
+    bf16_agg (``with_mma_weights``; ``mma_tiles``: min(C, 3) 64-row tiles a
+    CTA); every C gives B1's bits. ``variant="fma"`` takes the f32-FMA
+    kernel (C chains a CTA, C <= MAX_CHAIN_BLOCK)."""
     c = check_chain_block(chain_block)
     lib = _route(wts.bf16, c, variant)
     if x.device.type == "cpu":
@@ -628,7 +625,7 @@ def pair_kernel_drift(model, params, template, *, compute_dtype=None,
                       device=None, kernel: bool = True, chain_block: int = 1):
     """Batched drift ``(xs (B,N,3), t, temps (B,K)) -> (B,N,3)`` through
     kernel B1, or B2 with ``chain_block`` > 1 (min(C, 3) 64-row tiles a
-    CTA in bf16_agg, C chains a CTA in f32) — the
+    CTA in bf16_agg, B1's tiles in f32) — the
     velocity-only trajectory segments of the Gauss quadrature-dlogp path
     and the SDE drift. Packs the weights once, here. Runs on ``cuda``
     unless ``device`` says otherwise; ``kernel=False`` builds the same

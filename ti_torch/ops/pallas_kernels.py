@@ -1,9 +1,10 @@
 """The fused MLP kernels — B4 (``fused_edge_mlp``), B5
 (``fused_edge_mlp_jvp``) and B6 (``fused_mlp``), hand-written CUDA
-(csrc/fused_edge_mlp_tf32x3.cu and csrc/fused_edge_mlp_jvp_tf32x3.cu, B4
-and B5 on the tensor cores in 3xTF32, with csrc/fused_edge_mlp.cu and
-csrc/fused_edge_mlp_jvp.cu, their f32-FMA kernels, as ``variant="fma"``;
-csrc/fused_mlp.cu) — with their plain PyTorch versions beside them.
+(csrc/fused_edge_mlp_tf32x3.cu, csrc/fused_edge_mlp_jvp_tf32x3.cu and
+csrc/fused_mlp_tf32x3.cu, B4, B5 and B6 on the tensor cores in 3xTF32, with
+csrc/fused_edge_mlp.cu, csrc/fused_edge_mlp_jvp.cu and csrc/fused_mlp.cu,
+their f32-FMA kernels, as ``variant="fma"``) — with their plain PyTorch
+versions beside them.
 
 Port of ti_tpu/ops/pallas_kernels.py (named after it). B4 computes
 phi(in) · w(pe) per row, both MLPs Dense-LN-SiLU ×2 → Dense 5F, keeping
@@ -28,7 +29,9 @@ on the tensor cores read the layer's matrices as ``pack_tf32_weights``
 splits them (``with_tf32_weights``, done once per layer by
 ``cpainn_dense.pack_message_layers`` and ``cpainn_fused.pack_fused``);
 that packing rides along as one more tensor through
-``fused_edge_mlp_diff`` and its custom op.
+``fused_edge_mlp_diff`` and its custom op. B6 on the tensor cores reads
+``MLPPack.tc``, the same split of one MLP's matrices that ``pack_mlp``
+attaches once.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ti_torch.ops.pair_layer_kernel import (
     SMEM_LIMIT,
     TC_ROWS,
     PairLayerWeights,
+    _pack_tf32_matrix,
     _packed,
     unpack_pair_mlps,
 )
@@ -57,6 +61,14 @@ _P = ctypes.c_void_p
 EDGE_LIBS = {"tc": "fused_edge_mlp_tf32x3", "fma": "fused_edge_mlp"}
 JVP_LIBS = {"tc": "fused_edge_mlp_jvp_tf32x3", "fma": "fused_edge_mlp_jvp"}
 EDGE_CTAS_PER_SM = 2  # CTAs of csrc/fused_edge_mlp_tf32x3.cu an SM holds at once
+# B6's variants: the 3xTF32 tensor-core kernel, or the f32-FMA one
+MLP_LIBS = {"tc": "fused_mlp_tf32x3", "fma": "fused_mlp"}
+MLP_ROWS = 16        # rows of a tile of csrc/fused_mlp_tf32x3.cu (TM)
+MLP_CLUSTER = 1      # its CTAs a tile, a thread-block cluster (CL)
+MLP_CHUNK = 128      # input columns it stages a chunk (two chunks in flight)
+MLP_CTAS_PER_SM = 2  # its CTAs an SM holds at once
+MLP_K_STEP = 16      # W1's rows are padded to a multiple of this (two 8-row k-steps)
+MLP_N_TILE = 8       # W3's columns are padded to a multiple of this (one n-tile)
 
 
 class MLPPack(NamedTuple):
@@ -64,16 +76,42 @@ class MLPPack(NamedTuple):
     (f_in, F), w2 (F, F), w3 (F, f_pad) with w3's columns padded with zeros
     to a multiple of F; ``vecs`` is flat f32: b1, ln1 scale, ln1 bias, b2,
     ln2 scale, ln2 bias (F each), b3 (f_pad). ``w`` views both, unpadded,
-    for the plain version."""
+    for the plain version. ``tc`` is the three matrices split into TF32 hi
+    and lo parts in fragment order for B6 on the tensor cores
+    (``pack_tf32_mlp``), or None."""
 
     mats: torch.Tensor
     vecs: torch.Tensor
     f_in: int
     f_out: int
     w: MLPWeights
+    tc: Optional[torch.Tensor] = None
+
+
+def mlp_k_pad(f_in: int) -> int:
+    """W1's rows in the 3xTF32 packing: f_in padded to two k-steps."""
+    return -(-f_in // MLP_K_STEP) * MLP_K_STEP
+
+
+def mlp_n_pad(f_out: int) -> int:
+    """W3's columns in the 3xTF32 packing: f_out padded to an n-tile."""
+    return -(-f_out // MLP_N_TILE) * MLP_N_TILE
+
+
+def pack_tf32_mlp(w: MLPWeights) -> torch.Tensor:
+    """The MLP's matrices as csrc/fused_mlp_tf32x3.cu reads them: w1 with
+    its rows padded with zeros to ``mlp_k_pad(f_in)``, w2, and w3 with its
+    columns padded with zeros to ``mlp_n_pad(f_out)`` (the readout's 2 to
+    one n-tile of 8), each split into TF32 hi and lo parts and permuted by
+    ``_pack_tf32_matrix``; 2 (k_pad F + F² + F n_pad) f32 values."""
+    f_in, f_out = w.w1.shape[0], w.w3.shape[1]
+    w1 = tnf.pad(w.w1.detach().float(), (0, 0, 0, mlp_k_pad(f_in) - f_in))
+    w3 = tnf.pad(w.w3.detach().float(), (0, mlp_n_pad(f_out) - f_out))
+    return torch.cat([_pack_tf32_matrix(m) for m in (w1, w.w2.detach().float(), w3)]).contiguous()
 
 
 def pack_mlp(w: MLPWeights, device) -> MLPPack:
+    """``w`` packed once for B6, with its 3xTF32 packing (``tc``)."""
     f, f_in, f_out = w.w2.shape[0], w.w1.shape[0], w.w3.shape[1]
     f_pad = -(-f_out // f) * f
     w3 = tnf.pad(w.w3, (0, f_pad - f_out))
@@ -90,7 +128,7 @@ def pack_mlp(w: MLPWeights, device) -> MLPPack:
         ln2_scale=vecs[4 * f:5 * f], ln2_bias=vecs[5 * f:6 * f],
         w3=mats[m3:].view(f, f_pad)[:, :f_out], b3=vecs[6 * f:6 * f + f_out],
     )
-    return MLPPack(mats, vecs, f_in, f_out, views)
+    return MLPPack(mats, vecs, f_in, f_out, views, pack_tf32_mlp(views))
 
 
 # ---------------------------------------------------------------------------
@@ -334,31 +372,98 @@ def fused_edge_mlp_jvp(in_feat, pe, din, dpe, wts: PairLayerWeights,
     return out
 
 
-def fused_mlp(x, pack: MLPPack):
+def tc_mlp_smem_bytes() -> int:
+    """Dynamic shared memory of one CTA of csrc/fused_mlp_tf32x3.cu: two
+    input chunks (MLP_ROWS x MLP_CHUNK; the first is reused for the row
+    slice, MLP_ROWS x F) and the CTA's two exported blocks (MLP_ROWS x
+    F / MLP_CLUSTER), f32."""
+    return 4 * (2 * MLP_ROWS * MLP_CHUNK + 2 * MLP_ROWS * (KERNEL_F // MLP_CLUSTER))
+
+
+class MlpPlan(NamedTuple):
+    """How csrc/fused_mlp_tf32x3.cu splits a launch: cluster c takes rows
+    [MLP_ROWS·c, min(MLP_ROWS·(c + 1), R)), ``clusters`` of them,
+    MLP_CLUSTER CTAs each (``ctas``); rank q of a cluster computes the
+    hidden columns [F·q / MLP_CLUSTER, F·(q + 1) / MLP_CLUSTER) and the
+    n-tiles ``mlp_out_tiles`` gives it of the last Dense's ``out_tiles``;
+    the input arrives in ``chunks`` chunks of MLP_CHUNK columns."""
+
+    clusters: int
+    ctas: int
+    out_tiles: int
+    chunks: int
+
+
+def mlp_plan(rows: int, f_in: int, f_out: int) -> MlpPlan:
+    clusters = -(-rows // MLP_ROWS)
+    return MlpPlan(clusters, clusters * MLP_CLUSTER, mlp_n_pad(f_out) // MLP_N_TILE,
+                   -(-mlp_k_pad(f_in) // MLP_CHUNK))
+
+
+def mlp_out_tiles(plan: MlpPlan, rank: int) -> range:
+    """The n-tiles of the last Dense that rank ``rank`` of a cluster computes."""
+    per = -(-plan.out_tiles // MLP_CLUSTER)
+    n0 = min(plan.out_tiles, per * rank)
+    return range(n0, min(plan.out_tiles, n0 + per))
+
+
+def _mlp_route(variant: str) -> str:
+    """The library a B6 launch takes: ``"tc"`` the 3xTF32 tensor-core
+    kernel, ``"fma"`` the f32-FMA kernel."""
+    return _route(MLP_LIBS, variant)
+
+
+def _tc_mlp_weights(pack: MLPPack, x) -> torch.Tensor:
+    """``pack.tc``, checked against what csrc/fused_mlp_tf32x3.cu reads;
+    raises where the pack carries none."""
+    f = KERNEL_F
+    numel = 2 * f * (mlp_k_pad(pack.f_in) + f + mlp_n_pad(pack.f_out))
+    tc = pack.tc
+    if tc is None:
+        raise ValueError("the MLP carries no 3xTF32 packing (pack_mlp attaches it)")
+    if (tc.numel() != numel or tc.dtype != torch.float32 or tc.device != x.device
+            or not tc.is_contiguous()):
+        raise ValueError(f"the 3xTF32 MLP weights must be {numel} contiguous float32 values on "
+                         f"{x.device}, got {tc.numel()} {tc.dtype} on {tc.device}")
+    return tc
+
+
+def fused_mlp(x, pack: MLPPack, variant: str = "tc"):
     """One MLP over rows: x (R, f_in) -> (R, f_out), f32. Launches kernel
-    B6 on a CUDA tensor, the plain version on a CPU one."""
+    B6 on a CUDA tensor, the plain version on a CPU one (under either
+    variant). ``variant="tc"`` takes the 3xTF32 tensor-core kernel
+    (csrc/fused_mlp_tf32x3.cu, which needs ``pack.tc``; any f_in);
+    ``variant="fma"`` the f32-FMA kernel (csrc/fused_mlp.cu, f_in a
+    multiple of 4), kept for timing."""
+    lib = _mlp_route(variant)
     if not _on_card(x, "fused_mlp"):
         PLAIN_CALLS["fused_mlp"] += 1
         return _mlp_block(x, pack.w)
     dev, f, r = x.device, KERNEL_F, _rows(x)
     _check("x", x, (r, pack.f_in), dev)
-    smem = 4 * _R * max(pack.f_in, f)
-    if pack.w.w2.shape[0] != f or pack.f_in % 4 or smem > SMEM_LIMIT:
-        raise ValueError(f"fused_mlp takes hidden width F={f} and f_in a multiple of 4 whose "
-                         f"input tile ({smem} bytes) fits {SMEM_LIMIT} bytes of shared memory; "
-                         f"got F={pack.w.w2.shape[0]}, f_in={pack.f_in}")
+    if pack.w.w2.shape[0] != f:
+        raise ValueError(f"fused_mlp takes hidden width F={f}, got F={pack.w.w2.shape[0]}")
     for t in (pack.mats, pack.vecs):
         if t.device != dev:
             raise ValueError(f"weights must be on {dev}, found them on {t.device}")
-    lib = _build.load("fused_mlp")
-    fn = lib.fused_mlp_f32
+    if variant == "tc":
+        mats = _tc_mlp_weights(pack, x)
+    else:
+        smem = 4 * _R * max(pack.f_in, f)
+        if pack.f_in % 4 or smem > SMEM_LIMIT:
+            raise ValueError(f"fused_mlp variant='fma' takes f_in a multiple of 4 whose input "
+                             f"tile ({smem} bytes) fits {SMEM_LIMIT} bytes of shared memory; "
+                             f"got f_in={pack.f_in}")
+        mats = pack.mats
+    handle = _build.load(lib)
+    fn = getattr(handle, "fused_mlp_tf32x3" if variant == "tc" else "fused_mlp_f32")
     fn.argtypes = [_P] * 4 + [ctypes.c_int] * 3 + [_P]
     fn.restype = ctypes.c_int
     out = torch.empty((r, pack.f_out), device=dev, dtype=torch.float32)
-    rc = fn(x.data_ptr(), pack.mats.data_ptr(), pack.vecs.data_ptr(), out.data_ptr(),
+    rc = fn(x.data_ptr(), mats.data_ptr(), pack.vecs.data_ptr(), out.data_ptr(),
             r, pack.f_in, pack.f_out, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "fused_mlp launch")
-    _build.LAUNCHES["fused_mlp"] += 1
+    _build.check(handle, rc, f"{lib} launch")
+    _build.count_launch("fused_mlp", lib)
     return out
 
 
