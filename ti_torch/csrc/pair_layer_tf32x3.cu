@@ -61,152 +61,22 @@ namespace tf32x3 {
 enum { T_DIST, T_MASK, T_DIR0, T_DIR1, T_DIR2, TGEO };
 constexpr size_t SMEM = sizeof(float) * ((size_t)TR * (LDX + F) + TGEO * TR);
 
-// A warp's block of a product. Blk<1>: two row tiles x four n-tiles (32 rows,
-// 32 columns), the 8 warps of a one-tile CTA. Blk<2>: four row tiles x two
-// n-tiles (64 rows, 16 columns), the 8 warps of each tile of a two-tile CTA,
-// so each weight fragment feeds four row tiles and the two tiles' warps w
-// load the same fragments together. Each element's products and sums are
-// the same, in the same order, in both: the outputs agree to the bit.
-template <int TB>
-struct Blk;
-
-template <>
-struct Blk<1> {
-  Acc acc;
-  int row0, col0, nt0;
-  __device__ __forceinline__ Blk() {
-    const int w = warp_id();
-    row0 = 32 * (w & 1);
-    col0 = 32 * (w >> 1);
-    nt0 = 4 * (w >> 1);
-  }
-  template <int KS, int NTM>
-  __device__ __forceinline__ void product(const float* A, int lda, const uint4* __restrict__ W,
-                                          int nt) {
-    acc_zero(acc);
-    mma3<KS, NTM>(acc, A, lda, row0, W, nt + nt0);
-  }
-  __device__ __forceinline__ void store(float* T, int ld, const float* __restrict__ bias) {
-    acc_store(T, ld, row0, col0, acc, bias);
-  }
-  __device__ __forceinline__ void gate(float* T, const float* __restrict__ bias, const float* mask) {
-    acc_gate(T, row0, col0, acc, bias, mask);
-  }
-};
-
-template <>
-struct Blk<2> {
-  float acc[4][2][4];  // [row tile][n-tile][c], c as in Acc
-  int col0, nt0;
-  __device__ __forceinline__ Blk() {
-    col0 = 16 * warp_id();
-    nt0 = 2 * warp_id();
-  }
-  // acc = A[0 .. 63][0 .. 8 KS) * W[:, n-tiles nt0 + nt, + 1] in 3xTF32, as
-  // mma3: two k-steps at a time, each row tile's six products of each n-tile
-  // into a fresh accumulator added to acc in f32
-  template <int KS, int NTM>
-  __device__ __forceinline__ void product(const float* A, int lda, const uint4* __restrict__ W,
-                                          int nt) {
-    const int lane = lane_id(), g = lane >> 2, t = lane & 3;
-    const uint4* wp = W + (size_t)(nt + nt0) * 32 + lane;
-#pragma unroll
-    for (int rt = 0; rt < 4; ++rt)
-#pragma unroll
-      for (int p = 0; p < 2; ++p)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[rt][p][c] = 0.f;
-#pragma unroll 1
-    for (int ks = 0; ks < KS; ks += 2) {
-      uint4 b[2][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int p = 0; p < 2; ++p) b[h][p] = __ldg(wp + ((size_t)(ks + h) * NTM + p) * 32);
-#pragma unroll
-      for (int rt = 0; rt < 4; ++rt) {
-        const int r = 16 * rt + g;
-        float z[2][4] = {};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k = 8 * (ks + h) + 2 * t;
-          const float2 u = *reinterpret_cast<const float2*>(A + swz(r, k, lda));
-          const float2 w = *reinterpret_cast<const float2*>(A + swz(r + 8, k, lda));
-          const float a[4] = {u.x, w.x, u.y, w.y};
-          uint32_t hi[4], lo[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            hi[c] = to_tf32(a[c]);
-            lo[c] = to_tf32(a[c] - __uint_as_float(hi[c]));
-          }
-#pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            mma_tf32(z[p], lo, b[h][p].x, b[h][p].y);  // a_lo b_hi
-            mma_tf32(z[p], hi, b[h][p].z, b[h][p].w);  // a_hi b_lo
-            mma_tf32(z[p], hi, b[h][p].x, b[h][p].y);  // a_hi b_hi
-          }
-        }
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[rt][p][c] += z[p][c];
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* T, int ld, const float* __restrict__ bias) {
-    const int lane = lane_id(), g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int col = col0 + 8 * p + 2 * t;
-      const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
-#pragma unroll
-      for (int rt = 0; rt < 4; ++rt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<float2*>(T + swz(16 * rt + g + 8 * h, col, ld)) =
-              make_float2(acc[rt][p][2 * h] + bb.x, acc[rt][p][2 * h + 1] + bb.y);
-    }
-  }
-  __device__ __forceinline__ void gate(float* T, const float* __restrict__ bias, const float* mask) {
-    const int lane = lane_id(), g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int col = col0 + 8 * p + 2 * t;
-      const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + col));
-#pragma unroll
-      for (int rt = 0; rt < 4; ++rt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 16 * rt + g + 8 * h;
-          float2* at = reinterpret_cast<float2*>(T + swz(r, col, F));
-          const float2 pv = *at;
-          const float m = mask[r];
-          *at = make_float2(pv.x * (acc[rt][p][2 * h] + bb.x) * m,
-                            pv.y * (acc[rt][p][2 * h + 1] + bb.y) * m);
-        }
-    }
-  }
-};
-
-// TB 64-row tiles a CTA, each on its own group of 8 warps and its own SMEM
-// bytes of shared memory: TB = 1, two CTAs an SM; TB = 2, one
-template <int TB>
-__global__ void __launch_bounds__(NT * TB, 2 / TB)
+__global__ void __launch_bounds__(NT, 2)
 pair_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ s,
                          const float* __restrict__ v, const float* __restrict__ e,
                          const float* __restrict__ wpk, const float* __restrict__ vecs,
                          float* __restrict__ dv, float* __restrict__ ds,
                          float* __restrict__ e_out, int B, int N, int G, float pe_scale) {
-  extern __shared__ __align__(16) float smem_cta[];
-  const int tile = blockIdx.x * TB + (int)threadIdx.x / NT;  // this group's tile
-  float* X = smem_cta + (tile - blockIdx.x * TB) * (SMEM / sizeof(float));
-  float* X1 = X;                   // w's pre-LN products, then a2 of w (row stride LDX)
+  extern __shared__ __align__(16) float smem[];
+  float* X = smem;                 // [s_j | e_ij]; later X1 | X2 (row stride LDX)
+  float* X1 = X;                   // w's pre-LN products, then a2 of w
   float* X2 = X + F;               // phi's pre-LN products, then a2 of phi
   float* Y = X + TR * LDX;         // PE; later the 5F chunk h (row stride F)
   float* geo = Y + TR * F;
-  const int tid = ltid();
-  const int q0 = tile * G;                       // the tile's first group
-  const int ng = max(0, min(G, B * N - q0));     // its groups (none past the last)
+  const int tid = threadIdx.x, warp = warp_id();
+  const int row0 = 32 * (warp & 1), col0 = 32 * (warp >> 1), nt0 = 4 * (warp >> 1);
+  const int q0 = blockIdx.x * G;                 // the CTA's first group
+  const int ng = min(G, B * N - q0);             // its groups
   const int rows = ng * N;                       // its real pair rows
   const size_t e0 = (size_t)q0 * N;              // its first row of e
 
@@ -259,27 +129,31 @@ pair_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ 
   __syncthreads();
 
   const float *vp = vecs + V_PHI, *vw = vecs + V_W;
-  Blk<TB> blk;
+  Acc acc;
   // phi's front: X (64 x 2F) -> X1 -> a2 of phi in X2
-  blk.template product<2 * F / 8, FN>(X, LDX, wmat(wpk, M_PHI1), 0);
+  acc_zero(acc);
+  mma3<2 * F / 8, FN>(acc, X, LDX, row0, wmat(wpk, M_PHI1), nt0);
   __syncthreads();  // every warp has read X
-  blk.store(X1, LDX, vp + V_B1);
+  acc_store(X1, LDX, row0, col0, acc, vp + V_B1);
   __syncthreads();
   ln_silu_rows(X1, LDX, vp + V_LN1S, vp + V_LN1B);
   __syncthreads();
-  blk.template product<F / 8, FN>(X1, LDX, wmat(wpk, M_PHI2), 0);
-  blk.store(X2, LDX, vp + V_B2);  // X2 was last read before the barriers above
+  acc_zero(acc);
+  mma3<F / 8, FN>(acc, X1, LDX, row0, wmat(wpk, M_PHI2), nt0);
+  acc_store(X2, LDX, row0, col0, acc, vp + V_B2);  // X2 was last read before the barriers above
   __syncthreads();
   ln_silu_rows(X2, LDX, vp + V_LN2S, vp + V_LN2B);
   // w's front: Y (64 x F) -> Y -> a2 of w in X1
-  blk.template product<F / 8, FN>(Y, F, wmat(wpk, M_W1), 0);
+  acc_zero(acc);
+  mma3<F / 8, FN>(acc, Y, F, row0, wmat(wpk, M_W1), nt0);
   __syncthreads();  // every warp has read Y
-  blk.store(Y, F, vw + V_B1);
+  acc_store(Y, F, row0, col0, acc, vw + V_B1);
   __syncthreads();
   ln_silu_rows(Y, F, vw + V_LN1S, vw + V_LN1B);
   __syncthreads();
-  blk.template product<F / 8, FN>(Y, F, wmat(wpk, M_W2), 0);
-  blk.store(X1, LDX, vw + V_B2);  // X1 was last read by phi's second product
+  acc_zero(acc);
+  mma3<F / 8, FN>(acc, Y, F, row0, wmat(wpk, M_W2), nt0);
+  acc_store(X1, LDX, row0, col0, acc, vw + V_B2);  // X1 was last read by phi's second product
   __syncthreads();
   ln_silu_rows(X1, LDX, vw + V_LN2S, vw + V_LN2B);
   __syncthreads();
@@ -290,10 +164,12 @@ pair_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ 
   // stored in dv
   const float* mask = geo + T_MASK * TR;
   for (int k = 0; k < 5; ++k) {
-    blk.template product<F / 8, 5 * FN>(X2, LDX, wmat(wpk, M_PHI3), k * FN);
-    blk.store(Y, F, vp + V_B3 + k * F);  // p
-    blk.template product<F / 8, 5 * FN>(X1, LDX, wmat(wpk, M_W3), k * FN);
-    blk.gate(Y, vw + V_B3 + k * F, mask);  // h = p q mask
+    acc_zero(acc);
+    mma3<F / 8, 5 * FN>(acc, X2, LDX, row0, wmat(wpk, M_PHI3), k * FN + nt0);
+    acc_store(Y, F, row0, col0, acc, vp + V_B3 + k * F);  // p
+    acc_zero(acc);
+    mma3<F / 8, 5 * FN>(acc, X1, LDX, row0, wmat(wpk, M_W3), k * FN + nt0);
+    acc_gate(Y, row0, col0, acc, vw + V_B3 + k * F, mask);  // h = p q mask
     __syncthreads();
     if (k == 3) {  // e + de, on whole rows
       for (int idx = tid; idx < rows * (F / 4); idx += NT) {
@@ -351,46 +227,22 @@ pair_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ 
 }  // namespace tf32x3
 }  // namespace pk
 
-namespace pk {
-namespace tf32x3 {
-
-template <int TB>
-int launch_pair_layer(const void* x, const void* s, const void* v, const void* e, const void* mats,
-                      const void* vecs, void* dv, void* ds, void* e_out, int B, int N,
-                      float pe_scale, void* stream) {
-  if (B < 1 || N < 2 || N > pk::R) return (int)cudaErrorInvalidValue;
-  const int G = TR / N;
-  const long long tiles = ((long long)B * N + G - 1) / G;
-  cudaError_t err = cudaFuncSetAttribute(pair_layer_tf32x3_kernel<TB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)(TB * SMEM));
-  if (err != cudaSuccess) return (int)err;
-  pair_layer_tf32x3_kernel<TB><<<(unsigned)((tiles + TB - 1) / TB), pk::NT * TB, TB * SMEM,
-                                 (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)s, (const float*)v, (const float*)e, (const float*)mats,
-      (const float*)vecs, (float*)dv, (float*)ds, (float*)e_out, B, N, G, pe_scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace tf32x3
-}  // namespace pk
-
 // mats is the layer's matrices split into TF32 hi and lo parts in fragment
 // order (ops/pair_layer_kernel.pack_tf32_weights), 2 x 15 F^2 f32 values.
 extern "C" int pair_layer_tf32x3(const void* x, const void* s, const void* v, const void* e,
                                  const void* mats, const void* vecs, void* dv, void* ds,
                                  void* e_out, int B, int N, float pe_scale, void* stream) {
-  return pk::tf32x3::launch_pair_layer<1>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, pe_scale,
-                                          stream);
-}
-
-// the same with two 64-row tiles a CTA (16 warps, one CTA an SM)
-extern "C" int pair_layer_tf32x3_two_tiles(const void* x, const void* s, const void* v,
-                                           const void* e, const void* mats, const void* vecs,
-                                           void* dv, void* ds, void* e_out, int B, int N,
-                                           float pe_scale, void* stream) {
-  return pk::tf32x3::launch_pair_layer<2>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, pe_scale,
-                                          stream);
+  using namespace pk::tf32x3;
+  if (B < 1 || N < 2 || N > pk::R) return (int)cudaErrorInvalidValue;
+  const int G = TR / N;
+  const long long ctas = ((long long)B * N + G - 1) / G;
+  cudaError_t err = cudaFuncSetAttribute(pair_layer_tf32x3_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (err != cudaSuccess) return (int)err;
+  pair_layer_tf32x3_kernel<<<(unsigned)ctas, pk::NT, SMEM, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)s, (const float*)v, (const float*)e, (const float*)mats,
+      (const float*)vecs, (float*)dv, (float*)ds, (float*)e_out, B, N, G, pe_scale);
+  return (int)cudaGetLastError();
 }
 
 extern "C" unsigned long long pair_layer_tf32x3_smem_bytes() {
