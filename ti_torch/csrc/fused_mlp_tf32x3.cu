@@ -28,12 +28,13 @@
 //   other 3xTF32 kernels): the A tile of the next Dense. The last Dense
 //   splits its n-tiles (W3's columns padded with zeros to a multiple of 8
 //   when the MLP is packed) over the cluster the same way; only the real
-//   rows and the f_out real columns are stored. Built with TM = 16 and
-//   CL = 1: 16-row tiles, a CTA all F columns with 8 warps of 16, 152 CTAs
-//   at 2432 rows, all resident at once. 64-row tiles over clusters of 4 CTAs
-//   (152 CTAs, each a quarter of the weights) and 32-row tiles over 2 were
-//   slower at every width: their cluster barriers, gathers and LayerNorm of
-//   the whole slice in every CTA cost more than the weights they spare
+//   rows and the f_out real columns are stored. Built with TM = 16, CL = 1
+//   and WB = 8: 16-row tiles, a CTA all F columns with 8 warps of 16, 152
+//   CTAs at 2432 rows, all resident at once. 64-row tiles over clusters of 4
+//   CTAs (152 CTAs, each a quarter of the weights) and 32-row tiles over 2
+//   were slower at every width: their cluster barriers, gathers and
+//   LayerNorm of the whole slice in every CTA cost more than the weights
+//   they spare; 16 warps a CTA on 32-row tiles were no faster
 //   (tools/b6_tc_probe.py builds them; PERF.md section 6);
 // - every product is mma.sync.m16n8k8 in 3xTF32 over the weights split and
 //   packed once in fragment order by ops/pallas_kernels.pack_mlp (W1's rows
@@ -68,12 +69,14 @@ namespace cg = cooperative_groups;
 constexpr int TM = 16;       // rows of a cluster's tile
 constexpr int CL = 1;        // CTAs of a cluster
 constexpr int CW = F / CL;   // hidden columns a CTA computes
+constexpr int WB = 8;         // warps a CTA
+constexpr int TB = 32 * WB;   // threads a CTA
 constexpr int NRT = TM / 16;  // row tiles of 16 rows: warp w takes row tile w % NRT
-constexpr int NCG = NW / NRT;  // and column group w / NRT, of 16 columns in the hidden Dense
+constexpr int NCG = WB / NRT;  // and column group w / NRT, of 16 columns in the hidden Dense
 constexpr int KC = 128;      // input columns staged a chunk
 constexpr size_t MLP_SMEM = sizeof(float) * (size_t)(2 * TM * KC + 2 * TM * CW);
-constexpr int GATHER = CL * TM * CW / 4 / NT;  // 16-byte loads a thread a gather
-static_assert(NCG * 16 == CW && KC >= F && GATHER * NT * 4 == CL * TM * CW, "the work split");
+constexpr int GATHER = CL * TM * CW / 4 / TB;  // 16-byte loads a thread a gather
+static_assert(NCG * 16 == CW && KC >= F && GATHER * TB * 4 == CL * TM * CW, "the work split");
 
 // 4 bytes from global to shared memory by cp.async (the rows of an input
 // whose width is not a multiple of 4)
@@ -94,7 +97,7 @@ __device__ __forceinline__ void cluster_wait() {
 // on (no commit)
 __device__ __forceinline__ void stage_chunk(float* S, const float* __restrict__ x, int f_in,
                                             size_t r0, int nrows, int kc, bool vec4) {
-  for (int idx = threadIdx.x; idx < TM * KC / 4; idx += NT) {
+  for (int idx = threadIdx.x; idx < TM * KC / 4; idx += TB) {
     const int r = idx / (KC / 4), f = 4 * (idx % (KC / 4)), col = kc + f;
     float* d = S + swz(r, f, KC);
     const float* src = x + (r0 + r) * f_in + col;
@@ -215,8 +218,8 @@ __device__ __forceinline__ void acc_clear(AccR& acc) {
 // tf32_common.cuh::ln_silu_rows'
 __device__ __forceinline__ void ln_silu_tile(float* H, const float* __restrict__ scale,
                                              const float* __restrict__ bias) {
-  constexpr int RW = TM / NW;
-  const int lane = lane_id(), w = warp_id();
+  constexpr int RW = TM / WB;
+  const int lane = lane_id(), w = threadIdx.x >> 5;
   const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + 4 * lane));
   const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + 4 * lane));
   float4 v[RW];
@@ -273,14 +276,14 @@ __device__ __forceinline__ void gather(float* H, float* E, cg::cluster_group& cl
   float4 v[GATHER];
 #pragma unroll
   for (int i = 0; i < GATHER; ++i) {
-    const int idx = threadIdx.x + i * NT, p = idx / (TM * CW / 4), rem = idx % (TM * CW / 4);
+    const int idx = threadIdx.x + i * TB, p = idx / (TM * CW / 4), rem = idx % (TM * CW / 4);
     const int r = rem / (CW / 4), f = 4 * (rem % (CW / 4));
     const float* src = cluster.map_shared_rank(E, p);
     v[i] = *reinterpret_cast<const float4*>(src + swz(r, f, CW));
   }
 #pragma unroll
   for (int i = 0; i < GATHER; ++i) {
-    const int idx = threadIdx.x + i * NT, p = idx / (TM * CW / 4), rem = idx % (TM * CW / 4);
+    const int idx = threadIdx.x + i * TB, p = idx / (TM * CW / 4), rem = idx % (TM * CW / 4);
     const int r = rem / (CW / 4), f = 4 * (rem % (CW / 4));
     *reinterpret_cast<float4*>(H + swz(r, CW * p + f, F)) = v[i];
   }
@@ -307,7 +310,7 @@ __device__ __forceinline__ void store_out(float* __restrict__ out, int f_out, si
   }
 }
 
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 2)
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(TB, 512 / TB)
 fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ wpk,
                         const float* __restrict__ vecs, float* __restrict__ out, int rows,
                         int f_in, int k_pad, int f_out, bool vec4) {
@@ -321,7 +324,7 @@ fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w
   const int q = (int)cluster.block_rank();
   const size_t r0 = (size_t)(blockIdx.x / CL) * TM;
   const int nrows = min(TM, rows - (int)r0);
-  const int warp = warp_id(), row = 16 * (warp % NRT), ch = warp / NRT;
+  const int warp = threadIdx.x >> 5, row = 16 * (warp % NRT), ch = warp / NRT;
   const int col = 16 * ch, c0 = CW * q + col;  // the warp's block: local and hidden column
   const uint4* W1 = reinterpret_cast<const uint4*>(wpk);
   const uint4* W2 = reinterpret_cast<const uint4*>(wpk + 2 * (size_t)k_pad * F);
@@ -408,7 +411,7 @@ extern "C" int fused_mlp_tf32x3(const void* x, const void* mats, const void* vec
                                          (int)MLP_SMEM);
   if (err != cudaSuccess) return (int)err;
   const unsigned tiles = (unsigned)((rows + TM - 1) / TM);
-  fused_mlp_tf32x3_kernel<<<tiles * CL, pk::NT, MLP_SMEM, (cudaStream_t)stream>>>(
+  fused_mlp_tf32x3_kernel<<<tiles * CL, TB, MLP_SMEM, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)mats, (const float*)vecs, (float*)out, rows, f_in, k_pad,
       f_out, vec4);
   return (int)cudaGetLastError();
@@ -430,7 +433,7 @@ extern "C" int fused_mlp_tf32x3_max_active_clusters() {
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CL * 64, 1, 1);
-  cfg.blockDim = dim3(pk::NT, 1, 1);
+  cfg.blockDim = dim3(TB, 1, 1);
   cfg.dynamicSmemBytes = MLP_SMEM;
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, fused_mlp_tf32x3_kernel, &cfg);

@@ -22,7 +22,9 @@ F -> 2):
    k-step loop not unrolled (``unroll1``); and the cluster designs the tree
    was chosen against, 64-row tiles over clusters of 4 CTAs of 32 columns
    (``cluster_64x4``) and 32-row tiles over 2 CTAs of 64 (``cluster_32x2``),
-   each also without products (right results but for the ``no_mma`` ones).
+   and 16 warps a CTA on 32-row tiles (``warps16_32``) or on 64-row tiles
+   over clusters of 2 (``warps16_64x2``), each also without products (right
+   results but for the ``no_mma`` ones).
 
 The copies and their libraries go to build/probe_b6/. Needs a card and nvcc:
 
@@ -58,7 +60,12 @@ UNROLL = ("#pragma unroll 2\n  for (int ks = 0; ks < ksteps; ks += 2) {",
 LAYOUTS = {"cluster_64x4": [("constexpr int TM = 16;", "constexpr int TM = 64;"),
                             ("constexpr int CL = 1;", "constexpr int CL = 4;")],
            "cluster_32x2": [("constexpr int TM = 16;", "constexpr int TM = 32;"),
-                            ("constexpr int CL = 1;", "constexpr int CL = 2;")]}
+                            ("constexpr int CL = 1;", "constexpr int CL = 2;")],
+           "warps16_32": [("constexpr int TM = 16;", "constexpr int TM = 32;"),
+                          ("constexpr int WB = 8;", "constexpr int WB = 16;")],
+           "warps16_64x2": [("constexpr int TM = 16;", "constexpr int TM = 64;"),
+                            ("constexpr int CL = 1;", "constexpr int CL = 2;"),
+                            ("constexpr int WB = 8;", "constexpr int WB = 16;")]}
 BUILDS = {  # name: [(its text, the replacement)]
     "l1_weights": [(LOAD, "b[h][p] = __ldg(wp + ((size_t)h * ntm + p) * 32);")],
     "one_pass": [(MMA[0], ";"), (MMA[1], ";")],
