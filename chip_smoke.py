@@ -89,8 +89,8 @@ Phases (any failure exits non-zero and prints no result):
      widths, at the 2432 node rows of 128 chains and at R = 1, 5, 15, 16,
      17, 63, 64, 65 and 4,097, two launches to the bit, against the f32-FMA
      kernel (``variant="fma"``) and timed in turns beside it at 2432 rows
-     (device time, from CUDA-graph replays) with both bounds, its registers,
-     cluster and the clusters the card holds at once;
+     (device time, from CUDA-graph replays) with both bounds, its registers
+     and the CTAs an SM holds at once;
   9. the fused paths: ``fused_velocity_fn`` against ``dense_velocity_fn``
      with its B4/B6 launch counts (every B4 launch from
      fused_edge_mlp_tf32x3, every B6 launch from fused_mlp_tf32x3), and the
@@ -709,15 +709,16 @@ def phase_fused_kernels(params, rows_kernels, report, card: str) -> None:
         log(f"[B6 build] {fn}: {regs}; {spill}")
     lib = _build.load("fused_mlp_tf32x3")
     lib.fused_mlp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
-    held = lib.fused_mlp_tf32x3_max_active_clusters()
+    per_sm = lib.fused_mlp_tf32x3_ctas_per_sm()
     plan = pk.mlp_plan(r, 2 * F, 3 * F)
-    log(f"[B6 occupancy] clusters of {lib.fused_mlp_tf32x3_cluster()} CTA(s) of 256 threads, "
-        f"{lib.fused_mlp_tf32x3_smem_bytes()} bytes of shared memory each; the card holds {held} "
-        f"clusters at once, {plan.clusters} ({plan.ctas} CTAs of {pk.MLP_ROWS} rows) at {r} rows")
-    require(lib.fused_mlp_tf32x3_cluster() == pk.MLP_CLUSTER
+    log(f"[B6 occupancy] {per_sm} CTAs an SM, each 256 threads, {lib.fused_mlp_tf32x3_rows()} rows "
+        f"and {lib.fused_mlp_tf32x3_smem_bytes()} bytes of shared memory; {plan.ctas} CTAs at {r} "
+        f"rows on {sms} SMs")
+    require(lib.fused_mlp_tf32x3_rows() == pk.MLP_ROWS
             and lib.fused_mlp_tf32x3_smem_bytes() == pk.tc_mlp_smem_bytes(),
-            "B6's cluster and shared memory are the wrapper's")
-    require(held >= plan.clusters, f"every cluster of B6 at {r} rows is resident at once: {held}")
+            "B6's rows a CTA and shared memory are the wrapper's")
+    require(per_sm == pk.MLP_CTAS_PER_SM and per_sm * sms >= plan.ctas,
+            f"every CTA of B6 at {r} rows is resident at once: {per_sm} an SM")
 
 
 def phase_fused_paths(model, template, card: str) -> tuple:

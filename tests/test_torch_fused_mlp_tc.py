@@ -1,8 +1,7 @@
 """Kernel B6 in f32 on the tensor cores (csrc/fused_mlp_tf32x3.cu, 3xTF32), as
 far as the CPU reaches it: the route table of ``fused_mlp``, the kernel's
-shared memory and work split (16-row tiles, a cluster of one CTA each; the
-source also builds the cluster designs it was measured against), the 3xTF32
-packing that ``pack_mlp`` attaches once and ``pack_fused`` carries, and a
+shared memory and work split (one 16-row tile a CTA), the 3xTF32 packing
+that ``pack_mlp`` attaches once and ``pack_fused`` carries, and a
 plain-torch model of the kernel's arithmetic held against the JAX Pallas
 kernel in interpret mode. The kernel itself runs only on the card
 (tests/test_torch_gpu.py).
@@ -75,75 +74,56 @@ def test_cpu_tensors_take_the_plain_version(variant):
 
 
 def test_shared_memory_registers_and_residency():
-    """Two input chunks of MLP_ROWS x 128 and two exported blocks of
-    MLP_ROWS x F / MLP_CLUSTER, f32: 32,768 bytes. Two CTAs an SM fit (so
-    at most 128 registers a thread), and at the node rows of 128 chains
-    (2432) all 152 CTAs are resident at once on 132 SMs."""
+    """Two input chunks of MLP_ROWS x 128 f32, which then hold the two
+    hidden activations: 16,384 bytes. MLP_CTAS_PER_SM CTAs an SM (at most
+    128 registers a thread; their shared memory fits), and at the node rows
+    of 128 chains (2432) all 152 CTAs are resident at once on 132 SMs."""
     smem = tpk.tc_mlp_smem_bytes()
     f = 128
-    assert smem == 4 * (2 * tpk.MLP_ROWS * tpk.MLP_CHUNK
-                        + 2 * tpk.MLP_ROWS * f // tpk.MLP_CLUSTER) == 32_768 <= SMEM_LIMIT
+    assert smem == 4 * 2 * tpk.MLP_ROWS * tpk.MLP_CHUNK == 16_384 <= SMEM_LIMIT
+    assert tpk.MLP_CHUNK == f  # a chunk buffer holds a hidden activation
     assert tpk.MLP_CTAS_PER_SM * (smem + CTA_RESERVED) <= SM_SMEM
     assert SM_REGISTERS // (tpk.MLP_CTAS_PER_SM * 256) == 128
     plan = tpk.mlp_plan(2432, 2 * f, 3 * f)
-    assert (plan.clusters, plan.ctas, plan.out_tiles, plan.chunks) == (152, 152, 48, 2)
+    assert (plan.ctas, plan.out_tiles, plan.chunks) == (152, 48, 2)
     assert plan.ctas <= tpk.MLP_CTAS_PER_SM * H100_SMS
     assert tpk.mlp_plan(2432, 4 * f, f).chunks == 4 and tpk.mlp_plan(2432, f, 2).out_tiles == 1
 
 
-def _kernel_split(rows: int, f_in: int, f_out: int, tm: int, cl: int, f: int = 128) -> tuple:
-    """A numpy model of the kernel's work split at TM = tm rows a cluster of
-    CL = cl CTAs of 8 warps: how often each (row, hidden column) of the
-    hidden Dense layers and each (row, output column) of the last Dense is
-    stored, and how often each input element is staged (once a CTA)."""
-    nrt = tm // 16
-    ncg, cw = 8 // nrt, f // cl
-    assert ncg * 16 == cw
+def _kernel_split(rows: int, f_in: int, f_out: int, f: int = 128) -> tuple:
+    """A numpy model of the kernel's work split, one MLP_ROWS-row tile a CTA
+    of 8 warps: how often each (row, hidden column) of the hidden Dense
+    layers and each (row, output column) of the last Dense is stored, and
+    how often each input element is staged."""
+    tm = tpk.MLP_ROWS
     hidden = np.zeros((rows, f), np.int64)
     last = np.zeros((rows, f_out), np.int64)
     staged = np.zeros((rows, f_in), np.int64)
-    nt3 = tpk.mlp_n_pad(f_out) // 8
-    per = -(-nt3 // cl)
-    k_pad = tpk.mlp_k_pad(f_in)
-    for c in range(-(-rows // tm)):
-        r0 = c * tm
-        for q in range(cl):
-            real = np.arange(r0, min(r0 + tm, rows))
-            for kc in range(0, k_pad, tpk.MLP_CHUNK):  # the chunks, zero past f_in and R
-                cols = np.arange(kc, min(kc + tpk.MLP_CHUNK, f_in))
-                np.add.at(staged, (real[:, None], cols[None, :]), 1)
-            for w in range(8):  # the hidden Dense: a warp's 16 x 16 block
-                rows_w = r0 + 16 * (w % nrt) + np.arange(16)
-                cols_w = cw * q + 16 * (w // nrt) + np.arange(16)
-                ok = rows_w[rows_w < rows]
-                np.add.at(hidden, (ok[:, None], cols_w[None, :]), 1)
-            n0 = min(nt3, per * q)
-            n1 = min(nt3, n0 + per)
-            if cl == tpk.MLP_CLUSTER:
-                assert range(n0, n1) == tpk.mlp_out_tiles(tpk.mlp_plan(rows, f_in, f_out), q)
-            gs = 3 if (n1 - n0) % (ncg * 3) == 0 else 2
-            for w in range(8):  # the last Dense: groups of gs n-tiles dealt to the column groups
-                for nt in range(n0 + gs * (w // nrt), n1, ncg * gs):
-                    npt = min(gs, n1 - nt)
-                    rows_w = r0 + 16 * (w % nrt) + np.arange(16)
-                    cols_w = np.arange(8 * nt, 8 * (nt + npt))
-                    ok_r, ok_c = rows_w[rows_w < rows], cols_w[cols_w < f_out]
-                    np.add.at(last, (ok_r[:, None], ok_c[None, :]), 1)
+    plan = tpk.mlp_plan(rows, f_in, f_out)
+    nt3 = plan.out_tiles
+    gs = 3 if nt3 % (8 * 3) == 0 else 2
+    assert plan.chunks == len(range(0, tpk.mlp_k_pad(f_in), tpk.MLP_CHUNK))
+    for c in range(plan.ctas):
+        real = np.arange(c * tm, min(c * tm + tm, rows))  # rows past R are zero, never stored
+        for kc in range(0, tpk.mlp_k_pad(f_in), tpk.MLP_CHUNK):  # zero past f_in
+            cols = np.arange(kc, min(kc + tpk.MLP_CHUNK, f_in))
+            np.add.at(staged, (real[:, None], cols[None, :]), 1)
+        for w in range(8):
+            np.add.at(hidden, (real[:, None], 16 * w + np.arange(16)[None, :]), 1)
+            for nt in range(gs * w, nt3, 8 * gs):  # the last Dense: groups dealt in turn
+                cols = np.arange(8 * nt, 8 * min(nt + gs, nt3))
+                np.add.at(last, (real[:, None], cols[cols < f_out][None, :]), 1)
     return hidden, last, staged
 
 
 @pytest.mark.parametrize("rows", ROWS)
 @pytest.mark.parametrize("f_in,f_out", [(512, 128), (384, 128), (256, 384), (128, 2), (20, 3)])
 def test_work_split_covers_every_row_and_column_once(rows, f_in, f_out):
-    """At the built tiles (MLP_ROWS rows, MLP_CLUSTER CTAs a cluster) every
-    (row, column) of each hidden Dense and of the output is computed exactly
-    once, and every input element staged once a CTA of its cluster; padding
-    rows and columns reach no output. The cluster design the tree was
-    measured against (64-row tiles over 4 CTAs, ``tools/b6_tc_probe.py``)
-    covers them once as well."""
-    for tm, cl in ((tpk.MLP_ROWS, tpk.MLP_CLUSTER), (64, 4)):
-        hidden, last, staged = _kernel_split(rows, f_in, f_out, tm, cl)
-        assert (hidden == 1).all() and (last == 1).all() and (staged == cl).all()
+    """Every (row, column) of each hidden Dense and of the output is
+    computed exactly once and every input element staged once; padding rows
+    and columns reach no output."""
+    hidden, last, staged = _kernel_split(rows, f_in, f_out)
+    assert (hidden == 1).all() and (last == 1).all() and (staged == 1).all()
 
 
 def _unpack_tf32(buf: torch.Tensor, k: int, n: int) -> torch.Tensor:

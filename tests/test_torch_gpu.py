@@ -317,8 +317,9 @@ def test_fused_mlp_tc_is_deterministic_and_agrees_with_fma(name, f_in):
 
 @pytest.mark.gpu
 def test_fused_mlp_tc_counts_and_refusals():
-    """The wrapper's shared-memory and cluster counts are the kernel's own,
-    and the card holds every cluster of 2432 rows at once; a pack without
+    """The wrapper's shared-memory and row counts are the kernel's own, and
+    the card holds MLP_CTAS_PER_SM of its CTAs an SM (so it builds within
+    128 registers), every CTA of 2432 rows at once; a pack without
     its 3xTF32 packing, or of another hidden width, raises on the card (no
     fallback), and so does an unknown variant; an f_in that is not a
     multiple of the k-step (or of 4) is padded in the packing, not refused,
@@ -331,8 +332,10 @@ def test_fused_mlp_tc_counts_and_refusals():
     lib = _build.load("fused_mlp_tf32x3")
     lib.fused_mlp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
     assert lib.fused_mlp_tf32x3_smem_bytes() == pk.tc_mlp_smem_bytes()
-    assert lib.fused_mlp_tf32x3_cluster() == pk.MLP_CLUSTER
-    assert lib.fused_mlp_tf32x3_max_active_clusters() >= pk.mlp_plan(2432, 2 * F, 3 * F).clusters
+    assert lib.fused_mlp_tf32x3_rows() == pk.MLP_ROWS
+    assert lib.fused_mlp_tf32x3_ctas_per_sm() == pk.MLP_CTAS_PER_SM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert pk.MLP_CTAS_PER_SM * sms >= pk.mlp_plan(2432, 2 * F, 3 * F).ctas
     pack = _mlp_pack("update_0.mlp", 2 * F)
     x = _rows(70, 2 * F)
     with pytest.raises(ValueError, match="no 3xTF32 packing"):

@@ -18,65 +18,46 @@
 // for the update or the combine).
 //
 // What the design does about it:
-// - TM-row tiles of CL CTAs, a thread-block cluster (__cluster_dims__): CTA q
-//   of a cluster computes the hidden columns [CW q, CW q + CW) of both hidden
-//   Dense layers and reads only those weight columns. Each puts its TM x CW
-//   pre-LN block (with its bias) into its own shared memory; behind a cluster
-//   barrier every CTA gathers its cluster's blocks through distributed shared
-//   memory into the full TM x F row slice, in rank order, and runs LayerNorm
-//   -> SiLU on it in place (f32 statistics over the whole row, as in the
-//   other 3xTF32 kernels): the A tile of the next Dense. The last Dense
-//   splits its n-tiles (W3's columns padded with zeros to a multiple of 8
-//   when the MLP is packed) over the cluster the same way; only the real
-//   rows and the f_out real columns are stored. Built with TM = 16, CL = 1
-//   and WB = 8: 16-row tiles, a CTA all F columns with 8 warps of 16, 152
-//   CTAs at 2432 rows, all resident at once. 64-row tiles over clusters of 4
-//   CTAs (152 CTAs, each a quarter of the weights) and 32-row tiles over 2
-//   were slower at every width: their cluster barriers, gathers and
-//   LayerNorm of the whole slice in every CTA cost more than the weights
-//   they spare; 16 warps a CTA on 32-row tiles were no faster
-//   (tools/b6_tc_probe.py builds them; PERF.md section 6);
+// - one 16-row tile a CTA, all F columns of both hidden Dense layers with 8
+//   warps of 16 columns: 152 CTAs at 2432 rows, all resident at once at two
+//   CTAs an SM. Tiles of 64 rows over thread-block clusters of 4 CTAs, each
+//   computing a quarter of the columns and reading a quarter of the weights
+//   (their LayerNorm rows gathered through distributed shared memory), and
+//   of 32 rows over clusters of 2 were slower at every width: their cluster
+//   barriers, gathers and LayerNorm of the whole row slice in every CTA cost
+//   more than the weights they spare; 16 warps a CTA on 32-row tiles were no
+//   faster (PERF.md section 6);
 // - every product is mma.sync.m16n8k8 in 3xTF32 over the weights split and
 //   packed once in fragment order by ops/pallas_kernels.pack_mlp (W1's rows
-//   padded with zeros to a multiple of 16), the A operand split by
-//   truncation (as tf32_common.cuh::mma3t_pair). Warp w owns rows
-//   16 (w % NRT) .. + 15 and 16 columns (in the last Dense up to 3 n-tiles a
-//   pass). A warp's chain of dependent mma sets the pace, so each k-step's
-//   three products of an n-tile go into a fresh accumulator (2 NP chains of
-//   three mma a k-step pair, not NP of six), the pair's two are added to the
-//   running sum in f32, and the k-step loop is unrolled by two so one pair's
-//   products overlap the next's; the next two k-steps' weight fragments are
-//   loaded into registers ahead, and those PREFETCH k-steps ahead prefetched
-//   into L1;
-// - LayerNorm runs on a warp's rows at once, their shuffle sums interleaved;
-// - the input arrives by cp.async in TM x 128 chunks, double-buffered (the
-//   first buffer is reused for the row slice), so no f_in needs a tile of
-//   it whole;
-// - no atomics: two launches on the same inputs agree to the bit. A CTA
-//   leaves only after a last cluster barrier, so no peer reads the shared
-//   memory of a CTA that has exited.
+//   padded with zeros to a multiple of 16, W3's columns to a multiple of 8:
+//   the readout's f_out = 2 is one n-tile), the A operand split by
+//   truncation (as tf32_common.cuh::mma3t_pair). The last Dense deals its
+//   n-tiles to the warps up to 3 at a time. A warp's chain of dependent mma
+//   sets the pace, so each k-step's three products of an n-tile go into a
+//   fresh accumulator (2 NP chains of three mma a k-step pair, not NP of
+//   six), the pair's two are added to the running sum in f32, and the k-step
+//   loop is unrolled by two so one pair's products overlap the next's; the
+//   next two k-steps' weight fragments are loaded into registers ahead (an
+//   L1 prefetch further ahead made it slower);
+// - each hidden Dense leaves its pre-LN rows (with the bias) in shared
+//   memory, where LayerNorm -> SiLU runs in place (f32 statistics, a warp's
+//   rows at once, their shuffle sums interleaved): the A tile of the next
+//   Dense. Only the real rows and the f_out real columns are stored;
+// - the input arrives by cp.async in 16 x 128 chunks, double-buffered (the
+//   buffers then hold the two hidden activations), so no f_in needs a tile
+//   of it whole: 16,384 bytes of shared memory a CTA;
+// - no atomics: two launches on the same inputs agree to the bit.
 // Only F = 128 is built.
-
-#include <cooperative_groups.h>
 
 #include "tf32_common.cuh"
 
 namespace pk {
 namespace tf32x3 {
 
-namespace cg = cooperative_groups;
-
-constexpr int TM = 16;       // rows of a cluster's tile
-constexpr int CL = 1;        // CTAs of a cluster
-constexpr int CW = F / CL;   // hidden columns a CTA computes
-constexpr int WB = 8;         // warps a CTA
-constexpr int TB = 32 * WB;   // threads a CTA
-constexpr int NRT = TM / 16;  // row tiles of 16 rows: warp w takes row tile w % NRT
-constexpr int NCG = WB / NRT;  // and column group w / NRT, of 16 columns in the hidden Dense
-constexpr int KC = 128;      // input columns staged a chunk
-constexpr size_t MLP_SMEM = sizeof(float) * (size_t)(2 * TM * KC + 2 * TM * CW);
-constexpr int GATHER = CL * TM * CW / 4 / TB;  // 16-byte loads a thread a gather
-static_assert(NCG * 16 == CW && KC >= F && GATHER * TB * 4 == CL * TM * CW, "the work split");
+constexpr int TM = 16;    // rows of a CTA's tile: one row tile of mma.m16n8k8
+constexpr int KC = 128;   // input columns staged a chunk
+constexpr size_t MLP_SMEM = sizeof(float) * (size_t)(2 * TM * KC);
+static_assert(KC == F && NW * 16 == F, "a chunk buffer holds the row slice; a warp 16 columns");
 
 // 4 bytes from global to shared memory by cp.async (the rows of an input
 // whose width is not a multiple of 4)
@@ -85,19 +66,12 @@ __device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) 
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // columns [kc, kc + KC) of rows r0 .. r0 + TM - 1 of x (row stride f_in) into
 // the swizzled TM x KC tile S by cp.async; zero past f_in and from row nrows
 // on (no commit)
 __device__ __forceinline__ void stage_chunk(float* S, const float* __restrict__ x, int f_in,
                                             size_t r0, int nrows, int kc, bool vec4) {
-  for (int idx = threadIdx.x; idx < TM * KC / 4; idx += TB) {
+  for (int idx = threadIdx.x; idx < TM * KC / 4; idx += NT) {
     const int r = idx / (KC / 4), f = 4 * (idx % (KC / 4)), col = kc + f;
     float* d = S + swz(r, f, KC);
     const float* src = x + (r0 + r) * f_in + col;
@@ -118,8 +92,7 @@ __device__ __forceinline__ void stage_chunk(float* S, const float* __restrict__ 
 }
 
 constexpr int NPM = 3;         // n-tiles a warp takes at most in one pass over K
-constexpr int PREFETCH = 8;   // k-steps ahead whose weight fragments are prefetched into L1
-using AccR = float[NPM][4];   // acc[p][c]: row row + g + 8 (c / 2), column 8 p + 2 t + (c % 2)
+using AccR = float[NPM][4];   // acc[p][c]: row g + 8 (c / 2), column 8 p + 2 t + (c % 2)
 
 // This thread's weight fragments of k-steps ks, ks + 1 for n-tiles nt0 ..
 // nt0 + NP - 1 of a packed matrix of ntm n-tiles a k-step (wp already at nt0
@@ -134,20 +107,20 @@ __device__ __forceinline__ void load_b(uint4 (&b)[2][NPM], const uint4* __restri
 }
 
 // acc += the products of two k-steps (A columns k0 .. k0 + 15, weight
-// fragments b) for the warp's row tile (rows row .. row + 15) and NP
+// fragments b) for the tile's 16 rows and NP
 // n-tiles; A split by truncation, as tf32_common.cuh::mma3t_pair. Each
 // k-step's three products of each n-tile go into a fresh accumulator (2 NP
 // chains of three mma, not NP of six), and acc += z0 + z1 in f32.
 template <int NP>
-__device__ __forceinline__ void mma3t_rows(AccR& acc, const float* A, int lda, int row, int k0,
+__device__ __forceinline__ void mma3t_rows(AccR& acc, const float* A, int lda, int k0,
                                            const uint4 (&b)[2][NPM]) {
   const int lane = lane_id(), g = lane >> 2, t = lane & 3;
   uint32_t hi[2][4], lo[2][4];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int k = k0 + 8 * h + 2 * t;
-    const float2 u = *reinterpret_cast<const float2*>(A + swz(row + g, k, lda));
-    const float2 w = *reinterpret_cast<const float2*>(A + swz(row + g + 8, k, lda));
+    const float2 u = *reinterpret_cast<const float2*>(A + swz(g, k, lda));
+    const float2 w = *reinterpret_cast<const float2*>(A + swz(g + 8, k, lda));
     const float a[4] = {u.x, w.x, u.y, w.y};  // (g, k), (g + 8, k), (g, k + 4), (g + 8, k + 4)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -174,30 +147,22 @@ __device__ __forceinline__ void mma3t_rows(AccR& acc, const float* A, int lda, i
     for (int c = 0; c < 4; ++c) acc[p][c] += z[0][p][c] + z[1][p][c];
 }
 
-// acc += A[row .. row + 15][0 .. 8 ksteps) * W[8 ks0 .. 8 (ks0 + ksteps), n-tiles
+// acc += A[0 .. 15][0 .. 8 ksteps) * W[8 ks0 .. 8 (ks0 + ksteps), n-tiles
 // nt0 .. nt0 + NP - 1] (ksteps even): the next two k-steps' weight fragments
-// are loaded into registers before the products of these two, those
-// PREFETCH k-steps ahead prefetched into L1, and two k-step pairs unrolled
+// are loaded into registers before the products of these two, and two
+// k-step pairs are unrolled
 template <int NP>
-__device__ __forceinline__ void dense_rows(AccR& acc, const float* A, int lda, int row,
-                                           int ksteps, const uint4* __restrict__ W, int ntm,
-                                           int ks0, int nt0) {
+__device__ __forceinline__ void dense_rows(AccR& acc, const float* A, int lda, int ksteps,
+                                           const uint4* __restrict__ W, int ntm, int ks0,
+                                           int nt0) {
   const uint4* wp = W + (size_t)nt0 * 32 + lane_id();
   uint4 b[2][NPM];
   load_b<NP>(b, wp, ntm, ks0);
 #pragma unroll 2
   for (int ks = 0; ks < ksteps; ks += 2) {
-    if (PREFETCH && ks + PREFETCH < ksteps) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int p = 0; p < NP; ++p)
-          asm volatile("prefetch.global.L1 [%0];" ::"l"(
-              wp + ((size_t)(ks0 + ks + PREFETCH + h) * ntm + p) * 32));
-    }
     uint4 nb[2][NPM];
     load_b<NP>(nb, wp, ntm, ks0 + (ks + 2 < ksteps ? ks + 2 : ks));
-    mma3t_rows<NP>(acc, A, lda, row, 8 * ks, b);
+    mma3t_rows<NP>(acc, A, lda, 8 * ks, b);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -218,8 +183,8 @@ __device__ __forceinline__ void acc_clear(AccR& acc) {
 // tf32_common.cuh::ln_silu_rows'
 __device__ __forceinline__ void ln_silu_tile(float* H, const float* __restrict__ scale,
                                              const float* __restrict__ bias) {
-  constexpr int RW = TM / WB;
-  const int lane = lane_id(), w = threadIdx.x >> 5;
+  constexpr int RW = TM / NW;
+  const int lane = lane_id(), w = warp_id();
   const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + 4 * lane));
   const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + 4 * lane));
   float4 v[RW];
@@ -256,36 +221,18 @@ __device__ __forceinline__ void ln_silu_tile(float* H, const float* __restrict__
 }
 
 // acc + bias into the warp's 16 x 16 block at column col of the swizzled
-// TM x CW block E (bias already at the block's first hidden column)
-__device__ __forceinline__ void put_block(float* E, int row, int col, const AccR& acc,
+// TM x F tile H (bias indexed by the column)
+__device__ __forceinline__ void put_block(float* H, int col, const AccR& acc,
                                           const float* __restrict__ bias) {
   const int lane = lane_id(), g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + 8 * p + 2 * t));
+    const int c = col + 8 * p + 2 * t;
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + c));
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(E + swz(row + g + 8 * h, col + 8 * p + 2 * t, CW)) =
+      *reinterpret_cast<float2*>(H + swz(g + 8 * h, c, F)) =
           make_float2(acc[p][2 * h] + bb.x, acc[p][2 * h + 1] + bb.y);
-  }
-}
-
-// H (the swizzled TM x F row slice) = the cluster's blocks E, rank p's at
-// columns [CW p, CW p + CW): every load first, then every store
-__device__ __forceinline__ void gather(float* H, float* E, cg::cluster_group& cluster) {
-  float4 v[GATHER];
-#pragma unroll
-  for (int i = 0; i < GATHER; ++i) {
-    const int idx = threadIdx.x + i * TB, p = idx / (TM * CW / 4), rem = idx % (TM * CW / 4);
-    const int r = rem / (CW / 4), f = 4 * (rem % (CW / 4));
-    const float* src = cluster.map_shared_rank(E, p);
-    v[i] = *reinterpret_cast<const float4*>(src + swz(r, f, CW));
-  }
-#pragma unroll
-  for (int i = 0; i < GATHER; ++i) {
-    const int idx = threadIdx.x + i * TB, p = idx / (TM * CW / 4), rem = idx % (TM * CW / 4);
-    const int r = rem / (CW / 4), f = 4 * (rem % (CW / 4));
-    *reinterpret_cast<float4*>(H + swz(r, CW * p + f, F)) = v[i];
   }
 }
 
@@ -293,15 +240,14 @@ __device__ __forceinline__ void gather(float* H, float* E, cg::cluster_group& cl
 // (below nrows) and real columns (below f_out) of out
 template <int NP>
 __device__ __forceinline__ void store_out(float* __restrict__ out, int f_out, size_t r0, int nrows,
-                                          int row, int nt, const AccR& acc,
-                                          const float* __restrict__ b3) {
+                                          int nt, const AccR& acc, const float* __restrict__ b3) {
   const int lane = lane_id(), g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int p = 0; p < NP; ++p) {
     const int col = 8 * (nt + p) + 2 * t;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = row + g + 8 * h;
+      const int r = g + 8 * h;
       if (r >= nrows) continue;
 #pragma unroll
       for (int e = 0; e < 2; ++e)
@@ -310,22 +256,16 @@ __device__ __forceinline__ void store_out(float* __restrict__ out, int f_out, si
   }
 }
 
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(TB, 512 / TB)
+__global__ void __launch_bounds__(NT, 2)
 fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ wpk,
                         const float* __restrict__ vecs, float* __restrict__ out, int rows,
                         int f_in, int k_pad, int f_out, bool vec4) {
   extern __shared__ __align__(16) float smem[];
-  float* S0 = smem;               // input chunks 0, 2, ...; then H, the row slice
-  float* S1 = smem + TM * KC;     // input chunks 1, 3, ...
-  float* E1 = S1 + TM * KC;       // this CTA's block of the first Dense, read by the cluster
-  float* E2 = E1 + TM * CW;       // and of the second
-  float* H = S0;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int q = (int)cluster.block_rank();
-  const size_t r0 = (size_t)(blockIdx.x / CL) * TM;
+  float* S0 = smem;               // input chunks 0, 2, ...; then the first hidden activation
+  float* S1 = smem + TM * KC;     // input chunks 1, 3, ...; then the second
+  const size_t r0 = (size_t)blockIdx.x * TM;
   const int nrows = min(TM, rows - (int)r0);
-  const int warp = threadIdx.x >> 5, row = 16 * (warp % NRT), ch = warp / NRT;
-  const int col = 16 * ch, c0 = CW * q + col;  // the warp's block: local and hidden column
+  const int warp = warp_id(), col = 16 * warp;  // the warp's columns of the hidden Dense
   const uint4* W1 = reinterpret_cast<const uint4*>(wpk);
   const uint4* W2 = reinterpret_cast<const uint4*>(wpk + 2 * (size_t)k_pad * F);
   const uint4* W3 = reinterpret_cast<const uint4*>(wpk + 2 * (size_t)(k_pad + F) * F);
@@ -346,51 +286,44 @@ fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w
       cp_async_wait_all();
     __syncthreads();
     float* S = (c & 1) ? S1 : S0;
-    dense_rows<2>(acc, S, KC, row, min(KC, k_pad - c * KC) / 8, W1, FN, c * KC / 8, c0 / 8);
+    dense_rows<2>(acc, S, KC, min(KC, k_pad - c * KC) / 8, W1, FN, c * KC / 8, col / 8);
     __syncthreads();  // every warp has read S
     if (c + 2 < chunks) stage_chunk(S, x, f_in, r0, nrows, (c + 2) * KC, vec4);
     cp_async_commit();
   }
-  put_block(E1, row, col, acc, vecs + V_B1 + c0);
-  cluster.sync();  // every block of the cluster is in place (and every CTA has started)
-  gather(H, E1, cluster);
+  put_block(S0, col, acc, vecs + V_B1);  // every chunk's copy has landed and been read
   __syncthreads();
-  ln_silu_tile(H, vecs + V_LN1S, vecs + V_LN1B);
+  ln_silu_tile(S0, vecs + V_LN1S, vecs + V_LN1B);
   __syncthreads();
 
   // Dense 2
   acc_clear(acc);
-  dense_rows<2>(acc, H, F, row, F / 8, W2, FN, 0, c0 / 8);
-  put_block(E2, row, col, acc, vecs + V_B2 + c0);
-  cluster.sync();  // every block in place, and every warp here has read H
-  gather(H, E2, cluster);
-  cluster_arrive();  // this CTA has read its peers' E2
+  dense_rows<2>(acc, S0, F, F / 8, W2, FN, 0, col / 8);
+  put_block(S1, col, acc, vecs + V_B2);  // S1 was last read in Dense 1
   __syncthreads();
-  ln_silu_tile(H, vecs + V_LN2S, vecs + V_LN2B);
+  ln_silu_tile(S1, vecs + V_LN2S, vecs + V_LN2B);
   __syncthreads();
 
-  // Dense 3: this rank's n-tiles [n0, n1) in groups of gs (3 where they
-  // come in NCG threes, as the update's 12; else 2), the groups dealt in
-  // turn to the warps' column groups; a last group may hold one
-  const int nt3 = (f_out + 7) / 8, per = (nt3 + CL - 1) / CL;
-  const int n0 = min(nt3, per * q), n1 = min(nt3, n0 + per);
-  const int gs = (n1 - n0) % (NCG * NPM) == 0 ? NPM : 2;
+  // Dense 3: its n-tiles in groups of gs (3 where they come in NW threes, as
+  // the update's 48; else 2), dealt to the warps in turn; a last group may
+  // hold one
+  const int nt3 = (f_out + 7) / 8;
+  const int gs = nt3 % (NW * NPM) == 0 ? NPM : 2;
 #pragma unroll 1
-  for (int nt = n0 + gs * ch; nt < n1; nt += NCG * gs) {
+  for (int nt = gs * warp; nt < nt3; nt += NW * gs) {
     acc_clear(acc);
-    const int np = min(gs, n1 - nt);
+    const int np = min(gs, nt3 - nt);
     if (np == 3) {
-      dense_rows<3>(acc, H, F, row, F / 8, W3, nt3, 0, nt);
-      store_out<3>(out, f_out, r0, nrows, row, nt, acc, vecs + V_B3);
+      dense_rows<3>(acc, S1, F, F / 8, W3, nt3, 0, nt);
+      store_out<3>(out, f_out, r0, nrows, nt, acc, vecs + V_B3);
     } else if (np == 2) {
-      dense_rows<2>(acc, H, F, row, F / 8, W3, nt3, 0, nt);
-      store_out<2>(out, f_out, r0, nrows, row, nt, acc, vecs + V_B3);
+      dense_rows<2>(acc, S1, F, F / 8, W3, nt3, 0, nt);
+      store_out<2>(out, f_out, r0, nrows, nt, acc, vecs + V_B3);
     } else {
-      dense_rows<1>(acc, H, F, row, F / 8, W3, nt3, 0, nt);
-      store_out<1>(out, f_out, r0, nrows, row, nt, acc, vecs + V_B3);
+      dense_rows<1>(acc, S1, F, F / 8, W3, nt3, 0, nt);
+      store_out<1>(out, f_out, r0, nrows, nt, acc, vecs + V_B3);
     }
   }
-  cluster_wait();  // no peer still reads this CTA's E2
 }
 
 }  // namespace tf32x3
@@ -399,7 +332,7 @@ fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w
 // mats is the MLP's matrices split into TF32 hi and lo parts in fragment order
 // (ops/pallas_kernels.pack_mlp: W1 with its rows padded to k_pad, a multiple
 // of 16; W2; W3 with its columns padded to a multiple of 8), vecs the MLP's
-// vectors as pack_mlp lays them out; one cluster of CL CTAs a TM-row tile.
+// vectors as pack_mlp lays them out; one CTA a TM-row tile.
 extern "C" int fused_mlp_tf32x3(const void* x, const void* mats, const void* vecs, void* out,
                                 int rows, int f_in, int f_out, void* stream) {
   using namespace pk::tf32x3;
@@ -410,8 +343,8 @@ extern "C" int fused_mlp_tf32x3(const void* x, const void* mats, const void* vec
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)MLP_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const unsigned tiles = (unsigned)((rows + TM - 1) / TM);
-  fused_mlp_tf32x3_kernel<<<tiles * CL, TB, MLP_SMEM, (cudaStream_t)stream>>>(
+  fused_mlp_tf32x3_kernel<<<(unsigned)((rows + TM - 1) / TM), pk::NT, MLP_SMEM,
+                            (cudaStream_t)stream>>>(
       (const float*)x, (const float*)mats, (const float*)vecs, (float*)out, rows, f_in, k_pad,
       f_out, vec4);
   return (int)cudaGetLastError();
@@ -421,21 +354,18 @@ extern "C" unsigned long long fused_mlp_tf32x3_smem_bytes() {
   return (unsigned long long)pk::tf32x3::MLP_SMEM;
 }
 
-extern "C" int fused_mlp_tf32x3_cluster() { return pk::tf32x3::CL; }
+extern "C" int fused_mlp_tf32x3_rows() { return pk::tf32x3::TM; }
 
-// clusters of the kernel the card can hold at once, as it reports them (its
-// registers, shared memory and GPCs decide); negative: a CUDA error code
-extern "C" int fused_mlp_tf32x3_max_active_clusters() {
+// CTAs of the kernel an SM can hold at once, as the card reports it (its
+// registers and shared memory decide); negative: a CUDA error code
+extern "C" int fused_mlp_tf32x3_ctas_per_sm() {
   using namespace pk::tf32x3;
   cudaError_t err = cudaFuncSetAttribute(fused_mlp_tf32x3_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)MLP_SMEM);
-  if (err != cudaSuccess) return -(int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL * 64, 1, 1);
-  cfg.blockDim = dim3(TB, 1, 1);
-  cfg.dynamicSmemBytes = MLP_SMEM;
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, fused_mlp_tf32x3_kernel, &cfg);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_mlp_tf32x3_kernel, pk::NT,
+                                                        MLP_SMEM);
   return err == cudaSuccess ? n : -(int)err;
 }

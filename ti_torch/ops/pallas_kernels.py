@@ -63,8 +63,7 @@ JVP_LIBS = {"tc": "fused_edge_mlp_jvp_tf32x3", "fma": "fused_edge_mlp_jvp"}
 EDGE_CTAS_PER_SM = 2  # CTAs of csrc/fused_edge_mlp_tf32x3.cu an SM holds at once
 # B6's variants: the 3xTF32 tensor-core kernel, or the f32-FMA one
 MLP_LIBS = {"tc": "fused_mlp_tf32x3", "fma": "fused_mlp"}
-MLP_ROWS = 16        # rows of a tile of csrc/fused_mlp_tf32x3.cu (TM)
-MLP_CLUSTER = 1      # its CTAs a tile, a thread-block cluster (CL)
+MLP_ROWS = 16        # rows of a CTA of csrc/fused_mlp_tf32x3.cu (TM)
 MLP_CHUNK = 128      # input columns it stages a chunk (two chunks in flight)
 MLP_CTAS_PER_SM = 2  # its CTAs an SM holds at once
 MLP_K_STEP = 16      # W1's rows are padded to a multiple of this (two 8-row k-steps)
@@ -374,37 +373,25 @@ def fused_edge_mlp_jvp(in_feat, pe, din, dpe, wts: PairLayerWeights,
 
 def tc_mlp_smem_bytes() -> int:
     """Dynamic shared memory of one CTA of csrc/fused_mlp_tf32x3.cu: two
-    input chunks (MLP_ROWS x MLP_CHUNK; the first is reused for the row
-    slice, MLP_ROWS x F) and the CTA's two exported blocks (MLP_ROWS x
-    F / MLP_CLUSTER), f32."""
-    return 4 * (2 * MLP_ROWS * MLP_CHUNK + 2 * MLP_ROWS * (KERNEL_F // MLP_CLUSTER))
+    input chunks of MLP_ROWS x MLP_CHUNK f32, which then hold the two hidden
+    activations (MLP_ROWS x F)."""
+    return 4 * 2 * MLP_ROWS * MLP_CHUNK
 
 
 class MlpPlan(NamedTuple):
-    """How csrc/fused_mlp_tf32x3.cu splits a launch: cluster c takes rows
-    [MLP_ROWS·c, min(MLP_ROWS·(c + 1), R)), ``clusters`` of them,
-    MLP_CLUSTER CTAs each (``ctas``); rank q of a cluster computes the
-    hidden columns [F·q / MLP_CLUSTER, F·(q + 1) / MLP_CLUSTER) and the
-    n-tiles ``mlp_out_tiles`` gives it of the last Dense's ``out_tiles``;
-    the input arrives in ``chunks`` chunks of MLP_CHUNK columns."""
+    """How csrc/fused_mlp_tf32x3.cu splits a launch: CTA c takes rows
+    [MLP_ROWS·c, min(MLP_ROWS·(c + 1), R)), ``ctas`` of them; the input
+    arrives in ``chunks`` chunks of MLP_CHUNK columns, and the last Dense
+    has ``out_tiles`` n-tiles of 8 columns."""
 
-    clusters: int
     ctas: int
     out_tiles: int
     chunks: int
 
 
 def mlp_plan(rows: int, f_in: int, f_out: int) -> MlpPlan:
-    clusters = -(-rows // MLP_ROWS)
-    return MlpPlan(clusters, clusters * MLP_CLUSTER, mlp_n_pad(f_out) // MLP_N_TILE,
+    return MlpPlan(-(-rows // MLP_ROWS), mlp_n_pad(f_out) // MLP_N_TILE,
                    -(-mlp_k_pad(f_in) // MLP_CHUNK))
-
-
-def mlp_out_tiles(plan: MlpPlan, rank: int) -> range:
-    """The n-tiles of the last Dense that rank ``rank`` of a cluster computes."""
-    per = -(-plan.out_tiles // MLP_CLUSTER)
-    n0 = min(plan.out_tiles, per * rank)
-    return range(n0, min(plan.out_tiles, n0 + per))
 
 
 def _mlp_route(variant: str) -> str:

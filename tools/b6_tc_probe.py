@@ -10,21 +10,20 @@ F -> 2):
    device's time alone (the same launches captured in a CUDA graph and
    replayed);
 2. a ``clock64`` breakdown of the CTAs between the barriers of the kernel
-   (thread 0 of every CTA stamps after each ``__syncthreads()`` and cluster
-   barrier of the body; mean cycles a CTA at each site);
-3. timing diagnostics in turns against the kernel as built from the tree
-   (16-row tiles, no cluster), each from a copy of the source with one
-   change: the weight fragments read from the first two k-steps only, so
-   they stay in L1 (``l1_weights``: their trip from L2; wrong results on
-   purpose); one TF32 product instead of three (``one_pass``) or none
-   (``no_mma``: what the products cost, their weight loads with them; wrong
-   results); SiLU with ``__expf`` and ``__fdividef`` (``fast_silu``); the
-   k-step loop not unrolled (``unroll1``); and the cluster designs the tree
-   was chosen against, 64-row tiles over clusters of 4 CTAs of 32 columns
-   (``cluster_64x4``) and 32-row tiles over 2 CTAs of 64 (``cluster_32x2``),
-   and 16 warps a CTA on 32-row tiles (``warps16_32``) or on 64-row tiles
-   over clusters of 2 (``warps16_64x2``), each also without products (right
-   results but for the ``no_mma`` ones).
+   (thread 0 of every CTA stamps after each ``__syncthreads()`` of the
+   body and at its end; mean cycles a CTA at each site);
+3. timing diagnostics in turns against the kernel as built from the tree,
+   each from a copy of the source with one change: the weight fragments
+   read from the first two k-steps only, so they stay in L1
+   (``l1_weights``: their trip from L2; wrong results on purpose); one TF32
+   product instead of three (``one_pass``) or none (``no_mma``: what the
+   products cost, their weight loads with them; wrong results); SiLU with
+   ``__expf`` and ``__fdividef`` (``fast_silu``); the k-step loop not
+   unrolled (``unroll1``).
+
+The layouts the tree was chosen against (64-row tiles over thread-block
+clusters of 4 CTAs, 32-row tiles over 2, 16 warps a CTA) were built by this
+script from the cluster-generic source of commit 9611b93.
 
 The copies and their libraries go to build/probe_b6/. Needs a card and nvcc:
 
@@ -57,31 +56,20 @@ MMA = ("mma_tf32(z[h][p], lo[h], b[h][p].x, b[h][p].y);",
        "mma_tf32(z[h][p], hi[h], b[h][p].x, b[h][p].y);")
 UNROLL = ("#pragma unroll 2\n  for (int ks = 0; ks < ksteps; ks += 2) {",
           "#pragma unroll 1\n  for (int ks = 0; ks < ksteps; ks += 2) {")
-LAYOUTS = {"cluster_64x4": [("constexpr int TM = 16;", "constexpr int TM = 64;"),
-                            ("constexpr int CL = 1;", "constexpr int CL = 4;")],
-           "cluster_32x2": [("constexpr int TM = 16;", "constexpr int TM = 32;"),
-                            ("constexpr int CL = 1;", "constexpr int CL = 2;")],
-           "warps16_32": [("constexpr int TM = 16;", "constexpr int TM = 32;"),
-                          ("constexpr int WB = 8;", "constexpr int WB = 16;")],
-           "warps16_64x2": [("constexpr int TM = 16;", "constexpr int TM = 64;"),
-                            ("constexpr int CL = 1;", "constexpr int CL = 2;"),
-                            ("constexpr int WB = 8;", "constexpr int WB = 16;")]}
 BUILDS = {  # name: [(its text, the replacement)]
     "l1_weights": [(LOAD, "b[h][p] = __ldg(wp + ((size_t)h * ntm + p) * 32);")],
     "one_pass": [(MMA[0], ";"), (MMA[1], ";")],
     "no_mma": [(m, ";") for m in MMA],
-    "fast_silu": [("namespace cg = cooperative_groups;",
-                   "namespace cg = cooperative_groups;\n__device__ __forceinline__ float fsilu(float v) "
-                   "{ return __fdividef(v, 1.f + __expf(-v)); }"),
+    "fast_silu": [("constexpr int TM = 16;",
+                   "__device__ __forceinline__ float fsilu(float v) "
+                   "{ return __fdividef(v, 1.f + __expf(-v)); }\nconstexpr int TM = 16;"),
                   ("make_float4(silu(d0 * rstd * sc.x + bi.x), silu(d1 * rstd * sc.y + bi.y),\n"
                    "                    silu(d2 * rstd * sc.z + bi.z), silu(d3 * rstd * sc.w + bi.w));",
                    "make_float4(fsilu(d0 * rstd * sc.x + bi.x), fsilu(d1 * rstd * sc.y + bi.y),\n"
                    "                    fsilu(d2 * rstd * sc.z + bi.z), fsilu(d3 * rstd * sc.w + bi.w));")],
     "unroll1": [UNROLL],
-    **LAYOUTS,
-    **{f"{k}_no_mma": v + [(m, ";") for m in MMA] for k, v in LAYOUTS.items()},
 }
-RIGHT = ("tree", "fast_silu", "unroll1", *LAYOUTS)
+RIGHT = ("tree", "fast_silu", "unroll1")
 
 
 def nvcc(src: str, lib: str) -> subprocess.Popen:
@@ -93,7 +81,7 @@ def nvcc(src: str, lib: str) -> subprocess.Popen:
 
 def stamped_source() -> tuple:
     """The kernel with a stamp after every barrier of its body and at its
-    end, a prof argument, and each stamp's line of the source."""
+    end, a prof argument, and each stamp's site."""
     lines = open(KERNEL).read().split("\n")
     start = next(i for i, ln in enumerate(lines) if "fused_mlp_tf32x3_kernel(" in ln)
     body = next(i for i in range(start, len(lines)) if lines[i].endswith(") {"))
@@ -104,12 +92,14 @@ def stamped_source() -> tuple:
     for i in range(body + 1, end):
         out.append(lines[i])
         s = lines[i].strip()
-        if s.startswith(("__syncthreads();", "cluster.sync();", "cluster_arrive();",
-                         "cluster_wait();")):
+        if s.startswith("__syncthreads();"):
             out.append(f"  if (threadIdx.x == 0) {{ const long long pk_now = clock64(); "
                        f"atomicAdd((unsigned long long*)&prof[{len(labels)}], "
                        f"(unsigned long long)(pk_now - pk_prev)); pk_prev = pk_now; }}")
             labels.append(f"line {i + 1}: {s}")
+    out.append(f"  if (threadIdx.x == 0) atomicAdd((unsigned long long*)&prof[{len(labels)}], "
+               f"(unsigned long long)(clock64() - pk_prev));")
+    labels.append("the end: the last Dense and its stores")
     out += lines[end:]
     text = "\n".join(out)
     text = text.replace("f_out, vec4);", "f_out, vec4, (long long*)prof);")
