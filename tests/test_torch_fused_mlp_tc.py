@@ -208,10 +208,10 @@ def _trunc(x: torch.Tensor) -> torch.Tensor:
 def _mm(a: torch.Tensor, w: torch.Tensor, terms: str) -> torch.Tensor:
     """a @ w as the kernel forms it: A split by truncation (hi = trunc(a),
     lo = a - hi as the tensor core reads it), the weights by ``split_tf32``,
-    K padded with zeros to a multiple of 16; per k-step (8 of K) the
+    K padded with zeros to a multiple of 16; per two k-steps (16 of K) the
     products lo·w_hi + hi·w_lo + hi·w_hi ("3x") or hi·w_hi alone ("1x",
-    plain TF32), in f64, rounded to f32 into a fresh accumulator; per two
-    k-steps the running sum in f32 += (z0 + z1)."""
+    plain TF32), in f64, rounded to f32 into a fresh accumulator, which is
+    added to the running sum in f32."""
     pad = -a.shape[1] % 16
     a = torch.nn.functional.pad(a, (0, pad))
     w = torch.nn.functional.pad(w, (0, 0, 0, pad))
@@ -219,17 +219,13 @@ def _mm(a: torch.Tensor, w: torch.Tensor, terms: str) -> torch.Tensor:
     lo = split_tf32(a - hi)[0]
     w_hi, w_lo = split_tf32(w)
     d = torch.float64
-
-    def step(k0):
-        ks = slice(k0, k0 + 8)
+    acc = torch.zeros(a.shape[0], w.shape[1], dtype=torch.float32)
+    for k0 in range(0, a.shape[1], 16):
+        ks = slice(k0, k0 + 16)
         z = hi[:, ks].to(d) @ w_hi[ks].to(d)
         if terms == "3x":
             z = z + lo[:, ks].to(d) @ w_hi[ks].to(d) + hi[:, ks].to(d) @ w_lo[ks].to(d)
-        return z.to(torch.float32)
-
-    acc = torch.zeros(a.shape[0], w.shape[1], dtype=torch.float32)
-    for k0 in range(0, a.shape[1], 16):
-        acc = acc + (step(k0) + step(k0 + 8))
+        acc = acc + z.to(torch.float32)
     return acc
 
 
@@ -243,9 +239,9 @@ def _model_b6(x, w: MLPWeights, terms: str):
                                        ("update_0.mlp", ("update_0", "mlp")),
                                        ("readout.mlp", ("readout", "mlp"))])
 def test_3xtf32_model_meets_the_f32_bar_against_pallas_and_1xtf32_does_not(name, flax):
-    """B6's arithmetic (truncation split, three TF32 products, each k-step a
-    fresh accumulator, two k-steps added to the running sum in f32, f32
-    LayerNorm statistics over the whole row) on a JAX CPaiNN's combine
+    """B6's arithmetic (truncation split, three TF32 products, two k-steps a
+    fresh accumulator added to the running sum in f32, f32 LayerNorm
+    statistics over the whole row) on a JAX CPaiNN's combine
     (4F -> F), update (2F -> 3F) and readout (F -> 2) at F = 16, converted
     by ``params_from_flax``, is within the card's f32 bar (2e-5 of max
     |ref|) of the JAX Pallas kernel in interpret mode; with plain TF32

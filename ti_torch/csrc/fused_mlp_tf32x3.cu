@@ -31,14 +31,13 @@
 //   packed once in fragment order by ops/pallas_kernels.pack_mlp (W1's rows
 //   padded with zeros to a multiple of 16, W3's columns to a multiple of 8:
 //   the readout's f_out = 2 is one n-tile), the A operand split by
-//   truncation (as tf32_common.cuh::mma3t_pair). The last Dense deals its
-//   n-tiles to the warps up to 3 at a time. A warp's chain of dependent mma
-//   sets the pace, so each k-step's three products of an n-tile go into a
-//   fresh accumulator (2 NP chains of three mma a k-step pair, not NP of
-//   six), the pair's two are added to the running sum in f32, and the k-step
-//   loop is unrolled by two so one pair's products overlap the next's; the
-//   next two k-steps' weight fragments are loaded into registers ahead (an
-//   L1 prefetch further ahead made it slower);
+//   truncation, two k-steps into a fresh accumulator added in f32 (as
+//   tf32_common.cuh::mma3t_pair). The last Dense deals its n-tiles to the
+//   warps up to 3 at a time. A warp's chains of dependent mma set the pace,
+//   so the k-step loop is unrolled by two (one pair's products overlap the
+//   next's) and the next two k-steps' weight fragments are loaded into
+//   registers ahead; an L1 prefetch further ahead, and a fresh accumulator
+//   for each k-step (shorter chains), measured slower;
 // - each hidden Dense leaves its pre-LN rows (with the bias) in shared
 //   memory, where LayerNorm -> SiLU runs in place (f32 statistics, a warp's
 //   rows at once, their shuffle sums interleaved): the A tile of the next
@@ -107,10 +106,9 @@ __device__ __forceinline__ void load_b(uint4 (&b)[2][NPM], const uint4* __restri
 }
 
 // acc += the products of two k-steps (A columns k0 .. k0 + 15, weight
-// fragments b) for the tile's 16 rows and NP
-// n-tiles; A split by truncation, as tf32_common.cuh::mma3t_pair. Each
-// k-step's three products of each n-tile go into a fresh accumulator (2 NP
-// chains of three mma, not NP of six), and acc += z0 + z1 in f32.
+// fragments b) for the tile's 16 rows and NP n-tiles, as
+// tf32_common.cuh::mma3t_pair: A split by truncation, each n-tile's six
+// products into a fresh accumulator, which is then added to acc in f32
 template <int NP>
 __device__ __forceinline__ void mma3t_rows(AccR& acc, const float* A, int lda, int k0,
                                            const uint4 (&b)[2][NPM]) {
@@ -128,23 +126,19 @@ __device__ __forceinline__ void mma3t_rows(AccR& acc, const float* A, int lda, i
       lo[h][c] = __float_as_uint(a[c] - __uint_as_float(hi[h][c]));
     }
   }
-  float z[2][NPM][4] = {};
+  float z[NPM][4] = {};
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int p = 0; p < NP; ++p) mma_tf32(z[h][p], lo[h], b[h][p].x, b[h][p].y);  // a_lo b_hi
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int p = 0; p < NP; ++p) mma_tf32(z[h][p], hi[h], b[h][p].z, b[h][p].w);  // a_hi b_lo
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int p = 0; p < NP; ++p) mma_tf32(z[h][p], hi[h], b[h][p].x, b[h][p].y);  // a_hi b_hi
+    for (int p = 0; p < NP; ++p) {
+      mma_tf32(z[p], lo[h], b[h][p].x, b[h][p].y);  // a_lo b_hi
+      mma_tf32(z[p], hi[h], b[h][p].z, b[h][p].w);  // a_hi b_lo
+      mma_tf32(z[p], hi[h], b[h][p].x, b[h][p].y);  // a_hi b_hi
+    }
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[p][c] += z[0][p][c] + z[1][p][c];
+    for (int c = 0; c < 4; ++c) acc[p][c] += z[p][c];
 }
 
 // acc += A[0 .. 15][0 .. 8 ksteps) * W[8 ks0 .. 8 (ks0 + ksteps), n-tiles

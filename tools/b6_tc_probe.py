@@ -19,12 +19,12 @@ F -> 2):
    product instead of three (``one_pass``) or none (``no_mma``: what the
    products cost, their weight loads with them; wrong results); SiLU with
    ``__expf`` and ``__fdividef`` (``fast_silu``); the k-step loop not
-   unrolled (``unroll1``); a k-step pair's six products of an n-tile in one
-   chain into one fresh accumulator, as B4 sums them (``six_deep``).
+   unrolled (``unroll1``).
 
 The layouts the tree was chosen against (64-row tiles over thread-block
 clusters of 4 CTAs, 32-row tiles over 2, 16 warps a CTA) were built by this
-script from the cluster-generic source of commit 9611b93.
+script from the cluster-generic source of commit 9611b93; the fresh
+accumulator for each k-step it was chosen against, at commit 2a21bb6.
 
 The copies and their libraries go to build/probe_b6/. Needs a card and nvcc:
 
@@ -57,36 +57,6 @@ MMA = ("mma_tf32(z[h][p], lo[h], b[h][p].x, b[h][p].y);",
        "mma_tf32(z[h][p], hi[h], b[h][p].x, b[h][p].y);")
 UNROLL = ("#pragma unroll 2\n  for (int ks = 0; ks < ksteps; ks += 2) {",
           "#pragma unroll 1\n  for (int ks = 0; ks < ksteps; ks += 2) {")
-CHAINS = """  float z[2][NPM][4] = {};
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int p = 0; p < NP; ++p) mma_tf32(z[h][p], lo[h], b[h][p].x, b[h][p].y);  // a_lo b_hi
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int p = 0; p < NP; ++p) mma_tf32(z[h][p], hi[h], b[h][p].z, b[h][p].w);  // a_hi b_lo
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int p = 0; p < NP; ++p) mma_tf32(z[h][p], hi[h], b[h][p].x, b[h][p].y);  // a_hi b_hi
-#pragma unroll
-  for (int p = 0; p < NP; ++p)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[p][c] += z[0][p][c] + z[1][p][c];"""
-SIX_DEEP = """  float z[NPM][4] = {};
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      mma_tf32(z[p], lo[h], b[h][p].x, b[h][p].y);
-      mma_tf32(z[p], hi[h], b[h][p].z, b[h][p].w);
-      mma_tf32(z[p], hi[h], b[h][p].x, b[h][p].y);
-    }
-#pragma unroll
-  for (int p = 0; p < NP; ++p)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[p][c] += z[p][c];"""
 BUILDS = {  # name: [(its text, the replacement)]
     "l1_weights": [(LOAD, "b[h][p] = __ldg(wp + ((size_t)h * ntm + p) * 32);")],
     "one_pass": [(MMA[0], ";"), (MMA[1], ";")],
@@ -99,9 +69,8 @@ BUILDS = {  # name: [(its text, the replacement)]
                    "make_float4(fsilu(d0 * rstd * sc.x + bi.x), fsilu(d1 * rstd * sc.y + bi.y),\n"
                    "                    fsilu(d2 * rstd * sc.z + bi.z), fsilu(d3 * rstd * sc.w + bi.w));")],
     "unroll1": [UNROLL],
-    "six_deep": [(CHAINS, SIX_DEEP)],
 }
-RIGHT = ("tree", "fast_silu", "unroll1", "six_deep")
+RIGHT = ("tree", "fast_silu", "unroll1")
 
 
 def nvcc(src: str, lib: str) -> subprocess.Popen:
