@@ -52,9 +52,9 @@ KERNEL = os.path.join(str(_build.CSRC), "fused_mlp_tf32x3.cu")
 N_ATOMS, F, CHAINS = 19, 128, 128
 ROWS = CHAINS * N_ATOMS
 LOAD = "b[h][p] = __ldg(wp + ((size_t)(ks + h) * ntm + p) * 32);"
-MMA = ("mma_tf32(z[h][p], lo[h], b[h][p].x, b[h][p].y);",
-       "mma_tf32(z[h][p], hi[h], b[h][p].z, b[h][p].w);",
-       "mma_tf32(z[h][p], hi[h], b[h][p].x, b[h][p].y);")
+MMA = ("mma_tf32(z[p], lo[h], b[h][p].x, b[h][p].y);",
+       "mma_tf32(z[p], hi[h], b[h][p].z, b[h][p].w);",
+       "mma_tf32(z[p], hi[h], b[h][p].x, b[h][p].y);")
 UNROLL = ("#pragma unroll 2\n  for (int ks = 0; ks < ksteps; ks += 2) {",
           "#pragma unroll 1\n  for (int ks = 0; ks < ksteps; ks += 2) {")
 BUILDS = {  # name: [(its text, the replacement)]
