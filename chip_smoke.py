@@ -59,12 +59,14 @@ Phases (any failure exits non-zero and prints no result):
   6. kernel B2 (chain-blocked pair layer) against its plain version and
      against B1 at 130 chains, C = 2, 3, 4, 5 and 8: f32 (on B1's 3xTF32
      kernel, pair_layer_tf32x3.cu) and bf16_agg (pair_layer_mma.cu) within
-     the bar and equal to B1 to the bit; at 8192 chains bf16_agg C = 4
+     the bar and equal to B1 to the bit, and ``variant="fma"``
+     (pair_layer.cu, C chains a CTA) at C = 2, 3 and 4 within the bar; at
+     8192 chains bf16_agg C = 4 and its ``variant="fma"`` (timed below)
      against its plain version and every C against B1 to the bit; its time
      there for C = 1, 2, 3 and 4 in turns beside ``variant="fma"`` at C = 4,
      with the bound and the weight bytes each launch streams; B2 in f32 at
-     8192 chains, C = 4, against its plain version and every C against B1 to
-     the bit, timed in turns beside ``variant="fma"`` (pair_layer.cu, f32
+     8192 chains, C = 4, and its ``variant="fma"`` against its plain
+     version and every C against B1 to the bit, timed in turns beside ``variant="fma"`` (pair_layer.cu, f32
      FMA, 4 chains a CTA) with both bounds;
   7. the SDE: at 256 chains in f32 (C = 2) against the same SDE built from
      the plain version on the same noise; then at 8192 chains, bf16_agg,
@@ -89,8 +91,10 @@ Phases (any failure exits non-zero and prints no result):
      widths, at the 2432 node rows of 128 chains and at R = 1, 5, 15, 16,
      17, 63, 64, 65 and 4,097, two launches to the bit, against the f32-FMA
      kernel (``variant="fma"``) and timed in turns beside it at 2432 rows
-     (device time, from CUDA-graph replays) with both bounds, its registers
-     and the CTAs an SM holds at once;
+     with both bounds, back to back as every kernel (the ``kernels`` line)
+     and as device time from CUDA-graph replays (which the faster-than
+     checks read: back to back the wrapper's host time paces it), its
+     registers and the CTAs an SM holds at once;
   9. the fused paths: ``fused_velocity_fn`` against ``dense_velocity_fn``
      with its B4/B6 launch counts (every B4 launch from
      fused_edge_mlp_tf32x3, every B6 launch from fused_mlp_tf32x3), and the
@@ -343,6 +347,12 @@ def phase_b2(params, rows_kernels, card: str) -> None:
             torch.cuda.synchronize()
             compare(out, ref, dtype, f"B2 pair_layer_cb {dtype} C={c} B=130")
         b2_is_b1(base, w, dtype, 130)
+        for c in (2, 3, 4):  # variant="fma": pair_layer.cu, C chains a CTA
+            out = pair_layer(*base, w, LENGTH_SCALE, c, variant="fma")
+            torch.cuda.synchronize()
+            require(_build.ROUTES["pair_layer_cb"] == "pair_layer",
+                    f"B2 {dtype} C={c} variant=fma launches pair_layer.cu")
+            compare(out, ref, dtype, f"B2 pair_layer_cb {dtype} C={c} B=130 variant=fma")
     # at the SDE's 8192 chains: C = 4 (the SDE's) against the plain version,
     # and every C against C = 1 to the bit
     w, base, _ = layer_inputs(params, torch.bfloat16, 0, seed=4, b=SDE_CHAINS)
@@ -351,6 +361,8 @@ def phase_b2(params, rows_kernels, card: str) -> None:
     torch.cuda.synchronize()
     ref = pair_layer_plain(*base, w, LENGTH_SCALE)
     err = compare(out, ref, torch.bfloat16, f"B2 pair_layer_cb bf16_agg C=4 B={SDE_CHAINS}")
+    compare(pair_layer(*base, w, LENGTH_SCALE, 4, variant="fma"), ref, torch.bfloat16,
+            f"B2 pair_layer_cb bf16_agg C=4 B={SDE_CHAINS} variant=fma (timed below)")
     del ref
     b2_is_b1(base, w, torch.bfloat16, SDE_CHAINS)
     bnd, by = bound_ms(2.0 * 15 * F * F * SDE_CHAINS * N_ATOMS ** 2, H100_BF16,
@@ -388,6 +400,9 @@ def phase_b2(params, rows_kernels, card: str) -> None:
             "B2 in f32 launches pair_layer_tf32x3.cu")
     ref = pair_layer_plain(*base, w, LENGTH_SCALE)
     err32 = compare(out, ref, torch.float32, f"B2 pair_layer_cb f32 C=4 B={SDE_CHAINS} (3xTF32)")
+    compare(pair_layer(*base, w, LENGTH_SCALE, 4, variant="fma"), ref, torch.float32,
+            f"B2 pair_layer_cb f32 C=4 B={SDE_CHAINS} variant=fma (timed below)")
+    require(_build.ROUTES["pair_layer_cb"] == "pair_layer", "B2 f32 variant=fma launches pair_layer.cu")
     del ref
     b2_is_b1(base, w, torch.float32, SDE_CHAINS)
     ms32 = {"tc": [], "fma": []}
@@ -673,13 +688,18 @@ def phase_fused_kernels(params, rows_kernels, report, card: str) -> None:
         again = pk.fused_mlp(x, pack)
         torch.cuda.synchronize()
         require(torch.equal(again, out), "B6 3xTF32: two launches on the same inputs agree to the bit")
-        # device time from CUDA-graph replays: back to back, the wrapper's
-        # host time (about 0.02 ms) is of the order of the kernel's
+        # back to back, as every kernel of the kernels line is timed, and
+        # device time from CUDA-graph replays: back to back the wrapper's host
+        # time (about 0.02 ms) is of the order of the kernel's, so the
+        # faster-than checks read the graph times
         ms = {v: [] for v in ("tc", "fma")}
+        b2b = {v: [] for v in ("tc", "fma")}
         for variant in ("tc", "fma", "fma", "tc"):
-            ms[variant].append(graph_ms(lambda: pk.fused_mlp(x, pack, variant=variant), reps))
-        wrapper = cuda_ms(lambda: pk.fused_mlp(x, pack), reps, warm=5)
+            call = lambda: pk.fused_mlp(x, pack, variant=variant)
+            ms[variant].append(graph_ms(call, reps))
+            b2b[variant].append(cuda_ms(call, reps, warm=5))
         plain = graph_ms(lambda: pk._mlp_block(x, pack.w), reps)
+        plain_b2b = cuda_ms(lambda: pk._mlp_block(x, pack.w), reps, warm=5)
         tc_ms, fma_ms = min(ms["tc"]), min(ms["fma"])
         moved = nbytes(x, *pack.w, out)
         flops = 2.0 * r * (f_in + F + f_out) * F
@@ -689,15 +709,17 @@ def phase_fused_kernels(params, rows_kernels, report, card: str) -> None:
         log(f"[B6 {name} {f_in}->{f_out} R={r}] ({plan.ctas} CTAs of {pk.MLP_ROWS} rows) device ms "
             f"per launch, {reps} launches a CUDA graph, in turns: 3xTF32 (tensor cores, "
             f"fused_mlp_tf32x3) {fmt(ms['tc'])}, variant=fma (f32 FMA) {fmt(ms['fma'])}; 3xTF32 "
-            f"{fma_ms / tc_ms:.2f}x faster; the 3xTF32 wrapper back to back {wrapper:.4f} ms (the "
-            f"host's pace); plain {plain:.4f} ms; bound {bnd_tc:.5f} ms ({by_tc}, "
+            f"{fma_ms / tc_ms:.2f}x faster; back to back (the kernels line's method, the host's "
+            f"pace) 3xTF32 {fmt(b2b['tc'])}, variant=fma {fmt(b2b['fma'])}; plain {plain:.4f} ms "
+            f"in a graph, {plain_b2b:.4f} ms back to back; bound {bnd_tc:.5f} ms ({by_tc}, "
             f"3 x {flops:.4e} FLOP at 495 TFLOP/s TF32), f32 FMA bound {bnd_fma:.5f} ms ({by_fma}, "
             f"67 TFLOP/s); 3xTF32 at {tc_ms / bnd_tc:.2f}x its bound, fma at "
             f"{fma_ms / bnd_fma:.2f}x its bound; {moved / 1e6:.2f} MB moved ({card})")
         require(tc_ms < fma_ms, f"B6 {name} on the tensor cores is faster than the f32-FMA kernel")
         require(tc_ms < plain, f"B6 {name} on the tensor cores is faster than its plain version")
         if name == "update_0.mlp":  # 5 of the 7 launches of a forward
-            rows_kernels["fused_mlp"] = dict(err=err, ms=tc_ms, plain=plain, bound=bnd_tc, by=by_tc)
+            rows_kernels["fused_mlp"] = dict(err=err, ms=min(b2b["tc"]), plain=plain_b2b,
+                                             bound=bnd_tc, by=by_tc)
         # ragged counts: one row, parts of a tile, a tile and one row, 4,097
         for rr in (1, 5, 15, 16, 17, 63, 64, 65, 4097):
             xr = rn(rr, f_in)

@@ -117,6 +117,23 @@ def test_chain_blocked_pair_layer_is_b1(dtype, chain_block):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chain_block", [2, 3, 4])
+def test_chain_blocked_pair_layer_fma_matches_plain(dtype, chain_block):
+    """B2 as ``variant="fma"`` (csrc/pair_layer.cu, C chains a CTA, the last
+    CTA's idle groups on a batch C does not divide) within the bar of the
+    plain version."""
+    _card()
+    w, base, _ = _layer(dtype, b=13)
+    before = _build.LAUNCHES["pair_layer_cb"]
+    out = pair_layer(*base, w, 10.0, chain_block, variant="fma")
+    torch.cuda.synchronize()
+    assert _build.ROUTES["pair_layer_cb"] == "pair_layer"
+    assert _build.LAUNCHES["pair_layer_cb"] == before + 1
+    _assert_close(out, pair_layer_plain(*base, w, 10.0), dtype)
+
+
+@pytest.mark.gpu
 def test_fused_mlp_kernels_match_plain():
     """B4 and B5 at a ragged row count, B4 on the tensor cores, B5 on the
     tensor cores and in f32 FMA at every lane block, B6 at the combine,
@@ -322,8 +339,9 @@ def test_fused_mlp_tc_counts_and_refusals():
     128 registers), every CTA of 2432 rows at once; a pack without
     its 3xTF32 packing, or of another hidden width, raises on the card (no
     fallback), and so does an unknown variant; an f_in that is not a
-    multiple of the k-step (or of 4) is padded in the packing, not refused,
-    where ``variant="fma"`` refuses one that is not a multiple of 4."""
+    multiple of the k-step is padded in the packing, not refused; both
+    variants refuse one that is not a multiple of 4, and "tc" an x whose
+    rows do not start 16-byte aligned."""
     import ctypes
 
     from ti_torch.ops.mlp_block import MLPWeights
@@ -355,12 +373,16 @@ def test_fused_mlp_tc_counts_and_refusals():
 
     with pytest.raises(ValueError, match="hidden width F=128"):
         pk.fused_mlp(_rows(70, 64), pk.pack_mlp(mlp(64, 64, 64), "cuda"))
-    for f_in in (20, 130):
+    for f_in in (20, 36):
         odd = pk.pack_mlp(mlp(f_in, F, 3), "cuda")
         x = _rows(70, f_in, seed=f_in)
         _assert_close([pk.fused_mlp(x, odd)], [pk._mlp_block(x, odd.w)], torch.float32)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        pk.fused_mlp(x, odd, variant="fma")
+    with pytest.raises(ValueError, match="16-byte"):
+        pk.fused_mlp(_rows(70 * f_in + 1)[1:].view(70, f_in), odd)  # 4 bytes past
+    odd = pk.pack_mlp(mlp(130, F, 3), "cuda")
+    for variant in ("tc", "fma"):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            pk.fused_mlp(_rows(70, 130), odd, variant=variant)
 
 
 @pytest.mark.gpu

@@ -42,9 +42,10 @@
 //   memory, where LayerNorm -> SiLU runs in place (f32 statistics, a warp's
 //   rows at once, their shuffle sums interleaved): the A tile of the next
 //   Dense. Only the real rows and the f_out real columns are stored;
-// - the input arrives by cp.async in 16 x 128 chunks, double-buffered (the
-//   buffers then hold the two hidden activations), so no f_in needs a tile
-//   of it whole: 16,384 bytes of shared memory a CTA;
+// - the input (f_in a multiple of 4, 16-byte aligned rows) arrives by
+//   16-byte cp.async in 16 x 128 chunks, double-buffered (the buffers then
+//   hold the two hidden activations), so no f_in needs a tile of it whole:
+//   16,384 bytes of shared memory a CTA;
 // - no atomics: two launches on the same inputs agree to the bit.
 // Only F = 128 is built.
 
@@ -58,35 +59,18 @@ constexpr int KC = 128;   // input columns staged a chunk
 constexpr size_t MLP_SMEM = sizeof(float) * (size_t)(2 * TM * KC);
 static_assert(KC == F && NW * 16 == F, "a chunk buffer holds the row slice; a warp 16 columns");
 
-// 4 bytes from global to shared memory by cp.async (the rows of an input
-// whose width is not a multiple of 4)
-__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
-  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src));
-}
-
-// columns [kc, kc + KC) of rows r0 .. r0 + TM - 1 of x (row stride f_in) into
-// the swizzled TM x KC tile S by cp.async; zero past f_in and from row nrows
-// on (no commit)
+// columns [kc, kc + KC) of rows r0 .. r0 + TM - 1 of x (row stride f_in, a
+// multiple of 4; x 16-byte aligned) into the swizzled TM x KC tile S by
+// cp.async; zero past f_in and from row nrows on (no commit)
 __device__ __forceinline__ void stage_chunk(float* S, const float* __restrict__ x, int f_in,
-                                            size_t r0, int nrows, int kc, bool vec4) {
+                                            size_t r0, int nrows, int kc) {
   for (int idx = threadIdx.x; idx < TM * KC / 4; idx += NT) {
     const int r = idx / (KC / 4), f = 4 * (idx % (KC / 4)), col = kc + f;
     float* d = S + swz(r, f, KC);
-    const float* src = x + (r0 + r) * f_in + col;
-    if (r < nrows && vec4 && col < f_in) {
-      cp_async16(d, src);
-    } else if (r < nrows && col < f_in) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (col + e < f_in)
-          cp_async4(d + e, src + e);
-        else
-          d[e] = 0.f;
-      }
-    } else {
+    if (r < nrows && col < f_in)
+      cp_async16(d, x + (r0 + r) * f_in + col);
+    else
       *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
   }
 }
 
@@ -253,7 +237,7 @@ __device__ __forceinline__ void store_out(float* __restrict__ out, int f_out, si
 __global__ void __launch_bounds__(NT, 2)
 fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ wpk,
                         const float* __restrict__ vecs, float* __restrict__ out, int rows,
-                        int f_in, int k_pad, int f_out, bool vec4) {
+                        int f_in, int k_pad, int f_out) {
   extern __shared__ __align__(16) float smem[];
   float* S0 = smem;               // input chunks 0, 2, ...; then the first hidden activation
   float* S1 = smem + TM * KC;     // input chunks 1, 3, ...; then the second
@@ -267,9 +251,9 @@ fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w
 
   // Dense 1 over the input in KC-column chunks, two in flight
   const int chunks = (k_pad + KC - 1) / KC;
-  stage_chunk(S0, x, f_in, r0, nrows, 0, vec4);
+  stage_chunk(S0, x, f_in, r0, nrows, 0);
   cp_async_commit();
-  if (chunks > 1) stage_chunk(S1, x, f_in, r0, nrows, KC, vec4);
+  if (chunks > 1) stage_chunk(S1, x, f_in, r0, nrows, KC);
   cp_async_commit();
   acc_clear(acc);
 #pragma unroll 1
@@ -282,7 +266,7 @@ fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w
     float* S = (c & 1) ? S1 : S0;
     dense_rows<2>(acc, S, KC, min(KC, k_pad - c * KC) / 8, W1, FN, c * KC / 8, col / 8);
     __syncthreads();  // every warp has read S
-    if (c + 2 < chunks) stage_chunk(S, x, f_in, r0, nrows, (c + 2) * KC, vec4);
+    if (c + 2 < chunks) stage_chunk(S, x, f_in, r0, nrows, (c + 2) * KC);
     cp_async_commit();
   }
   put_block(S0, col, acc, vecs + V_B1);  // every chunk's copy has landed and been read
@@ -330,9 +314,9 @@ fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w
 extern "C" int fused_mlp_tf32x3(const void* x, const void* mats, const void* vecs, void* out,
                                 int rows, int f_in, int f_out, void* stream) {
   using namespace pk::tf32x3;
-  if (rows < 1 || f_in < 1 || f_out < 1) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || f_in < 1 || f_in % 4 || f_out < 1 || ((uintptr_t)x & 15))
+    return (int)cudaErrorInvalidValue;
   const int k_pad = (f_in + 15) / 16 * 16;
-  const bool vec4 = f_in % 4 == 0 && ((uintptr_t)x & 15) == 0;
   cudaError_t err = cudaFuncSetAttribute(fused_mlp_tf32x3_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)MLP_SMEM);
@@ -340,7 +324,7 @@ extern "C" int fused_mlp_tf32x3(const void* x, const void* mats, const void* vec
   fused_mlp_tf32x3_kernel<<<(unsigned)((rows + TM - 1) / TM), pk::NT, MLP_SMEM,
                             (cudaStream_t)stream>>>(
       (const float*)x, (const float*)mats, (const float*)vecs, (float*)out, rows, f_in, k_pad,
-      f_out, vec4);
+      f_out);
   return (int)cudaGetLastError();
 }
 

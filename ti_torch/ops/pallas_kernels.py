@@ -419,9 +419,10 @@ def fused_mlp(x, pack: MLPPack, variant: str = "tc"):
     """One MLP over rows: x (R, f_in) -> (R, f_out), f32. Launches kernel
     B6 on a CUDA tensor, the plain version on a CPU one (under either
     variant). ``variant="tc"`` takes the 3xTF32 tensor-core kernel
-    (csrc/fused_mlp_tf32x3.cu, which needs ``pack.tc``; any f_in);
-    ``variant="fma"`` the f32-FMA kernel (csrc/fused_mlp.cu, f_in a
-    multiple of 4), kept for timing."""
+    (csrc/fused_mlp_tf32x3.cu, which needs ``pack.tc`` and x's rows in
+    16-byte steps); ``variant="fma"`` the f32-FMA kernel
+    (csrc/fused_mlp.cu), kept for timing. Either takes f_in a multiple of
+    4 (the packing pads W1's rows to the k-step)."""
     lib = _mlp_route(variant)
     if not _on_card(x, "fused_mlp"):
         PLAIN_CALLS["fused_mlp"] += 1
@@ -434,6 +435,9 @@ def fused_mlp(x, pack: MLPPack, variant: str = "tc"):
         if t.device != dev:
             raise ValueError(f"weights must be on {dev}, found them on {t.device}")
     if variant == "tc":
+        if pack.f_in % 4 or x.data_ptr() % 16:
+            raise ValueError(f"fused_mlp variant='tc' takes f_in a multiple of 4 and x 16-byte "
+                             f"aligned; got f_in={pack.f_in} at {x.data_ptr() % 16} bytes past")
         mats = _tc_mlp_weights(pack, x)
     else:
         smem = 4 * _R * max(pack.f_in, f)

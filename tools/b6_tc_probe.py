@@ -88,7 +88,8 @@ def stamped_source() -> tuple:
     body = next(i for i in range(start, len(lines)) if lines[i].endswith(") {"))
     end = next(i for i in range(body, len(lines)) if lines[i] == "}")
     out, labels = lines[:body + 1], []
-    out[body] = out[body].replace("bool vec4) {", "bool vec4, long long* prof) {")
+    assert out[body].endswith("int f_out) {"), out[body]
+    out[body] = out[body].replace("int f_out) {", "int f_out, long long* prof) {")
     out.append("  long long pk_prev = clock64();")
     for i in range(body + 1, end):
         out.append(lines[i])
@@ -103,9 +104,11 @@ def stamped_source() -> tuple:
     labels.append("the end: the last Dense and its stores")
     out += lines[end:]
     text = "\n".join(out)
-    text = text.replace("f_out, vec4);", "f_out, vec4, (long long*)prof);")
-    text = text.replace("int rows, int f_in, int f_out, void* stream) {",
-                        "int rows, int f_in, int f_out, void* stream, void* prof) {")
+    for old, new in (("k_pad,\n      f_out);", "k_pad,\n      f_out, (long long*)prof);"),
+                     ("int rows, int f_in, int f_out, void* stream) {",
+                      "int rows, int f_in, int f_out, void* stream, void* prof) {")):
+        assert old in text, old
+        text = text.replace(old, new)
     return text, labels
 
 
