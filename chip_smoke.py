@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch port (ti_torch) on one NVIDIA H100.
 
 Builds the hand-written CUDA kernels from ti_torch/csrc, holds each against
-its plain PyTorch version at its path's shapes, and runs the port's four
+its plain PyTorch version at its path's shapes, and runs the port's five
 paths at the 00031 width (19 atoms, F = 128, 5 message layers) through
 their entry points, checking what comes out and showing, with the launch
 counts set to 0 just before each path and read just after, that the path
@@ -18,7 +18,10 @@ went through its kernels:
   exact-dlogp sampler through ``molecular_v_fn_of(impl="dense_fused")``
   at 32 chains (B4, B5), B4, B5 and B6 on the tensor cores;
 - the whole-network exact divergence ``divergence_kernel_batch`` at 128
-  chains (B7, on the tensor cores).
+  chains (B7, on the tensor cores);
+- the reference's own sampler (``sample_ambient(ambient_preset("00031"))``:
+  dopri5 with the exact divergence in every stage), the edge-form Euler
+  sampler that bench.py prices, and stage-coupled RK4 through B4 and B5.
 
     python3 chip_smoke.py
 
@@ -113,7 +116,19 @@ Phases (any failure exits non-zero and prints no result):
      CTA and at 3, with both bounds, its registers and the MACs each kernel
      computes; the times of its plain version, the whole call and both
      yardsticks, and ``dense_divergence`` chain by chain;
- 11. the ``kernels`` line, the card line and the result line.
+ 11. the reference's own sampler: ``sample_ambient(ambient_preset("00031"))``
+     with no overrides (dopri5 at atol = rtol = 1e-5, the exact divergence
+     inside every stage, 12 chains, 100 save points), its per-chain NFE,
+     seconds and samples/s, against stage-coupled RK4 at 256 steps (rtol
+     1e-3 / atol 1e-3); bench.py's reference shape: the edge-form Euler
+     sampler (64 steps, exact dlogp, batch 12) and its ms per evaluation in
+     turns beside the dense form's, the edge velocity against the dense one
+     (rtol 2e-3 / atol 2e-4) and the sampler against the same over the dense
+     form; stage-coupled RK4 (8 steps, exact dlogp, 12 chains) through
+     ``impl="dense_fused"`` against ``impl="dense"``, every B4 launch from
+     fused_edge_mlp_tf32x3 and every B5 launch from
+     fused_edge_mlp_jvp_tf32x3, with their counts;
+ 12. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -832,6 +847,154 @@ def phase_fused_paths(model, template, card: str) -> tuple:
     return fwd_launches, smp_launches
 
 
+def phase_reference(model, template, card: str) -> dict:
+    """11. The reference's own sampler and bench.py's reference shape: (a)
+    ``sample_ambient(ambient_preset("00031"))`` with no overrides (dopri5 at
+    atol = rtol = 1e-5, the exact divergence inside every stage, 12 chains)
+    against stage-coupled RK4 at 256 steps; (b) the edge-form Euler sampler
+    bench.py prices (64 steps, exact dlogp, batch 12), its ms per evaluation,
+    the edge velocity against the dense one and the sampler against the
+    same over the dense form; (c) stage-coupled RK4 through
+    ``impl="dense_fused"`` (B4, B5) against ``impl="dense"``, with its
+    launch counts. Returns (c)'s launch counts."""
+    from ti_torch.config import ambient_preset
+    from ti_torch.ops import _build
+    from ti_torch.sampling.drivers import make_ode_sampler, molecular_v_fn_of, sample_ambient
+
+    rng = np.random.default_rng(11)
+    dense_of = molecular_v_fn_of(model, None, template, device="cuda")
+
+    # (a) the reference sampler, the preset as it stands
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = ambient_preset("00031", data_save_path=tmp)
+        b = cfg.batch_size
+        require((cfg.solver_type, cfg.dlogp_quad_points, cfg.divergence, cfg.atol, cfg.rtol,
+                 cfg.n_steps, cfg.steps_per_dispatch, b) == ("dopri5", 0, "exact", 1e-5, 1e-5,
+                                                              100, 0, 12),
+                "ambient_preset('00031') is the reference's route (dopri5, stage-coupled exact "
+                "dlogp, atol = rtol = 1e-5, 100 save points, batch 12)")
+        x0 = zero_com_x0(rng, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample_ambient(cfg, model, None, template, x0, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        files = sorted(os.listdir(tmp))
+    nfe = out["nfe_per_chain"]
+    log(f"[reference sampler, ambient_preset('00031') as it stands] {b} chains: {wall:.3f} s, "
+        f"{b / wall:.4f} samples/s (host clock, {card}); NFE per chain min {int(nfe.min())} max "
+        f"{int(nfe.max())} (mean {float(nfe.mean()):.1f}), {1e3 * wall / int(nfe.max()):.3f} ms "
+        f"per evaluation of the slowest chain; all {out['samples'].shape[1]} save times reached "
+        f"(t = 0, 1/99, ..., 1) by every chain; artifacts {files}")
+    require(out["samples"].shape == (b, cfg.n_steps, N_ATOMS, 3), "reference sampler: shape")
+    require(np.isfinite(out["samples"]).all() and np.isfinite(out["dlogps"]).all(),
+            "reference sampler: finite samples and dlogp")
+    require(len(files) == 4, f"reference sampler wrote its four artifacts: {files}")
+    t0 = time.perf_counter()
+    fine = make_ode_sampler(dense_of, solver="rk4", n_steps=256, n_save=2, return_dlogp=True,
+                            divergence="exact", device="cuda")(x0, ambient_temps(b))
+    torch.cuda.synchronize()
+    wall_fine = time.perf_counter() - t0
+    s_err = float(np.abs(out["samples"][:, -1] - fine.xs[:, -1].cpu().numpy()).max())
+    d_ref = fine.dlogp[:, -1].cpu().numpy()
+    d_err = float(np.abs(out["dlogps"] - d_ref).max())
+    log(f"[reference sampler] against stage-coupled RK4, 256 steps ({wall_fine:.3f} s): samples "
+        f"max abs err {s_err:.3e} (max |x| {float(np.abs(out['samples']).max()):.4f}), dlogp max "
+        f"abs err {d_err:.3e} (max |dlogp| {float(np.abs(d_ref).max()):.4f}); bar rtol 1e-3 / "
+        f"atol 1e-3, 100 x the solver's tolerance (tests/test_integrators.py holds dopri5 at "
+        f"1e-7 to 2e-5 of fine RK4)")
+    require(np.allclose(out["samples"][:, -1], fine.xs[:, -1].cpu().numpy(), rtol=1e-3, atol=1e-3),
+            "reference sampler: samples agree with RK4-256 (rtol 1e-3, atol 1e-3)")
+    require(np.allclose(out["dlogps"], d_ref, rtol=1e-3, atol=1e-3),
+            "reference sampler: dlogp agrees with RK4-256 (rtol 1e-3, atol 1e-3)")
+
+    # (b) bench.py's reference shape: Euler steps as pure RHS evaluations over the edge form
+    edge_of = molecular_v_fn_of(model, None, template, impl="edge", device="cuda")
+    x0, temps = zero_com_x0(rng, 12), ambient_temps(12)
+    xt, tt = torch.as_tensor(x0, device="cuda"), torch.as_tensor(temps, device="cuda")
+    with torch.no_grad():
+        v_edge, v_dense = edge_of(tt)(xt, 0.5), dense_of(tt)(xt, 0.5)
+    v_err = (v_edge - v_dense).abs().max().item()
+    require(bool(torch.allclose(v_edge, v_dense, rtol=2e-3, atol=2e-4)),
+            f"edge-form velocity agrees with the dense form (rtol 2e-3, atol 2e-4): {v_err:.3e}")
+    kw = dict(solver="euler", n_steps=64, n_save=2, return_dlogp=True, divergence="exact",
+              steps_per_dispatch=64, device="cuda")
+    edge_s, dense_s = make_ode_sampler(edge_of, **kw), make_ode_sampler(dense_of, **kw)
+    make_ode_sampler(edge_of, **dict(kw, n_steps=2))(x0, temps)  # warm-up, not timed
+    walls = {}
+    for name, sampler in (("edge", edge_s), ("dense", dense_s), ("dense", dense_s),
+                          ("edge", edge_s)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = sampler(x0, temps)
+        torch.cuda.synchronize()
+        walls.setdefault(name, []).append(time.perf_counter() - t0)
+        if name == "edge":
+            edge_sol = sol
+        else:
+            dense_sol = sol
+    t_eval = min(walls["edge"]) / 64
+    fmt = lambda ws: " and ".join(f"{1e3 * w / 64:.3f}" for w in ws)
+    log(f"[reference shape, bench.py:353-363] edge-form Euler, 64 steps, exact dlogp, batch 12: "
+        f"ms per evaluation, in turns, edge {fmt(walls['edge'])}, dense {fmt(walls['dense'])} "
+        f"(host clock, {card}); priced at REF_NFE = 500: {12.0 / (500 * t_eval):.4f} samples/s; "
+        f"edge velocity against dense max abs err {v_err:.3e}")
+    d_ref = dense_sol.dlogp[:, -1]
+    d_atol = 1e-3 * d_ref.abs().max().item()
+    require(bool(torch.isfinite(edge_sol.xs).all() and torch.isfinite(edge_sol.dlogp).all()),
+            "edge-form sampler: finite")
+    require(bool(torch.allclose(edge_sol.xs, dense_sol.xs, rtol=1e-4, atol=1e-5)),
+            "edge-form sampler: samples agree with the dense form (rtol 1e-4, atol 1e-5)")
+    require(bool(torch.allclose(edge_sol.dlogp, dense_sol.dlogp, rtol=1e-3, atol=d_atol)),
+            "edge-form sampler: dlogp agrees with the dense form (rtol 1e-3, atol 1e-3 max|dlogp|)")
+
+    # (c) stage-coupled RK4 through B4 and B5
+    n_steps = 8
+    kw = dict(solver="rk4", n_steps=n_steps, return_dlogp=True, divergence="exact",
+              device="cuda")
+    fused_s = make_ode_sampler(
+        molecular_v_fn_of(model, None, template, impl="dense_fused", device="cuda"), **kw)
+    dense_s = make_ode_sampler(dense_of, **kw)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out_f = fused_s(x0, temps)
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    routes = {key: n for key, n in _build.ROUTE_LAUNCHES.items() if n}
+    t0 = time.perf_counter()
+    out_d = dense_s(x0, temps)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    # every evaluation: the velocity and the JVPs' primal (one B4 a layer
+    # each) and the 57 lanes at once (one B5 a layer); 4 stages a step
+    evals = 4 * n_steps
+    want = {k: 0 for k in launches}
+    want.update(fused_edge_mlp=2 * evals * LAYERS, fused_edge_mlp_jvp=evals * LAYERS)
+    s_err = (out_f.xs - out_d.xs).abs().max().item()
+    d_ref = out_d.dlogp[:, -1]
+    d_err = (out_f.dlogp[:, -1] - d_ref).abs().max().item()
+    log(f"[stage-coupled RK4 dense_fused B=12] {n_steps} steps, {evals} evaluations: "
+        f"{wall_f:.3f} s (dense: {wall_d:.3f} s; host clock, {card}); samples max abs err "
+        f"{s_err:.3e}, dlogp max abs err {d_err:.3e} (max |dlogp| {d_ref.abs().max().item():.4f}); "
+        f"launches {launches}, B4 and B5 by library "
+        f"{ {f'{k}:{lib}': n for (k, lib), n in routes.items()} }")
+    require(launches == want, f"stage-coupled dense_fused launch counts {launches} == {want}")
+    require(routes == {("fused_edge_mlp", "fused_edge_mlp_tf32x3"): want["fused_edge_mlp"],
+                       ("fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3"): want["fused_edge_mlp_jvp"]},
+            f"every B4 launch of the stage-coupled sampler comes from fused_edge_mlp_tf32x3.cu "
+            f"and every B5 launch from fused_edge_mlp_jvp_tf32x3.cu: {routes}")
+    require(bool(torch.isfinite(out_f.xs).all() and torch.isfinite(out_f.dlogp).all()),
+            "stage-coupled dense_fused: finite")
+    require(bool(torch.allclose(out_f.xs, out_d.xs, rtol=1e-4, atol=1e-5)),
+            "stage-coupled dense_fused: samples agree with dense (rtol 1e-4, atol 1e-5)")
+    require(bool(torch.allclose(out_f.dlogp, out_d.dlogp, rtol=1e-3,
+                                atol=1e-3 * d_ref.abs().max().item())),
+            "stage-coupled dense_fused: dlogp agrees with dense (rtol 1e-3, atol 1e-3 max|dlogp|)")
+    return launches
+
+
 def b7_macs(c: int, n: int, layers: int) -> float:
     """Multiply-adds the function of kernel B7 needs for c chains: per chain
     and layer the primal message MLPs once (phi 8F² + w 7F² per pair row),
@@ -1469,7 +1632,10 @@ def main() -> int:
     # ---- 10. kernel B7 and the exact-divergence node ----
     div_launches = phase_div(model, template, card, rows_kernels, report)
 
-    # ---- 11. result lines ----
+    # ---- 11. the reference's sampler, bench.py's reference shape, stage-coupled B4/B5 ----
+    phase_reference(model, template, card)
+
+    # ---- 12. result lines ----
     path_launches = {"pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_tangent": launches["pair_tangent"],

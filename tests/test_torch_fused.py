@@ -262,9 +262,13 @@ def test_dense_fused_sampler_matches_jax(model):
 
 
 def test_v_fn_of_impl_guards(model):
-    _jm, _jp, _jt, params, tm, template, *_ = model
-    with pytest.raises(NotImplementedError, match="training"):
-        molecular_v_fn_of(tm, params, template, impl="edge", device="cpu")
+    _jm, _jp, _jt, params, tm, template, x, _t0, temps = model
+    # the edge form runs now: the dense form's velocity at the bar of
+    # tests/test_pallas_kernels.py::test_dense_forward_matches_model_apply
+    edge = molecular_v_fn_of(tm, params, template, impl="edge", device="cpu")(_t(temps))
+    dense = molecular_v_fn_of(tm, params, template, device="cpu")(_t(temps))
+    np.testing.assert_allclose(edge(_t(x), 0.5).numpy(), dense(_t(x), 0.5).numpy(),
+                               rtol=2e-3, atol=2e-4)
     with pytest.raises(ValueError, match="unknown impl"):
         molecular_v_fn_of(tm, params, template, impl="fused", device="cpu")
     with pytest.raises(ValueError, match="f32 only"):

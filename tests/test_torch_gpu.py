@@ -878,3 +878,91 @@ def test_div_kernel_tc_smem_and_tile_counts_are_the_kernels_own():
     assert lib.div_kernel_tf32x3_smem_bytes() == dk.tc_smem_bytes()
     for n in (2, 5, 19, 29, 32):
         assert lib.div_kernel_tf32x3_lanes(n) == dk.div_tc_plan(1, n, 4, -(-3 * n // 4), 132).lanes_per_tile
+
+
+# ---- the reference's sampler, the edge form, stage-coupled B4/B5 ---------
+
+def _full_width(b=3, seed=5):
+    """The 00031 width (19 atoms, F = 128, 5 layers), random weights from
+    manual_seed(0), b zero-centred chains, T0 = 1000 K -> T1 = 300 K."""
+    import numpy as np
+
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+
+    torch.manual_seed(0)
+    model = CPaiNN(F, 5, n_atoms=N)
+    template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=2)
+    x0 = (0.1 * np.random.default_rng(seed).standard_normal((b, N, 3))).astype(np.float32)
+    temps = np.tile(np.array([1000.0, 300.0], np.float32), (b, 1))
+    return model, template, x0 - x0.mean(1, keepdims=True), temps
+
+
+@pytest.mark.gpu
+def test_reference_sampler_on_card():
+    """sample_ambient on the preset's own route (dopri5, atol = rtol = 1e-5,
+    exact dlogp in every stage; 5 save points, 3 chains) against
+    stage-coupled RK4 at 64 steps: rtol 1e-3 / atol 1e-3, 100 x the solver's
+    tolerance."""
+    _card()
+    from ti_torch.config import ambient_preset
+    from ti_torch.sampling.drivers import make_ode_sampler, molecular_v_fn_of, sample_ambient
+
+    model, template, x0, temps = _full_width()
+    out = sample_ambient(ambient_preset("00031", n_steps=5, batch_size=3), model, None, template,
+                         x0, save=False, device="cuda")
+    assert (out["nfe_per_chain"] >= 4 * 7).all()
+    fine = make_ode_sampler(molecular_v_fn_of(model, None, template, device="cuda"),
+                            solver="rk4", n_steps=64, n_save=5, device="cuda")(x0, temps)
+    torch.testing.assert_close(torch.from_numpy(out["samples"]), fine.xs.cpu(), rtol=1e-3,
+                               atol=1e-3)
+    torch.testing.assert_close(torch.from_numpy(out["dlogps"]), fine.dlogp[:, -1].cpu(),
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_edge_form_reference_shape_on_card():
+    """The edge form against the dense one (rtol 2e-3 / atol 2e-4), and the
+    Euler exact-dlogp sampler bench.py prices over each (samples rtol 1e-4 /
+    atol 1e-5, dlogp rtol 1e-3 / atol 1e-3 max |dlogp|)."""
+    _card()
+    from ti_torch.sampling.drivers import make_ode_sampler, molecular_v_fn_of
+
+    model, template, x0, temps = _full_width()
+    edge = molecular_v_fn_of(model, None, template, impl="edge", device="cuda")
+    dense = molecular_v_fn_of(model, None, template, device="cuda")
+    xt, tt = torch.as_tensor(x0, device="cuda"), torch.as_tensor(temps, device="cuda")
+    with torch.no_grad():
+        torch.testing.assert_close(edge(tt)(xt, 0.5), dense(tt)(xt, 0.5), rtol=2e-3, atol=2e-4)
+    kw = dict(solver="euler", n_steps=8, n_save=2, steps_per_dispatch=8, device="cuda")
+    a = make_ode_sampler(edge, **kw)(x0, temps)
+    b = make_ode_sampler(dense, **kw)(x0, temps)
+    torch.testing.assert_close(a.xs, b.xs, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(a.dlogp, b.dlogp, rtol=1e-3,
+                               atol=1e-3 * b.dlogp.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_stage_coupled_dense_fused_on_card():
+    """Stage-coupled RK4-8 (chip_smoke.py phase 11's steps, 3 chains)
+    through impl="dense_fused": every evaluation runs two B4 launches a
+    layer (the velocity and the JVPs' primal) and one B5 a layer, all on
+    the tensor-core libraries, and agrees with impl="dense" (samples rtol
+    1e-4 / atol 1e-5, dlogp rtol 1e-3, phase 9's bars)."""
+    _card()
+    from ti_torch.sampling.drivers import make_ode_sampler, molecular_v_fn_of
+
+    model, template, x0, temps = _full_width()
+    kw = dict(solver="rk4", n_steps=8, device="cuda")
+    fused = make_ode_sampler(molecular_v_fn_of(model, None, template, impl="dense_fused",
+                                               device="cuda"), **kw)
+    _build.reset_launches()
+    a = fused(x0, temps)
+    torch.cuda.synchronize()
+    evals = 8 * 4
+    assert {k: n for k, n in _build.ROUTE_LAUNCHES.items() if n} == {
+        ("fused_edge_mlp", "fused_edge_mlp_tf32x3"): 2 * evals * 5,
+        ("fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3"): evals * 5}
+    b = make_ode_sampler(molecular_v_fn_of(model, None, template, device="cuda"), **kw)(x0, temps)
+    torch.testing.assert_close(a.xs, b.xs, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(a.dlogp, b.dlogp, rtol=1e-3,
+                               atol=1e-3 * b.dlogp.abs().max().item())

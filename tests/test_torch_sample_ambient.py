@@ -64,6 +64,42 @@ def test_exact_slice_matches_jax(setup):
     assert out["nfe"] == ref["nfe"]
 
 
+def test_reference_route_matches_jax(setup, tmp_path):
+    """The preset's own route, the reference's algorithm: dopri5 at atol =
+    rtol = 1e-5 with the exact divergence integrated inside every stage
+    (n_steps=5, so 5 save points instead of 100, keeps the JAX side's
+    compile short). Both packages hold each step's error below the
+    tolerance but take different steps: ti_tpu forms the error of the first
+    steps, far below atol, as the difference of two f32 solutions, which is
+    their rounding, where the port forms it directly (in f64 the steps
+    agree chain by chain,
+    tests/test_torch_integrators.py::test_dopri5_nfe_matches_jax_in_f64).
+    So the bars are the solver's, not rounding's: samples atol 1e-4 (ten
+    times atol) and dlogp rtol 1e-3 / atol 1e-3, against ti_tpu and against
+    stage-coupled RK4 at 64 steps. The artifacts are those of the
+    fast_profile route."""
+    jm, jp, jt, params, model, template, x0 = setup
+    cfg = ambient_preset("00031", **SIZE, n_steps=5, data_save_path=str(tmp_path))
+    assert (cfg.solver_type, cfg.dlogp_quad_points, cfg.divergence, cfg.atol, cfg.rtol,
+            cfg.steps_per_dispatch) == ("dopri5", 0, "exact", 1e-5, 1e-5, 0)
+    ref = jax_sample_ambient(jax_preset("00031", **SIZE, n_steps=5), jm, jp, jt, x0, save=False)
+    out = sample_ambient(cfg, model, params, template, x0, save=True, device="cpu")
+    assert out["samples"].shape == ref["samples"].shape == (B, 5, N_ATOMS, 3)
+    per_chain = out["nfe_per_chain"]
+    assert per_chain.shape == (B,) and out["nfe"] == per_chain.max()
+    assert (per_chain >= 7 * 4).all() and (per_chain % 7 == 0).all()
+    np.testing.assert_allclose(out["samples"], ref["samples"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(out["dlogps"], ref["dlogps"], rtol=1e-3, atol=1e-3)
+    temps = np.tile(np.array([1000.0, 300.0], np.float32), (B, 1))
+    fine = make_ode_sampler(molecular_v_fn_of(model, params, template, device="cpu"),
+                            solver="rk4", n_steps=64, n_save=5, device="cpu")(x0, temps)
+    np.testing.assert_allclose(out["samples"], fine.xs.numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(out["dlogps"], fine.dlogp[:, -1].numpy(), rtol=1e-3, atol=1e-3)
+    name = cfg.data_save_name
+    for stem in ("samples", "dlogps", "latent_noises", "latent_dlogps"):
+        assert (tmp_path / f"{stem}_{name}.npy").exists()
+
+
 def test_fast_profile_route_matches_jax_samples(setup):
     jm, jp, jt, params, model, template, x0 = setup
     cfg = fast_profile(ambient_preset("00031", **SIZE))
@@ -136,7 +172,7 @@ def test_sampler_div_chunk_and_hutchpp(setup):
 
 
 def test_sampler_guards(setup):
-    _jm, _jp, _jt, params, model, template, _x0 = setup
+    _jm, _jp, _jt, params, model, template, x0 = setup
     v_of = molecular_v_fn_of(model, params, template, device="cpu")
     gauss = dict(solver="rk4", n_steps=8, dlogp_quad="gauss", dlogp_quad_points=4, device="cpu")
     with pytest.raises(ValueError, match="steps_per_dispatch"):
@@ -144,10 +180,20 @@ def test_sampler_guards(setup):
     div_fn = pair_tangent_div_fn(model, params, template, num_probes=4, device="cpu")
     with pytest.raises(ValueError, match="probe_crn"):
         make_ode_sampler(v_of, steps_per_dispatch=4, probe_crn=True, div_drift=div_fn, **gauss)
-    with pytest.raises(NotImplementedError, match="dopri5"):
-        make_ode_sampler(v_of, solver="dopri5", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        make_ode_sampler(v_of, solver="rk4", n_steps=8, device="cpu")
+    # dopri5 and stage-coupled dlogp run now; what stays unported raises,
+    # naming the slice it comes with
+    x0 = x0[:2]
+    temps = np.tile(np.array([700.0, 300.0], np.float32), (2, 1))
+    d5 = make_ode_sampler(v_of, solver="dopri5", return_dlogp=False, device="cpu")(x0, temps)
+    rk = make_ode_sampler(v_of, solver="rk4", n_steps=2, device="cpu")(x0, temps)
+    for sol in (d5, rk):
+        assert sol.xs.shape == (2, 2, N_ATOMS, 3) and bool(torch.isfinite(sol.xs).all())
+    assert bool(torch.isfinite(rk.dlogp).all()) and bool((rk.dlogp[:, -1] != 0).all())
+    assert d5.nfe.shape == (2,) and bool((d5.nfe > 0).all())
+    for refused in (dict(dlogp_quad_points=5), dict(dlogp_quad="gauss", dlogp_quad_points=4),
+                    dict(div_axis="lanes")):
+        with pytest.raises(NotImplementedError, match="slice"):
+            make_ode_sampler(v_of, solver="rk4", n_steps=8, device="cpu", **refused)
 
 
 def test_no_silent_cpu(setup, monkeypatch):

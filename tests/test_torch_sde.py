@@ -189,6 +189,10 @@ def test_sde_guards(setup):
                              noise=torch.from_numpy(noise[:2]), **kw)
     with pytest.raises(ValueError, match="generator or explicit noise"):
         sample_molecular_sde(model, params, template, x0, temps, **kw)
-    with pytest.raises(NotImplementedError, match="dopri5"):
-        make_ode_sampler(molecular_v_fn_of(model, params, template, device="cpu"),
-                         solver="dopri5", return_dlogp=False, device="cpu")
+    # velocity-only dopri5 runs now, and lands within its tolerance of
+    # fine RK4 (bar 1e-4: ten times its atol = rtol = 1e-5)
+    v_of = molecular_v_fn_of(model, params, template, device="cpu")
+    d5 = make_ode_sampler(v_of, solver="dopri5", return_dlogp=False, device="cpu")(x0, temps)
+    rk = make_ode_sampler(v_of, solver="rk4", n_steps=64, return_dlogp=False,
+                          device="cpu")(x0, temps)
+    np.testing.assert_allclose(d5.xs.numpy(), rk.xs.numpy(), rtol=0, atol=1e-4)

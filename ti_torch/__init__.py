@@ -7,9 +7,10 @@ Subpackages
 -----------
 - ``ti_torch.config``: the typed settings and presets (copy of ti_tpu's)
 - ``ti_torch.data``: SDF reader, molecule templates, synthetic molecules
-- ``ti_torch.models``: cPaiNN as an ``nn.Module``, the dense pair forward
-  (``fused=True``: its message MLPs in kernels B4/B5), the fused edge-row
-  forward (``cpainn_fused``), the flax weight bridge
+- ``ti_torch.models``: cPaiNN as an ``nn.Module``, its edge (gather/scatter)
+  form ``apply_edge``, the dense pair forward (``fused=True``: its message
+  MLPs in kernels B4/B5), the fused edge-row forward (``cpainn_fused``), the
+  flax weight bridge
 - ``ti_torch.ops``: graph tables, MLP-block math, divergence estimators
   (``divergence``, the hand-propagated ``dense_divergence``) and the
   hand-written CUDA kernels (``csrc/``): B1 the pair layer and B2 its
@@ -17,13 +18,15 @@ Subpackages
   (``pair_tangent_kernel``), B4 the fused edge MLP, B5 its tangent and B6
   the row-tiled MLP (``pallas_kernels``), B7 the whole-network exact
   divergence (``div_kernel``)
-- ``ti_torch.sampling``: RK integrators, Euler–Maruyama, the ambient
-  sampling driver, velocity-only transport and the molecular SDE
+- ``ti_torch.sampling``: fixed-step RK and adaptive dopri5 integrators with
+  stage-coupled dlogp, Euler–Maruyama, the ambient sampling driver (the
+  reference's dopri5 route and the Gauss quadrature route) and the
+  molecular SDE
 - ``ti_torch.analysis``: importance weights and TFEP free energies
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-What is not ported yet (dopri5, Simpson and stage-coupled dlogp, the edge
-form of cPaiNN, training, latent, ADW) raises ``NotImplementedError``.
+What is not ported yet (Simpson and unsegmented Gauss quadrature dlogp,
+lane sharding, training, latent, ADW) raises ``NotImplementedError``.
 """
 
 import torch

@@ -4,9 +4,10 @@
 Submodules carry the flax names (``atom_embed``, ``edge_embed``,
 ``combine``, ``message_{i}.phi/w``, ``update_{i}.u/v/mlp``,
 ``readout.mlp/V``), so a flax parameter tree maps onto the state dict
-name by name (models/convert.py). The forward is the dense pair form of
-models/cpainn_dense.py; the edge (gather/scatter) form serves training
-and comes with the training slice.
+name by name (models/convert.py). ``CPaiNN.forward`` is the dense pair
+form of models/cpainn_dense.py; ``apply_edge`` is the edge (gather/scatter)
+form, the port of the flax module's ``__call__``, which reads the same
+state dict.
 
 Reference quirks kept (see ti_tpu/models/cpainn.py): edge_dir = r/(1+|r|),
 not normalised; the cross term uses the DESTINATION node's equivariant
@@ -112,6 +113,76 @@ class CPaiNN(nn.Module):
 
         return apply_dense(self, None, x, t, temps, atom_ids, edges,
                            compute_dtype=compute_dtype)
+
+
+def apply_edge(model, params, x: torch.Tensor, t: torch.Tensor, temps: torch.Tensor,
+               atom_ids, edges, compute_dtype=None) -> torch.Tensor:
+    """Batched velocity field, edge layout: (B, N, 3) -> (B, N, 3) for
+    times ``t`` (B,) and conditioning ``temps`` (B, K).
+
+    The port of ti_tpu's ``CPaiNN.__call__``: every chain gathers its node
+    features along the E edges of ``edges`` (an ``EdgeTable``), and
+    ``edge_aggregate`` sums the messages into their dst node. With a finite
+    ``model.cutoff`` a non-bonded edge counts only while its current length
+    is within the cutoff; bond edges always count. f32 only: ti_tpu's edge
+    form computes in the model's dtype, f32 on every path that calls it."""
+    from ti_torch.models.cpainn_dense import _cross, node_features
+    from ti_torch.models.embeddings import positional_encoding
+    from ti_torch.ops.graph import edge_aggregate
+    from ti_torch.ops.mlp_block import _mlp_block, mlp_weights
+
+    if compute_dtype is not None:
+        raise ValueError("the edge form computes in f32: compute_dtype must be None")
+    p = state_of(model, params)
+    f = model.n_features
+    b, n, _ = x.shape
+    src = torch.as_tensor(edges.src, device=x.device).long()
+    dst = torch.as_tensor(edges.dst, device=x.device).long()
+    etype = torch.as_tensor(edges.edge_type, device=x.device).long()
+
+    def mlp(rows, prefix):
+        return _mlp_block(rows, mlp_weights(p, prefix))
+
+    def eq_linear(v, name):  # (..., F, 3) channel mix, weight (out, in)
+        return torch.einsum("...fc,gf->...gc", v, p[f"{name}.weight"])
+
+    r = x[:, src] - x[:, dst]  # (B, E, 3)
+    dist = torch.linalg.norm(r, dim=-1)
+    direc = r / (1.0 + dist[..., None])  # reference quirk: not normalised
+    mask = None
+    if model.cutoff is not None:
+        mask = ((etype > 0)[None] | (dist <= model.cutoff)).to(x.dtype)[..., None]
+
+    e = p["edge_embed.weight"][etype].expand(b, len(src), f)
+    s = mlp(node_features(model, p, t, temps, atom_ids, n), "combine")
+    v = torch.zeros(b, n, f, 3, dtype=x.dtype, device=x.device)
+    pe = positional_encoding(dist, f, model.length_scale)
+    dir_e = direc[:, :, None, :]  # (B, E, 1, 3)
+
+    for layer in range(model.score_layers):
+        pre = f"message_{layer}"
+        h = mlp(torch.cat([s[:, src], e], dim=-1), f"{pre}.phi") * mlp(pe, f"{pre}.w")
+        if mask is not None:
+            h = h * mask
+        gates, scale_dir, ds, de, cg = torch.split(h, f, dim=-1)
+        v_dst = v[:, dst]
+        # reference quirk: the cross term takes the DST node's features
+        msg = (scale_dir[..., None] * dir_e + gates[..., None] * v[:, src]
+               + cg[..., None] * _cross(dir_e.expand_as(v_dst), v_dst))
+        s = s + edge_aggregate(ds, edges, dim=1)
+        v = v + edge_aggregate(msg, edges, dim=1)
+        e = e + de
+
+        up = f"update_{layer}"
+        uv = eq_linear(v, f"{up}.u")
+        vv_norm = torch.linalg.norm(eq_linear(v, f"{up}.v"), dim=-1)
+        g_u, scale_sq, add_inv = torch.split(mlp(torch.cat([vv_norm, s], dim=-1), f"{up}.mlp"),
+                                             f, dim=-1)
+        v = v + g_u[..., None] * uv
+        s = s + vv_norm ** 2 * scale_sq + add_inv
+
+    gate = mlp(s, "readout.mlp")[..., 1:2]  # the readout overwrites: only its gate is read
+    return gate * eq_linear(v, "readout.V")[:, :, 0, :]
 
 
 def state_of(model: nn.Module, params=None):

@@ -15,7 +15,8 @@ flattened state (d = prod(x.shape[1:])).
   or passed in explicitly.
 - ``divergence_hutchpp``: Hutch++ (an exact trace over a sketched range of
   J plus Hutchinson on the projected residual), probes drawn or explicit.
-- ``value_and_divergence``: dispatch over the three.
+- ``value_and_divergence``: dispatch over the three, with the probes drawn
+  per chain, shared by every chain (``probe_crn``) or given (``draws``).
 
 Lane sharding over a device mesh (the JAX package's ``axis_name``) belongs
 to the parallel slice of the port and raises ``NotImplementedError``.
@@ -88,20 +89,40 @@ def _no_lane_sharding(axis_name) -> None:
 def value_and_divergence(f, x: torch.Tensor, *, mode: str = "exact",
                          generator: Optional[torch.Generator] = None, num_probes: int = 8,
                          chunk: Optional[int] = None, axis_name=None,
-                         probe_mode: str = "rademacher"):
-    """(f(x), div f(x) per chain) with the chosen estimator: ``mode`` in
-    {"exact", "hutchinson", "hutchpp"}; the stochastic ones draw from
-    ``generator`` (hutchpp takes ``num_probes`` as its query budget)."""
+                         probe_mode: str = "rademacher", probe_crn: bool = False,
+                         return_var: bool = False, draws=None):
+    """(f(x), div f(x) per chain[, its Hutchinson probe variance]) with the
+    chosen estimator: ``mode`` in {"exact", "hutchinson", "hutchpp"}; the
+    stochastic ones draw from ``generator`` (hutchpp takes ``num_probes``
+    as its query budget), per chain, or once for every chain with
+    ``probe_crn`` (common random numbers), unless ``draws`` gives the
+    probes: (z (B, K, d), w (B, K)) for Hutchinson, (S (B, s, d), g (B, m,
+    d)) for Hutch++."""
     _no_lane_sharding(axis_name)
     if mode == "exact":
         return divergence_exact(f, x, chunk=chunk)
-    if mode in ("hutchinson", "hutchpp") and generator is None:
+    if mode in ("hutchinson", "hutchpp") and generator is None and draws is None:
         raise ValueError(f"{mode} mode requires a torch.Generator")
+    b, d = x.shape[0], x[0].numel()
     if mode == "hutchinson":
-        return divergence_hutchinson(f, x, generator, num_probes=num_probes,
-                                     probe_mode=probe_mode)
+        if draws is not None:
+            z, w = draws
+        elif probe_crn:
+            z, w = _probe_block(generator, num_probes, d, probe_mode)
+            z, w = z.expand(b, *z.shape), w.expand(b, *w.shape)
+        else:
+            z, w = _probe_block(generator, num_probes, d, probe_mode, shape=(b,))
+        return divergence_hutchinson(f, x, z=z.to(x.dtype), w=w.to(x.dtype),
+                                     probe_mode=probe_mode, return_var=return_var)
     if mode == "hutchpp":
-        return divergence_hutchpp(f, x, generator, num_queries=num_probes)
+        if draws is None and not probe_crn:
+            return divergence_hutchpp(f, x, generator, num_queries=num_probes)
+        if draws is None:
+            s = max(1, num_probes // 3)
+            S = _probe_block(generator, s, d, "rademacher", dtype=x.dtype)[0]
+            g = _probe_block(generator, num_probes - 2 * s, d, "rademacher", dtype=x.dtype)[0]
+            draws = S.expand(b, *S.shape), g.expand(b, *g.shape)
+        return divergence_hutchpp(f, x, S=draws[0].to(x.dtype), g=draws[1].to(x.dtype))
     raise ValueError(f"unknown divergence mode {mode!r}")
 
 

@@ -4,7 +4,9 @@ Port of ti_tpu/ops/graph.py. Production configs use ``cutoff=1000``, i.e.
 the complete graph, so each molecule gets one static edge table built on
 the host. Edges are ordered destination-major: for each dst node, its N-1
 incoming edges are contiguous. The dense pair forward
-(models/cpainn_dense.py) only needs the (dst, src) -> edge type matrix.
+(models/cpainn_dense.py) only needs the (dst, src) -> edge type matrix;
+the edge form (models/cpainn.py::apply_edge) gathers along the edge axis
+and sums messages into their dst node with ``edge_aggregate``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,3 +70,21 @@ def make_edge_table(
         src=src, dst=dst, edge_type=etype.astype(np.int32),
         n_nodes=int(n_nodes), dst_major_complete=True,
     )
+
+
+def edge_aggregate(messages: torch.Tensor, edges: EdgeTable, dim: int = 0) -> torch.Tensor:
+    """Sum per-edge messages into their destination nodes: the edge axis
+    ``dim`` (E) of ``messages`` becomes the node axis (N).
+
+    On the dst-major complete graph this is a reshape of that axis to
+    (N, N-1) and a sum over the second; otherwise an ``index_add`` on
+    ``edges.dst`` (the reference's scatter-sum; ``torch_scatter`` is not
+    needed)."""
+    n = edges.n_nodes
+    dim = dim % messages.dim()
+    if edges.dst_major_complete:
+        shape = messages.shape[:dim] + (n, n - 1) + messages.shape[dim + 1:]
+        return messages.reshape(shape).sum(dim + 1)
+    dst = torch.as_tensor(edges.dst, device=messages.device).long()
+    out = messages.new_zeros(messages.shape[:dim] + (n,) + messages.shape[dim + 1:])
+    return torch.index_add(out, dim, dst, messages)

@@ -3,25 +3,28 @@ the SDE rollout (port of the ambient and SDE paths of
 ti_tpu/sampling/drivers.py).
 
 ``sample_ambient`` transports conformations from sampling_T0 to
-sampling_T1 through ``make_ode_sampler``'s segmented Gauss-Legendre path:
-RK trajectory segments gap by gap between the quadrature nodes, then one
-divergence evaluation per node, and dlogp as the weighted sum. The
-trajectory drift and the divergence-node estimator are hooks
+sampling_T1 through the route its config names. The reference's own
+(every MDQM9 preset's default) is adaptive dopri5 at atol = rtol = 1e-5
+with the exact divergence integrated inside every stage. Under
+``fast_profile`` it is ``make_ode_sampler``'s segmented Gauss-Legendre
+path: RK trajectory segments gap by gap between the quadrature nodes, then
+one divergence evaluation per node, and dlogp as the weighted sum. The
+trajectory drift and the divergence-node estimator of that path are hooks
 (``traj_drift``/``div_drift``) that ``cfg.traj_forward_impl`` and
 ``cfg.div_forward_impl`` fill with the CUDA pair kernels
 (ops/pair_layer_kernel.py, ops/pair_tangent_kernel.py); with a hook left
 None the node runs the dense forward (and its torch.func JVPs) — with
 ``molecular_v_fn_of(impl="dense_fused")`` the message MLPs of that forward
-run as kernels B4 and B5 (ops/pallas_kernels.py).
+run as kernels B4 and B5 (ops/pallas_kernels.py), on every route.
 
-``make_ode_sampler(return_dlogp=False)`` is velocity-only fixed-step
-transport. ``sample_molecular_sde`` is Euler–Maruyama over the dense drift
-or the pair-kernel drift (B1, or B2 with ``chain_block`` > 1).
+``make_ode_sampler`` also takes the fixed-step solvers with stage-coupled
+dlogp or velocity only, in one pass or in segments.
+``sample_molecular_sde`` is Euler–Maruyama over the dense drift or the
+pair-kernel drift (B1, or B2 with ``chain_block`` > 1).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-Other solvers and samplers of ti_tpu (dopri5, Simpson quadrature,
-stage-coupled dlogp, latent, ADW) come with later slices and raise
-NotImplementedError here.
+What ti_tpu has and the port not yet (Simpson quadrature, the unsegmented
+Gauss sampler, lane sharding, latent, ADW) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,13 +37,18 @@ import torch
 
 from ti_torch import resolve_device
 from ti_torch.config import MDQM9Config
-from ti_torch.ops.divergence import (
-    _probe_block,
-    divergence_exact,
-    divergence_hutchinson,
-    divergence_hutchpp,
+from ti_torch.ops.divergence import value_and_divergence
+from ti_torch.sampling.integrators import (
+    ODESolution,
+    _tableau,
+    check_divergence,
+    dopri5_stepper,
+    n_short,
+    sample_ode,
+    sample_ode_dopri5,
+    sample_sde,
+    short_of_save_time,
 )
-from ti_torch.sampling.integrators import ODESolution, _tableau, sample_ode, sample_sde
 
 
 def _compute_dtype(cfg):
@@ -66,15 +74,19 @@ def make_ode_sampler(
     solver: str = "dopri5",
     n_steps: int = 100,
     n_save: int = 2,
+    atol=1e-5,
+    rtol=1e-5,
     return_dlogp: bool = True,
     divergence: str = "exact",
     div_chunk: Optional[int] = None,
     t0: float = 0.0,
     t1: float = 1.0,
     steps_per_dispatch: Optional[int] = None,
+    max_steps: int = 1024,
     dlogp_quad_points: Optional[int] = None,
     dlogp_quad: str = "simpson",
     num_probes: int = 8,
+    div_axis=None,
     probe_crn: bool = False,
     probe_mode: str = "rademacher",
     traj_drift: Optional[Callable] = None,
@@ -86,25 +98,38 @@ def make_ode_sampler(
     -> ODESolution``.
 
     ``v_fn_of(conds) -> v(xs, t)`` builds the batched velocity of a chain
-    batch from its conditioning (B, 2). This slice ports the segmented
-    Gauss quadrature-dlogp path (``dlogp_quad='gauss'``,
-    ``dlogp_quad_points``, ``steps_per_dispatch``), where
-    ``steps_per_dispatch`` caps the RK steps per trajectory gap, and
-    velocity-only transport (``return_dlogp=False``, euler/heun/rk4,
-    unsegmented or in segments of at most ``steps_per_dispatch`` steps;
-    dlogp is then zero).
+    batch from its conditioning (B, ...). Routes, as in ti_tpu:
 
-    ``traj_drift(xs, t, conds)`` drives the velocity-only trajectory
+    - stage-coupled dlogp (``dlogp_quad_points=None``): the divergence is
+      integrated inside every solver stage, with the fixed-step solvers
+      (euler/heun/rk4, in one pass or in segments of at most
+      ``steps_per_dispatch`` steps, dlogp carried across) or adaptive
+      dopri5 (``atol``/``rtol`` scalars or (x, dlogp) pairs, at most
+      ``max_steps`` steps per save interval, or with
+      ``steps_per_dispatch`` resumed in rounds of that many steps up to 64
+      rounds; the segmented dopri5 takes the exact divergence only). A
+      dopri5 chain that runs out of steps before a save time raises.
+      ``return_dlogp=False`` is velocity-only transport, dlogp zero;
+    - the segmented Gauss quadrature-dlogp path (``dlogp_quad='gauss'``,
+      ``dlogp_quad_points`` nodes per save interval, ``steps_per_dispatch``
+      capping the RK steps per trajectory gap): velocity-only trajectory
+      gaps, then one divergence evaluation per node.
+
+    ``traj_drift(xs, t, conds)`` drives the Gauss path's trajectory
     segments; ``div_drift(xs, t, conds, generator) -> (B,)`` estimates the
     divergence at each node — with ``return_dlogp_var`` it must return
     (div, var), e.g. ``pair_tangent_div_fn(return_var=True)``. With a hook
     None the dense velocity of ``v_fn_of`` serves, and the divergence runs
     as forward-mode JVPs: exact (in blocks of ``div_chunk`` lanes, None = all
     at once), or Hutchinson probes or Hutch++ queries (``num_probes`` of
-    them) from ``generator``.
+    them) from ``generator``, per chain or shared (``probe_crn``).
+    Simpson quadrature, the unsegmented Gauss sampler and ``div_axis`` lane
+    sharding raise ``NotImplementedError``.
     """
     dev = resolve_device(device)
     gauss = (dlogp_quad_points is not None and return_dlogp and dlogp_quad == "gauss")
+    if div_axis is not None:
+        raise _later("div_axis lane sharding", "parallel")
     if (traj_drift is not None or div_drift is not None) and not (
         gauss and steps_per_dispatch is not None
     ):
@@ -124,30 +149,32 @@ def make_ode_sampler(
             "probe_crn is not supported with div_drift: the batched estimator "
             "draws its own probes per chain"
         )
+    if return_dlogp:
+        check_divergence(divergence, num_probes)
+    if dlogp_quad_points is not None and return_dlogp:
+        if solver == "dopri5":
+            raise ValueError("dlogp_quad_points requires a fixed-step solver")
+        if dlogp_quad != "gauss":
+            raise _later(f"dlogp_quad={dlogp_quad!r} (Simpson quadrature dlogp)",
+                         "integrators")
+        if steps_per_dispatch is None:
+            raise _later("the unsegmented Gauss sampler (steps_per_dispatch=None)",
+                         "integrators")
+        return _gauss_dlogp_sampler(
+            v_fn_of, solver=solver, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
+            gl_points=dlogp_quad_points, divergence=divergence, div_chunk=div_chunk,
+            steps_per_dispatch=steps_per_dispatch, num_probes=num_probes,
+            probe_crn=probe_crn, probe_mode=probe_mode, traj_drift=traj_drift,
+            div_drift=div_drift, return_dlogp_var=return_dlogp_var, device=dev,
+        )
+    div = dict(return_dlogp=return_dlogp, divergence=divergence, div_chunk=div_chunk,
+               num_probes=num_probes, probe_mode=probe_mode, probe_crn=probe_crn)
     if solver == "dopri5":
-        raise _later("the dopri5 solver", "integrators")
-    if not return_dlogp:
-        return _velocity_sampler(v_fn_of, solver=solver, t0=t0, t1=t1, n_steps=n_steps,
-                                 n_save=n_save, steps_per_dispatch=steps_per_dispatch,
-                                 device=dev)
-    if dlogp_quad_points is None:
-        raise _later("stage-coupled dlogp", "integrators")
-    if dlogp_quad != "gauss":
-        raise _later(f"dlogp_quad={dlogp_quad!r}", "integrators")
-    if steps_per_dispatch is None:
-        raise _later("the unsegmented Gauss sampler (steps_per_dispatch=None)", "integrators")
-    if divergence not in ("exact", "hutchinson", "hutchpp"):
-        raise ValueError(f"unknown divergence {divergence!r} (exact | hutchinson | hutchpp)")
-    if divergence == "hutchpp" and num_probes < 3:
-        raise ValueError(f"divergence='hutchpp' needs num_probes >= 3 (a sketch row, its "
-                         f"exact-term query and a residual probe), got {num_probes}")
-    return _gauss_dlogp_sampler(
-        v_fn_of, solver=solver, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
-        gl_points=dlogp_quad_points, divergence=divergence, div_chunk=div_chunk,
-        steps_per_dispatch=steps_per_dispatch, num_probes=num_probes,
-        probe_crn=probe_crn, probe_mode=probe_mode, traj_drift=traj_drift,
-        div_drift=div_drift, return_dlogp_var=return_dlogp_var, device=dev,
-    )
+        return _dopri5_sampler(v_fn_of, t0=t0, t1=t1, n_save=n_save, atol=atol, rtol=rtol,
+                               max_steps=max_steps, steps_per_dispatch=steps_per_dispatch,
+                               device=dev, **div)
+    return _fixed_sampler(v_fn_of, solver=solver, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
+                          steps_per_dispatch=steps_per_dispatch, device=dev, **div)
 
 
 def _segments_per_interval(per_save: int, steps_per_dispatch: int) -> int:
@@ -158,12 +185,13 @@ def _segments_per_interval(per_save: int, steps_per_dispatch: int) -> int:
     return q
 
 
-def _velocity_sampler(v_fn_of, *, solver, t0, t1, n_steps, n_save, steps_per_dispatch,
-                      device):
-    """Velocity-only fixed-step transport of the whole chain batch: in one
-    ``sample_ode`` call, or (``steps_per_dispatch``) in segments of
-    ``per_save / q`` steps, q the smallest divisor of the steps per save
-    interval that keeps a segment within ``steps_per_dispatch``."""
+def _fixed_sampler(v_fn_of, *, solver, t0, t1, n_steps, n_save, steps_per_dispatch, device,
+                   **div):
+    """Fixed-step transport of the whole chain batch, stage-coupled dlogp
+    or velocity only: in one ``sample_ode`` call, or (``steps_per_dispatch``)
+    in segments of ``per_save / q`` steps, q the smallest divisor of the
+    steps per save interval that keeps a segment within
+    ``steps_per_dispatch``, dlogp carried from segment to segment."""
     n_stages = len(_tableau(solver)[2])
     if n_save < 2 or n_steps % (n_save - 1) != 0:
         raise ValueError("n_steps must be a positive multiple of (n_save - 1)")
@@ -176,20 +204,60 @@ def _velocity_sampler(v_fn_of, *, solver, t0, t1, n_steps, n_save, steps_per_dis
     def sampler(x0s, conds, generator: Optional[torch.Generator] = None) -> ODESolution:
         x = torch.as_tensor(x0s, dtype=torch.float32, device=device)
         v = v_fn_of(torch.as_tensor(conds, dtype=torch.float32, device=device))
-        zeros = torch.zeros((x.shape[0], n_save), dtype=x.dtype, device=device)
         if steps_per_dispatch is None:
-            xs = sample_ode(v, x, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
-                            method=solver).xs
-        else:
-            saves = [x]
-            for si in range((n_save - 1) * q):
-                ts = t0 + si * seg_span
-                x = sample_ode(v, x, t0=ts, t1=ts + seg_span, n_steps=sub_steps,
-                               method=solver).xs[:, -1]
-                if (si + 1) % q == 0:
-                    saves.append(x)
-            xs = torch.stack(saves, dim=1)
-        return ODESolution(xs=xs, dlogp=zeros, nfe=n_steps * n_stages)
+            return sample_ode(v, x, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
+                              method=solver, generator=generator, **div)
+        lp = x.new_zeros(x.shape[0])
+        xs, lps = [x], [lp]
+        for si in range((n_save - 1) * q):
+            ts = t0 + si * seg_span
+            sol = sample_ode(v, x, t0=ts, t1=ts + seg_span, n_steps=sub_steps, method=solver,
+                             generator=generator, dlogp0=lp, **div)
+            x, lp = sol.xs[:, -1], sol.dlogp[:, -1]
+            if (si + 1) % q == 0:
+                xs.append(x)
+                lps.append(lp)
+        return ODESolution(xs=torch.stack(xs, dim=1), dlogp=torch.stack(lps, dim=1),
+                           nfe=n_steps * n_stages)
+
+    return sampler
+
+
+def _dopri5_sampler(v_fn_of, *, t0, t1, n_save, atol, rtol, max_steps, steps_per_dispatch,
+                    device, **div):
+    """Adaptive dopri5 transport of the whole chain batch: ``sample_ode_dopri5``
+    (per-chain NFE), or with ``steps_per_dispatch`` the segmented form of
+    ti_tpu — every save interval advanced in rounds of at most that many
+    steps a chain, up to 64 rounds, exact divergence only, NFE the batch's
+    maximum."""
+    if steps_per_dispatch is not None and div["return_dlogp"] and div["divergence"] != "exact":
+        raise NotImplementedError("segmented dopri5 supports exact divergence only (parity mode)")
+
+    @torch.no_grad()
+    def sampler(x0s, conds, generator: Optional[torch.Generator] = None) -> ODESolution:
+        x = torch.as_tensor(x0s, dtype=torch.float32, device=device)
+        v = v_fn_of(torch.as_tensor(conds, dtype=torch.float32, device=device))
+        if steps_per_dispatch is None:
+            return sample_ode_dopri5(v, x, t0=t0, t1=t1, n_save=n_save, atol=atol, rtol=rtol,
+                                     max_steps=max_steps, generator=generator, **div)
+        init, advance = dopri5_stepper(v, t0=t0, t1=t1, atol=atol, rtol=rtol,
+                                       max_steps=steps_per_dispatch, generator=generator, **div)
+        state = init(x)
+        xs, lps = [state.x], [state.lp]
+        for tau in np.linspace(0.0, abs(t1 - t0), n_save)[1:]:
+            for _ in range(64):  # the backstop of ti_tpu's segmented sampler
+                state = advance(state, float(tau))
+                short = n_short(state, float(tau))
+                if not short:
+                    break
+            else:
+                raise short_of_save_time(
+                    short, x.shape[0], t0 + np.sign(t1 - t0) * tau,
+                    f"64 rounds of steps_per_dispatch = {steps_per_dispatch} steps")
+            xs.append(state.x)
+            lps.append(state.lp)
+        return ODESolution(xs=torch.stack(xs, dim=1), dlogp=torch.stack(lps, dim=1),
+                           nfe=int(state.nfe.max()))
 
     return sampler
 
@@ -237,27 +305,10 @@ def _gauss_dlogp_sampler(
         if div_drift is not None:
             return div_drift(xb, t, conds, generator)
         v = v_fn_of(conds)
-
-        def f(y):
-            return v(y, t)
-
-        if divergence == "exact":
-            return divergence_exact(f, xb, chunk=div_chunk)[1]
-        b, d = xb.shape[0], xb[0].numel()
-        if divergence == "hutchpp":
-            if not probe_crn:
-                return divergence_hutchpp(f, xb, generator, num_queries=num_probes)[1]
-            s = max(1, num_probes // 3)  # one sketch and query set shared by every chain
-            S = _probe_block(generator, s, d, "rademacher", dtype=xb.dtype)[0]
-            g = _probe_block(generator, num_probes - 2 * s, d, "rademacher", dtype=xb.dtype)[0]
-            return divergence_hutchpp(f, xb, S=S.expand(b, *S.shape), g=g.expand(b, *g.shape))[1]
-        if probe_crn:  # one probe block shared by every chain
-            z, w = _probe_block(generator, num_probes, d, probe_mode)
-            z, w = z.expand(b, *z.shape), w.expand(b, *w.shape)
-        else:
-            z, w = _probe_block(generator, num_probes, d, probe_mode, shape=(b,))
-        res = divergence_hutchinson(f, xb, z=z.to(xb.dtype), w=w.to(xb.dtype),
-                                    probe_mode=probe_mode, return_var=return_dlogp_var)
+        res = value_and_divergence(lambda y: v(y, t), xb, mode=divergence, generator=generator,
+                                   num_probes=num_probes, chunk=div_chunk,
+                                   probe_mode=probe_mode, probe_crn=probe_crn,
+                                   return_var=return_dlogp_var)
         return res[1:] if return_dlogp_var else res[1]
 
     @torch.no_grad()
@@ -301,30 +352,34 @@ def _gauss_dlogp_sampler(
 
 def molecular_v_fn_of(model, params, template, impl: str = "dense", compute_dtype=None,
                       device=None):
-    """Batched velocity factory ``v_fn_of(temps (B,K)) -> v(xs (B,N,3), t)``
-    through the dense pair forward (models/cpainn_dense.py).
+    """Batched velocity factory ``v_fn_of(temps (B,K)) -> v(xs (B,N,3), t)``;
+    ``t`` is a float or per-chain times (B,) (dopri5 steps each chain on its
+    own clock).
 
+    ``impl="dense"`` is the dense pair forward (models/cpainn_dense.py);
     ``impl="dense_fused"`` runs its message MLPs as kernel B4, and their
     forward-mode tangents (the divergence's JVP lanes) as kernel B5, with
-    the weights packed once, here: f32 only, no reverse mode."""
-    if impl == "edge":
-        raise _later(f"molecular_v_fn_of(impl={impl!r})", "training")
-    if impl not in ("dense", "dense_fused"):
+    the weights packed once, here: f32 only, no reverse mode.
+    ``impl="edge"`` is the gather/scatter form (models/cpainn.py::
+    apply_edge), f32 only."""
+    if impl not in ("dense", "dense_fused", "edge"):
         raise ValueError(f"unknown impl {impl!r} (dense | dense_fused | edge)")
-    from ti_torch.models.cpainn import state_of
+    from ti_torch.models.cpainn import apply_edge, state_of
     from ti_torch.models.cpainn_dense import apply_dense, pack_message_layers
 
     dev = resolve_device(device)
     p = {k: t.detach().to(dev) for k, t in state_of(model, params).items()}
     atom_ids = torch.as_tensor(template.atom_ids, device=dev)
+    if impl != "dense" and compute_dtype is not None:
+        raise ValueError(f"impl={impl!r} is f32 only: compute_dtype must be None")
     fused = impl == "dense_fused"
-    if fused and compute_dtype is not None:
-        raise ValueError("impl='dense_fused' is f32 only: compute_dtype must be None")
     packed = pack_message_layers(model, p, dev) if fused else None
 
     def v_fn_of(temps):
         def v(xs, t):
             tb = torch.as_tensor(t, dtype=xs.dtype, device=xs.device).expand(xs.shape[0])
+            if impl == "edge":
+                return apply_edge(model, p, xs, tb, temps, atom_ids, template.edges)
             return apply_dense(model, p, xs, tb, temps, atom_ids, template.edges,
                                compute_dtype=compute_dtype, fused=fused, packed=packed)
 
@@ -422,7 +477,9 @@ def sample_ambient(
 ) -> Dict[str, np.ndarray]:
     """Transport conformations x0 (n, N, 3) from sampling_T0 to
     sampling_T1, with dlogp. ``params`` is a CPaiNN state dict (None: the
-    model's own). Optional latent_z/latent_dlogp pass through for the
+    model's own). ``nfe`` is the most right-hand-side evaluations a chain
+    took, ``nfe_per_chain`` each chain's (dopri5 steps every chain on its
+    own). Optional latent_z/latent_dlogp pass through for the
     BG→TI composition bookkeeping. Runs on ``cuda`` unless ``device``
     says otherwise."""
     dev = resolve_device(device)
@@ -437,6 +494,8 @@ def sample_ambient(
         solver=cfg.solver_type,
         n_steps=cfg.n_steps,
         n_save=n_save,
+        atol=cfg.atol,
+        rtol=cfg.rtol,
         return_dlogp=cfg.return_dlogp,
         divergence=cfg.divergence,
         steps_per_dispatch=cfg.steps_per_dispatch or None,
@@ -460,7 +519,7 @@ def sample_ambient(
     if save:
         os.makedirs(cfg.data_save_path, exist_ok=True)
     generator = torch.Generator(device=dev).manual_seed(int(cfg.seed))
-    all_samples, all_dlogps, all_dvars, nfe = [], [], [], 0
+    all_samples, all_dlogps, all_dvars, all_nfe = [], [], [], []
     for i in range(0, n, bs):
         xb, tb = x0[i: i + bs], temps_full[i: i + bs]
         take = len(xb)
@@ -473,7 +532,7 @@ def sample_ambient(
         all_dlogps.append(sol.dlogp[:take, -1].cpu().numpy())  # final dlogp per chain
         if sol.dlogp_var is not None:
             all_dvars.append(sol.dlogp_var[:take, -1].cpu().numpy())
-        nfe = max(nfe, int(sol.nfe))
+        all_nfe.append(np.broadcast_to(torch.as_tensor(sol.nfe).cpu().numpy(), (bs,))[:take])
         if save:  # incremental checkpointing
             _save_ambient(cfg, all_samples, all_dlogps, latent_z, latent_dlogp,
                           i + take, all_dvars)
@@ -483,7 +542,8 @@ def sample_ambient(
         "dlogps": np.concatenate(all_dlogps, axis=0),
         "latent_noises": latent_z[:n],
         "latent_dlogps": latent_dlogp[:n],
-        "nfe": nfe,
+        "nfe": int(np.max(np.concatenate(all_nfe))),
+        "nfe_per_chain": np.concatenate(all_nfe),
     }
     if all_dvars:
         out["dlogp_vars"] = np.concatenate(all_dvars, axis=0)

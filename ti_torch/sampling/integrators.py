@@ -1,11 +1,27 @@
-"""Fixed-step probability-flow integrators and the Euler–Maruyama SDE
-(port of the parts of ti_tpu/sampling/integrators.py on the ambient and
-SDE paths).
+"""Probability-flow integrators with stage-coupled dlogp, adaptive
+Dormand–Prince 5(4) and the Euler–Maruyama SDE (port of the fixed-step,
+dopri5 and SDE parts of ti_tpu/sampling/integrators.py).
 
 Batched over chains: a velocity ``v_fn(xs, t)`` maps (B, ...) states to
-(B, ...) velocities. Python loops take the place of ``lax.scan``. Sign
-conventions match ti_tpu: forward transport integrates
-d(dlogp)/dt = -div b, so the saved dlogp is log q(x_1) - log p_0(x_0).
+(B, ...) velocities with no coupling between chains, and the joint state
+is (x (B, ...), dlogp (B,)). Python loops take the place of ``lax.scan``
+and ``lax.while_loop``. With dlogp, every RK stage evaluates the velocity
+and its divergence together (``_make_rhs_joint``, exact or stochastic over
+ops/divergence.py). The stochastic estimators draw fresh probes from the
+``torch.Generator`` at every evaluation, where ti_tpu folds the evaluation
+index into its key; ``probes(eval_idx)`` replaces the draw (the parity
+tests pass JAX's).
+
+dopri5 keeps ti_tpu's per-chain semantics (one while-loop per chain under
+vmap there): every chain has its own time, step size, accept decision and
+evaluation count, and a chain that reached the save time stops moving, so
+in dopri5 ``v_fn`` receives per-chain times (B,). Unlike ti_tpu, a chain
+that spends its ``max_steps`` budget inside one save interval raises
+rather than being returned short of the save time.
+
+Sign conventions match ti_tpu: forward transport integrates
+d(dlogp)/dt = -div b, so the saved dlogp is log q(x_1) - log p_0(x_0);
+reverse transport is t0=1 -> t1=0.
 """
 
 from __future__ import annotations
@@ -15,16 +31,21 @@ from typing import Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from ti_torch.ops.divergence import _no_lane_sharding, value_and_divergence
+
+DIVERGENCES = ("exact", "hutchinson", "hutchpp")
+
 
 class ODESolution(NamedTuple):
     """xs: (B, n_save, *state) trajectory at the save points (including
     t0); dlogp: (B, n_save) integrated log-density change; nfe: number of
-    right-hand-side evaluations; dlogp_var: optional (B, n_save) variance
-    of the stochastic-divergence noise accumulated into dlogp."""
+    right-hand-side evaluations, an int, or (B,) per chain for dopri5;
+    dlogp_var: optional (B, n_save) variance of the stochastic-divergence
+    noise accumulated into dlogp."""
 
     xs: torch.Tensor
     dlogp: torch.Tensor
-    nfe: int
+    nfe: Union[int, torch.Tensor]
     dlogp_var: Optional[torch.Tensor] = None
 
 
@@ -45,48 +66,272 @@ def _tableau(method: str):
     raise ValueError(f"unknown method {method!r}")
 
 
-def _rk_step(v_fn, x: torch.Tensor, t: float, dt: float, method: str) -> torch.Tensor:
-    """One explicit RK step of dx/dt = v_fn(x, t)."""
+def check_divergence(divergence: str, num_probes: int) -> None:
+    """Refuse an unknown estimator or a Hutch++ budget below one sketch
+    row, its exact-term query and a residual probe."""
+    if divergence not in DIVERGENCES:
+        raise ValueError(f"unknown divergence {divergence!r} (exact | hutchinson | hutchpp)")
+    if divergence == "hutchpp" and num_probes < 3:
+        raise ValueError(f"divergence='hutchpp' needs num_probes >= 3 (a sketch row, its "
+                         f"exact-term query and a residual probe), got {num_probes}")
+
+
+def _make_rhs_joint(v_fn, return_dlogp: bool, divergence: str = "exact",
+                    generator: Optional[torch.Generator] = None, num_probes: int = 8,
+                    div_chunk: Optional[int] = None, div_axis=None,
+                    probe_mode: str = "rademacher", probe_crn: bool = False,
+                    probes: Optional[Callable] = None):
+    """``rhs(x, t, eval_idx) -> (dx/dt (B, ...), d(dlogp)/dt = -div (B,))``,
+    the velocity and its divergence in one evaluation (zeros for dlogp
+    without ``return_dlogp``)."""
+    _no_lane_sharding(div_axis)
+    if return_dlogp:
+        check_divergence(divergence, num_probes)
+        if divergence != "exact" and generator is None and probes is None:
+            raise ValueError(f"{divergence} divergence requires a generator (or probes=)")
+
+    def rhs(x, t, eval_idx):
+        if not return_dlogp:
+            return v_fn(x, t), x.new_zeros(x.shape[0])
+        vel, div = value_and_divergence(
+            lambda y: v_fn(y, t), x, mode=divergence, generator=generator,
+            num_probes=num_probes, chunk=div_chunk, probe_mode=probe_mode, probe_crn=probe_crn,
+            draws=None if probes is None else probes(eval_idx))
+        return vel, -div
+
+    return rhs
+
+
+def _rk_step(rhs, x, lp, t: float, dt: float, method: str, base_idx: int):
+    """One explicit RK step of the joint (x, dlogp) system."""
     cc, aa, bb = _tableau(method)
-    ks = []
+    kx, kl = [], []
     for si in range(len(bb)):
-        yi = x
+        yi, li = x, lp
         for sj in range(si):
             if aa[si][sj]:
-                yi = yi + (dt * aa[si][sj]) * ks[sj]
-        ks.append(v_fn(yi, t + cc[si] * dt))
-    out = x
+                yi = yi + (dt * aa[si][sj]) * kx[sj]
+                li = li + (dt * aa[si][sj]) * kl[sj]
+        dx, dl = rhs(yi, t + cc[si] * dt, base_idx + si)
+        kx.append(dx)
+        kl.append(dl)
     for si in range(len(bb)):
-        out = out + (dt * bb[si]) * ks[si]
-    return out
+        x = x + (dt * bb[si]) * kx[si]
+        lp = lp + (dt * bb[si]) * kl[si]
+    return x, lp
 
 
 def sample_ode(v_fn, x0: torch.Tensor, *, t0: float = 0.0, t1: float = 1.0,
                n_steps: int = 100, n_save: int = 2, method: str = "rk4",
-               return_dlogp: bool = False) -> ODESolution:
+               return_dlogp: bool = False, divergence: str = "exact",
+               generator: Optional[torch.Generator] = None, num_probes: int = 8,
+               div_chunk: Optional[int] = None, div_axis=None, probe_mode: str = "rademacher",
+               probe_crn: bool = False, probes: Optional[Callable] = None,
+               dlogp0: Optional[torch.Tensor] = None) -> ODESolution:
     """Fixed-step transport of a chain batch x0 (B, ...) from t0 to t1 in
     ``n_steps`` uniform steps, saving ``n_save`` states (n_steps a
-    multiple of n_save - 1). Velocity only: dlogp rides the Gauss
-    quadrature path of sampling/drivers.py."""
-    if return_dlogp:
-        raise NotImplementedError(
-            "stage-coupled dlogp (divergence inside every RK stage) comes with "
-            "the integrators slice; use make_ode_sampler's Gauss quadrature path"
-        )
+    multiple of n_save - 1).
+
+    With ``return_dlogp`` the divergence is integrated inside every RK
+    stage (exact in blocks of ``div_chunk`` lanes, or Hutchinson / Hutch++
+    probes from ``generator``; evaluation i of step s is index
+    s·n_stages + i for ``probes``), starting from ``dlogp0`` (B,), so an
+    integration can be resumed segment by segment; without it dlogp is
+    zero."""
     if n_save < 2 or n_steps % (n_save - 1) != 0:
         raise ValueError("n_steps must be a positive multiple of (n_save - 1)")
+    rhs = _make_rhs_joint(v_fn, return_dlogp, divergence, generator, num_probes, div_chunk,
+                          div_axis, probe_mode, probe_crn, probes)
+    n_stages = len(_tableau(method)[2])
     dt = (t1 - t0) / n_steps
     per_save = n_steps // (n_save - 1)
     x = x0
-    saves = [x]
+    lp = (x0.new_zeros(x0.shape[0]) if dlogp0 is None
+          else torch.as_tensor(dlogp0, dtype=x0.dtype, device=x0.device).expand(x0.shape[0]))
+    xs, lps = [x], [lp]
     for i in range(n_steps):
-        x = _rk_step(v_fn, x, t0 + i * dt, dt, method)
+        x, lp = _rk_step(rhs, x, lp, t0 + i * dt, dt, method, i * n_stages)
         if (i + 1) % per_save == 0:
-            saves.append(x)
-    n_stages = len(_tableau(method)[2])
-    return ODESolution(xs=torch.stack(saves, dim=1),
-                       dlogp=torch.zeros(x0.shape[0], n_save, dtype=x0.dtype, device=x0.device),
+            xs.append(x)
+            lps.append(lp)
+    return ODESolution(xs=torch.stack(xs, dim=1), dlogp=torch.stack(lps, dim=1),
                        nfe=n_steps * n_stages)
+
+
+# ---------------------------------------------------------------------------
+# Adaptive Dormand–Prince 5(4), ti_tpu's controller at the reference's
+# atol = rtol = 1e-5.
+# ---------------------------------------------------------------------------
+
+# Butcher tableau (Dormand & Prince 1980), torchdiffeq's dopri5 coefficients
+_DP_C = np.array([0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0])
+_DP_A = np.zeros((7, 7))
+_DP_A[1, :1] = [1 / 5]
+_DP_A[2, :2] = [3 / 40, 9 / 40]
+_DP_A[3, :3] = [44 / 45, -56 / 15, 32 / 9]
+_DP_A[4, :4] = [19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729]
+_DP_A[5, :5] = [9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656]
+_DP_A[6, :6] = [35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84]
+_DP_B5 = np.array([35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0])
+_DP_B4 = np.array(
+    [5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100, 1 / 40]
+)
+
+
+def _combine(coef, ks):
+    """sum_j coef[j] · ks[j] as one product over the stacked stages (zero
+    coefficients included), in the order ti_tpu's ``coef @ ks`` takes."""
+    k = torch.stack(ks, dim=-1)
+    return k @ torch.as_tensor(coef[:len(ks)], dtype=k.dtype, device=k.device)
+
+
+class Dopri5State(NamedTuple):
+    """Per-chain state of the adaptive solver: internal time tau =
+    |t - t0| (B,), the joint state x (B, ...) and dlogp (B,), the next
+    step size (B,) and the evaluations spent so far (B,)."""
+
+    tau: torch.Tensor
+    x: torch.Tensor
+    lp: torch.Tensor
+    dt: torch.Tensor
+    nfe: torch.Tensor
+
+
+def _tol_pair(tol):
+    """A scalar tolerance, or an (x, dlogp) pair — the per-state tolerance
+    lists the reference passes to torchdiffeq — as (x tol, dlogp tol)."""
+    arr = np.asarray(tol, dtype=np.float64)
+    if arr.ndim == 0:
+        return float(arr), float(arr)
+    if arr.shape != (2,):
+        raise ValueError(f"tolerance must be a scalar or an (x, dlogp) pair, got shape "
+                         f"{arr.shape}")
+    return float(arr[0]), float(arr[1])
+
+
+def dopri5_stepper(v_fn, *, t0: float = 0.0, t1: float = 1.0, atol=1e-5, rtol=1e-5,
+                   max_steps: int = 1024, return_dlogp: bool = True, divergence: str = "exact",
+                   generator: Optional[torch.Generator] = None, num_probes: int = 8,
+                   div_chunk: Optional[int] = None, div_axis=None,
+                   probe_mode: str = "rademacher", probe_crn: bool = False,
+                   probes: Optional[Callable] = None, first_dt: float = 0.01):
+    """Resumable adaptive RK45 on a chain batch: returns (init, advance).
+
+    ``init(x0, dlogp0=None) -> Dopri5State``; ``advance(state, tau_target)
+    -> state`` steps every chain towards internal time tau_target in
+    [0, |t1 - t0|] until it gets there or has spent ``7 * max_steps``
+    evaluations in this call; a chain that is done stops moving. Error
+    control is on each chain's joint (x, dlogp) state (RMS of err / (atol +
+    rtol·max(|y|, |y_new|))); a step is accepted at norm <= 1 and the next
+    one scaled by 0.9·norm^(-1/5), clipped to [0.2, 10]. ``n_short``
+    counts the chains an ``advance`` left before its target."""
+    rhs0 = _make_rhs_joint(v_fn, return_dlogp, divergence, generator, num_probes, div_chunk,
+                           div_axis, probe_mode, probe_crn, probes)
+    direction = 1.0 if t1 >= t0 else -1.0  # internal time tau = direction·(t - t0)
+    atol_x, atol_l = _tol_pair(atol)
+    rtol_x, rtol_l = _tol_pair(rtol)
+
+    def init(x0: torch.Tensor, dlogp0=None) -> Dopri5State:
+        b = x0.shape[0]
+        lp = (x0.new_zeros(b) if dlogp0 is None
+              else torch.as_tensor(dlogp0, dtype=x0.dtype, device=x0.device).expand(b))
+        return Dopri5State(tau=x0.new_zeros(b), x=x0, lp=lp, dt=x0.new_full((b,), first_dt),
+                           nfe=torch.zeros(b, dtype=torch.int64, device=x0.device))
+
+    def advance(state: Dopri5State, tau_target: float) -> Dopri5State:
+        tau, x, lp, dt, nfe = state
+        target = torch.tensor(tau_target, dtype=x.dtype, device=x.device)
+        t_eps = _t_eps(x.dtype)
+        b, d = x.shape[0], x[0].numel()
+        bcast = (b,) + (1,) * (x.dim() - 1)
+        budget = nfe + 7 * max_steps
+        done = tau >= target - t_eps
+        while True:
+            active = ~done & (nfe < budget)
+            if not bool(active.any()):
+                return Dopri5State(tau, x, lp, dt, nfe)
+            dt_c = torch.minimum(dt, target - tau)
+            dt_x = dt_c.view(bcast)
+            kx, kl = [], []
+            for i in range(7):
+                yi, li = x, lp
+                if i:
+                    yi = x + dt_x * _combine(_DP_A[i], kx)
+                    li = lp + dt_c * _combine(_DP_A[i], kl)
+                vx, vl = rhs0(yi, t0 + direction * (tau + _DP_C[i] * dt_c), nfe + i)
+                kx.append(direction * vx)
+                kl.append(direction * vl)
+            x5 = x + dt_x * _combine(_DP_B5, kx)
+            l5 = lp + dt_c * _combine(_DP_B5, kl)
+            # the error as dt·Σ(b5 - b4)·k, as torchdiffeq forms it: ti_tpu
+            # subtracts the two f32 solutions, whose rounding is the whole of
+            # the first steps' norms (so its step counts can differ in f32)
+            ex = dt_x * _combine(_DP_B5 - _DP_B4, kx)
+            el = dt_c * _combine(_DP_B5 - _DP_B4, kl)
+            sx = atol_x + rtol_x * torch.maximum(x.abs(), x5.abs())
+            sl = atol_l + rtol_l * torch.maximum(lp.abs(), l5.abs())
+            en = torch.sqrt((((ex / sx) ** 2).reshape(b, d).sum(1) + (el / sl) ** 2) / (d + 1))
+            accept = active & (en <= 1.0)
+            factor = torch.clamp(0.9 * (en + 1e-16) ** -0.2, 0.2, 10.0)
+            tau = torch.where(accept, tau + dt_c, tau)
+            x = torch.where(accept.view(bcast), x5, x)
+            lp = torch.where(accept, l5, lp)
+            dt = torch.where(active, torch.clamp(dt_c * factor, min=t_eps), dt)
+            nfe = nfe + 7 * active
+            done = tau >= target - t_eps
+
+    return init, advance
+
+
+def n_short(state: Dopri5State, tau_target: float) -> int:
+    """The chains of ``state`` short of internal time ``tau_target``."""
+    target = torch.tensor(tau_target, dtype=state.x.dtype, device=state.x.device)
+    return int((state.tau < target - _t_eps(state.x.dtype)).sum())
+
+
+def _t_eps(dtype) -> float:
+    """Completion tolerance of a save time: 10 ulp of 1 in the state's
+    dtype (1e-12 would never trigger in f32)."""
+    return 10.0 * torch.finfo(dtype).eps
+
+
+def short_of_save_time(n_short: int, b: int, t_save: float, budget: str) -> RuntimeError:
+    """The error raised when dopri5 chains end a save interval short of
+    its time (ti_tpu returns their state as if they had reached it)."""
+    return RuntimeError(
+        f"dopri5: {n_short} of {b} chains stopped short of the save time t = {t_save:.6g} "
+        f"after {budget}; their state is not the state at that time. Raise max_steps "
+        "(or steps_per_dispatch) or loosen atol/rtol")
+
+
+def sample_ode_dopri5(v_fn, x0: torch.Tensor, *, t0: float = 0.0, t1: float = 1.0,
+                      n_save: int = 2, atol=1e-5, rtol=1e-5, max_steps: int = 1024,
+                      return_dlogp: bool = True, divergence: str = "exact",
+                      generator: Optional[torch.Generator] = None, num_probes: int = 8,
+                      div_chunk: Optional[int] = None, div_axis=None,
+                      probe_mode: str = "rademacher", probe_crn: bool = False,
+                      probes: Optional[Callable] = None, first_dt: float = 0.01) -> ODESolution:
+    """Adaptive RK45 transport of a chain batch x0 (B, ...) to ``n_save``
+    uniform save times, each chain bounded by ``max_steps`` steps per save
+    interval; ``nfe`` is per chain (B,). Raises if a chain spends that
+    budget before a save time. Reverse transport: t0=1.0, t1=0.0."""
+    init, advance = dopri5_stepper(
+        v_fn, t0=t0, t1=t1, atol=atol, rtol=rtol, max_steps=max_steps,
+        return_dlogp=return_dlogp, divergence=divergence, generator=generator,
+        num_probes=num_probes, div_chunk=div_chunk, div_axis=div_axis, probe_mode=probe_mode,
+        probe_crn=probe_crn, probes=probes, first_dt=first_dt)
+    save_ts = np.linspace(0.0, abs(t1 - t0), n_save)  # rounded to the state dtype in advance
+    state = init(x0)
+    xs, lps = [state.x], [state.lp]
+    for i in range(1, n_save):
+        state = advance(state, float(save_ts[i]))
+        short = n_short(state, float(save_ts[i]))
+        if short:
+            raise short_of_save_time(short, x0.shape[0], t0 + np.sign(t1 - t0) * save_ts[i],
+                                     f"max_steps = {max_steps} steps in one save interval")
+        xs.append(state.x)
+        lps.append(state.lp)
+    return ODESolution(xs=torch.stack(xs, dim=1), dlogp=torch.stack(lps, dim=1), nfe=state.nfe)
 
 
 def sample_sde(
