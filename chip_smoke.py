@@ -2,10 +2,10 @@
 
 Builds the hand-written CUDA kernels from ti_torch/csrc, holds each against
 its plain PyTorch version at its path's shapes, and runs the port's five
-paths at the 00031 width (19 atoms, F = 128, 5 message layers) through
-their entry points, checking what comes out and showing, with the launch
-counts set to 0 just before each path and read just after, that the path
-went through its kernels:
+paths and its trainer at the 00031 width (19 atoms, F = 128, 5 message
+layers) through their entry points, checking what comes out and showing,
+with the launch counts set to 0 just before each path and read just after,
+that the path went through its kernels:
 
 - MDQM9 ambient transport with dlogp at 128 chains (``sample_ambient``):
   with the exact divergence in f32 (``div_forward_impl="pair_tangent"``:
@@ -21,7 +21,10 @@ went through its kernels:
   chains (B7, on the tensor cores);
 - the reference's own sampler (``sample_ambient(ambient_preset("00031"))``:
   dopri5 with the exact divergence in every stage), the edge-form Euler
-  sampler that bench.py prices, and stage-coupled RK4 through B4 and B5.
+  sampler that bench.py prices, and stage-coupled RK4 through B4 and B5;
+- ambient training (``train_ambient``, plain PyTorch under autograd: no
+  kernel has a backward), and a field it trained on the card through the
+  main path's kernels B1 and B3.
 
     python3 chip_smoke.py
 
@@ -128,7 +131,19 @@ Phases (any failure exits non-zero and prints no result):
      ``impl="dense_fused"`` against ``impl="dense"``, every B4 launch from
      fused_edge_mlp_tf32x3 and every B5 launch from
      fused_edge_mlp_jvp_tf32x3, with their counts;
- 12. the ``kernels`` line, the card line and the result line.
+ 12. ambient training on the card at the 00031 width (T0s = T1s = [1000,
+     300], frames from ``make_synthetic_frames``): one update's loss and
+     gradients on the card against the CPU from the same weights, batch, t
+     and z (edge f32 at batch 12: loss rtol 1e-5, gradients rtol 1e-4 with
+     atol 1e-5 of each leaf's largest |gradient|; dense bf16_agg at batch
+     256: loss and the whole gradient within 2e-2); about 20 timed update
+     steps each of edge f32 at batch 12, dense f32 and dense bf16_agg at
+     batch 256 and grad_accum 4 x 256 in bf16_agg (ms a step, molecules/s,
+     peak memory; finite losses, moved parameters); ``train_ambient`` for a
+     few steps and its ``params`` through ``sample_ambient`` under
+     ``fast_profile`` at 128 chains (B1 from pair_layer_tf32x3 and B3 from
+     pair_tangent_mma launch; finite samples and dlogp);
+ 13. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -187,6 +202,31 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
+
+
+def torch_default_weights_(model, seed: int = 0):
+    """Redraw ``model``'s weights from ``seed`` with PyTorch's default laws
+    (``nn.Linear``: kaiming-uniform weights and uniform biases;
+    ``nn.Embedding``: N(0, 1); LayerNorm 1 and 0; the equivariant maps N(0,
+    1/f_in)), in construction order: the random field every phase but 12(c)
+    runs on. A fresh ``CPaiNN`` draws as flax's ``model.init`` does, a
+    field 100-300 times stronger at the 00031 width (|v| 20-170 against
+    0.16-0.6 at |x| ~ 0.1): over RK4-8 the same plain code in f32 and in f64
+    ends 24-44 apart there, so no two f32 implementations can be held to
+    each other along a trajectory, and at its first update the loss is
+    ~5e3 and f32 puts the gradient 3.4e-5 of each leaf's largest off f64."""
+    from torch import nn
+
+    from ti_torch.models.cpainn import EquivariantLinear
+
+    torch.manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding, nn.LayerNorm)):
+                mod.reset_parameters()
+            elif isinstance(mod, EquivariantLinear):
+                nn.init.normal_(mod.weight, std=mod.weight.shape[1] ** -0.5)
+    return model
 
 
 def cuda_ms(fn, n: int, warm: int = 2) -> float:
@@ -995,6 +1035,177 @@ def phase_reference(model, template, card: str) -> dict:
     return launches
 
 
+TRAIN_CHAINS = 128  # the trained field's fast_profile batch
+
+
+def phase_training(card: str) -> None:
+    """12. Ambient training on the card, at the 00031 width (T0s = T1s =
+    [1000, 300], frames from ``make_synthetic_frames``): (a) one update's
+    loss and gradients on the card against the CPU from the same weights
+    (``torch_default_weights_``), batch, t and z, in edge f32 at batch 12 (loss rtol 1e-5; gradients rtol
+    1e-4 with atol 1e-5 of each leaf's largest |gradient|, TF32 off) and in
+    dense bf16_agg at batch 256 (loss and the whole gradient within 2e-2 of
+    the CPU's); (b) ~20 timed update steps (CUDA events after warm-up) of
+    edge f32 at batch 12, dense f32 and dense bf16_agg at batch 256 and
+    grad_accum 4 x 256 in bf16_agg: ms a step, molecules/s, peak memory;
+    (c) ``train_ambient`` for a few steps, its ``params`` through
+    ``sample_ambient(fast_profile(ambient_preset("00031")))`` at 128 chains:
+    B1 (f32) and B3 (bf16_agg) launch and samples and dlogp are finite.
+    (c) starts from the flax-law weights a fresh model draws; (a) and (b)
+    from the smoke's random field."""
+    from ti_torch.config import ambient_preset, fast_profile
+    from ti_torch.data.mdqm9 import (
+        MDQM9AmbientDataset,
+        make_synthetic_frames,
+        make_synthetic_molecule,
+    )
+    from ti_torch.interpolants import linear
+    from ti_torch.losses import molecular_velocity_loss
+    from ti_torch.models.cpainn import CPaiNN
+    from ti_torch.ops import _build
+    from ti_torch.sampling.drivers import sample_ambient
+    from ti_torch.train import common, train_ambient
+
+    t_phase = time.perf_counter()
+    mol = make_synthetic_molecule(N_ATOMS, seed=0)
+    temps_grid = (1000, 300)
+    base = dict(T0s=list(temps_grid), T1s=list(temps_grid), scale_trajs=False, use_wandb=False)
+    cfg = ambient_preset("00031", **base)
+    require((cfg.n_features, cfg.score_layers) == (F, LAYERS), "the 00031 width")
+    interp = linear(a=cfg.a, gamma=cfg.gamma)
+    frames = {T: make_synthetic_frames(mol, 1024, T, seed=T) for T in temps_grid}
+    stack = np.concatenate([frames[T] for T in temps_grid])
+    stack_t = np.concatenate([np.full(1024, float(T), np.float32) for T in temps_grid])
+    ds = MDQM9AmbientDataset.from_arrays(stack, stack_t, mol)
+    template = ds.template
+    init = torch_default_weights_(CPaiNN(F, LAYERS, n_atoms=N_ATOMS))
+
+    def model_on(device):
+        m = CPaiNN(F, LAYERS, n_atoms=N_ATOMS)
+        m.load_state_dict(init.state_dict())
+        return m.to(device)
+
+    # (a) one update's loss and gradients, card against CPU
+    rng = np.random.default_rng(12)
+    for impl, dtype, b in (("edge", "f32", 12), ("dense", "bf16_agg", 256)):
+        c = ambient_preset("00031", **base, train_impl=impl, train_compute_dtype=dtype)
+        idx0, idx1 = rng.choice(len(stack), b), rng.choice(len(stack), b)
+        batch = [stack[idx0], stack[idx1], np.stack([stack_t[idx0], stack_t[idx1]], -1),
+                 rng.uniform(0.0, 1.0, b).astype(np.float32),
+                 rng.standard_normal((b, N_ATOMS, 3)).astype(np.float32)]
+        got = {}
+        for dev in ("cuda", "cpu"):
+            m = model_on(dev)
+            params = dict(m.named_parameters())
+            x0, x1, tp, t, z = (torch.from_numpy(a).to(dev) for a in batch)
+            t0 = time.perf_counter()
+            loss = molecular_velocity_loss(common.make_batched_apply(c, m, template), params,
+                                           x0, x1, tp, interp, t=t, z=z)
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            got[dev] = (loss.item(), {k: g.cpu() for k, g in grads.items()},
+                        time.perf_counter() - t0)
+        (lg, gg, sg), (lc, gc, sc) = got["cuda"], got["cpu"]
+        loss_rel = abs(lg - lc) / abs(lc)
+        if dtype == "f32":
+            worst = max(((gg[k] - gc[k]).abs() - 1e-4 * gc[k].abs()).max().item()
+                        / max(gc[k].abs().max().item(), 1e-30) for k in gc)
+            log(f"[train step card vs CPU {impl} {dtype} B={b}] loss {lg:.7f} vs {lc:.7f} "
+                f"(rel {loss_rel:.2e}, bar 1e-5); gradients: worst (|diff| - 1e-4 |cpu|) / leaf "
+                f"max {worst:.2e} (bar 1e-5), {len(gc)} leaves; card {sg:.2f} s, CPU {sc:.2f} s")
+            require(loss_rel <= 1e-5, f"train step {impl} f32: loss on the card agrees with the CPU")
+            require(worst <= 1e-5, f"train step {impl} f32: gradients on the card agree with the CPU")
+        else:
+            flat_g = torch.cat([gg[k].ravel() for k in sorted(gc)])
+            flat_c = torch.cat([gc[k].ravel() for k in sorted(gc)])
+            rel = ((flat_g - flat_c).abs().max() / flat_c.abs().max()).item()
+            log(f"[train step card vs CPU {impl} {dtype} B={b}] loss {lg:.6f} vs {lc:.6f} "
+                f"(rel {loss_rel:.2e}, bar 2e-2); gradient max |diff| / max |cpu| {rel:.2e} "
+                f"(bar 2e-2); card {sg:.2f} s, CPU {sc:.2f} s")
+            require(loss_rel <= 2e-2 and rel <= 2e-2,
+                    f"train step {impl} {dtype}: loss and gradient on the card agree with the CPU")
+        require(all(torch.isfinite(g).all() for g in gg.values()), "finite gradients on the card")
+
+    # (b) timed update steps on the card
+    steps, warm = 20, 3
+    for impl, dtype, b, accum in (("edge", "f32", 12, 1), ("dense", "f32", 256, 1),
+                                  ("dense", "bf16_agg", 256, 1), ("dense", "bf16_agg", 256, 4)):
+        c = ambient_preset("00031", **base, train_impl=impl, train_compute_dtype=dtype)
+        m = model_on("cuda")
+        params = dict(m.named_parameters())
+        apply = common.make_batched_apply(c, m, template)
+        opt = common.make_optimizer(list(params.values()), 1e-4)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step = common.make_update_step(
+            lambda g, x0, x1, tp: molecular_velocity_loss(apply, params, x0, x1, tp, interp,
+                                                          generator=g), opt, accum_steps=accum)
+        x0s, T0 = ds.epoch_batches(torch.Generator().manual_seed(1), b * accum, device="cuda")
+        x1s, T1 = ds.epoch_batches(torch.Generator().manual_seed(2), b * accum, device="cuda")
+        tps = torch.stack([T0, T1], -1)
+        nb = len(x0s)
+        before = {k: p.detach().clone() for k, p in params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step(gen, x0s[i % nb], x1s[i % nb], tps[i % nb]) for i in range(warm)]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses += [step(gen, x0s[i % nb], x1s[i % nb], tps[i % nb])
+                   for i in range(warm, warm + steps)]
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / steps
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        moved = max((p.detach() - before[k]).abs().max().item() for k, p in params.items())
+        name = f"{impl} {dtype} B={b}" + (f" x {accum} accumulated" if accum > 1 else "")
+        log(f"[train steps {name}] {ms:.3f} ms a step, {b * accum / ms * 1e3:.1f} molecules/s, "
+            f"peak memory {peak:.2f} GiB ({steps} steps after {warm}, CUDA events, one host sync "
+            f"a step; {card}); losses {losses[warm]:.4f} .. {losses[-1]:.4f}; largest parameter "
+            f"move {moved:.3e}")
+        require(all(math.isfinite(v) for v in losses) and opt.nan_count == 0,
+                f"train steps {name}: finite losses")
+        require(moved > 0.0, f"train steps {name}: the parameters moved")
+        del m, params, opt, step, x0s, x1s
+        torch.cuda.empty_cache()
+
+    # (c) the trainer's output runs the main path
+    with tempfile.TemporaryDirectory() as tmp:
+        small = MDQM9AmbientDataset.from_arrays(
+            np.concatenate([frames[T][:48] for T in temps_grid]),
+            np.concatenate([np.full(48, float(T), np.float32) for T in temps_grid]), mol)
+        c = ambient_preset("00031", **base, n_epochs=2, model_save_path=tmp)
+        t0 = time.perf_counter()
+        res = train_ambient(c, small, small)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        n_steps = c.n_epochs * (len(small) // c.batch_size)
+        require(all(p.is_cuda for p in res["params"].values()), "train_ambient ran on the card")
+        require(sorted(os.listdir(os.path.join(tmp, c.model_save_name)))
+                == sorted(["settings.json"] + [f"{c.model_save_name}_{e}_weights.npz"
+                                               for e in ("0", "1", "best0", "best1")]),
+                "train_ambient wrote its checkpoints")
+        cfg_s = fast_profile(ambient_preset("00031"), data_save_path=tmp)
+        x0 = make_synthetic_frames(mol, TRAIN_CHAINS, 1000, seed=999)
+        sample_ambient(cfg_s, res["model"], res["params"], template, x0, save=False,
+                       batch_size=TRAIN_CHAINS, device="cuda")  # warm-up, not counted
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = sample_ambient(cfg_s, res["model"], res["params"], template, x0, save=False,
+                             batch_size=TRAIN_CHAINS, device="cuda")
+        torch.cuda.synchronize()
+        routes = {k: n for k, n in _build.ROUTE_LAUNCHES.items() if n}
+    log(f"[trained field] train_ambient: {n_steps} steps of batch {c.batch_size} ({c.train_impl} "
+        f"{c.train_compute_dtype}) in {t_train:.2f} s, losses {res['history']['train_loss']}; "
+        f"fast_profile at {TRAIN_CHAINS} chains launches by library "
+        f"{ {f'{k}:{lib}': n for (k, lib), n in routes.items()} }; dlogp mean "
+        f"{out['dlogps'].mean():.4f}")
+    require(routes.get(("pair_layer", "pair_layer_tf32x3"), 0) > 0
+            and routes.get(("pair_tangent", "pair_tangent_mma"), 0) > 0,
+            f"the trained field's main path launches B1 (f32) and B3 (bf16_agg): {routes}")
+    require(np.isfinite(out["samples"]).all() and np.isfinite(out["dlogps"]).all(),
+            "the trained field's main path: finite samples and dlogp")
+    log(f"[phase 12] {time.perf_counter() - t_phase:.1f} s")
+
+
 def b7_macs(c: int, n: int, layers: int) -> float:
     """Multiply-adds the function of kernel B7 needs for c chains: per chain
     and layer the primal message MLPs once (phi 8F² + w 7F² per pair row),
@@ -1038,8 +1249,7 @@ def div_inputs(n: int, c: int, lanes: int, seed: int):
     from ti_torch.models.cpainn_dense import dense_edge_type_matrix
     from ti_torch.ops import div_kernel as dk
 
-    torch.manual_seed(seed)
-    model = CPaiNN(F, LAYERS, n_atoms=n)
+    model = torch_default_weights_(CPaiNN(F, LAYERS, n_atoms=n), seed)
     p = {k: w.detach().to("cuda") for k, w in model.state_dict().items()}
     template = graph_template(make_synthetic_molecule(n, seed=seed), t_cond=2)
     etype = torch.as_tensor(dense_edge_type_matrix(template.edges), device="cuda").long()
@@ -1256,8 +1466,7 @@ def main() -> int:
         require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
                                      for ln in spills), f"{name} builds without register spills: {spills}")
 
-    torch.manual_seed(0)
-    model = CPaiNN(F, LAYERS, n_atoms=N_ATOMS)
+    model = torch_default_weights_(CPaiNN(F, LAYERS, n_atoms=N_ATOMS))
     params = {k: t.detach() for k, t in model.state_dict().items()}
     mac_row = 15 * F * F  # message-MLP multiply-adds per pair row (phi 8F², w 7F²)
     rows = CHAINS * N_ATOMS * N_ATOMS
@@ -1635,7 +1844,10 @@ def main() -> int:
     # ---- 11. the reference's sampler, bench.py's reference shape, stage-coupled B4/B5 ----
     phase_reference(model, template, card)
 
-    # ---- 12. result lines ----
+    # ---- 12. ambient training on the card, a trained field through B1 and B3 ----
+    phase_training(card)
+
+    # ---- 13. result lines ----
     path_launches = {"pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_tangent": launches["pair_tangent"],

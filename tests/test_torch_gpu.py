@@ -5,6 +5,10 @@ this file imports neither jax nor ti_tpu, so it runs where only PyTorch
 is installed:
 ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu``
 (``--noconftest`` skips tests/conftest.py, which imports JAX).
+The random weights are chip_smoke.py's field (``torch_default_weights_``:
+PyTorch's default laws, on which a trajectory stays comparable between two
+f32 implementations; a fresh model's flax laws make a field whose f32
+rounding grows past every sampler bar).
 Bars (max |kernel - plain| / max |plain|): 2e-5 in f32 (f32 FMA, or
 3xTF32 on the tensor cores, against f32), 2e-2 in bf16_agg (one bf16 rounding may flip where the two sum in
 another order).
@@ -15,6 +19,7 @@ import torch
 
 from torch.func import jvp, vmap
 
+from chip_smoke import torch_default_weights_
 from ti_torch.models.cpainn import CPaiNN
 from ti_torch.ops import _build
 from ti_torch.ops import pallas_kernels as pk
@@ -45,8 +50,8 @@ def _card():
 
 
 def _params(n=N):
-    torch.manual_seed(0)
-    return {name: t.detach() for name, t in CPaiNN(F, 1, n_atoms=n).state_dict().items()}
+    model = torch_default_weights_(CPaiNN(F, 1, n_atoms=n))
+    return {name: t.detach() for name, t in model.state_dict().items()}
 
 
 def _layer(dtype, k=0, b=B, N=N):
@@ -397,8 +402,7 @@ def test_fused_velocity_fn_takes_b4_on_the_tensor_cores():
     from ti_torch.models.cpainn_fused import fused_velocity_fn
 
     _card()
-    torch.manual_seed(0)
-    model = CPaiNN(F, 2, n_atoms=N)
+    model = torch_default_weights_(CPaiNN(F, 2, n_atoms=N))
     template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=2)
     xs = 0.1 * _rows(4, N, 3, seed=8)
     xs = xs - xs.mean(dim=1, keepdim=True)
@@ -427,8 +431,7 @@ def test_dense_fused_exact_sampler_takes_b5_on_the_tensor_cores():
     from ti_torch.sampling.drivers import make_ode_sampler, molecular_v_fn_of
 
     _card()
-    torch.manual_seed(0)
-    model = CPaiNN(F, 2, n_atoms=N)
+    model = torch_default_weights_(CPaiNN(F, 2, n_atoms=N))
     template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=2)
     x0 = (0.1 * _rows(4, N, 3, seed=8)).cpu().numpy()
     x0 -= x0.mean(axis=1, keepdims=True)
@@ -702,8 +705,7 @@ def test_pair_tangent_div_fn_f32_frame_matches_plain():
     from ti_torch.ops.pair_tangent_kernel import pair_tangent_div_fn
 
     _card()
-    torch.manual_seed(0)
-    model = CPaiNN(F, 2, n_atoms=N)
+    model = torch_default_weights_(CPaiNN(F, 2, n_atoms=N))
     template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=2)
     xs = 0.1 * _rows(4, N, 3, seed=7)
     temps = torch.tensor([[1000.0, 300.0]], device="cuda").expand(4, 2)
@@ -766,8 +768,7 @@ def _div_setup(n, f, layers, c, L):
     from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
     from ti_torch.ops import div_kernel as dk
 
-    torch.manual_seed(0)
-    model = CPaiNN(f, layers, n_atoms=n)
+    model = torch_default_weights_(CPaiNN(f, layers, n_atoms=n))
     p = {k: t.detach().to("cuda") for k, t in model.state_dict().items()}
     template = graph_template(make_synthetic_molecule(n, seed=0), t_cond=2)
     xs = 0.1 * _rows(c, n, 3, seed=7)
@@ -883,14 +884,13 @@ def test_div_kernel_tc_smem_and_tile_counts_are_the_kernels_own():
 # ---- the reference's sampler, the edge form, stage-coupled B4/B5 ---------
 
 def _full_width(b=3, seed=5):
-    """The 00031 width (19 atoms, F = 128, 5 layers), random weights from
-    manual_seed(0), b zero-centred chains, T0 = 1000 K -> T1 = 300 K."""
+    """The 00031 width (19 atoms, F = 128, 5 layers), the smoke's random
+    weights, b zero-centred chains, T0 = 1000 K -> T1 = 300 K."""
     import numpy as np
 
     from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
 
-    torch.manual_seed(0)
-    model = CPaiNN(F, 5, n_atoms=N)
+    model = torch_default_weights_(CPaiNN(F, 5, n_atoms=N))
     template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=2)
     x0 = (0.1 * np.random.default_rng(seed).standard_normal((b, N, 3))).astype(np.float32)
     temps = np.tile(np.array([1000.0, 300.0], np.float32), (b, 1))
@@ -966,3 +966,87 @@ def test_stage_coupled_dense_fused_on_card():
     torch.testing.assert_close(a.xs, b.xs, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(a.dlogp, b.dlogp, rtol=1e-3,
                                atol=1e-3 * b.dlogp.abs().max().item())
+
+
+def _train_batch(b, seed=12):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x0 = (0.3 * rng.standard_normal((b, N, 3))).astype("float32")
+    x1 = (0.2 * rng.standard_normal((b, N, 3))).astype("float32")
+    temps = np.tile(np.array([1000.0, 300.0], "float32"), (b, 1))
+    t = rng.uniform(0.0, 1.0, b).astype("float32")
+    z = rng.standard_normal((b, N, 3)).astype("float32")
+    return x0, x1, temps, t, z
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl,dtype,b", [("edge", "f32", 12), ("dense", "bf16_agg", 16)])
+def test_train_step_on_card_matches_cpu(impl, dtype, b):
+    """One update's loss and gradients at F = 128, 2 layers, on the card
+    against the CPU from the same weights, batch, t and z (chip_smoke.py
+    phase 12(a)'s bars: f32 loss rtol 1e-5, gradients rtol 1e-4 with atol
+    1e-5 of each leaf's largest |gradient|; bf16_agg loss and the whole
+    gradient within 2e-2), and the optimizer step moves the weights on
+    the card as on the CPU."""
+    _card()
+    from ti_torch.config import MDQM9Config
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+    from ti_torch.interpolants import linear
+    from ti_torch.losses import molecular_velocity_loss
+    from ti_torch.train import common
+
+    template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=2)
+    cfg = MDQM9Config(train_impl=impl, train_compute_dtype=dtype)
+    init = torch_default_weights_(CPaiNN(F, 2, n_atoms=N)).state_dict()
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = CPaiNN(F, 2, n_atoms=N)
+        model.load_state_dict(init)
+        model.to(dev)
+        params = dict(model.named_parameters())
+        x0, x1, temps, t, z = (torch.from_numpy(a).to(dev) for a in _train_batch(b))
+        loss = molecular_velocity_loss(common.make_batched_apply(cfg, model, template), params,
+                                       x0, x1, temps, linear(a=1.0, gamma="sin2"), t=t, z=z)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        got[dev] = (loss.item(), {k: g.cpu() for k, g in zip(params, grads)})
+    (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
+    if dtype == "f32":
+        assert abs(lg - lc) <= 1e-5 * abs(lc)
+        for k in gc:
+            torch.testing.assert_close(gg[k], gc[k], rtol=1e-4,
+                                       atol=1e-5 * gc[k].abs().max().item())
+    else:
+        assert abs(lg - lc) <= 2e-2 * abs(lc)
+        flat_g = torch.cat([gg[k].ravel() for k in sorted(gc)])
+        flat_c = torch.cat([gc[k].ravel() for k in sorted(gc)])
+        assert (flat_g - flat_c).abs().max() <= 2e-2 * flat_c.abs().max()
+
+
+@pytest.mark.gpu
+def test_train_ambient_runs_on_the_card_by_default(tmp_path):
+    """``train_ambient`` with no device trains on the card: its parameters
+    live there, its losses are finite, and its checkpoints are written."""
+    _card()
+    import numpy as np
+
+    from ti_torch.config import MDQM9Config
+    from ti_torch.data.mdqm9 import (
+        MDQM9AmbientDataset,
+        make_synthetic_frames,
+        make_synthetic_molecule,
+    )
+    from ti_torch.train import train_ambient
+
+    mol = make_synthetic_molecule(N, seed=0)
+    frames = np.concatenate([make_synthetic_frames(mol, 24, T, seed=T) for T in (1000, 300)])
+    temps = np.concatenate([np.full(24, 1000.0), np.full(24, 300.0)])
+    ds = MDQM9AmbientDataset.from_arrays(frames, temps, mol)
+    cfg = MDQM9Config(n_features=F, score_layers=2, batch_size=12, n_epochs=2, T0s=[1000, 300],
+                      T1s=[1000, 300], scale_trajs=False, model_save_path=str(tmp_path),
+                      model_save_name="card", use_wandb=False)
+    res = train_ambient(cfg, ds, ds)
+    assert all(p.is_cuda for p in res["params"].values())
+    assert all(np.isfinite(v).all() for v in res["history"].values())
+    assert res["state"].nan_count == 0
+    assert (tmp_path / "card" / "card_1_weights.npz").exists()

@@ -34,10 +34,13 @@ def test_imports_with_jax_blocked():
     assert res.stdout.startswith("ok")
     assert len(mods) >= 17
     assert {"ti_torch.ops.pallas_kernels", "ti_torch.models.cpainn_fused",
-            "ti_torch.ops.div_kernel", "ti_torch.ops.dense_divergence"} <= set(mods)
+            "ti_torch.ops.div_kernel", "ti_torch.ops.dense_divergence",
+            "ti_torch.interpolants", "ti_torch.losses", "ti_torch.train.common",
+            "ti_torch.train.ambient", "ti_torch.utils.logging"} <= set(mods)
 
 
 def test_no_source_imports_jax_or_ti_tpu():
+    assert ROOT / "tools" / "torch_ambient_oracle.py" in set(_port_sources())
     bad = []
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))

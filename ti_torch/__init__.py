@@ -6,7 +6,8 @@ reference). This package imports ``torch`` and never ``jax`` or ``ti_tpu``.
 Subpackages
 -----------
 - ``ti_torch.config``: the typed settings and presets (copy of ti_tpu's)
-- ``ti_torch.data``: SDF reader, molecule templates, synthetic molecules
+- ``ti_torch.data``: SDF reader, molecule templates, synthetic molecules,
+  the reference-layout trajectory ingest and ``MDQM9AmbientDataset``
 - ``ti_torch.models``: cPaiNN as an ``nn.Module``, its edge (gather/scatter)
   form ``apply_edge``, the dense pair forward (``fused=True``: its message
   MLPs in kernels B4/B5), the fused edge-row forward (``cpainn_fused``), the
@@ -23,10 +24,18 @@ Subpackages
   reference's dopri5 route and the Gauss quadrature route) and the
   molecular SDE
 - ``ti_torch.analysis``: importance weights and TFEP free energies
+- ``ti_torch.interpolants``, ``ti_torch.losses``: the stochastic
+  interpolants and the antithetic velocity losses
+- ``ti_torch.train``: the optimizer (clip, L2 decay, Adam in optax's
+  arithmetic), the NaN guard, plateau LR, checkpoints, and the ambient
+  trainer ``train_ambient`` (plain PyTorch under autograd: no kernel has a
+  backward)
+- ``ti_torch.utils``: metric logging
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 What is not ported yet (Simpson and unsegmented Gauss quadrature dlogp,
-lane sharding, training, latent, ADW) raises ``NotImplementedError``.
+lane sharding, the latent and ADW families and their trainers) raises
+``NotImplementedError`` or is absent.
 """
 
 import torch

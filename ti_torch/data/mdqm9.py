@@ -1,19 +1,53 @@
-"""Molecule templates and synthetic MDQM9 stand-ins.
+"""MDQM9 trajectory ingest, molecule templates and synthetic stand-ins.
 
-Port of the sampling-path part of ti_tpu/data/mdqm9.py. A ``MolTemplate``
-takes the place of ti_tpu's ``MolGraph``: the static per-molecule inputs
-of the velocity field (atom ids, edge table, number of conditioning
-temperatures), kept on the host as numpy.
+Port of ti_tpu/data/mdqm9.py (the latent dataset waits for the latent
+slice). A ``MolTemplate`` takes the place of ti_tpu's ``MolGraph``: the
+static per-molecule inputs of the velocity field (atom ids, edge table,
+number of conditioning temperatures), kept on the host as numpy.
+Trajectory files are (8, n_frames, n_atoms, 3) per split, indexed by
+temperature (300..1000 K -> 0..7). Frames stay numpy on the host; an
+epoch's batches go to the device in one copy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
-from ti_torch.data.sdf import Molecule
+from ti_torch.data.sdf import Molecule, parse_sdf_v2000
 from ti_torch.ops.graph import EdgeTable, make_edge_table
+
+# Published per-molecule coordinate scalings
+SCALING_FACTOR = 0.20754094
+SCALING_FACTOR_31 = 0.09729941375
+SCALING_FACTOR_10506 = 0.13163184188306332
+
+TEMPERATURES = tuple(range(300, 1001, 100))
+_TEMP_INDEX = {t: i for i, t in enumerate(TEMPERATURES)}
+
+
+def scaling_factor_for(traj_filename: str) -> float:
+    if "00031" in traj_filename:
+        return SCALING_FACTOR_31
+    if "10506" in traj_filename:
+        return SCALING_FACTOR_10506
+    return SCALING_FACTOR
+
+
+def load_trajs(
+    traj_path: str, split: str, traj_filename: str, temperature: int, scale: bool
+) -> np.ndarray:
+    """(n_frames, n_atoms, 3) frames at one temperature, COM-centred,
+    optionally scaled."""
+    trajs = np.load(os.path.join(traj_path, split, traj_filename))[_TEMP_INDEX[temperature]]
+    trajs = trajs - trajs.mean(axis=1, keepdims=True)
+    if scale:
+        trajs = trajs * scaling_factor_for(traj_filename)
+    return np.asarray(trajs, dtype=np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +78,71 @@ def graph_template(
     ids = np.arange(n) if atom_id_mode == "positional" else mol.atomic_numbers
     return MolTemplate(atom_ids=np.asarray(ids, dtype=np.int64), edges=edges,
                        t_cond=int(t_cond))
+
+
+@dataclasses.dataclass
+class MDQM9AmbientDataset:
+    """Frames at a list of temperatures for T0→T1 transport training.
+
+    Two instances (the T0s list and the T1s list) are zipped with
+    independent shuffles each epoch, so temperature pairs recombine.
+    """
+
+    frames: np.ndarray  # (n, N, 3) float32, centred (+scaled)
+    temps: np.ndarray  # (n,) float32
+    mol: Molecule
+    template: MolTemplate
+
+    @classmethod
+    def load(
+        cls,
+        traj_path: str,
+        sdf_path: str,
+        traj_filename: str,
+        sdf_filename: str = "mdqm9.sdf",
+        split: str = "train",
+        Ts: Sequence[int] = (300,),
+        scale: bool = True,
+        mol_index: Optional[int] = None,
+    ) -> "MDQM9AmbientDataset":
+        if mol_index is None:
+            mol_index = int(traj_filename.split(".")[0])
+        mol = parse_sdf_v2000(os.path.join(sdf_path, sdf_filename), mol_index)
+        data = [load_trajs(traj_path, split, traj_filename, T, scale) for T in Ts]
+        temps = np.concatenate([np.full(len(d), T, dtype=np.float32) for d, T in zip(data, Ts)])
+        return cls(
+            frames=np.concatenate(data, axis=0),
+            temps=temps,
+            mol=mol,
+            template=graph_template(mol, t_cond=2),
+        )
+
+    @classmethod
+    def from_arrays(cls, frames, temps, mol: Molecule, t_cond: int = 2) -> "MDQM9AmbientDataset":
+        return cls(
+            frames=np.asarray(frames, np.float32),
+            temps=np.asarray(temps, np.float32),
+            mol=mol,
+            template=graph_template(mol, t_cond=t_cond),
+        )
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+    def epoch_batches(self, generator: Optional[torch.Generator], batch_size: int,
+                      perm=None, device=None):
+        """(n_batches, B, N, 3) frames and (n_batches, B) temps, shuffled by
+        ``torch.randperm`` from ``generator`` (a CPU generator), or in the
+        order ``perm`` gives; the tail that fills no batch is dropped. Both
+        land on ``device`` (default the CPU) in one copy each."""
+        n = len(self)
+        nb = n // batch_size
+        if perm is None:
+            perm = torch.randperm(n, generator=generator).numpy()
+        perm = np.asarray(perm)[: nb * batch_size]
+        x = torch.from_numpy(self.frames[perm]).reshape(nb, batch_size, *self.frames.shape[1:])
+        t = torch.from_numpy(self.temps[perm]).reshape(nb, batch_size)
+        return x.to(device), t.to(device)
 
 
 def make_synthetic_molecule(n_atoms: int = 19, seed: int = 0) -> Molecule:

@@ -21,44 +21,46 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ti_torch.models.embeddings import MLP
+from ti_torch.models.embeddings import MLP, lecun_normal_
 
 _N_COND = {"ambient": 2, "latent": 1, "none": 0}
 
 
 class EquivariantLinear(nn.Module):
     """Channel-mixing linear map without bias over the (N, F, 3) feature
-    axis; ``weight`` is (out, in) like ``nn.Linear``."""
+    axis; ``weight`` is (out, in) like ``nn.Linear``, drawn lecun-normal
+    over f_in as ti_tpu's kernel is."""
 
-    def __init__(self, f_in: int, f_out: int):
+    def __init__(self, f_in: int, f_out: int, generator=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(f_out, f_in))
-        nn.init.normal_(self.weight, std=f_in ** -0.5)
+        with torch.no_grad():
+            lecun_normal_(self.weight, f_in, generator)
 
     def forward(self, v: torch.Tensor) -> torch.Tensor:  # (..., F, 3)
         return torch.einsum("...fc,gf->...gc", v, self.weight)
 
 
 class SE3Message(nn.Module):
-    def __init__(self, f: int):
+    def __init__(self, f: int, generator=None):
         super().__init__()
-        self.phi = MLP(2 * f, f, 5 * f)
-        self.w = MLP(f, f, 5 * f)
+        self.phi = MLP(2 * f, f, 5 * f, generator)
+        self.w = MLP(f, f, 5 * f, generator)
 
 
 class Update(nn.Module):
-    def __init__(self, f: int):
+    def __init__(self, f: int, generator=None):
         super().__init__()
-        self.u = EquivariantLinear(f, f)
-        self.v = EquivariantLinear(f, f)
-        self.mlp = MLP(2 * f, f, 3 * f)
+        self.u = EquivariantLinear(f, f, generator)
+        self.v = EquivariantLinear(f, f, generator)
+        self.mlp = MLP(2 * f, f, 3 * f, generator)
 
 
 class LayerReadout(nn.Module):
-    def __init__(self, f: int, f_out: int = 1):
+    def __init__(self, f: int, f_out: int = 1, generator=None):
         super().__init__()
-        self.mlp = MLP(f, f, 2 * f_out)
-        self.V = EquivariantLinear(f, f_out)
+        self.mlp = MLP(f, f, 2 * f_out, generator)
+        self.V = EquivariantLinear(f, f_out, generator)
 
 
 class CPaiNN(nn.Module):
@@ -68,6 +70,11 @@ class CPaiNN(nn.Module):
     size ti_tpu infers from the graph. ``cutoff`` None is the complete
     graph (every production config); a finite cutoff masks non-bonded
     pairs farther apart than it, per evaluation.
+
+    A fresh model draws its parameters as flax's ``model.init`` does:
+    Dense and EquivariantLinear kernels lecun-normal, biases 0, LayerNorm
+    scale 1, the embeddings N(0, 1/F). ``generator`` makes the draws (None:
+    PyTorch's global generator).
     """
 
     def __init__(
@@ -84,6 +91,7 @@ class CPaiNN(nn.Module):
         temperatures: Tuple[float, ...] = (300.0, 400.0, 500.0, 600.0, 700.0, 800.0, 900.0, 1000.0),
         conditioning: str = "ambient",
         cutoff: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         if conditioning not in _N_COND:
@@ -101,11 +109,13 @@ class CPaiNN(nn.Module):
         self.atom_embed = nn.Embedding(
             n_types if n_types is not None else max(25, n_atoms or 0), f
         )
-        self.combine = MLP((2 + _N_COND[conditioning]) * f, f, f)
+        for embed in (self.edge_embed, self.atom_embed):  # flax's default_embed_init
+            nn.init.normal_(embed.weight, std=f ** -0.5, generator=generator)
+        self.combine = MLP((2 + _N_COND[conditioning]) * f, f, f, generator)
         for i in range(score_layers):
-            self.add_module(f"message_{i}", SE3Message(f))
-            self.add_module(f"update_{i}", Update(f))
-        self.readout = LayerReadout(f, 1)
+            self.add_module(f"message_{i}", SE3Message(f, generator))
+            self.add_module(f"update_{i}", Update(f, generator))
+        self.readout = LayerReadout(f, 1, generator)
 
     def forward(self, x, t, temps, atom_ids, edges, compute_dtype=None):
         """(B, N, 3) positions -> (B, N, 3) velocity (dense pair form)."""
