@@ -24,7 +24,11 @@ that the path went through its kernels:
   sampler that bench.py prices, and stage-coupled RK4 through B4 and B5;
 - ambient training (``train_ambient``, plain PyTorch under autograd: no
   kernel has a backward), and a field it trained on the card through the
-  main path's kernels B1 and B3.
+  main path's kernels B1 and B3;
+- the latent family: ``sample_latent`` on the latent kernel route (B1 and
+  B3 in f32) and on the published latent profile, ``train_latent``, the
+  BG→TI composition into ``sample_ambient``, and the Simpson and
+  unsegmented Gauss quadrature samplers.
 
     python3 chip_smoke.py
 
@@ -143,13 +147,33 @@ Phases (any failure exits non-zero and prints no result):
      few steps and its ``params`` through ``sample_ambient`` under
      ``fast_profile`` at 128 chains (B1 from pair_layer_tf32x3 and B3 from
      pair_tangent_mma launch; finite samples and dlogp);
- 13. the ``kernels`` line, the card line and the result line.
+ 13. the latent family (``phase_latent``): the latent kernel route
+     (``fast_profile(latent_preset("00031", Ts=[300]), family="latent")``
+     in f32 with ``traj_forward_impl="pair_kernel"`` and
+     ``div_forward_impl="pair_tangent"``) through ``sample_latent`` at 256
+     chains, 1,440 B1 launches from pair_layer_tf32x3 and 40 B3 from
+     pair_tangent_tf32x3, samples/s, and 64 chains against the plain
+     versions (dlogp at phase 4's bar; the samples no farther from the same
+     trajectory in f64 than twice the plain route's); the published latent
+     profile (bf16, the exact divergence, no kernel) at 160 chains with its
+     peak memory, and
+     the multi-temperature preset at its batch of 10; one ``train_latent``
+     update card against CPU (phase 12's bars), 16 trainer steps and that
+     field through the kernel route; the BG→TI composition (a generator at
+     1000 K, then ``sample_ambient`` under ``fast_profile`` at 128 chains,
+     the noise and dlogp passed through, ``calc_importance_weights``);
+     Simpson-9 and unsegmented GL-8 over t in [0, 0.25] at 128 chains in
+     f32, each against its rule recomputed through B3's full frame (rtol
+     1e-3, atol 1e-3 max |dlogp|), beside stage-coupled RK4-16 (the gap
+     reported);
+ 14. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -1206,6 +1230,375 @@ def phase_training(card: str) -> None:
     log(f"[phase 12] {time.perf_counter() - t_phase:.1f} s")
 
 
+LATENT_CHAINS, LATENT_CMP = 256, 64  # latent_preset's batch; the plain-version comparison's
+# the published latent profile (bf16, exact divergence as 57 lanes at once)
+# needs 0.031 + 0.3233 GiB a chain at a node (tools/latent_memory_probe.py):
+# 82.8 GiB at 256 chains. At 224 (72.5 GiB) it ran out of memory after the
+# earlier phases (13.2 GiB of the allocator's cache reserved but unallocated),
+# so it runs at 160 (51.8 GiB)
+PUBLISHED_LATENT_CHAINS = 160
+# phase 13(e): 128 chains, 16 RK4 steps, Simpson-9 and GL-8 over t in [0, 0.25].
+# Along this random field's trajectories the divergence has kinks (the norms of
+# equivariant features that pass near zero), which no rule of 8-9 nodes
+# resolves: the rules are held to themselves recomputed through B3, and their
+# gap to stage-coupled RK4 is reported
+QUAD_CHAINS, QUAD_STEPS, QUAD_POINTS, QUAD_T1 = 128, 16, 9, 0.25
+
+
+def counted(fn):
+    """Run ``fn`` with the launch counts set to 0 just before and read just
+    after: (its result, host seconds to the synchronise, launches by
+    (kernel, library))."""
+    from ti_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, {k: n for k, n in _build.ROUTE_LAUNCHES.items() if n}
+
+
+def by_lib(routes) -> dict:
+    return {f"{k}:{lib}": n for (k, lib), n in routes.items()}
+
+
+def well_frames(n: int, T: float, seed: int) -> np.ndarray:
+    """Exact Boltzmann samples of the origin-centred isotropic well the
+    latent oracles use (sigma_T = 0.25 sqrt(T/300)), centre of mass removed."""
+    f = 0.25 * math.sqrt(T / 300.0) * np.random.default_rng(seed).standard_normal(
+        (n, N_ATOMS, 3))
+    return (f - f.mean(axis=1, keepdims=True)).astype(np.float32)
+
+
+def latent_noise(b: int, seed: int) -> np.ndarray:
+    z = np.random.default_rng(seed).standard_normal((b, N_ATOMS, 3)).astype(np.float32)
+    return z - z.mean(axis=1, keepdims=True)
+
+
+def phase_latent(ambient_model, card: str) -> None:
+    """13. The latent family at the 00031 width (19 atoms, F = 128, 5
+    layers), on origin-centred harmonic wells:
+    (a) the latent kernel route, ``fast_profile(latent_preset("00031",
+        Ts=[300]), family="latent", compute_dtype="f32",
+        traj_forward_impl="pair_kernel", div_forward_impl="pair_tangent")``,
+        through ``sample_latent`` at 256 chains (RK4-64, GL-8, the exact
+        divergence as B3's full orthogonal frame): 1,440 B1 launches from
+        pair_layer_tf32x3 and 40 B3 from pair_tangent_tf32x3, samples/s, the
+        noise COM-free and everything finite; on 64 of those chains against
+        the same sampler built from the plain versions: dlogp at phase 4's
+        bar, the samples (72 RK4 steps carry f32 rounding past phase 4's
+        bar on this field) no farther from the f64 trajectory than twice the
+        plain route's;
+    (b) the published latent profile (``fast_profile(..., family="latent")``
+        as it stands: bf16, the dense forward, no kernel) at
+        PUBLISHED_LATENT_CHAINS chains, its peak memory and samples/s, and
+        the multi-temperature preset ``latent_preset("00031")``
+        (conditioning "latent") at its batch of 10;
+    (c) ``train_latent`` on the card: one update's loss and gradients
+        against the CPU (edge f32 at batch 12, phase 12's bars), 16 steps of
+        the trainer, then its field through route (a) at 256 chains;
+    (d) the BG→TI composition: a generator for T0 = 1000 K on route (a) at
+        128 chains, its samples through ``sample_ambient`` under
+        ``fast_profile(ambient_preset("00031"))`` with the noise and dlogp
+        passed through (180 B1, 40 B3), and ``calc_importance_weights``;
+    (e) Simpson-9 and the unsegmented GL-8 sampler at 128 chains in f32
+        (``impl="dense_fused"``: B4, B5) over t in [0, 0.25], each against
+        its rule recomputed by hand from B3's full frame at its nodes (phase
+        4's bars), and beside stage-coupled RK4-16 with the exact divergence
+        in every stage (the gap reported; Simpson's trajectory equal to it).
+    Phases (a), (b), (d) and (e) run on ``torch_default_weights_``; (c)
+    trains from flax's initialisation."""
+    from ti_torch.analysis.weights import calc_ess, calc_importance_weights
+    from ti_torch.config import ambient_preset, fast_profile, latent_preset
+    from ti_torch.data.mdqm9 import MDQM9LatentDataset, graph_template, make_synthetic_molecule
+    from ti_torch.interpolants import one_sided_linear
+    from ti_torch.losses import molecular_velocity_loss
+    from ti_torch.models.cpainn import CPaiNN
+    from ti_torch.ops.pair_layer_kernel import pair_kernel_drift
+    from ti_torch.ops.pair_tangent_kernel import pair_tangent_div_fn
+    from ti_torch.sampling.drivers import (
+        make_ode_sampler,
+        molecular_v_fn_of,
+        sample_ambient,
+        sample_latent,
+    )
+    from ti_torch.sampling.integrators import (
+        gauss_dlogp_schedule,
+        sample_ode,
+        sample_ode_times,
+        simpson_dlogp,
+    )
+    from ti_torch.train import common, train_latent
+    from ti_torch.train.latent import build_latent_model
+
+    t_phase = time.perf_counter()
+    mol = make_synthetic_molecule(N_ATOMS, seed=0)
+    tpl = {k: graph_template(mol, t_cond=k) for k in (0, 1, 2)}
+
+    def kernel_route(Ts, **over):
+        return fast_profile(latent_preset("00031", Ts=Ts, **over), family="latent",
+                            compute_dtype="f32", traj_forward_impl="pair_kernel",
+                            div_forward_impl="pair_tangent")
+
+    def route_launches(cfg, batches=1):
+        """B1 and B3 launches of ``batches`` batches on the segmented Gauss
+        path: (1 + GL) gaps of m RK steps, GL nodes, one launch a layer."""
+        gl = cfg.dlogp_quad_points
+        m = min(-(-cfg.n_steps // (gl + 1)), cfg.steps_per_dispatch)
+        return (batches * (gl + 1) * m * {"rk4": 4}[cfg.solver_type] * LAYERS,
+                batches * gl * LAYERS)
+
+    # (a) the latent kernel route
+    cfg = kernel_route([300])
+    require((cfg.batch_size, cfg.n_steps, cfg.dlogp_quad, cfg.dlogp_quad_points, cfg.divergence,
+             cfg.n_features, cfg.score_layers) == (LATENT_CHAINS, 64, "gauss", 8, "exact", F, LAYERS),
+            "the latent kernel route at the 00031 width")
+    n_b1, n_b3 = route_launches(cfg)
+    require((n_b1, n_b3) == (1440, 40), f"1,440 B1 and 40 B3 launches a batch: {(n_b1, n_b3)}")
+    want = {("pair_layer", "pair_layer_tf32x3"): n_b1, ("pair_tangent", "pair_tangent_tf32x3"): n_b3}
+    model = torch_default_weights_(build_latent_model(cfg, N_ATOMS))
+    noise = latent_noise(LATENT_CHAINS, seed=3)
+    small = sample_latent(cfg, model, None, tpl[0], noise=noise[:LATENT_CMP], save=False,
+                          batch_size=LATENT_CMP, device="cuda")  # also the warm-up
+    out, secs, routes = counted(lambda: sample_latent(cfg, model, None, tpl[0], noise=noise,
+                                                      save=False, device="cuda"))
+    drift = float(np.abs(out["samples"][:, -1].mean(axis=1)).max())
+    log(f"[latent kernel route] {LATENT_CHAINS} chains in {secs:.3f} s, "
+        f"{LATENT_CHAINS / secs:.3f} samples/s (host clock, {card}); launches by library "
+        f"{by_lib(routes)}; dlogp mean {out['dlogps'].mean():.4f}; largest |centre of mass| of "
+        f"a generated sample {drift:.3e} (the field is not COM-preserving)")
+    require(routes == want, f"every B1 launch of the latent route from pair_layer_tf32x3 and "
+            f"every B3 launch from pair_tangent_tf32x3: {routes}")
+    require(out["samples"].shape == (LATENT_CHAINS, 2, N_ATOMS, 3)
+            and np.isfinite(out["samples"]).all() and np.isfinite(out["dlogps"]).all(),
+            "latent kernel route: shapes and finite samples and dlogp")
+    require(np.array_equal(out["samples"][:, 0], noise)
+            and float(np.abs(noise.mean(axis=1)).max()) < 1e-6,
+            "latent kernel route: the samples start at the COM-free noise")
+    plain = make_ode_sampler(
+        molecular_v_fn_of(model, None, tpl[0], device="cuda"), solver=cfg.solver_type,
+        n_steps=cfg.n_steps, n_save=2, divergence="exact",
+        steps_per_dispatch=cfg.steps_per_dispatch, dlogp_quad_points=cfg.dlogp_quad_points,
+        dlogp_quad="gauss",
+        traj_drift=pair_kernel_drift(model, None, tpl[0], device="cuda", kernel=False),
+        div_drift=pair_tangent_div_fn(model, None, tpl[0], num_probes=3 * N_ATOMS,
+                                      probe_mode="orthogonal", device="cuda", kernel=False),
+        device="cuda")
+    t0 = time.perf_counter()
+    ref = plain(noise[:LATENT_CMP], torch.zeros(LATENT_CMP, 0, device="cuda"),
+                torch.Generator(device="cuda").manual_seed(0))
+    t_plain = time.perf_counter() - t0
+    ref_s, ref_d = ref.xs.cpu().numpy(), ref.dlogp[:, -1].cpu().numpy()
+    s_err = float(np.max(np.abs(small["samples"] - ref_s)))
+    d_err = float(np.max(np.abs(small["dlogps"] - ref_d)))
+    # 72 RK4 steps carry f32 rounding far on this field (its velocity has kinks
+    # where the norms of equivariant features pass near zero): the samples of
+    # both f32 routes are held to the same trajectory in f64 (the edge form),
+    # the kernel route no farther from it than twice the plain route is
+    gl = cfg.dlogp_quad_points
+    bounds = np.concatenate([[0.0], 0.5 * (np.polynomial.legendre.leggauss(gl)[0] + 1.0), [1.0]])
+    steps = n_b1 // ((gl + 1) * 4 * LAYERS)  # RK4 steps a gap
+    v64 = molecular_v_fn_of(copy.deepcopy(model).double(), None, tpl[0], impl="edge",
+                            device="cuda")(torch.zeros(LATENT_CMP, 0, dtype=torch.float64,
+                                                       device="cuda"))
+    x64 = torch.as_tensor(noise[:LATENT_CMP], dtype=torch.float64, device="cuda")
+    with torch.no_grad():
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            x64 = sample_ode(v64, x64, t0=float(a), t1=float(b), n_steps=steps).xs[:, -1]
+    x64 = x64.cpu().numpy()
+    k_err = float(np.abs(small["samples"][:, -1] - x64).max())
+    p_err = float(np.abs(ref_s[:, -1] - x64).max())
+    log(f"[latent kernel route] {LATENT_CMP} chains against the plain versions ({t_plain:.2f} s): "
+        f"samples max abs err {s_err:.3e}, dlogp max abs err {d_err:.3e} (max |dlogp| "
+        f"{np.abs(ref_d).max():.4f}); final samples against the f64 trajectory: kernel route "
+        f"{k_err:.3e}, plain route {p_err:.3e} (max |x| {np.abs(x64).max():.3f})")
+    require(k_err <= 2.0 * p_err,
+            "latent kernel route: samples as close to the f64 trajectory as the plain route's")
+    require(np.allclose(small["dlogps"], ref_d, rtol=1e-3, atol=1e-3 * np.abs(ref_d).max()),
+            "latent kernel route: dlogp agrees with the plain versions (rtol 1e-3, atol 1e-3 "
+            "max|dlogp|)")
+
+    # (b) the published profile, and the multi-temperature preset
+    cfg_pub = fast_profile(latent_preset("00031", Ts=[300]), family="latent")
+    require((cfg_pub.compute_dtype, cfg_pub.traj_forward_impl, cfg_pub.div_forward_impl,
+             cfg_pub.divergence) == ("bf16", "default", "default", "exact"),
+            "the published latent profile")
+    b = PUBLISHED_LATENT_CHAINS
+    sample_latent(cfg_pub, model, None, tpl[0], noise=noise[:16], save=False, batch_size=16,
+                  device="cuda")  # warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pub, secs, routes = counted(lambda: sample_latent(cfg_pub, model, None, tpl[0],
+                                                      noise=noise[:b], save=False, batch_size=b,
+                                                      device="cuda"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    diff = pub["dlogps"] - out["dlogps"][:b]
+    log(f"[latent published profile] {b} chains (bf16, exact divergence, dense forward) in "
+        f"{secs:.3f} s, {b / secs:.3f} samples/s, peak memory {peak:.2f} GiB (host clock, "
+        f"{card}); launches {by_lib(routes)}; dlogp minus route (a)'s: mean {diff.mean():.4f}, "
+        f"max |.| {np.abs(diff).max():.4f}")
+    require(not routes, f"the published latent profile runs no kernel: {routes}")
+    require(np.isfinite(pub["samples"]).all() and np.isfinite(pub["dlogps"]).all(),
+            "published latent profile: finite samples and dlogp")
+    cfg_all = fast_profile(latent_preset("00031"), family="latent")
+    model_all = torch_default_weights_(build_latent_model(cfg_all, N_ATOMS), seed=2)
+    require((cfg_all.batch_size, model_all.conditioning, len(cfg_all.T)) == (10, "latent", 8),
+            "the multi-temperature latent preset")
+    sample_latent(cfg_all, model_all, None, tpl[1], n_samples=10, save=False, device="cuda")
+    allt, secs, routes = counted(lambda: sample_latent(cfg_all, model_all, None, tpl[1],
+                                                       n_samples=10, save=False, device="cuda"))
+    log(f"[latent all temperatures] 10 chains at {cfg_all.sampling_T} K (conditioning latent, "
+        f"bf16) in {secs:.3f} s, {10 / secs:.3f} samples/s ({card}); launches {by_lib(routes)}")
+    require(np.isfinite(allt["samples"]).all() and np.isfinite(allt["dlogps"]).all(),
+            "multi-temperature latent preset: finite samples and dlogp")
+
+    # (c) latent training on the card
+    frames = well_frames(96, 300, seed=5)
+    ds = MDQM9LatentDataset.from_arrays(frames, np.full(96, 300.0), mol, t_cond=0)
+    x0s, x1s, _ = ds.epoch_batches(torch.Generator().manual_seed(0), 12)
+    t = torch.from_numpy(np.random.default_rng(13).uniform(0.0, 1.0, 12).astype(np.float32))
+    c_edge = latent_preset("00031", Ts=[300], train_impl="edge", train_compute_dtype="f32")
+    init = torch_default_weights_(build_latent_model(c_edge, N_ATOMS)).state_dict()
+    got = {}
+    for dev in ("cuda", "cpu"):
+        m = build_latent_model(c_edge, N_ATOMS)
+        m.load_state_dict(init)
+        m.to(dev)
+        params = dict(m.named_parameters())
+        t0 = time.perf_counter()
+        loss = molecular_velocity_loss(common.make_batched_apply(c_edge, m, tpl[0]), params,
+                                       x0s[0].to(dev), x1s[0].to(dev),
+                                       torch.zeros(12, 0, device=dev), one_sided_linear(),
+                                       t=t.to(dev))
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        got[dev] = (loss.item(), {k: g.cpu() for k, g in grads.items()},
+                    time.perf_counter() - t0)
+    (lg, gg, sg), (lc, gc, sc) = got["cuda"], got["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    worst = max(((gg[k] - gc[k]).abs() - 1e-4 * gc[k].abs()).max().item()
+                / max(gc[k].abs().max().item(), 1e-30) for k in gc)
+    log(f"[latent train step card vs CPU edge f32 B=12] loss {lg:.7f} vs {lc:.7f} (rel "
+        f"{loss_rel:.2e}, bar 1e-5); gradients: worst (|diff| - 1e-4 |cpu|) / leaf max "
+        f"{worst:.2e} (bar 1e-5), {len(gc)} leaves; card {sg:.2f} s, CPU {sc:.2f} s")
+    require(loss_rel <= 1e-5 and worst <= 1e-5,
+            "latent train step: loss and gradients on the card agree with the CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        c = latent_preset("00031", Ts=[300], batch_size=12, n_epochs=2, scale_trajs=False,
+                          model_save_path=tmp, use_wandb=False)
+        res, t_train, _ = counted(lambda: train_latent(c, ds))
+        require(all(p.is_cuda for p in res["params"].values()), "train_latent ran on the card")
+        require(sorted(os.listdir(os.path.join(tmp, c.model_save_name)))
+                == sorted(["settings.json"] + [f"{c.model_save_name}_{e}.npz" for e in (0, 1)]),
+                "train_latent wrote its checkpoints")
+    n_steps = res["state"].count
+    require(n_steps == 16 and res["state"].nan_count == 0, f"16 finite steps: {n_steps}")
+    trained, secs, routes = counted(lambda: sample_latent(cfg, res["model"], res["params"],
+                                                          tpl[0], noise=noise, save=False,
+                                                          device="cuda"))
+    log(f"[latent trained field] train_latent: {n_steps} steps of batch 12 (edge f32) in "
+        f"{t_train:.2f} s, losses {res['history']['train_loss']}; route (a) at {LATENT_CHAINS} "
+        f"chains in {secs:.3f} s, launches {by_lib(routes)}; dlogp mean "
+        f"{trained['dlogps'].mean():.4f}")
+    require(routes == want, f"the trained field's latent route launches B1 and B3: {routes}")
+    require(np.isfinite(trained["samples"]).all() and np.isfinite(trained["dlogps"]).all(),
+            "the trained field's latent route: finite samples and dlogp")
+
+    # (d) the BG→TI composition: generator at T0 = 1000 K, then ambient 1000 -> 300 K
+    cfg_bg = kernel_route([1000], sampling_T=1000)
+    model_bg = torch_default_weights_(build_latent_model(cfg_bg, N_ATOMS), seed=1)
+    lat, secs_bg, routes = counted(lambda: sample_latent(cfg_bg, model_bg, None, tpl[0],
+                                                         n_samples=TRAIN_CHAINS,
+                                                         batch_size=TRAIN_CHAINS, save=False,
+                                                         device="cuda"))
+    require(routes == want, f"the generator at 1000 K runs route (a): {routes}")
+    z, x0, dlogp_bg = lat["samples"][:, 0], lat["samples"][:, -1], lat["dlogps"]
+    cfg_amb = fast_profile(ambient_preset("00031"))
+    require((cfg_amb.sampling_T0, cfg_amb.sampling_T1) == (1000, 300), "ambient 1000 -> 300 K")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_amb.data_save_path = tmp
+        amb, secs_ti, routes = counted(lambda: sample_ambient(
+            cfg_amb, ambient_model, None, tpl[2], x0, latent_z=z, latent_dlogp=dlogp_bg,
+            batch_size=TRAIN_CHAINS, device="cuda"))
+        saved_z = np.load(os.path.join(tmp, f"latent_noises_{cfg_amb.data_save_name}.npy"))
+    require(routes == {("pair_layer", "pair_layer_tf32x3"): 180,
+                       ("pair_tangent", "pair_tangent_mma"): 40},
+            f"the TI stage launches 180 B1 and 40 B3 (bf16_agg): {routes}")
+    require(np.array_equal(amb["latent_noises"], z) and np.array_equal(saved_z, z)
+            and np.array_equal(amb["latent_dlogps"], dlogp_bg)
+            and np.array_equal(amb["samples"][:, 0], x0),
+            "the latent noise, dlogp and samples pass through the ambient stage unchanged")
+    # the weights as tests/test_bg_ti_composition.py forms them (reduced
+    # energies drawn about 5): the random fields have no target to reweight to
+    E1 = np.random.default_rng(0).normal(5.0, 0.2, len(z))
+    w = calc_importance_weights(amb["latent_noises"], E1, neg_dlogps_bg=amb["latent_dlogps"],
+                                neg_dlogps_ti=amb["dlogps"])
+    log_w = -E1 + 0.5 * np.sum(z.astype(np.float64) ** 2, axis=(1, 2)) \
+        + 0.5 * z[0].size * np.log(2 * np.pi) - dlogp_bg - amb["dlogps"]
+    log(f"[BG→TI] generator {TRAIN_CHAINS} chains at 1000 K in {secs_bg:.3f} s, ambient "
+        f"1000 -> 300 K in {secs_ti:.3f} s ({card}); launches {by_lib(routes)}; log-weights "
+        f"{log_w.min():.2f} .. {log_w.max():.2f}, ESS {calc_ess(w):.3f} of {len(w)}")
+    require(np.all(np.isfinite(w)) and np.all(w > 0), "BG→TI: finite, positive weights")
+    require(np.allclose(np.log(w), log_w, rtol=1e-6, atol=1e-4),  # f32 noise and dlogps
+            "BG→TI: the analysis layer's weights combine both dlogps")
+
+    # (e) Simpson and the unsegmented Gauss sampler: each against its own rule
+    # recomputed from B3's full frame at its nodes, and beside stage-coupled RK4
+    v_of = molecular_v_fn_of(model, None, tpl[0], impl="dense_fused", device="cuda")
+    x0q, temps0 = noise[:QUAD_CHAINS], torch.zeros(QUAD_CHAINS, 0, device="cuda")
+    quads = {}
+    simpson = f"Simpson-{QUAD_POINTS}"
+    for name, over in (("stage-coupled RK4", {}), (simpson, dict(dlogp_quad_points=QUAD_POINTS)),
+                       ("GL-8 unsegmented", dict(dlogp_quad="gauss", dlogp_quad_points=8))):
+        sampler = make_ode_sampler(v_of, solver="rk4", n_steps=QUAD_STEPS, n_save=2, t1=QUAD_T1,
+                                   divergence="exact", device="cuda", **over)
+        sol, secs, routes = counted(lambda: sampler(x0q, temps0))
+        quads[name] = (sol.xs.cpu().numpy(), sol.dlogp[:, -1].cpu().numpy())
+        log(f"[quadrature {name}] {QUAD_CHAINS} chains, {QUAD_STEPS} RK4 steps over t in "
+            f"[0, {QUAD_T1}], f32 (dense_fused): {secs:.3f} s, nfe {sol.nfe}; launches "
+            f"{by_lib(routes)}")
+        require(set(routes) == {("fused_edge_mlp", "fused_edge_mlp_tf32x3"),
+                                ("fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3")},
+                f"{name}: B4 and B5 on the tensor cores: {routes}")
+        require(np.isfinite(quads[name][0]).all() and np.isfinite(quads[name][1]).all(),
+                f"{name}: finite")
+    # the rules by hand: the trajectory at the nodes, the divergence there from
+    # B3's full orthogonal frame (f32, an independent route), the weights
+    v = v_of(temps0)
+    x0t = torch.as_tensor(x0q, device="cuda")
+    frame = pair_tangent_div_fn(model, None, tpl[0], num_probes=3 * N_ATOMS,
+                                probe_mode="orthogonal", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        grid = sample_ode(v, x0t, t1=QUAD_T1, n_steps=QUAD_STEPS, n_save=QUAD_POINTS).xs
+        ts = np.linspace(0.0, QUAD_T1, QUAD_POINTS)
+        divs = torch.stack([frame(grid[:, k], float(ts[k]), temps0, gen)
+                            for k in range(QUAD_POINTS)], dim=1)
+        by_hand = {simpson: simpson_dlogp(divs, 0.0, QUAD_T1, 2)[:, -1]}
+        ts, node_idx, node_w, _ = gauss_dlogp_schedule(0.0, QUAD_T1, QUAD_STEPS, 8, 2)
+        states = sample_ode_times(v, x0t, ts)
+        divs = torch.stack([frame(states[:, k], float(ts[k]), temps0, gen)
+                            for k in node_idx[0]], dim=1)
+        by_hand["GL-8 unsegmented"] = -(divs * torch.as_tensor(node_w[0], device="cuda")).sum(1)
+    ref_x, ref_d = quads["stage-coupled RK4"]
+    for name, hand in by_hand.items():
+        xs, d = quads[name]
+        hand = hand.cpu().numpy()
+        err = float(np.abs(d - hand).max())
+        gap = d - ref_d
+        log(f"[quadrature {name}] dlogp against its rule by hand through B3's frame: max abs err "
+            f"{err:.3e} (max |dlogp| {np.abs(hand).max():.3f}); against stage-coupled RK4-"
+            f"{QUAD_STEPS}: mean {gap.mean():.4f}, max |.| {np.abs(gap).max():.4f}, relative "
+            f"{np.abs(gap).max() / np.abs(ref_d).max():.2e}; final samples max abs diff "
+            f"{np.abs(xs[:, -1] - ref_x[:, -1]).max():.3e}")
+        require(np.allclose(d, hand, rtol=1e-3, atol=1e-3 * np.abs(hand).max()),
+                f"{name}: dlogp is its quadrature rule (rtol 1e-3, atol 1e-3 max|dlogp|)")
+    require(np.allclose(quads[simpson][0], ref_x, rtol=1e-5, atol=1e-6),
+            "Simpson's trajectory is stage-coupled RK4's (same steps, rtol 1e-5 / atol 1e-6)")
+    log(f"[phase 13] {time.perf_counter() - t_phase:.1f} s")
+
+
 def b7_macs(c: int, n: int, layers: int) -> float:
     """Multiply-adds the function of kernel B7 needs for c chains: per chain
     and layer the primal message MLPs once (phi 8F² + w 7F² per pair row),
@@ -1847,7 +2240,10 @@ def main() -> int:
     # ---- 12. ambient training on the card, a trained field through B1 and B3 ----
     phase_training(card)
 
-    # ---- 13. result lines ----
+    # ---- 13. the latent family through B1 and B3, the BG→TI composition, quadrature ----
+    phase_latent(model, card)
+
+    # ---- 14. result lines ----
     path_launches = {"pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_tangent": launches["pair_tangent"],

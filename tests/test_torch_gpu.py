@@ -1050,3 +1050,75 @@ def test_train_ambient_runs_on_the_card_by_default(tmp_path):
     assert all(np.isfinite(v).all() for v in res["history"].values())
     assert res["state"].nan_count == 0
     assert (tmp_path / "card" / "card_1_weights.npz").exists()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Ts", [[300], [300, 500, 700]], ids=["none", "latent"])
+def test_latent_kernel_route_matches_plain_route(Ts):
+    """``sample_latent`` on the latent kernel route (``fast_profile(family=
+    "latent")`` in f32 with B1's trajectory and B3's full orthogonal frame,
+    temps (B, 0) or (B, 1)) against the same sampler built from the plain
+    versions on the same noise, 2 layers, 8 chains, RK4-9, GL-8: samples
+    rtol 1e-4 / atol 1e-5, dlogp rtol 1e-3 with atol 1e-3 of max |dlogp|
+    (chip_smoke.py phase 4's bars); every B1 launch from pair_layer_tf32x3
+    (9 gaps x 1 step x 4 stages x 2 layers) and every B3 launch from
+    pair_tangent_tf32x3 (8 nodes x 2 layers)."""
+    import numpy as np
+
+    from ti_torch.config import fast_profile, latent_preset
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+    from ti_torch.ops.pair_layer_kernel import pair_kernel_drift
+    from ti_torch.ops.pair_tangent_kernel import pair_tangent_div_fn
+    from ti_torch.sampling.drivers import make_ode_sampler, molecular_v_fn_of, sample_latent
+    from ti_torch.train.latent import build_latent_model
+
+    _card()
+    cfg = fast_profile(latent_preset("00031", Ts=Ts, score_layers=2, batch_size=8),
+                       family="latent", compute_dtype="f32", traj_forward_impl="pair_kernel",
+                       div_forward_impl="pair_tangent", n_steps=9)
+    t_cond = 1 if len(Ts) > 1 else 0
+    model = torch_default_weights_(build_latent_model(cfg, N))
+    template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=t_cond)
+    z = np.random.default_rng(0).standard_normal((8, N, 3)).astype(np.float32)
+    z -= z.mean(axis=1, keepdims=True)
+    _build.reset_launches()
+    out = sample_latent(cfg, model, None, template, n_samples=8, noise=z, save=False,
+                        device="cuda")
+    torch.cuda.synchronize()
+    assert dict(_build.ROUTE_LAUNCHES) == {("pair_layer", "pair_layer_tf32x3"): 9 * 4 * 2,
+                                           ("pair_tangent", "pair_tangent_tf32x3"): 8 * 2}
+    plain = make_ode_sampler(
+        molecular_v_fn_of(model, None, template, device="cuda"), solver="rk4", n_steps=9,
+        n_save=2, divergence="exact", steps_per_dispatch=cfg.steps_per_dispatch,
+        dlogp_quad_points=8, dlogp_quad="gauss",
+        traj_drift=pair_kernel_drift(model, None, template, device="cuda", kernel=False),
+        div_drift=pair_tangent_div_fn(model, None, template, num_probes=3 * N,
+                                      probe_mode="orthogonal", device="cuda", kernel=False),
+        device="cuda")
+    temps = torch.full((8, t_cond), float(cfg.sampling_T), device="cuda")
+    ref = plain(z, temps, torch.Generator(device="cuda").manual_seed(0))
+    ref_dlogp = ref.dlogp[:, -1].cpu().numpy()
+    np.testing.assert_allclose(out["samples"], ref.xs.cpu().numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(out["dlogps"], ref_dlogp, rtol=1e-3,
+                               atol=1e-3 * np.abs(ref_dlogp).max())
+    np.testing.assert_array_equal(out["samples"][:, 0], z)
+
+
+@pytest.mark.gpu
+def test_train_latent_runs_on_the_card_by_default(tmp_path):
+    import numpy as np
+
+    from ti_torch.config import MDQM9Config
+    from ti_torch.data.mdqm9 import MDQM9LatentDataset, make_synthetic_molecule
+    from ti_torch.train import train_latent
+
+    _card()
+    mol = make_synthetic_molecule(5, seed=0)
+    frames = 0.25 * np.random.default_rng(0).standard_normal((32, 5, 3)).astype(np.float32)
+    ds = MDQM9LatentDataset.from_arrays(frames - frames.mean(1, keepdims=True),
+                                        np.full(32, 300.0), mol, t_cond=0)
+    cfg = MDQM9Config(n_features=16, score_layers=1, batch_size=8, n_epochs=2, T=[300],
+                      model_save_path=str(tmp_path), use_wandb=False)
+    res = train_latent(cfg, ds)
+    assert all(p.is_cuda for p in res["params"].values())
+    assert res["state"].count == 8 and np.isfinite(res["history"]["train_loss"]).all()

@@ -36,11 +36,14 @@ def test_imports_with_jax_blocked():
     assert {"ti_torch.ops.pallas_kernels", "ti_torch.models.cpainn_fused",
             "ti_torch.ops.div_kernel", "ti_torch.ops.dense_divergence",
             "ti_torch.interpolants", "ti_torch.losses", "ti_torch.train.common",
-            "ti_torch.train.ambient", "ti_torch.utils.logging"} <= set(mods)
+            "ti_torch.train.ambient", "ti_torch.utils.logging", "ti_torch.ops.kabsch",
+            "ti_torch.train.latent"} <= set(mods)
 
 
 def test_no_source_imports_jax_or_ti_tpu():
-    assert ROOT / "tools" / "torch_ambient_oracle.py" in set(_port_sources())
+    assert {ROOT / "tools" / name for name in (
+        "torch_ambient_oracle.py", "torch_latent_oracle.py", "latent_memory_probe.py")} <= set(
+        _port_sources())
     bad = []
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -180,20 +180,22 @@ def test_sampler_guards(setup):
     div_fn = pair_tangent_div_fn(model, params, template, num_probes=4, device="cpu")
     with pytest.raises(ValueError, match="probe_crn"):
         make_ode_sampler(v_of, steps_per_dispatch=4, probe_crn=True, div_drift=div_fn, **gauss)
-    # dopri5 and stage-coupled dlogp run now; what stays unported raises,
-    # naming the slice it comes with
+    # dopri5, stage-coupled dlogp, Simpson and the unsegmented Gauss sampler
+    # run now; lane sharding stays unported and raises, naming the slice it
+    # comes with
     x0 = x0[:2]
     temps = np.tile(np.array([700.0, 300.0], np.float32), (2, 1))
     d5 = make_ode_sampler(v_of, solver="dopri5", return_dlogp=False, device="cpu")(x0, temps)
     rk = make_ode_sampler(v_of, solver="rk4", n_steps=2, device="cpu")(x0, temps)
-    for sol in (d5, rk):
+    quads = [make_ode_sampler(v_of, solver="rk4", n_steps=8, device="cpu", **q)(x0, temps)
+             for q in (dict(dlogp_quad_points=5), dict(dlogp_quad="gauss", dlogp_quad_points=4))]
+    for sol in (d5, rk, *quads):
         assert sol.xs.shape == (2, 2, N_ATOMS, 3) and bool(torch.isfinite(sol.xs).all())
-    assert bool(torch.isfinite(rk.dlogp).all()) and bool((rk.dlogp[:, -1] != 0).all())
+    for sol in (rk, *quads):
+        assert bool(torch.isfinite(sol.dlogp).all()) and bool((sol.dlogp[:, -1] != 0).all())
     assert d5.nfe.shape == (2,) and bool((d5.nfe > 0).all())
-    for refused in (dict(dlogp_quad_points=5), dict(dlogp_quad="gauss", dlogp_quad_points=4),
-                    dict(div_axis="lanes")):
-        with pytest.raises(NotImplementedError, match="slice"):
-            make_ode_sampler(v_of, solver="rk4", n_steps=8, device="cpu", **refused)
+    with pytest.raises(NotImplementedError, match="slice"):
+        make_ode_sampler(v_of, solver="rk4", n_steps=8, device="cpu", div_axis="lanes")
 
 
 def test_no_silent_cpu(setup, monkeypatch):

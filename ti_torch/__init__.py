@@ -7,35 +7,36 @@ Subpackages
 -----------
 - ``ti_torch.config``: the typed settings and presets (copy of ti_tpu's)
 - ``ti_torch.data``: SDF reader, molecule templates, synthetic molecules,
-  the reference-layout trajectory ingest and ``MDQM9AmbientDataset``
+  the reference-layout trajectory ingest, ``MDQM9AmbientDataset`` and
+  ``MDQM9LatentDataset``
 - ``ti_torch.models``: cPaiNN as an ``nn.Module``, its edge (gather/scatter)
   form ``apply_edge``, the dense pair forward (``fused=True``: its message
   MLPs in kernels B4/B5), the fused edge-row forward (``cpainn_fused``), the
   flax weight bridge
 - ``ti_torch.ops``: graph tables, MLP-block math, divergence estimators
-  (``divergence``, the hand-propagated ``dense_divergence``) and the
+  (``divergence``, the hand-propagated ``dense_divergence``), Kabsch
+  alignment (``kabsch``) and the
   hand-written CUDA kernels (``csrc/``): B1 the pair layer and B2 its
   chain-blocked form (``pair_layer_kernel``), B3 the pair tangent
   (``pair_tangent_kernel``), B4 the fused edge MLP, B5 its tangent and B6
   the row-tiled MLP (``pallas_kernels``), B7 the whole-network exact
   divergence (``div_kernel``)
 - ``ti_torch.sampling``: fixed-step RK and adaptive dopri5 integrators with
-  stage-coupled dlogp, Euler–Maruyama, the ambient sampling driver (the
-  reference's dopri5 route and the Gauss quadrature route) and the
-  molecular SDE
+  stage-coupled dlogp, Simpson and Gauss-Legendre quadrature dlogp,
+  Euler–Maruyama, the ambient and latent sampling drivers (the reference's
+  dopri5 route and the quadrature routes) and the molecular SDE
 - ``ti_torch.analysis``: importance weights and TFEP free energies
 - ``ti_torch.interpolants``, ``ti_torch.losses``: the stochastic
   interpolants and the antithetic velocity losses
 - ``ti_torch.train``: the optimizer (clip, L2 decay, Adam in optax's
-  arithmetic), the NaN guard, plateau LR, checkpoints, and the ambient
-  trainer ``train_ambient`` (plain PyTorch under autograd: no kernel has a
-  backward)
+  arithmetic), the NaN guard, plateau LR, checkpoints, the ambient
+  trainer ``train_ambient`` and the latent trainer ``train_latent`` (plain
+  PyTorch under autograd: no kernel has a backward)
 - ``ti_torch.utils``: metric logging
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-What is not ported yet (Simpson and unsegmented Gauss quadrature dlogp,
-lane sharding, the latent and ADW families and their trainers) raises
-``NotImplementedError`` or is absent.
+What is not ported yet (lane sharding, the ADW family and its trainer)
+raises ``NotImplementedError`` or is absent.
 """
 
 import torch

@@ -1,7 +1,7 @@
 """MDQM9 trajectory ingest, molecule templates and synthetic stand-ins.
 
-Port of ti_tpu/data/mdqm9.py (the latent dataset waits for the latent
-slice). A ``MolTemplate`` takes the place of ti_tpu's ``MolGraph``: the
+Port of ti_tpu/data/mdqm9.py: the ambient dataset (frames at a list of
+temperatures) and the latent one (noise paired with frames). A ``MolTemplate`` takes the place of ti_tpu's ``MolGraph``: the
 static per-molecule inputs of the velocity field (atom ids, edge table,
 number of conditioning temperatures), kept on the host as numpy.
 Trajectory files are (8, n_frames, n_atoms, 3) per split, indexed by
@@ -20,6 +20,7 @@ import torch
 
 from ti_torch.data.sdf import Molecule, parse_sdf_v2000
 from ti_torch.ops.graph import EdgeTable, make_edge_table
+from ti_torch.ops.kabsch import kabsch_align
 
 # Published per-molecule coordinate scalings
 SCALING_FACTOR = 0.20754094
@@ -143,6 +144,105 @@ class MDQM9AmbientDataset:
         x = torch.from_numpy(self.frames[perm]).reshape(nb, batch_size, *self.frames.shape[1:])
         t = torch.from_numpy(self.temps[perm]).reshape(nb, batch_size)
         return x.to(device), t.to(device)
+
+
+@dataclasses.dataclass
+class MDQM9LatentDataset:
+    """Noise→data pairs for the latent (Boltzmann-generator) pipeline:
+    x0 ~ N(0, I) with its centre of mass removed and, with ``align``,
+    Kabsch-rotated onto its data frame x1 (the reference's
+    mdqm9/data/mdqm9_latent.py:100-105).
+
+    ``align=True`` is the parity default: the reference configs say "0",
+    but its loader keeps the string and ``if self.align:`` takes "0" as
+    true (``config.latent_preset``).
+    """
+
+    frames: np.ndarray  # (n, N, 3) float32 data (x1), centred (+scaled)
+    temps: np.ndarray  # (n,) float32
+    mol: Molecule
+    template: MolTemplate
+    align: bool = True
+
+    @classmethod
+    def load(
+        cls,
+        traj_path: str,
+        sdf_path: str,
+        traj_filename: str,
+        sdf_filename: str = "mdqm9.sdf",
+        split: str = "train",
+        Ts: Sequence[int] = (300,),
+        scale: bool = True,
+        align: bool = True,
+        mol_index: Optional[int] = None,
+    ) -> "MDQM9LatentDataset":
+        """Frames at each of ``Ts`` from the reference layout; the model is
+        conditioned on the temperature (t_cond 1) only when there are
+        several."""
+        if mol_index is None:
+            mol_index = int(traj_filename.split(".")[0])
+        mol = parse_sdf_v2000(os.path.join(sdf_path, sdf_filename), mol_index)
+        data = [load_trajs(traj_path, split, traj_filename, T, scale) for T in Ts]
+        temps = np.concatenate([np.full(len(d), T, dtype=np.float32) for d, T in zip(data, Ts)])
+        return cls(
+            frames=np.concatenate(data, axis=0),
+            temps=temps,
+            mol=mol,
+            template=graph_template(mol, t_cond=1 if len(Ts) > 1 else 0),
+            align=align,
+        )
+
+    @classmethod
+    def from_arrays(cls, frames, temps, mol: Molecule, t_cond: int = 1,
+                    align: bool = True) -> "MDQM9LatentDataset":
+        return cls(
+            frames=np.asarray(frames, np.float32),
+            temps=np.asarray(temps, np.float32),
+            mol=mol,
+            template=graph_template(mol, t_cond=t_cond),
+            align=align,
+        )
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+    def epoch_batches(self, generator: Optional[torch.Generator], batch_size: int,
+                      perm=None, z=None, device=None):
+        """(nb, B, N, 3) noise x0, (nb, B, N, 3) centred data x1 and (nb, B)
+        temps, on ``device`` (default the CPU).
+
+        The frames are shuffled by ``torch.randperm`` from ``generator`` (a
+        CPU generator), or put in the order ``perm`` gives, and the tail
+        that fills no batch is dropped; then the noise is drawn, nb·B
+        standard normal frames from the same generator, unless ``z``
+        (nb·B, N, 3) gives it. The noise loses its centre of mass and,
+        with ``align``, is rotated onto its data frame."""
+        n = len(self)
+        nb = n // batch_size
+        if perm is None:
+            perm = torch.randperm(n, generator=generator).numpy()
+        perm = np.asarray(perm)[: nb * batch_size]
+        x1 = torch.from_numpy(self.frames[perm]).to(device)
+        if z is None:
+            z = torch.randn(x1.shape, generator=generator, dtype=x1.dtype)
+        elif not torch.is_tensor(z):
+            z = torch.from_numpy(np.array(z, dtype=np.float32))
+        z = z.to(device=device, dtype=x1.dtype).reshape(x1.shape)
+        z = z - z.mean(dim=1, keepdim=True)
+        x1c = x1 - x1.mean(dim=1, keepdim=True)
+        if self.align:
+            z = kabsch_align(z, x1c)
+        shape = (nb, batch_size, *self.frames.shape[1:])
+        t = torch.from_numpy(self.temps[perm]).reshape(nb, batch_size).to(device)
+        return z.reshape(shape), x1c.reshape(shape), t
+
+    def sample_noise(self, generator: Optional[torch.Generator], n: int) -> torch.Tensor:
+        """n frames of COM-free N(0, I) noise for generation, drawn from
+        ``generator`` on its device."""
+        dev = None if generator is None else generator.device
+        z = torch.randn((n, *self.frames.shape[1:]), generator=generator, device=dev)
+        return z - z.mean(dim=1, keepdim=True)
 
 
 def make_synthetic_molecule(n_atoms: int = 19, seed: int = 0) -> Molecule:

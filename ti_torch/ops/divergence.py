@@ -101,29 +101,43 @@ def value_and_divergence(f, x: torch.Tensor, *, mode: str = "exact",
     _no_lane_sharding(axis_name)
     if mode == "exact":
         return divergence_exact(f, x, chunk=chunk)
-    if mode in ("hutchinson", "hutchpp") and generator is None and draws is None:
+    if mode not in ("hutchinson", "hutchpp"):
+        raise ValueError(f"unknown divergence mode {mode!r}")
+    if generator is None and draws is None:
         raise ValueError(f"{mode} mode requires a torch.Generator")
-    b, d = x.shape[0], x[0].numel()
+    if draws is None:
+        draws = draw_probes(generator, mode, x.shape[0], x[0].numel(), num_probes=num_probes,
+                            probe_mode=probe_mode, probe_crn=probe_crn, dtype=x.dtype)
+    a, c = (t.to(x.dtype) for t in draws)
     if mode == "hutchinson":
-        if draws is not None:
-            z, w = draws
-        elif probe_crn:
-            z, w = _probe_block(generator, num_probes, d, probe_mode)
-            z, w = z.expand(b, *z.shape), w.expand(b, *w.shape)
-        else:
-            z, w = _probe_block(generator, num_probes, d, probe_mode, shape=(b,))
-        return divergence_hutchinson(f, x, z=z.to(x.dtype), w=w.to(x.dtype),
-                                     probe_mode=probe_mode, return_var=return_var)
-    if mode == "hutchpp":
-        if draws is None and not probe_crn:
-            return divergence_hutchpp(f, x, generator, num_queries=num_probes)
-        if draws is None:
-            s = max(1, num_probes // 3)
-            S = _probe_block(generator, s, d, "rademacher", dtype=x.dtype)[0]
-            g = _probe_block(generator, num_probes - 2 * s, d, "rademacher", dtype=x.dtype)[0]
-            draws = S.expand(b, *S.shape), g.expand(b, *g.shape)
-        return divergence_hutchpp(f, x, S=draws[0].to(x.dtype), g=draws[1].to(x.dtype))
-    raise ValueError(f"unknown divergence mode {mode!r}")
+        return divergence_hutchinson(f, x, z=a, w=c, probe_mode=probe_mode,
+                                     return_var=return_var)
+    return divergence_hutchpp(f, x, S=a, g=c)
+
+
+def draw_probes(generator: torch.Generator, mode: str, b: int, d: int, *, num_probes: int = 8,
+                probe_mode: str = "rademacher", probe_crn: bool = False,
+                dtype=torch.float32):
+    """The probes ``value_and_divergence`` draws for b chains of dimension
+    d, in its order: Hutchinson (z (b, K, d), w (b, K)) in ``probe_mode``;
+    Hutch++ (S (b, s, d), g (b, m, d)) Rademacher, s = num_probes // 3 (at
+    least 1) and m = num_probes - 2s. Per chain, or one block shared by every
+    chain (``probe_crn``)."""
+    shape = () if probe_crn else (b,)
+    if mode == "hutchinson":
+        z, w = _probe_block(generator, num_probes, d, probe_mode, shape=shape)
+        out = (z, w)
+    else:
+        s = max(1, num_probes // 3)
+        if num_probes - 2 * s < 1:
+            raise ValueError(f"num_queries={num_probes} too small for sketch s={s} "
+                             "(need num_queries >= 2*s + 1)")
+        out = (_probe_block(generator, s, d, "rademacher", shape=shape, dtype=dtype)[0],
+               _probe_block(generator, num_probes - 2 * s, d, "rademacher", shape=shape,
+                            dtype=dtype)[0])
+    if probe_crn:
+        out = tuple(t.expand(b, *t.shape) for t in out)
+    return out
 
 
 def divergence_exact(f, x: torch.Tensor, chunk: Optional[int] = None, axis_name=None):

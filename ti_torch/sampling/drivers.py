@@ -1,5 +1,5 @@
 """Sampling drivers: batched transport with dlogp and .npy artifacts, and
-the SDE rollout (port of the ambient and SDE paths of
+the SDE rollout (port of the ambient, latent and SDE paths of
 ti_tpu/sampling/drivers.py).
 
 ``sample_ambient`` transports conformations from sampling_T0 to
@@ -17,14 +17,19 @@ None the node runs the dense forward (and its torch.func JVPs) — with
 ``molecular_v_fn_of(impl="dense_fused")`` the message MLPs of that forward
 run as kernels B4 and B5 (ops/pallas_kernels.py), on every route.
 
+``sample_latent`` generates conformations from COM-free noise through the
+same routes (the Boltzmann generator); its samples, noise and dlogp feed
+``sample_ambient``'s latent passthrough for the BG→TI composition.
+
 ``make_ode_sampler`` also takes the fixed-step solvers with stage-coupled
-dlogp or velocity only, in one pass or in segments.
-``sample_molecular_sde`` is Euler–Maruyama over the dense drift or the
-pair-kernel drift (B1, or B2 with ``chain_block`` > 1).
+dlogp or velocity only, in one pass or in segments, adaptive dopri5, and
+Simpson or unsegmented Gauss quadrature dlogp. ``sample_molecular_sde`` is
+Euler–Maruyama over the dense drift or the pair-kernel drift (B1, or B2
+with ``chain_block`` > 1).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-What ti_tpu has and the port not yet (Simpson quadrature, the unsegmented
-Gauss sampler, lane sharding, latent, ADW) raises NotImplementedError.
+Lane sharding (``div_axis``) raises NotImplementedError: it comes with the
+parallel slice; ``sample_adw`` with the ADW slice.
 """
 
 from __future__ import annotations
@@ -37,17 +42,21 @@ import torch
 
 from ti_torch import resolve_device
 from ti_torch.config import MDQM9Config
-from ti_torch.ops.divergence import value_and_divergence
 from ti_torch.sampling.integrators import (
     ODESolution,
+    _check_quad,
     _tableau,
     check_divergence,
     dopri5_stepper,
     n_short,
+    node_divergences,
     sample_ode,
     sample_ode_dopri5,
+    sample_ode_gauss_dlogp,
+    sample_ode_quad_dlogp,
     sample_sde,
     short_of_save_time,
+    simpson_dlogp,
 )
 
 
@@ -89,6 +98,7 @@ def make_ode_sampler(
     div_axis=None,
     probe_crn: bool = False,
     probe_mode: str = "rademacher",
+    node_batch: Optional[int] = None,
     traj_drift: Optional[Callable] = None,
     div_drift: Optional[Callable] = None,
     return_dlogp_var: bool = False,
@@ -110,10 +120,19 @@ def make_ode_sampler(
       rounds; the segmented dopri5 takes the exact divergence only). A
       dopri5 chain that runs out of steps before a save time raises.
       ``return_dlogp=False`` is velocity-only transport, dlogp zero;
-    - the segmented Gauss quadrature-dlogp path (``dlogp_quad='gauss'``,
-      ``dlogp_quad_points`` nodes per save interval, ``steps_per_dispatch``
-      capping the RK steps per trajectory gap): velocity-only trajectory
-      gaps, then one divergence evaluation per node.
+    - quadrature dlogp (``dlogp_quad_points``, fixed-step solvers): a
+      velocity-only trajectory, then the divergence at a few nodes.
+      ``dlogp_quad='gauss'``: ``dlogp_quad_points`` Gauss-Legendre nodes per
+      save interval, in one pass on the warped grid of
+      ``gauss_dlogp_schedule`` (``steps_per_dispatch=None``), or in
+      trajectory gaps between the nodes of at most ``steps_per_dispatch`` RK
+      steps each. ``dlogp_quad='simpson'``: composite Simpson over
+      ``dlogp_quad_points`` uniform nodes (odd; (points - 1) divides
+      ``n_steps``; n_save - 1 divides (points - 1) with an even quotient),
+      the trajectory in one pass or in segments of at most
+      ``steps_per_dispatch`` steps. ``node_batch`` evaluates the default
+      route's nodes in groups of that size, with the same draws and results
+      as one node at a time.
 
     ``traj_drift(xs, t, conds)`` drives the Gauss path's trajectory
     segments; ``div_drift(xs, t, conds, generator) -> (B,)`` estimates the
@@ -123,8 +142,7 @@ def make_ode_sampler(
     as forward-mode JVPs: exact (in blocks of ``div_chunk`` lanes, None = all
     at once), or Hutchinson probes or Hutch++ queries (``num_probes`` of
     them) from ``generator``, per chain or shared (``probe_crn``).
-    Simpson quadrature, the unsegmented Gauss sampler and ``div_axis`` lane
-    sharding raise ``NotImplementedError``.
+    ``div_axis`` lane sharding raises ``NotImplementedError``.
     """
     dev = resolve_device(device)
     gauss = (dlogp_quad_points is not None and return_dlogp and dlogp_quad == "gauss")
@@ -154,19 +172,18 @@ def make_ode_sampler(
     if dlogp_quad_points is not None and return_dlogp:
         if solver == "dopri5":
             raise ValueError("dlogp_quad_points requires a fixed-step solver")
-        if dlogp_quad != "gauss":
-            raise _later(f"dlogp_quad={dlogp_quad!r} (Simpson quadrature dlogp)",
-                         "integrators")
-        if steps_per_dispatch is None:
-            raise _later("the unsegmented Gauss sampler (steps_per_dispatch=None)",
-                         "integrators")
-        return _gauss_dlogp_sampler(
-            v_fn_of, solver=solver, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
-            gl_points=dlogp_quad_points, divergence=divergence, div_chunk=div_chunk,
-            steps_per_dispatch=steps_per_dispatch, num_probes=num_probes,
-            probe_crn=probe_crn, probe_mode=probe_mode, traj_drift=traj_drift,
-            div_drift=div_drift, return_dlogp_var=return_dlogp_var, device=dev,
-        )
+        quad = dict(solver=solver, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
+                    divergence=divergence, div_chunk=div_chunk,
+                    steps_per_dispatch=steps_per_dispatch, num_probes=num_probes,
+                    probe_crn=probe_crn, probe_mode=probe_mode, node_batch=node_batch,
+                    device=dev)
+        if dlogp_quad == "gauss":
+            return _gauss_dlogp_sampler(
+                v_fn_of, gl_points=dlogp_quad_points, traj_drift=traj_drift,
+                div_drift=div_drift, return_dlogp_var=return_dlogp_var, **quad)
+        if dlogp_quad != "simpson":
+            raise ValueError(f"unknown dlogp_quad {dlogp_quad!r} (simpson | gauss)")
+        return _quad_dlogp_sampler(v_fn_of, div_points=dlogp_quad_points, **quad)
     div = dict(return_dlogp=return_dlogp, divergence=divergence, div_chunk=div_chunk,
                num_probes=num_probes, probe_mode=probe_mode, probe_crn=probe_crn)
     if solver == "dopri5":
@@ -175,6 +192,21 @@ def make_ode_sampler(
                                device=dev, **div)
     return _fixed_sampler(v_fn_of, solver=solver, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
                           steps_per_dispatch=steps_per_dispatch, device=dev, **div)
+
+
+def _any_batch(v_fn_of, conds):
+    """The velocity of ``v_fn_of(conds)`` for k stacked copies of the chain
+    batch as well (the node groups of ``node_batch``): the conditioning is
+    tiled k times, once for each k."""
+    made = {}
+
+    def v(x, t):
+        k = x.shape[0] // conds.shape[0]
+        if k not in made:
+            made[k] = v_fn_of(conds.repeat(k, *([1] * (conds.dim() - 1))))
+        return made[k](x, t)
+
+    return v
 
 
 def _segments_per_interval(per_save: int, steps_per_dispatch: int) -> int:
@@ -262,17 +294,69 @@ def _dopri5_sampler(v_fn_of, *, t0, t1, n_save, atol, rtol, max_steps, steps_per
     return sampler
 
 
+def _quad_dlogp_sampler(
+    v_fn_of, *, solver, t0, t1, n_steps, n_save, div_points, divergence, div_chunk,
+    steps_per_dispatch, num_probes, probe_crn, probe_mode, node_batch, device,
+):
+    """Simpson-quadrature dlogp: ``sample_ode_quad_dlogp`` on the whole
+    chain batch, or with ``steps_per_dispatch`` the velocity-only
+    trajectory in segments (``_fixed_sampler``) saving the div_points grid,
+    then the divergence at every grid node and cumulative Simpson."""
+    _check_quad(div_points, n_steps, n_save)
+    div = dict(divergence=divergence, num_probes=num_probes, div_chunk=div_chunk,
+               probe_mode=probe_mode, probe_crn=probe_crn, node_batch=node_batch)
+    n_stages = len(_tableau(solver)[2])
+    traj = None
+    if steps_per_dispatch is not None:
+        traj = _fixed_sampler(v_fn_of, solver=solver, t0=t0, t1=t1, n_steps=n_steps,
+                              n_save=div_points, steps_per_dispatch=steps_per_dispatch,
+                              device=device, return_dlogp=False)
+
+    @torch.no_grad()
+    def sampler(x0s, conds, generator: Optional[torch.Generator] = None) -> ODESolution:
+        x = torch.as_tensor(x0s, dtype=torch.float32, device=device)
+        conds = torch.as_tensor(conds, dtype=torch.float32, device=device)
+        v = _any_batch(v_fn_of, conds)
+        if traj is None:
+            return sample_ode_quad_dlogp(v, x, t0=t0, t1=t1, n_steps=n_steps,
+                                         div_points=div_points, n_save=n_save, method=solver,
+                                         generator=generator, **div)
+        xs = traj(x, conds).xs  # (B, div_points, ...)
+        divs = node_divergences(v, xs.transpose(0, 1), np.linspace(t0, t1, div_points),
+                                generator=generator, **div)
+        out_idx = np.arange(n_save) * ((div_points - 1) // (n_save - 1))
+        return ODESolution(xs=xs[:, out_idx], dlogp=simpson_dlogp(divs, t0, t1, n_save),
+                           nfe=n_steps * n_stages + div_points)
+
+    return sampler
+
+
 def _gauss_dlogp_sampler(
     v_fn_of, *, solver, t0, t1, n_steps, n_save, gl_points, divergence, div_chunk,
-    steps_per_dispatch, num_probes, probe_crn, probe_mode,
+    steps_per_dispatch, num_probes, probe_crn, probe_mode, node_batch,
     traj_drift, div_drift, return_dlogp_var, device,
 ):
-    """Phase 1 integrates gap by gap (a gap lies between consecutive
-    quadrature/save boundaries) with the same number of RK steps per gap;
-    phase 2 evaluates the divergence at every node; dlogp is the
-    Gauss-Legendre weighted sum per save interval."""
+    """Gauss-Legendre dlogp. With ``steps_per_dispatch=None``
+    ``sample_ode_gauss_dlogp`` on the whole chain batch. Otherwise phase 1
+    integrates gap by gap (a gap lies between consecutive quadrature/save
+    boundaries) with the same number of RK steps per gap; phase 2 evaluates
+    the divergence at every node; dlogp is the Gauss-Legendre weighted sum
+    per save interval."""
     if gl_points < 1:
         raise ValueError("gl_points must be >= 1")
+    if steps_per_dispatch is None:
+        div = dict(divergence=divergence, num_probes=num_probes, div_chunk=div_chunk,
+                   probe_mode=probe_mode, probe_crn=probe_crn, node_batch=node_batch)
+
+        @torch.no_grad()
+        def sampler_single(x0s, conds, generator: Optional[torch.Generator] = None):
+            x = torch.as_tensor(x0s, dtype=torch.float32, device=device)
+            v = _any_batch(v_fn_of, torch.as_tensor(conds, dtype=torch.float32, device=device))
+            return sample_ode_gauss_dlogp(v, x, t0=t0, t1=t1, n_steps=n_steps,
+                                          gl_points=gl_points, n_save=n_save, method=solver,
+                                          generator=generator, **div)
+
+        return sampler_single
     if return_dlogp_var and divergence != "hutchinson":
         raise ValueError(
             "return_dlogp_var requires divergence='hutchinson' (the "
@@ -301,15 +385,19 @@ def _gauss_dlogp_sampler(
             return lambda xs, t: traj_drift(xs, t, conds)
         return v_fn_of(conds)
 
-    def node_div(xb, t, conds, generator):
-        if div_drift is not None:
-            return div_drift(xb, t, conds, generator)
-        v = v_fn_of(conds)
-        res = value_and_divergence(lambda y: v(y, t), xb, mode=divergence, generator=generator,
-                                   num_probes=num_probes, chunk=div_chunk,
-                                   probe_mode=probe_mode, probe_crn=probe_crn,
-                                   return_var=return_dlogp_var)
-        return res[1:] if return_dlogp_var else res[1]
+    def node_divs(xs_nodes, conds, generator):
+        """(B, nodes) divergences[, variances] at the nodes (nodes, B, ...)."""
+        if div_drift is None:
+            return node_divergences(
+                _any_batch(v_fn_of, conds), xs_nodes, bounds[node_pos], divergence=divergence,
+                generator=generator, num_probes=num_probes, div_chunk=div_chunk,
+                probe_mode=probe_mode, probe_crn=probe_crn, node_batch=node_batch,
+                return_var=return_dlogp_var)
+        outs = [div_drift(xb, float(t), conds, generator)
+                for xb, t in zip(xs_nodes, bounds[node_pos])]
+        if return_dlogp_var:
+            return tuple(torch.stack(o, dim=1) for o in zip(*outs))
+        return torch.stack(outs, dim=1)
 
     @torch.no_grad()
     def sampler(x0s, conds, generator: torch.Generator) -> ODESolution:
@@ -322,23 +410,18 @@ def _gauss_dlogp_sampler(
                            n_steps=m, method=solver).xs[:, -1]
             states.append(x)
         stacked = torch.stack(states, dim=1)  # (B, len(bounds), ...)
-        divs, dvars = [], []
-        for pos in node_pos:
-            out = node_div(stacked[:, pos], float(bounds[pos]), conds, generator)
-            if return_dlogp_var:
-                divs.append(out[0])
-                dvars.append(out[1])
-            else:
-                divs.append(out)
+        divs = node_divs(stacked[:, node_pos].transpose(0, 1), conds, generator)
+        if return_dlogp_var:
+            divs, dvars = divs
         b = x.shape[0]
         w = torch.as_tensor(node_w, dtype=x.dtype, device=device)
-        divs = torch.stack(divs, dim=1).reshape(b, n_save - 1, gl_points)
+        divs = divs.reshape(b, n_save - 1, gl_points)
         zero = torch.zeros((b, 1), dtype=x.dtype, device=device)
         dlogp = torch.cat([zero, torch.cumsum(-(w[None] * divs).sum(2), dim=1)], dim=1)
         dlogp_var = None
         if return_dlogp_var:
             # independent probe draws per node: Var(dlogp) = sum w^2 var
-            dv = torch.stack(dvars, dim=1).reshape(b, n_save - 1, gl_points)
+            dv = dvars.reshape(b, n_save - 1, gl_points)
             dlogp_var = torch.cat([zero, torch.cumsum(((w ** 2)[None] * dv).sum(2), dim=1)], dim=1)
         nfe = (len(bounds) - 1) * m * n_stages + len(node_pos)
         return ODESolution(xs=stacked[:, save_pos], dlogp=dlogp, nfe=nfe, dlogp_var=dlogp_var)
@@ -463,6 +546,34 @@ def _div_drift_of(cfg, model, params, template, device=None):
     )
 
 
+def _config_sampler(cfg, model, params, template, dev):
+    """The sampler ``cfg`` names for ``model``: its solver and dlogp route,
+    ``n_save`` = n_steps for dopri5, else max(2, n_steps // 50 + 1), and
+    the trajectory and divergence hooks of ``cfg.traj_forward_impl`` and
+    ``cfg.div_forward_impl``."""
+    return make_ode_sampler(
+        molecular_v_fn_of(model, params, template, compute_dtype=_compute_dtype(cfg),
+                          device=dev),
+        solver=cfg.solver_type,
+        n_steps=cfg.n_steps,
+        n_save=cfg.n_steps if cfg.solver_type == "dopri5" else max(2, cfg.n_steps // 50 + 1),
+        atol=cfg.atol,
+        rtol=cfg.rtol,
+        return_dlogp=cfg.return_dlogp,
+        divergence=cfg.divergence,
+        steps_per_dispatch=cfg.steps_per_dispatch or None,
+        dlogp_quad_points=getattr(cfg, "dlogp_quad_points", 0) or None,
+        dlogp_quad=getattr(cfg, "dlogp_quad", "simpson"),
+        num_probes=getattr(cfg, "num_probes", 8),
+        probe_mode=getattr(cfg, "probe_mode", "rademacher"),
+        probe_crn=bool(getattr(cfg, "probe_crn", False)),
+        traj_drift=_traj_drift_of(cfg, model, params, template, dev),
+        div_drift=_div_drift_of(cfg, model, params, template, dev),
+        return_dlogp_var=bool(getattr(cfg, "return_dlogp_var", False)),
+        device=dev,
+    )
+
+
 def sample_ambient(
     cfg: MDQM9Config,
     model,
@@ -486,29 +597,7 @@ def sample_ambient(
     x0 = np.asarray(x0, dtype=np.float32)
     n = len(x0)
     bs = batch_size or cfg.batch_size
-    n_save = cfg.n_steps if cfg.solver_type == "dopri5" else max(2, cfg.n_steps // 50 + 1)
-
-    sampler = make_ode_sampler(
-        molecular_v_fn_of(model, params, template, compute_dtype=_compute_dtype(cfg),
-                          device=dev),
-        solver=cfg.solver_type,
-        n_steps=cfg.n_steps,
-        n_save=n_save,
-        atol=cfg.atol,
-        rtol=cfg.rtol,
-        return_dlogp=cfg.return_dlogp,
-        divergence=cfg.divergence,
-        steps_per_dispatch=cfg.steps_per_dispatch or None,
-        dlogp_quad_points=getattr(cfg, "dlogp_quad_points", 0) or None,
-        dlogp_quad=getattr(cfg, "dlogp_quad", "simpson"),
-        num_probes=getattr(cfg, "num_probes", 8),
-        probe_mode=getattr(cfg, "probe_mode", "rademacher"),
-        probe_crn=bool(getattr(cfg, "probe_crn", False)),
-        traj_drift=_traj_drift_of(cfg, model, params, template, dev),
-        div_drift=_div_drift_of(cfg, model, params, template, dev),
-        return_dlogp_var=bool(getattr(cfg, "return_dlogp_var", False)),
-        device=dev,
-    )
+    sampler = _config_sampler(cfg, model, params, template, dev)
 
     if latent_z is None:
         latent_z = np.zeros_like(x0)
@@ -564,6 +653,77 @@ def _save_ambient(cfg, samples_list, dlogps_list, latent_z, latent_dlogp,
         # (analysis.free_energy.debias_phis)
         np.save(os.path.join(base, f"dlogp_vars_{name}.npy"),
                 np.concatenate(dvars_list, axis=0))
+
+
+# ---------------------------------------------------------------------------
+# MDQM9 latent / Boltzmann generator (reference mdqm9/sample_latent.py)
+# ---------------------------------------------------------------------------
+
+def sample_latent(
+    cfg: MDQM9Config,
+    model,
+    params,
+    template,
+    n_samples: Optional[int] = None,
+    save: bool = True,
+    batch_size: Optional[int] = None,
+    noise: Optional[np.ndarray] = None,
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """Generate conformations at ``cfg.sampling_T`` from COM-free N(0, I)
+    noise, with dlogp, through the route ``cfg`` names (as
+    ``sample_ambient``: the trajectory and divergence hooks of
+    ``cfg.traj_forward_impl``/``cfg.div_forward_impl`` on the segmented
+    Gauss path). ``samples`` is (n, n_save, N, 3), its first save point the
+    noise. Each batch draws its noise from a generator seeded by
+    ``cfg.seed`` (on the device, before the sampler's probes) unless
+    ``noise`` (n, N, 3) gives it, used as it is; a tail batch is padded and
+    sliced back. The model is conditioned on (B, t_cond) temperatures,
+    t_cond 0 or 1 from the template. Writes ``samples_{name}_forward.npy``,
+    ``dlogps_{name}_forward.npy`` (and ``dlogp_vars_{name}_forward.npy``)
+    after every batch. Runs on ``cuda`` unless ``device`` says otherwise."""
+    dev = resolve_device(device)
+    n = n_samples or (len(noise) if noise is not None else cfg.n_latent_samples)
+    bs = batch_size or cfg.batch_size
+    n_atoms = template.n_atoms
+    sampler = _config_sampler(cfg, model, params, template, dev)
+
+    if save:
+        os.makedirs(cfg.data_save_path, exist_ok=True)
+    generator = torch.Generator(device=dev).manual_seed(int(cfg.seed))
+    temps = torch.full((bs, template.t_cond), float(cfg.sampling_T), device=dev)
+    all_samples, all_dlogps, all_dvars, all_nfe = [], [], [], []
+    for i in range(0, n, bs):
+        take = min(bs, n - i)
+        if noise is None:
+            z = torch.randn((bs, n_atoms, 3), generator=generator, device=dev)
+            z = z - z.mean(dim=1, keepdim=True)
+        else:
+            z = torch.as_tensor(np.asarray(noise[i: i + take], np.float32), device=dev)
+            z = torch.cat([z, z[-1:].expand(bs - take, n_atoms, 3)])
+        sol = sampler(z, temps, generator)
+        all_samples.append(sol.xs[:take].cpu().numpy())  # (B, n_save, N, 3)
+        all_dlogps.append(sol.dlogp[:take, -1].cpu().numpy())
+        if sol.dlogp_var is not None:
+            all_dvars.append(sol.dlogp_var[:take, -1].cpu().numpy())
+        all_nfe.append(np.broadcast_to(torch.as_tensor(sol.nfe).cpu().numpy(), (bs,))[:take])
+        if save:  # incremental checkpointing
+            name = cfg.data_save_name
+            arrays = {"samples": all_samples, "dlogps": all_dlogps, "dlogp_vars": all_dvars}
+            for stem, parts in arrays.items():
+                if parts:
+                    np.save(os.path.join(cfg.data_save_path, f"{stem}_{name}_forward.npy"),
+                            np.concatenate(parts, axis=0))
+
+    out = {
+        "samples": np.concatenate(all_samples, axis=0),
+        "dlogps": np.concatenate(all_dlogps, axis=0),
+        "nfe": int(np.max(np.concatenate(all_nfe))),
+        "nfe_per_chain": np.concatenate(all_nfe),
+    }
+    if all_dvars:
+        out["dlogp_vars"] = np.concatenate(all_dvars, axis=0)
+    return out
 
 
 # ---------------------------------------------------------------------------

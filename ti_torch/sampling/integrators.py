@@ -1,6 +1,6 @@
-"""Probability-flow integrators with stage-coupled dlogp, adaptive
-Dormand–Prince 5(4) and the Euler–Maruyama SDE (port of the fixed-step,
-dopri5 and SDE parts of ti_tpu/sampling/integrators.py).
+"""Probability-flow integrators with stage-coupled or quadrature dlogp,
+adaptive Dormand–Prince 5(4) and the Euler–Maruyama SDE (port of
+ti_tpu/sampling/integrators.py).
 
 Batched over chains: a velocity ``v_fn(xs, t)`` maps (B, ...) states to
 (B, ...) velocities with no coupling between chains, and the joint state
@@ -11,6 +11,13 @@ ops/divergence.py). The stochastic estimators draw fresh probes from the
 ``torch.Generator`` at every evaluation, where ti_tpu folds the evaluation
 index into its key; ``probes(eval_idx)`` replaces the draw (the parity
 tests pass JAX's).
+
+The quadrature samplers decouple dlogp from the trajectory: velocity-only
+RK steps, then the divergence at a few nodes, integrated by composite
+Simpson (``sample_ode_quad_dlogp``) or Gauss-Legendre per save interval
+(``sample_ode_gauss_dlogp``, on the warped grid of
+``gauss_dlogp_schedule`` stepped by ``sample_ode_times``). Node i draws
+its probes as evaluation i.
 
 dopri5 keeps ti_tpu's per-chain semantics (one while-loop per chain under
 vmap there): every chain has its own time, step size, accept decision and
@@ -31,7 +38,7 @@ from typing import Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from ti_torch.ops.divergence import _no_lane_sharding, value_and_divergence
+from ti_torch.ops.divergence import _no_lane_sharding, draw_probes, value_and_divergence
 
 DIVERGENCES = ("exact", "hutchinson", "hutchpp")
 
@@ -156,6 +163,186 @@ def sample_ode(v_fn, x0: torch.Tensor, *, t0: float = 0.0, t1: float = 1.0,
             lps.append(lp)
     return ODESolution(xs=torch.stack(xs, dim=1), dlogp=torch.stack(lps, dim=1),
                        nfe=n_steps * n_stages)
+
+
+# ---------------------------------------------------------------------------
+# Quadrature-decoupled dlogp: velocity-only transport, then the divergence
+# at a few nodes of the trajectory.
+# ---------------------------------------------------------------------------
+
+def sample_ode_times(v_fn, x0: torch.Tensor, ts, *, method: str = "rk4") -> torch.Tensor:
+    """Velocity-only RK transport of x0 (B, ...) over an explicit, possibly
+    non-uniform grid of step boundaries ``ts`` (host array, monotone).
+    Returns every state, (B, len(ts), ...)."""
+    ts = np.asarray(ts, dtype=np.float64)
+    rhs = _make_rhs_joint(v_fn, False)
+    x, lp = x0, x0.new_zeros(x0.shape[0])
+    xs = [x]
+    for i in range(len(ts) - 1):
+        x, lp = _rk_step(rhs, x, lp, float(ts[i]), float(ts[i + 1] - ts[i]), method, 0)
+        xs.append(x)
+    return torch.stack(xs, dim=1)
+
+
+def gauss_dlogp_schedule(t0: float, t1: float, n_steps: int, gl_points: int, n_save: int):
+    """The step grid and quadrature bookkeeping of Gauss-Legendre dlogp.
+
+    Per save interval the ``gl_points`` Gauss-Legendre nodes are step
+    boundaries, with RK sub-steps per gap in proportion to its length (at
+    least one), about ``n_steps`` in all. Returns (ts, node_idx (n_save-1,
+    gl_points), node_weights (n_save-1, gl_points), save_idx (n_save,)).
+    """
+    if n_save < 2:
+        raise ValueError("n_save must be >= 2")
+    gl_x, gl_w = np.polynomial.legendre.leggauss(gl_points)  # on [-1, 1]
+    saves = np.linspace(t0, t1, n_save)
+    per_interval = max(gl_points + 1, n_steps // (n_save - 1))
+    ts = [t0]
+    node_idx = np.zeros((n_save - 1, gl_points), dtype=np.int64)
+    node_w = np.zeros((n_save - 1, gl_points))
+    save_idx = [0]
+    for j in range(n_save - 1):
+        lo, hi = saves[j], saves[j + 1]
+        half = 0.5 * (hi - lo)
+        nodes = lo + half * (gl_x + 1.0)
+        node_w[j] = gl_w * half  # the dt/du factor
+        bounds = np.concatenate([[lo], nodes, [hi]])
+        gaps = np.diff(bounds)
+        m = np.maximum(1, np.round(per_interval * np.abs(gaps) / np.abs(hi - lo)).astype(int))
+        for k, (a, g, mk) in enumerate(zip(bounds[:-1], gaps, m)):
+            ts.extend((a + g * np.arange(1, mk + 1) / mk).tolist())
+            if k < gl_points:
+                node_idx[j, k] = len(ts) - 1
+        save_idx.append(len(ts) - 1)
+    return np.asarray(ts), node_idx, node_w, np.asarray(save_idx)
+
+
+def node_divergences(v_fn, xs_nodes: torch.Tensor, ts_nodes, *, divergence: str = "exact",
+                     generator: Optional[torch.Generator] = None, num_probes: int = 8,
+                     div_chunk: Optional[int] = None, probe_mode: str = "rademacher",
+                     probe_crn: bool = False, probes: Optional[Callable] = None,
+                     node_batch: Optional[int] = None, return_var: bool = False):
+    """The divergence of ``v_fn`` at P trajectory nodes, xs_nodes (P, B, ...)
+    at times ``ts_nodes`` (P,): (B, P), and with ``return_var`` the
+    Hutchinson probe variance (B, P) too.
+
+    Node i takes the probes ``probes(i)`` or draws them from ``generator``,
+    node after node. ``node_batch`` evaluates the nodes in groups of that
+    size, a group's k·B chains stacked into one batch for ``v_fn``, with
+    per-chain times (k·B,): the draws and the results are those of one node
+    at a time."""
+    p, b = xs_nodes.shape[0], xs_nodes.shape[1]
+    d = xs_nodes[0, 0].numel()
+    step = 1 if node_batch is None else max(1, int(node_batch))
+    divs, dvars = [], []
+    for i0 in range(0, p, step):
+        group = range(i0, min(i0 + step, p))
+        xg = xs_nodes[i0:group.stop].reshape(len(group) * b, *xs_nodes.shape[2:])
+        if len(group) == 1:
+            tg = float(ts_nodes[i0])
+        else:
+            tg = torch.as_tensor(np.repeat(np.asarray(ts_nodes[i0:group.stop], np.float64), b),
+                                 dtype=xg.dtype, device=xg.device)
+        draws = None
+        if divergence != "exact":
+            per_node = [probes(i) if probes is not None else
+                        draw_probes(generator, divergence, b, d, num_probes=num_probes,
+                                    probe_mode=probe_mode, probe_crn=probe_crn, dtype=xg.dtype)
+                        for i in group]
+            draws = tuple(torch.cat(parts) for parts in zip(*per_node))
+        res = value_and_divergence(lambda y: v_fn(y, tg), xg, mode=divergence,
+                                   generator=generator, num_probes=num_probes, chunk=div_chunk,
+                                   probe_mode=probe_mode, return_var=return_var, draws=draws)
+        divs.append(res[1].reshape(len(group), b))
+        if return_var:
+            dvars.append(res[2].reshape(len(group), b))
+    div = torch.cat(divs).transpose(0, 1)
+    return (div, torch.cat(dvars).transpose(0, 1)) if return_var else div
+
+
+def _check_quad(div_points: int, n_steps: int, n_save: int) -> None:
+    if div_points < 3 or div_points % 2 == 0:
+        raise ValueError("div_points must be odd and >= 3")
+    m = div_points - 1
+    if n_steps % m != 0:
+        raise ValueError("(div_points - 1) must divide n_steps")
+    if (n_save - 1) <= 0 or m % (n_save - 1) != 0 or (m // (n_save - 1)) % 2 != 0:
+        raise ValueError(
+            "n_save - 1 must divide div_points - 1 with an even quotient "
+            "(cumulative Simpson needs paired intervals per output time)"
+        )
+
+
+def simpson_dlogp(divs: torch.Tensor, t0: float, t1: float, n_save: int) -> torch.Tensor:
+    """dlogp (B, n_save) at the save times from the divergence (B, P) at P
+    uniform nodes over [t0, t1]: cumulative composite Simpson of -div over
+    pairs of intervals."""
+    m = divs.shape[1] - 1
+    h = (t1 - t0) / m
+    pair = (h / 3.0) * (divs[:, :-2:2] + 4.0 * divs[:, 1:-1:2] + divs[:, 2::2])
+    cum = torch.cat([divs.new_zeros(divs.shape[0], 1), torch.cumsum(pair, dim=1)], dim=1)
+    return -cum[:, np.arange(n_save) * (m // (n_save - 1)) // 2]
+
+
+def sample_ode_quad_dlogp(v_fn, x0: torch.Tensor, *, t0: float = 0.0, t1: float = 1.0,
+                          n_steps: int = 100, div_points: int = 21, n_save: int = 2,
+                          method: str = "rk4", divergence: str = "exact",
+                          generator: Optional[torch.Generator] = None, num_probes: int = 8,
+                          div_chunk: Optional[int] = None, div_axis=None,
+                          probe_mode: str = "rademacher", probe_crn: bool = False,
+                          probes: Optional[Callable] = None,
+                          node_batch: Optional[int] = None) -> ODESolution:
+    """Transport with Simpson-quadrature dlogp: velocity-only RK over
+    ``n_steps`` uniform steps, saving the ``div_points`` uniform grid, then
+    the divergence at every grid node (``node_divergences``) and cumulative
+    composite Simpson. ``div_points`` is odd, (div_points - 1) divides
+    n_steps, and n_save - 1 divides (div_points - 1) with an even quotient,
+    so the save times are grid nodes. Costs n_stages·n_steps velocity and
+    div_points divergence evaluations a chain. With ``node_batch`` the
+    divergence takes ``v_fn`` on node groups (``node_divergences``)."""
+    _no_lane_sharding(div_axis)
+    check_divergence(divergence, num_probes)
+    _check_quad(div_points, n_steps, n_save)
+    sol = sample_ode(v_fn, x0, t0=t0, t1=t1, n_steps=n_steps, n_save=div_points, method=method)
+    divs = node_divergences(
+        v_fn, sol.xs.transpose(0, 1), np.linspace(t0, t1, div_points), divergence=divergence,
+        generator=generator, num_probes=num_probes, div_chunk=div_chunk, probe_mode=probe_mode,
+        probe_crn=probe_crn, probes=probes, node_batch=node_batch)
+    out_idx = np.arange(n_save) * ((div_points - 1) // (n_save - 1))
+    return ODESolution(xs=sol.xs[:, out_idx], dlogp=simpson_dlogp(divs, t0, t1, n_save),
+                       nfe=sol.nfe + div_points)
+
+
+def sample_ode_gauss_dlogp(v_fn, x0: torch.Tensor, *, t0: float = 0.0, t1: float = 1.0,
+                           n_steps: int = 100, gl_points: int = 8, n_save: int = 2,
+                           method: str = "rk4", divergence: str = "exact",
+                           generator: Optional[torch.Generator] = None, num_probes: int = 8,
+                           div_chunk: Optional[int] = None, div_axis=None,
+                           probe_mode: str = "rademacher", probe_crn: bool = False,
+                           probes: Optional[Callable] = None,
+                           node_batch: Optional[int] = None) -> ODESolution:
+    """Transport with Gauss-Legendre dlogp: ``gl_points`` nodes per save
+    interval, which the warped step grid of ``gauss_dlogp_schedule`` makes
+    exact step boundaries, velocity-only RK over that grid
+    (``sample_ode_times``), then the divergence at the nodes and their
+    weighted sum per interval. With ``node_batch`` the divergence takes
+    ``v_fn`` on node groups (``node_divergences``)."""
+    _no_lane_sharding(div_axis)
+    check_divergence(divergence, num_probes)
+    ts, node_idx, node_w, save_idx = gauss_dlogp_schedule(t0, t1, n_steps, gl_points, n_save)
+    xs_all = sample_ode_times(v_fn, x0, ts, method=method)
+    flat = node_idx.reshape(-1)
+    divs = node_divergences(
+        v_fn, xs_all[:, flat].transpose(0, 1), ts[flat], divergence=divergence,
+        generator=generator, num_probes=num_probes, div_chunk=div_chunk, probe_mode=probe_mode,
+        probe_crn=probe_crn, probes=probes, node_batch=node_batch)
+    b = x0.shape[0]
+    w = torch.as_tensor(node_w, dtype=x0.dtype, device=x0.device)
+    per_interval = -(w[None] * divs.reshape(b, *node_idx.shape)).sum(2)
+    dlogp = torch.cat([x0.new_zeros(b, 1), torch.cumsum(per_interval, dim=1)], dim=1)
+    n_stages = len(_tableau(method)[2])
+    return ODESolution(xs=xs_all[:, save_idx], dlogp=dlogp,
+                       nfe=(len(ts) - 1) * n_stages + len(flat))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Training: the shared machinery (``common``) and the MDQM9 ambient
-trainer (``ambient``). The latent and ADW trainers wait for their slices."""
+"""Training: the shared machinery (``common``), the MDQM9 ambient trainer
+(``ambient``) and the latent Boltzmann-generator trainer (``latent``). The
+ADW trainer waits for its slice."""
 
 from ti_torch.train.ambient import build_ambient_model, train_ambient
 from ti_torch.train.common import (
@@ -9,13 +10,16 @@ from ti_torch.train.common import (
     make_optimizer,
     save_checkpoint,
 )
+from ti_torch.train.latent import build_latent_model, train_latent
 
 __all__ = [
     "Optimizer",
     "ReduceLROnPlateau",
     "build_ambient_model",
+    "build_latent_model",
     "load_checkpoint",
     "make_optimizer",
     "save_checkpoint",
     "train_ambient",
+    "train_latent",
 ]
