@@ -28,7 +28,11 @@ that the path went through its kernels:
 - the latent family: ``sample_latent`` on the latent kernel route (B1 and
   B3 in f32) and on the published latent profile, ``train_latent``, the
   BG→TI composition into ``sample_ambient``, and the Simpson and
-  unsegmented Gauss quadrature samplers.
+  unsegmented Gauss quadrature samplers;
+- the ADW family at its published width (``FCNetMultiBeta`` 5 x 256, batch
+  512, 300k samples): ``train_adw`` in f32 (and its update in f64),
+  ``sample_adw`` of the 30,000-chain test split and the reweighted gEDMD
+  spectrum (plain PyTorch: no kernel is on that path).
 
     python3 chip_smoke.py
 
@@ -166,7 +170,15 @@ Phases (any failure exits non-zero and prints no result):
      f32, each against its rule recomputed through B3's full frame (rtol
      1e-3, atol 1e-3 max |dlogp|), beside stage-coupled RK4-16 (the gap
      reported);
- 14. the ``kernels`` line, the card line and the result line.
+ 14. the ADW family (``phase_adw``): a 300k-sample synthetic dataset at
+     beta 1.0 and 1.25; ms an update step (CUDA events) in f32 and f64 at
+     batch 512; one update card against CPU in f32 (phase 12's bars) and in
+     f64 (1e-10); two epochs of ``train_adw`` on the card; ``sample_adw`` of
+     the 30,000-chain test split on RK4-64 + GL-8 and on the default dopri5
+     (atol = rtol = 1e-4, 400 save points), samples/s, NFE and no kernel
+     launch, the first 256 chains against the CPU at phase 4's bars;
+     ``reweighted_gedmd_spectrum`` (50 bootstraps) finite on both;
+ 15. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -1599,6 +1611,232 @@ def phase_latent(ambient_model, card: str) -> None:
     log(f"[phase 13] {time.perf_counter() - t_phase:.1f} s")
 
 
+ADW_CMP = 256  # chains of phase 14's card-against-CPU transport comparison
+
+
+def adw_step_check(cfg, init, batch, dtype_name: str) -> dict:
+    """One ADW update (loss, gradients, optimizer step) from the same
+    weights, batch, t and z on the card and on the CPU; returns each
+    device's (loss, gradients, the step's largest weight move, seconds)."""
+    from ti_torch.models.mlp import param_dtype
+    from ti_torch.train import build_adw_model, common, make_adw_loss
+
+    c = copy.copy(cfg)
+    c.dtype = dtype_name
+    got = {}
+    for dev in ("cuda", "cpu"):
+        m = build_adw_model(c)
+        m.load_state_dict({k: v.to(param_dtype(dtype_name)) for k, v in init.items()})
+        m.to(dev)
+        params = dict(m.named_parameters())
+        x0, x1, b0, b1, t, z = (torch.as_tensor(a, dtype=param_dtype(dtype_name), device=dev)
+                                for a in batch)
+        loss = make_adw_loss(c, m, params)
+
+        def loss_fn(gen, *args):
+            return loss(gen, *args, t=t, z=z)
+
+        opt = common.make_optimizer(list(params.values()), c.lr, weight_decay=c.wd)
+        t0 = time.perf_counter()
+        value = loss_fn(None, x0, x1, b0, b1)
+        grads = torch.autograd.grad(value, list(params.values()))
+        common.make_update_step(loss_fn, opt)(None, x0, x1, b0, b1)
+        moved = max((p.detach().cpu() - init[k].to(p.dtype)).abs().max().item()
+                    for k, p in params.items())
+        got[dev] = (value.item(), {k: g.cpu() for k, g in zip(params, grads)}, moved,
+                    time.perf_counter() - t0)
+    return got
+
+
+def adw_step_ms(cfg, dtype_name: str, x0s, x1s, b0s, b1s, steps: int = 50, warm: int = 5):
+    """ms an update step of ``train_adw``'s loop on the card (CUDA events
+    over ``steps`` steps after ``warm``): (ms, losses, largest move)."""
+    from ti_torch.models.mlp import param_dtype
+    from ti_torch.train import build_adw_model, common, make_adw_loss
+
+    c = copy.copy(cfg)
+    c.dtype = dtype_name
+    dt = param_dtype(dtype_name)
+    m = build_adw_model(c, generator=torch.Generator().manual_seed(0)).to("cuda")
+    params = dict(m.named_parameters())
+    opt = common.make_optimizer(list(params.values()), c.lr, weight_decay=c.wd, clip=1.0)
+    step = common.make_update_step(make_adw_loss(c, m, params), opt)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = [a.to(dt) for a in (x0s, x1s, b0s, b1s)]
+    nb = len(batches[0])
+    before = {k: p.detach().clone() for k, p in params.items()}
+    losses = [step(gen, *(a[i % nb] for a in batches)) for i in range(warm)]
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses += [step(gen, *(a[i % nb] for a in batches)) for i in range(warm, warm + steps)]
+    end.record()
+    torch.cuda.synchronize()
+    moved = max((p.detach() - before[k]).abs().max().item() for k, p in params.items())
+    require(all(math.isfinite(v) for v in losses) and opt.nan_count == 0,
+            f"ADW {dtype_name} steps: finite losses")
+    require(moved > 0.0, f"ADW {dtype_name} steps: the parameters moved")
+    return start.elapsed_time(end) / steps, losses, moved
+
+
+def phase_adw(card: str) -> None:
+    """14. The ADW family at the published width (``ADWConfig`` defaults:
+    ``FCNetMultiBeta`` 5 x 256, batch 512, 300k samples, beta 1.0 -> 1.25),
+    plain PyTorch (the JAX package's ADW path reaches no Pallas kernel):
+    (a) ``make_synthetic_adw_csv`` at beta in {1.0, 1.25}, 300k samples each;
+    (b) ms an update step from CUDA events in f32 and in f64; one update's
+        loss and gradients on the card against the CPU from the same
+        weights, batch, t and z (f32 at phase 12's bars: loss rtol 1e-5,
+        gradients rtol 1e-4 with atol 1e-5 of each leaf's largest; f64 at
+        1e-10), and its optimizer step moving the weights; two epochs of
+        ``train_adw`` on the card in f32 (its checkpoints, finite losses);
+    (c) ``sample_adw`` of the 30,000-chain test split with the trained field
+        on the production route (RK4-64, GL-8 dlogp, the unsegmented Gauss
+        sampler) and on the default dopri5 (the exact divergence in every
+        stage, atol = rtol = 1e-4, 400 save points): samples/s and NFE, no
+        kernel launched; the first 256 chains against the CPU on the same
+        weights (samples rtol 1e-4 / atol 1e-5, dlogp rtol 1e-3 / atol 1e-5);
+    (d) ``reweighted_gedmd_spectrum`` (50 bootstraps) of both routes'
+        output: finite eigenvalues."""
+    from ti_torch.analysis.reweight import reweighted_gedmd_spectrum
+    from ti_torch.config import ADWConfig
+    from ti_torch.data.adw import ADWDataset, make_synthetic_adw_csv
+    from ti_torch.ops import _build
+    from ti_torch.sampling.drivers import sample_adw
+    from ti_torch.train import build_adw_model, train_adw
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the dataset
+        t0 = time.perf_counter()
+        cfg = ADWConfig(traj_path=tmp, model_save_path=os.path.join(tmp, "models"),
+                        data_save_path=os.path.join(tmp, "out"), use_wandb=False)
+        require((cfg.hidden_size, cfg.num_layers, cfg.batch_size, cfg.n_samples)
+                == (256, 5, 512, 300_000), "ADWConfig's published defaults")
+        csv = make_synthetic_adw_csv(os.path.join(tmp, cfg.traj_filename),
+                                     betas=cfg.beta0s + cfg.beta1s, n_samples=cfg.n_samples)
+        base = ADWDataset.from_csv(csv, cfg.beta0s, cfg.n_samples, seed=cfg.seed)
+        target = ADWDataset.from_csv(csv, cfg.beta1s, cfg.n_samples, seed=cfg.seed)
+        train0, _, test0 = base.splits()
+        train1, _, _ = target.splits()
+        log(f"[ADW data] {cfg.n_samples} samples at beta {cfg.beta0s + cfg.beta1s}: train "
+            f"{len(train0)}, test {len(test0)}; {time.perf_counter() - t0:.1f} s")
+
+        # (b) update steps: timed, and card against CPU in f32 and f64
+        g = torch.Generator().manual_seed(0)
+        x0s, b0s = train0.epoch_batches(g, cfg.batch_size, device="cuda")
+        x1s, b1s = train1.epoch_batches(g, cfg.batch_size, device="cuda")
+        step_ms = {}
+        for name in ("f32", "f64"):
+            ms, losses, moved = adw_step_ms(cfg, name, x0s, x1s, b0s, b1s)
+            step_ms[name] = ms
+            log(f"[ADW train steps {name} B={cfg.batch_size}] {ms:.3f} ms a step, "
+                f"{cfg.batch_size / ms * 1e3:.0f} samples/s (50 steps after 5, CUDA events, one "
+                f"host sync a step; {card}); losses {losses[5]:.4f} .. {losses[-1]:.4f}; largest "
+                f"parameter move {moved:.3e}")
+        rng = np.random.default_rng(14)
+        b = cfg.batch_size
+        i0, i1 = rng.choice(len(train0), b), rng.choice(len(train1), b)
+        batch = [train0.x[i0], train1.x[i1], train0.beta[i0], train1.beta[i1],
+                 rng.uniform(0.0, 1.0, (b, 1)), rng.standard_normal((b, 1))]
+        init = build_adw_model(cfg, generator=torch.Generator().manual_seed(1)).state_dict()
+        # bars: loss rtol, gradient rtol, gradient atol (of the leaf's largest)
+        for name, bar in (("f32", (1e-5, 1e-4, 1e-5)), ("f64", (1e-10, 1e-10, 1e-10))):
+            got = adw_step_check(cfg, init, batch, name)
+            (lg, gg, moved_g, sg), (lc, gc, moved_c, sc) = got["cuda"], got["cpu"]
+            loss_rel = abs(lg - lc) / abs(lc)
+            worst = max(((gg[k] - gc[k]).abs() - bar[1] * gc[k].abs()).max().item()
+                        / max(gc[k].abs().max().item(), 1e-30) for k in gc)
+            log(f"[ADW train step card vs CPU {name} B={b}] loss {lg:.9f} vs {lc:.9f} (rel "
+                f"{loss_rel:.2e}, bar {bar[0]:.0e}); gradients: worst (|diff| - {bar[1]:.0e} "
+                f"|cpu|) / leaf max {worst:.2e} (bar {bar[2]:.0e}); the step's largest weight move "
+                f"{moved_g:.3e} (CPU {moved_c:.3e}, lr {cfg.lr:g}); card {sg:.2f} s, CPU "
+                f"{sc:.2f} s")
+            require(loss_rel <= bar[0], f"ADW step {name}: loss on the card agrees with the CPU")
+            require(worst <= bar[2], f"ADW step {name}: gradients on the card agree with the CPU")
+            require(moved_g > 0.0 and moved_c > 0.0, f"ADW step {name}: the step moved the weights")
+            require(all(t.dtype == (torch.float64 if name == "f64" else torch.float32)
+                        for t in gg.values()), f"ADW step {name}: gradients in {name}")
+
+        c = copy.copy(cfg)
+        c.epochs = 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_adw(c, base, target)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        n_steps = c.epochs * (len(train0) // c.batch_size)
+        require(all(p.is_cuda for p in res["params"].values()), "train_adw ran on the card")
+        require(res["state"].count == n_steps and res["state"].nan_count == 0,
+                f"train_adw took {n_steps} steps without a NaN")
+        require(all(np.isfinite(v).all() for v in res["history"].values()),
+                "train_adw: finite losses")
+        require(sorted(os.listdir(os.path.join(c.model_save_path, c.model_save_name)))
+                == ["epoch_0.npz", "epoch_1.npz", "settings.json"], "train_adw's checkpoints")
+        log(f"[ADW train_adw f32] {c.epochs} epochs, {n_steps} steps of {c.batch_size} in "
+            f"{t_train:.2f} s (host clock, with validation, data staging and checkpoints: "
+            f"{t_train / n_steps * 1e3:.3f} ms a step; {card}); train loss "
+            f"{res['history']['train_loss']}, val loss {res['history']['val_loss']}")
+
+        # (c) transport of the test split, card against CPU
+        x0 = test0.x
+        beta0 = test0.beta.reshape(-1)
+        cpu_params = {k: v.cpu() for k, v in res["params"].items()}
+        outs = {}
+        for route, kw in (("RK4-64 GL-8", dict(solver_type="rk4", n_step=64, dlogp_quad_points=8,
+                                                dlogp_quad="gauss")),
+                          ("dopri5", {})):
+            rc = copy.copy(cfg)
+            for k, v in kw.items():
+                setattr(rc, k, v)
+            sample_adw(rc, res["model"], res["params"], x0[:ADW_CMP], beta0[:ADW_CMP],
+                       save=False, device="cuda")  # warm-up
+            out, secs, routes = counted(lambda: sample_adw(rc, res["model"], res["params"], x0,
+                                                           beta0, save=True, device="cuda"))
+            require(not routes, f"ADW {route}: the path reaches no kernel: {routes}")
+            n_save = rc.n_step if rc.solver_type == "dopri5" else 2
+            require(out["samples"].shape == out["dlogps"].shape == (n_save, len(x0)),
+                    f"ADW {route}: (n_save, n) outputs")
+            require(np.isfinite(out["samples"]).all() and np.isfinite(out["dlogps"]).all(),
+                    f"ADW {route}: finite samples and dlogp")
+            t0 = time.perf_counter()
+            ref = sample_adw(rc, build_adw_model(rc), cpu_params, x0[:ADW_CMP], beta0[:ADW_CMP],
+                             save=False, device="cpu")
+            t_cpu = time.perf_counter() - t0
+            ds = np.abs(out["samples"][:, :ADW_CMP] - ref["samples"])
+            dd = np.abs(out["dlogps"][:, :ADW_CMP] - ref["dlogps"])
+            ok_s = np.all(ds <= 1e-5 + 1e-4 * np.abs(ref["samples"]))
+            ok_d = np.all(dd <= 1e-5 + 1e-3 * np.abs(ref["dlogps"]))
+            log(f"[ADW sample_adw {route}] {len(x0)} chains in {secs:.3f} s, "
+                f"{len(x0) / secs:.1f} samples/s (host clock, {card}), NFE {out['nfe']} (CPU "
+                f"{ref['nfe']} at {ADW_CMP}), {n_save} save points; first {ADW_CMP} chains "
+                f"against the CPU ({t_cpu:.2f} s): samples max abs {ds.max():.3e} (rtol 1e-4 / "
+                f"atol 1e-5: {ok_s}), dlogp max abs {dd.max():.3e} (rtol 1e-3 / atol 1e-5: "
+                f"{ok_d}); final dlogp mean {out['dlogps'][-1].mean():.5f}")
+            require(ok_s, f"ADW {route}: samples on the card agree with the CPU")
+            require(ok_d, f"ADW {route}: dlogp on the card agrees with the CPU")
+            outs[route] = out
+        saved = os.path.join(cfg.data_save_path, cfg.model_save_name,
+                             f"beta_{cfg.beta0s[0]}_to_{float(cfg.beta1s[0])}")
+        require(sorted(os.listdir(saved)) == [f"{k}_epoch_-1.npy" for k in
+                                              ("dlogps", "initial_samples", "samples")],
+                f"sample_adw wrote its arrays: {os.listdir(saved)}")
+
+        # (d) the reweighted gEDMD spectrum
+        for route, out in outs.items():
+            t0 = time.perf_counter()
+            spec = reweighted_gedmd_spectrum(out["initial_samples"], out["samples"],
+                                             out["dlogps"], float(cfg.beta1s[0]), n_bootstrap=50)
+            ev = spec["eigenvalues_mean"]
+            log(f"[ADW gEDMD {route}] negated eigenvalues {np.real(ev)} (95% "
+                f"{np.real(spec['lower_bound'])} .. {np.real(spec['upper_bound'])}), "
+                f"{spec['n_filtered']} weights filtered, {time.perf_counter() - t0:.2f} s")
+            require(np.isfinite(ev).all() and np.isfinite(spec["lower_bound"]).all()
+                    and np.isfinite(spec["upper_bound"]).all(),
+                    f"ADW gEDMD {route}: finite eigenvalues")
+    log(f"[phase 14] {time.perf_counter() - t_phase:.1f} s")
+
+
 def b7_macs(c: int, n: int, layers: int) -> float:
     """Multiply-adds the function of kernel B7 needs for c chains: per chain
     and layer the primal message MLPs once (phi 8F² + w 7F² per pair row),
@@ -2243,7 +2481,10 @@ def main() -> int:
     # ---- 13. the latent family through B1 and B3, the BG→TI composition, quadrature ----
     phase_latent(model, card)
 
-    # ---- 14. result lines ----
+    # ---- 14. the ADW family: training, transport, reweighted gEDMD ----
+    phase_adw(card)
+
+    # ---- 15. result lines ----
     path_launches = {"pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_tangent": launches["pair_tangent"],

@@ -1122,3 +1122,115 @@ def test_train_latent_runs_on_the_card_by_default(tmp_path):
     res = train_latent(cfg, ds)
     assert all(p.is_cuda for p in res["params"].values())
     assert res["state"].count == 8 and np.isfinite(res["history"]["train_loss"]).all()
+
+
+ADW_ROUTES = {"rk4": dict(solver_type="rk4", n_step=32),
+              "dopri5": dict(solver_type="dopri5", n_step=20),
+              "gauss": dict(solver_type="rk4", n_step=32, dlogp_quad_points=8,
+                            dlogp_quad="gauss")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("route", sorted(ADW_ROUTES))
+def test_sample_adw_on_card_matches_cpu(route, dtype):
+    """``sample_adw`` of 256 chains on the card against the CPU on the same
+    weights (a fresh 64 x 3 ``FCNetMultiBeta``) and inputs: samples rtol
+    1e-4 / atol 1e-5 and dlogp rtol 1e-3 / atol 1e-5 in f32, both 1e-9 in
+    f64 (chip_smoke.py phase 14(c)'s bars)."""
+    import numpy as np
+
+    from ti_torch.analysis.potentials import BoltzmannDensity1D
+    from ti_torch.config import ADWConfig
+    from ti_torch.sampling.drivers import sample_adw
+    from ti_torch.train import build_adw_model
+
+    _card()
+    cfg = ADWConfig(hidden_size=64, num_layers=3, dtype=dtype, beta1s=[1.5],
+                    **ADW_ROUTES[route])
+    model = build_adw_model(cfg, generator=torch.Generator().manual_seed(0))
+    x0 = BoltzmannDensity1D(1.0).sample(0, 256)[:, None]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        m = build_adw_model(cfg)
+        m.load_state_dict(model.state_dict())
+        outs[dev] = sample_adw(cfg, m.to(dev), None, x0, np.ones(256), save=False, device=dev)
+    bars = ((dict(rtol=1e-4, atol=1e-5), dict(rtol=1e-3, atol=1e-5)) if dtype == "f32"
+            else (dict(rtol=1e-9, atol=1e-9),) * 2)
+    np.testing.assert_allclose(outs["cuda"]["samples"], outs["cpu"]["samples"], **bars[0])
+    np.testing.assert_allclose(outs["cuda"]["dlogps"], outs["cpu"]["dlogps"], **bars[1])
+    assert outs["cuda"]["samples"].dtype == (np.float32 if dtype == "f32" else np.float64)
+    assert np.isfinite(outs["cuda"]["dlogps"]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_adw_update_on_card_matches_cpu(dtype):
+    """One ADW update at the published width (5 x 256, batch 512) from the
+    same weights, batch, t and z: the loss and gradients on the card
+    against the CPU (f32: loss rtol 1e-5, gradients rtol 1e-4 with atol
+    1e-5 of each leaf's largest; f64: 1e-10), and the optimizer step moves
+    the weights on both. (Adam's first step divides each gradient by its own
+    magnitude, so a gradient element near eps = 1e-8, within the gradient
+    bar, moves its weight by a different fraction of lr on each device.)"""
+    import numpy as np
+
+    from ti_torch.config import ADWConfig
+    from ti_torch.models.mlp import param_dtype
+    from ti_torch.train import build_adw_model, common, make_adw_loss
+
+    _card()
+    cfg = ADWConfig(dtype=dtype)
+    init = build_adw_model(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(4)
+    b = cfg.batch_size
+    batch = [rng.standard_normal((b, 1)), rng.standard_normal((b, 1)), np.full((b, 1), 1.0),
+             np.full((b, 1), 1.25), rng.uniform(0.0, 1.0, (b, 1)), rng.standard_normal((b, 1))]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        m = build_adw_model(cfg)
+        m.load_state_dict(init)
+        m.to(dev)
+        params = dict(m.named_parameters())
+        x0, x1, b0, b1, t, z = (torch.as_tensor(a, dtype=param_dtype(dtype), device=dev)
+                                for a in batch)
+        loss_fn = make_adw_loss(cfg, m, params)
+        opt = common.make_optimizer(list(params.values()), cfg.lr, weight_decay=cfg.wd)
+        step = common.make_update_step(lambda g, *a: loss_fn(g, *a, t=t, z=z), opt)
+        loss = loss_fn(None, x0, x1, b0, b1, t=t, z=z)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        step(None, x0, x1, b0, b1)
+        got[dev] = (loss.item(), {k: g.cpu() for k, g in zip(params, grads)},
+                    max((p.detach().cpu() - init[k]).abs().max().item()
+                        for k, p in params.items()))
+    (lg, gg, moved_g), (lc, gc, moved_c) = got["cuda"], got["cpu"]
+    f32 = dtype == "f32"
+    assert abs(lg - lc) <= (1e-5 if f32 else 1e-10) * abs(lc)
+    for k in gc:
+        assert gg[k].dtype == param_dtype(dtype)
+        torch.testing.assert_close(gg[k], gc[k], rtol=1e-4 if f32 else 1e-10,
+                                   atol=(1e-5 if f32 else 1e-10) * gc[k].abs().max().item())
+    assert moved_g > 0.0 and moved_c > 0.0
+
+
+@pytest.mark.gpu
+def test_train_adw_runs_on_the_card_by_default_in_f64(tmp_path):
+    """``train_adw`` with no device trains on the card, in f64 when the
+    config says so: its parameters live there in float64, its losses are
+    finite, and it writes one checkpoint an epoch."""
+    import numpy as np
+
+    from ti_torch.config import ADWConfig
+    from ti_torch.data.adw import make_synthetic_adw_csv
+    from ti_torch.train import train_adw
+
+    _card()
+    make_synthetic_adw_csv(str(tmp_path / "samples.csv"), betas=[1.0, 1.25], n_samples=2000)
+    cfg = ADWConfig(n_samples=2000, hidden_size=64, num_layers=3, epochs=2, batch_size=128,
+                    dtype="f64", traj_path=str(tmp_path), model_save_path=str(tmp_path / "m"),
+                    use_wandb=False)
+    res = train_adw(cfg)
+    assert all(p.is_cuda and p.dtype == torch.float64 for p in res["params"].values())
+    assert all(np.isfinite(v).all() for v in res["history"].values())
+    assert res["state"].nan_count == 0 and res["state"].count == 2 * (1600 // 128)
+    assert (tmp_path / "m" / "velocity" / "epoch_1.npz").exists()

@@ -37,12 +37,16 @@ def test_imports_with_jax_blocked():
             "ti_torch.ops.div_kernel", "ti_torch.ops.dense_divergence",
             "ti_torch.interpolants", "ti_torch.losses", "ti_torch.train.common",
             "ti_torch.train.ambient", "ti_torch.utils.logging", "ti_torch.ops.kabsch",
-            "ti_torch.train.latent"} <= set(mods)
+            "ti_torch.train.latent", "ti_torch.analysis.potentials", "ti_torch.models.mlp",
+            "ti_torch.models.convert", "ti_torch.data.adw", "ti_torch.train.adw",
+            "ti_torch.sampling.drivers", "ti_torch.gedmd", "ti_torch.gedmd.rff",
+            "ti_torch.analysis.reweight"} <= set(mods)
 
 
 def test_no_source_imports_jax_or_ti_tpu():
     assert {ROOT / "tools" / name for name in (
-        "torch_ambient_oracle.py", "torch_latent_oracle.py", "latent_memory_probe.py")} <= set(
+        "torch_ambient_oracle.py", "torch_latent_oracle.py", "latent_memory_probe.py",
+        "torch_adw_oracle.py")} <= set(
         _port_sources())
     bad = []
     for path in _port_sources():

@@ -8,11 +8,11 @@ Subpackages
 - ``ti_torch.config``: the typed settings and presets (copy of ti_tpu's)
 - ``ti_torch.data``: SDF reader, molecule templates, synthetic molecules,
   the reference-layout trajectory ingest, ``MDQM9AmbientDataset`` and
-  ``MDQM9LatentDataset``
+  ``MDQM9LatentDataset``; the ADW samples CSV and ``ADWDataset``
 - ``ti_torch.models``: cPaiNN as an ``nn.Module``, its edge (gather/scatter)
   form ``apply_edge``, the dense pair forward (``fused=True``: its message
   MLPs in kernels B4/B5), the fused edge-row forward (``cpainn_fused``), the
-  flax weight bridge
+  ADW MLP ``FCNetMultiBeta``, the flax weight bridge
 - ``ti_torch.ops``: graph tables, MLP-block math, divergence estimators
   (``divergence``, the hand-propagated ``dense_divergence``), Kabsch
   alignment (``kabsch``) and the
@@ -23,20 +23,23 @@ Subpackages
   divergence (``div_kernel``)
 - ``ti_torch.sampling``: fixed-step RK and adaptive dopri5 integrators with
   stage-coupled dlogp, Simpson and Gauss-Legendre quadrature dlogp,
-  Euler–Maruyama, the ambient and latent sampling drivers (the reference's
-  dopri5 route and the quadrature routes) and the molecular SDE
-- ``ti_torch.analysis``: importance weights and TFEP free energies
+  Euler–Maruyama, the ambient, latent and ADW sampling drivers (the
+  reference's dopri5 route and the quadrature routes) and the molecular SDE
+- ``ti_torch.analysis``: importance weights, TFEP free energies, the ADW
+  potential and its quadrature oracles, reweighted gEDMD spectra
+- ``ti_torch.gedmd``: gEDMD with random Fourier features (numpy)
 - ``ti_torch.interpolants``, ``ti_torch.losses``: the stochastic
   interpolants and the antithetic velocity losses
 - ``ti_torch.train``: the optimizer (clip, L2 decay, Adam in optax's
   arithmetic), the NaN guard, plateau LR, checkpoints, the ambient
-  trainer ``train_ambient`` and the latent trainer ``train_latent`` (plain
-  PyTorch under autograd: no kernel has a backward)
+  trainer ``train_ambient``, the latent trainer ``train_latent`` and the
+  ADW trainer ``train_adw`` (plain PyTorch under autograd: no kernel has a
+  backward)
 - ``ti_torch.utils``: metric logging
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-What is not ported yet (lane sharding, the ADW family and its trainer)
-raises ``NotImplementedError`` or is absent.
+What is not ported yet (lane sharding) raises ``NotImplementedError`` or
+is absent.
 """
 
 import torch

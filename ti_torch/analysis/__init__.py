@@ -1,1 +1,2 @@
-"""Importance weights and free-energy estimators (numpy)."""
+"""Importance weights, free-energy estimators, the ADW potential and the
+reweighted gEDMD pipelines (numpy)."""

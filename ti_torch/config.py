@@ -44,10 +44,11 @@ class ADWConfig:
     hidden_size: int = 256
     num_layers: int = 5
     # "f32" (default) or "f64": the reference trains ADW in float64
-    # (adw/train.py:29). f64 enables jax_enable_x64 and is a CPU-only
-    # parity mode — TPUs have no native f64 (the trained-field f64-vs-f32
-    # comparison is recorded in BASELINE.md; f32 physics passes the same
-    # quadrature-ΔF oracle, so f32 stays the TPU default)
+    # (adw/train.py:29). In the port f64 is a plain torch dtype of the
+    # parameters, the batches and the transported states, on the CPU and on
+    # the card alike (the trained-field f64-vs-f32 comparison is recorded in
+    # BASELINE.md; f32 physics passes the same quadrature-ΔF oracle, so f32
+    # stays the default)
     dtype: str = "f32"
     lr: float = 1e-4
     wd: float = 1e-5

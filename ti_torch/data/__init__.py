@@ -1,1 +1,1 @@
-"""Host-side molecule data: SDF reader and molecule templates."""
+"""Host-side data: SDF reader and molecule templates, the ADW samples."""

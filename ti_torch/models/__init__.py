@@ -1,1 +1,2 @@
-"""cPaiNN velocity field, its dense pair forward and the flax weight bridge."""
+"""cPaiNN velocity field, its dense pair forward, the ADW MLP and the flax
+weight bridge."""

@@ -1,6 +1,7 @@
-"""The weight bridge between flax parameter trees and the port's CPaiNN.
+"""The weight bridge between flax parameter trees and the port's modules
+(``CPaiNN``, ``FCNetMultiBeta``).
 
-A flax tree read as numpy (``{"params": {...}}``) maps onto the CPaiNN
+A flax tree read as numpy (``{"params": {...}}``) maps onto the module's
 state dict name by name; only the leaves differ:
 
 - Dense ``kernel`` (in, out)            <-> ``weight`` (out, in), transposed
@@ -9,9 +10,10 @@ state dict name by name; only the leaves differ:
 - Embed ``embedding``                    <-> ``weight``
 - ``bias``                               <-> ``bias``
 
-``save_npz``/``load_npz`` keep a flat archive with flax-layout keys such
-as ``message_0/phi/Dense_0/kernel``, so weights trained with the JAX
-package reach the port without JAX.
+Float64 leaves stay float64 both ways (the ADW family trains in f64);
+every other leaf comes over as float32. ``save_npz``/``load_npz`` keep a
+flat archive with flax-layout keys such as ``message_0/phi/Dense_0/kernel``,
+so weights trained with the JAX package reach the port without JAX.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ def _flatten(tree, prefix=()):
 def _leaf_to_torch(path, arr):
     *mods, leaf = path
     name = ".".join(mods)
-    arr = np.asarray(arr, dtype=np.float32)
+    arr = np.asarray(arr)
+    arr = arr.astype(np.float64 if arr.dtype == np.float64 else np.float32, copy=False)
     if leaf == "kernel":
         return f"{name}.weight", np.ascontiguousarray(arr.T)
     if leaf in ("scale", "embedding"):
@@ -56,7 +59,7 @@ def _torch_to_leaf(name: str):
 
 
 def params_from_flax(tree) -> Dict[str, torch.Tensor]:
-    """flax ``{"params": {...}}`` (numpy leaves) -> CPaiNN state dict."""
+    """flax ``{"params": {...}}`` (numpy leaves) -> state dict."""
     tree = tree["params"] if "params" in tree else tree
     out = {}
     for path, arr in _flatten(tree):
@@ -66,11 +69,12 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
 
 
 def params_to_flax(state) -> dict:
-    """CPaiNN state dict -> flax ``{"params": {...}}`` with numpy leaves."""
+    """State dict -> flax ``{"params": {...}}`` with numpy leaves."""
     root: dict = {}
     for name, t in state.items():
         path, transpose = _torch_to_leaf(name)
-        arr = t.detach().cpu().float().numpy()
+        t = t.detach().cpu()
+        arr = (t if t.dtype == torch.float64 else t.float()).numpy()
         node = root
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -85,7 +89,7 @@ def save_npz(path: str, state) -> None:
 
 
 def load_npz(path: str) -> Dict[str, torch.Tensor]:
-    """Read a flat flax-layout archive into a CPaiNN state dict."""
+    """Read a flat flax-layout archive into a state dict."""
     with np.load(path) as z:
         tree: dict = {}
         for key in z.files:

@@ -1,1 +1,1 @@
-"""Fixed-step integrators and the ambient sampling driver."""
+"""Integrators and the sampling drivers (ambient, latent, ADW, SDE)."""

@@ -27,9 +27,12 @@ Simpson or unsegmented Gauss quadrature dlogp. ``sample_molecular_sde`` is
 Euler–Maruyama over the dense drift or the pair-kernel drift (B1, or B2
 with ``chain_block`` > 1).
 
+``sample_adw`` transports the 1-D ADW test samples from beta0 to beta1
+through ``make_ode_sampler`` on any of its routes, in f32 or f64.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Lane sharding (``div_axis``) raises NotImplementedError: it comes with the
-parallel slice; ``sample_adw`` with the ADW slice.
+parallel slice.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import numpy as np
 import torch
 
 from ti_torch import resolve_device
-from ti_torch.config import MDQM9Config
+from ti_torch.config import ADWConfig, MDQM9Config
 from ti_torch.sampling.integrators import (
     ODESolution,
     _check_quad,
@@ -103,6 +106,7 @@ def make_ode_sampler(
     div_drift: Optional[Callable] = None,
     return_dlogp_var: bool = False,
     device=None,
+    dtype: torch.dtype = torch.float32,
 ):
     """Build a batched transport sampler ``sampler(x0s, conds, generator)
     -> ODESolution``.
@@ -142,7 +146,9 @@ def make_ode_sampler(
     as forward-mode JVPs: exact (in blocks of ``div_chunk`` lanes, None = all
     at once), or Hutchinson probes or Hutch++ queries (``num_probes`` of
     them) from ``generator``, per chain or shared (``probe_crn``).
-    ``div_axis`` lane sharding raises ``NotImplementedError``.
+    ``div_axis`` lane sharding raises ``NotImplementedError``. The states
+    and the conditioning are cast to ``dtype`` (float64: the ADW family's
+    f64 mode).
     """
     dev = resolve_device(device)
     gauss = (dlogp_quad_points is not None and return_dlogp and dlogp_quad == "gauss")
@@ -176,7 +182,7 @@ def make_ode_sampler(
                     divergence=divergence, div_chunk=div_chunk,
                     steps_per_dispatch=steps_per_dispatch, num_probes=num_probes,
                     probe_crn=probe_crn, probe_mode=probe_mode, node_batch=node_batch,
-                    device=dev)
+                    device=dev, dtype=dtype)
         if dlogp_quad == "gauss":
             return _gauss_dlogp_sampler(
                 v_fn_of, gl_points=dlogp_quad_points, traj_drift=traj_drift,
@@ -189,9 +195,10 @@ def make_ode_sampler(
     if solver == "dopri5":
         return _dopri5_sampler(v_fn_of, t0=t0, t1=t1, n_save=n_save, atol=atol, rtol=rtol,
                                max_steps=max_steps, steps_per_dispatch=steps_per_dispatch,
-                               device=dev, **div)
+                               device=dev, dtype=dtype, **div)
     return _fixed_sampler(v_fn_of, solver=solver, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
-                          steps_per_dispatch=steps_per_dispatch, device=dev, **div)
+                          steps_per_dispatch=steps_per_dispatch, device=dev, dtype=dtype,
+                          **div)
 
 
 def _any_batch(v_fn_of, conds):
@@ -218,7 +225,7 @@ def _segments_per_interval(per_save: int, steps_per_dispatch: int) -> int:
 
 
 def _fixed_sampler(v_fn_of, *, solver, t0, t1, n_steps, n_save, steps_per_dispatch, device,
-                   **div):
+                   dtype, **div):
     """Fixed-step transport of the whole chain batch, stage-coupled dlogp
     or velocity only: in one ``sample_ode`` call, or (``steps_per_dispatch``)
     in segments of ``per_save / q`` steps, q the smallest divisor of the
@@ -234,8 +241,8 @@ def _fixed_sampler(v_fn_of, *, solver, t0, t1, n_steps, n_save, steps_per_dispat
 
     @torch.no_grad()
     def sampler(x0s, conds, generator: Optional[torch.Generator] = None) -> ODESolution:
-        x = torch.as_tensor(x0s, dtype=torch.float32, device=device)
-        v = v_fn_of(torch.as_tensor(conds, dtype=torch.float32, device=device))
+        x = torch.as_tensor(x0s, dtype=dtype, device=device)
+        v = v_fn_of(torch.as_tensor(conds, dtype=dtype, device=device))
         if steps_per_dispatch is None:
             return sample_ode(v, x, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
                               method=solver, generator=generator, **div)
@@ -256,7 +263,7 @@ def _fixed_sampler(v_fn_of, *, solver, t0, t1, n_steps, n_save, steps_per_dispat
 
 
 def _dopri5_sampler(v_fn_of, *, t0, t1, n_save, atol, rtol, max_steps, steps_per_dispatch,
-                    device, **div):
+                    device, dtype, **div):
     """Adaptive dopri5 transport of the whole chain batch: ``sample_ode_dopri5``
     (per-chain NFE), or with ``steps_per_dispatch`` the segmented form of
     ti_tpu — every save interval advanced in rounds of at most that many
@@ -267,8 +274,8 @@ def _dopri5_sampler(v_fn_of, *, t0, t1, n_save, atol, rtol, max_steps, steps_per
 
     @torch.no_grad()
     def sampler(x0s, conds, generator: Optional[torch.Generator] = None) -> ODESolution:
-        x = torch.as_tensor(x0s, dtype=torch.float32, device=device)
-        v = v_fn_of(torch.as_tensor(conds, dtype=torch.float32, device=device))
+        x = torch.as_tensor(x0s, dtype=dtype, device=device)
+        v = v_fn_of(torch.as_tensor(conds, dtype=dtype, device=device))
         if steps_per_dispatch is None:
             return sample_ode_dopri5(v, x, t0=t0, t1=t1, n_save=n_save, atol=atol, rtol=rtol,
                                      max_steps=max_steps, generator=generator, **div)
@@ -296,7 +303,7 @@ def _dopri5_sampler(v_fn_of, *, t0, t1, n_save, atol, rtol, max_steps, steps_per
 
 def _quad_dlogp_sampler(
     v_fn_of, *, solver, t0, t1, n_steps, n_save, div_points, divergence, div_chunk,
-    steps_per_dispatch, num_probes, probe_crn, probe_mode, node_batch, device,
+    steps_per_dispatch, num_probes, probe_crn, probe_mode, node_batch, device, dtype,
 ):
     """Simpson-quadrature dlogp: ``sample_ode_quad_dlogp`` on the whole
     chain batch, or with ``steps_per_dispatch`` the velocity-only
@@ -310,12 +317,12 @@ def _quad_dlogp_sampler(
     if steps_per_dispatch is not None:
         traj = _fixed_sampler(v_fn_of, solver=solver, t0=t0, t1=t1, n_steps=n_steps,
                               n_save=div_points, steps_per_dispatch=steps_per_dispatch,
-                              device=device, return_dlogp=False)
+                              device=device, dtype=dtype, return_dlogp=False)
 
     @torch.no_grad()
     def sampler(x0s, conds, generator: Optional[torch.Generator] = None) -> ODESolution:
-        x = torch.as_tensor(x0s, dtype=torch.float32, device=device)
-        conds = torch.as_tensor(conds, dtype=torch.float32, device=device)
+        x = torch.as_tensor(x0s, dtype=dtype, device=device)
+        conds = torch.as_tensor(conds, dtype=dtype, device=device)
         v = _any_batch(v_fn_of, conds)
         if traj is None:
             return sample_ode_quad_dlogp(v, x, t0=t0, t1=t1, n_steps=n_steps,
@@ -334,7 +341,7 @@ def _quad_dlogp_sampler(
 def _gauss_dlogp_sampler(
     v_fn_of, *, solver, t0, t1, n_steps, n_save, gl_points, divergence, div_chunk,
     steps_per_dispatch, num_probes, probe_crn, probe_mode, node_batch,
-    traj_drift, div_drift, return_dlogp_var, device,
+    traj_drift, div_drift, return_dlogp_var, device, dtype,
 ):
     """Gauss-Legendre dlogp. With ``steps_per_dispatch=None``
     ``sample_ode_gauss_dlogp`` on the whole chain batch. Otherwise phase 1
@@ -350,8 +357,8 @@ def _gauss_dlogp_sampler(
 
         @torch.no_grad()
         def sampler_single(x0s, conds, generator: Optional[torch.Generator] = None):
-            x = torch.as_tensor(x0s, dtype=torch.float32, device=device)
-            v = _any_batch(v_fn_of, torch.as_tensor(conds, dtype=torch.float32, device=device))
+            x = torch.as_tensor(x0s, dtype=dtype, device=device)
+            v = _any_batch(v_fn_of, torch.as_tensor(conds, dtype=dtype, device=device))
             return sample_ode_gauss_dlogp(v, x, t0=t0, t1=t1, n_steps=n_steps,
                                           gl_points=gl_points, n_save=n_save, method=solver,
                                           generator=generator, **div)
@@ -401,8 +408,8 @@ def _gauss_dlogp_sampler(
 
     @torch.no_grad()
     def sampler(x0s, conds, generator: torch.Generator) -> ODESolution:
-        x = torch.as_tensor(x0s, dtype=torch.float32, device=device)
-        conds = torch.as_tensor(conds, dtype=torch.float32, device=device)
+        x = torch.as_tensor(x0s, dtype=dtype, device=device)
+        conds = torch.as_tensor(conds, dtype=dtype, device=device)
         drift = drift_of(conds)
         states = [x]
         for gi in range(len(bounds) - 1):
@@ -427,6 +434,101 @@ def _gauss_dlogp_sampler(
         return ODESolution(xs=stacked[:, save_pos], dlogp=dlogp, nfe=nfe, dlogp_var=dlogp_var)
 
     return sampler
+
+
+# ---------------------------------------------------------------------------
+# ADW (reference adw/sample.py:14-88)
+# ---------------------------------------------------------------------------
+
+def adw_v_fn_of(model, params) -> Callable:
+    """``v_fn_of(conds (B, 2)) -> v(xs (B, 1), t)``: the ADW field at the
+    chains' (beta0, beta1); t a scalar, or (B,) per chain under dopri5."""
+    from ti_torch.models.mlp import apply_fcnet
+
+    def v_fn_of(conds):
+        b0, b1 = conds[:, :1], conds[:, 1:]
+
+        def v(xs, t):
+            tt = torch.as_tensor(t, dtype=xs.dtype, device=xs.device)
+            return apply_fcnet(model, params, xs, tt.reshape(-1, 1).expand(xs.shape[0], 1),
+                               b0, b1)
+
+        return v
+
+    return v_fn_of
+
+
+def sample_adw(
+    cfg: ADWConfig,
+    model,
+    params,
+    x0: np.ndarray,
+    beta0: np.ndarray,
+    save: bool = True,
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """Transport test samples from beta0 to cfg.beta1s[0] with dlogp, all
+    chains in one batch, through the route ``cfg`` names (default dopri5
+    with the exact divergence in every stage; rk4 and the Simpson or Gauss
+    quadrature routes as ``make_ode_sampler`` takes them).
+
+    x0: (n, 1) initial samples, beta0: (n,) their betas; ``params`` a state
+    dict (None: the model's own), in ``cfg.dtype``. Returns and saves
+    initial_samples/samples/dlogps arrays; samples and dlogps are
+    (n_save, n) like the reference's reshaped output (adw/sample.py:63-69),
+    n_save = cfg.n_step under dopri5 and 2 otherwise; ``nfe`` is the most
+    right-hand-side evaluations a chain took. Runs on ``cuda`` unless
+    ``device`` says otherwise."""
+    from ti_torch.models.mlp import param_dtype
+
+    if len(cfg.beta1s) != 1:
+        raise ValueError("sampling expects a single (beta0, beta1) pair")
+    dev = resolve_device(device)
+    dt = param_dtype(cfg.dtype)
+    beta1 = float(cfg.beta1s[0])
+    n_save = cfg.n_step if cfg.solver_type == "dopri5" else 2
+    if params is None:
+        params = dict(model.named_parameters())
+    sampler = make_ode_sampler(
+        adw_v_fn_of(model, params),
+        solver=cfg.solver_type,
+        n_steps=cfg.n_step,
+        n_save=n_save,
+        atol=cfg.atol,
+        rtol=cfg.rtol,
+        return_dlogp=cfg.return_dlogp,
+        divergence=cfg.divergence,
+        steps_per_dispatch=cfg.steps_per_dispatch or None,
+        dlogp_quad_points=getattr(cfg, "dlogp_quad_points", 0) or None,
+        dlogp_quad=getattr(cfg, "dlogp_quad", "simpson"),
+        num_probes=getattr(cfg, "num_probes", 8),
+        probe_mode=getattr(cfg, "probe_mode", "rademacher"),
+        probe_crn=bool(getattr(cfg, "probe_crn", False)),
+        device=dev,
+        dtype=dt,
+    )
+    b0 = np.asarray(beta0, np.float64).reshape(-1)
+    conds = np.stack([b0, np.full_like(b0, beta1)], axis=1)
+    sol = sampler(np.asarray(x0), conds, torch.Generator(device=dev).manual_seed(int(cfg.seed)))
+
+    out = {
+        "initial_samples": np.asarray(x0).reshape(-1),
+        "samples": sol.xs[:, :, 0].T.cpu().numpy(),  # (n_save, n)
+        "dlogps": sol.dlogp.T.cpu().numpy(),  # (n_save, n)
+        "nfe": int(torch.as_tensor(sol.nfe).max()),
+    }
+    if save:
+        out_dir = os.path.join(cfg.data_save_path, cfg.model_save_name,
+                               f"beta_{cfg.beta0s[0]}_to_{beta1}")
+        os.makedirs(out_dir, exist_ok=True)
+        tag = f"epoch_{cfg.sampling_epoch}"
+        if getattr(cfg, "num_shards", 1) > 1:  # fan-out
+            tag += f"_shard{cfg.shard}of{cfg.num_shards}"
+        np.save(os.path.join(out_dir, f"initial_samples_{tag}.npy"), out["initial_samples"])
+        np.save(os.path.join(out_dir, f"samples_{tag}.npy"), out["samples"])
+        if cfg.return_dlogp:
+            np.save(os.path.join(out_dir, f"dlogps_{tag}.npy"), out["dlogps"])
+    return out
 
 
 # ---------------------------------------------------------------------------

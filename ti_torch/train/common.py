@@ -217,10 +217,10 @@ def checkpoint_path(save_dir: str, name: str, epoch) -> str:
 
 
 def save_checkpoint(path: str, params: Dict[str, torch.Tensor]) -> None:
-    """Write a CPaiNN state dict as a flat flax-layout ``.npz``."""
+    """Write a state dict as a flat flax-layout ``.npz``."""
     save_npz(path, params)
 
 
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """Read a checkpoint into a CPaiNN state dict (CPU tensors)."""
+    """Read a checkpoint into a state dict (CPU tensors)."""
     return load_npz(path)
