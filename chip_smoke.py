@@ -3,7 +3,8 @@
 Builds the hand-written CUDA kernels from ti_torch/csrc, holds each against
 its plain PyTorch version at its path's shapes, and runs the port's five
 paths and its trainer at the 00031 width (19 atoms, F = 128, 5 message
-layers) through their entry points, checking what comes out and showing,
+layers), and the 10506 profile at its width (29 atoms, F = 256), through
+their entry points, checking what comes out and showing,
 with the launch counts set to 0 just before each path and read just after,
 that the path went through its kernels:
 
@@ -32,7 +33,10 @@ that the path went through its kernels:
 - the ADW family at its published width (``FCNetMultiBeta`` 5 x 256, batch
   512, 300k samples): ``train_adw`` in f32 (and its update in f64),
   ``sample_adw`` of the 30,000-chain test split and the reweighted gEDMD
-  spectrum (plain PyTorch: no kernel is on that path).
+  spectrum (plain PyTorch: no kernel is on that path);
+- the large molecule's fast profile at its width (10506: 29 atoms, F =
+  256, 5 layers): ``sample_ambient`` and the SDE through kernel B1 in
+  bf16_agg at F = 256.
 
     python3 chip_smoke.py
 
@@ -178,7 +182,21 @@ Phases (any failure exits non-zero and prints no result):
      (atol = rtol = 1e-4, 400 save points), samples/s, NFE and no kernel
      launch, the first 256 chains against the CPU at phase 4's bars;
      ``reweighted_gedmd_spectrum`` (50 bootstraps) finite on both;
- 15. the ``kernels`` line, the card line and the result line.
+ 15. the large molecule's fast profile (``phase_10506``, 10506: 29 atoms,
+     F = 256 x 5 layers): kernel B1 in bf16_agg at F = 256
+     (``pair_layer_mma_f256``, csrc/pair_layer_mma.cu built with
+     -DPK_F=256) against its plain version at 16 and 128 chains (bar 2e-2),
+     B2 = B1 to the bit, timed with its bound;
+     ``sample_ambient(fast_profile(ambient_preset("10506")))`` at 16 chains
+     for two batches (720 B1 launches, all from pair_layer_mma_f256),
+     samples/s, the path's first layer on its own inputs against its plain
+     version (bar 2e-2), the path's drift (5 layers) on the first batch's
+     states at t = 0 and 1 and the first batch's samples no farther from the
+     plain f32 route's than twice the plain bf16_agg route's (each layer's
+     rounding feeds the next, and grows along the trajectory);
+     ``sample_molecular_sde`` at 512 chains, bf16_agg, 20 steps (100 B1
+     launches), finite;
+ 16. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -210,6 +228,8 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
     "pair_layer": ("ti_torch/csrc/pair_layer_tf32x3.cu", "ti_tpu/ops/pair_layer_kernel.py:83"),
     "pair_layer_bf16_agg": ("ti_torch/csrc/pair_layer_mma.cu",
                             "ti_tpu/ops/pair_layer_kernel.py:83"),
+    "pair_layer_bf16_agg_f256": ("ti_torch/csrc/pair_layer_mma.cu",
+                                 "ti_tpu/ops/pair_layer_kernel.py:83"),
     "pair_layer_cb": ("ti_torch/csrc/pair_layer_mma.cu", "ti_tpu/ops/pair_layer_kernel.py:190"),
     "pair_tangent": ("ti_torch/csrc/pair_tangent_mma.cu", "ti_tpu/ops/pair_tangent_kernel.py:76"),
     "pair_tangent_f32": ("ti_torch/csrc/pair_tangent_tf32x3.cu",
@@ -392,8 +412,8 @@ def forward_costs(drift, xs, temps, n_fwd: int = 20) -> tuple:
     return 1e3 * enqueue, 1e3 * forward, ops.n
 
 
-def zero_com_x0(rng, b: int) -> np.ndarray:
-    x0 = (0.1 * rng.standard_normal((b, N_ATOMS, 3))).astype(np.float32)
+def zero_com_x0(rng, b: int, n: int = N_ATOMS) -> np.ndarray:
+    x0 = (0.1 * rng.standard_normal((b, n, 3))).astype(np.float32)
     return x0 - x0.mean(axis=1, keepdims=True)
 
 
@@ -1837,6 +1857,225 @@ def phase_adw(card: str) -> None:
     log(f"[phase 14] {time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_10506(rows_kernels, card: str) -> dict:
+    """15. The large molecule's fast profile (10506: 29 atoms, F = 256 x 5
+    layers, ``fast_profile(ambient_preset("10506"))``: RK4-16, GL-8,
+    Hutchinson-32 Rademacher, bf16_agg, B1 in bf16_agg on the trajectory,
+    the default divergence forward at the nodes). B1 at F = 256
+    (pair_layer_mma_f256) against its plain version at 16 and 128 chains,
+    timed, and B2 = B1 to the bit; ``sample_ambient`` at 16 chains for two
+    batches (every B1 launch from pair_layer_mma_f256, samples/s), its first
+    layer against the plain version on its own inputs, its drift and the
+    first batch's samples against the plain routes' in bf16_agg and f32;
+    ``sample_molecular_sde`` at 512 chains, 20 steps, bf16_agg. Returns the
+    sampler's launch counts."""
+    from ti_torch.config import ambient_preset, fast_profile
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+    from ti_torch.models.cpainn import CPaiNN
+    from ti_torch.ops import _build
+    from ti_torch.ops.pair_layer_kernel import (
+        embed,
+        pack_layer,
+        pair_kernel_drift,
+        pair_layer,
+        pair_layer_plain,
+        prepare,
+        with_mma_weights,
+    )
+    from ti_torch.ops.divergence import value_and_divergence
+    from ti_torch.sampling.drivers import (
+        make_ode_sampler,
+        molecular_v_fn_of,
+        sample_ambient,
+        sample_molecular_sde,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = fast_profile(ambient_preset("10506"))
+    n, f, layers, b = 29, cfg.n_features, cfg.score_layers, 16
+    require((f, layers, cfg.traj_forward_impl, cfg.div_forward_impl, cfg.compute_dtype,
+             cfg.num_probes, cfg.probe_mode, cfg.n_steps)
+            == (256, LAYERS, "pair_kernel_bf16", "default", "bf16_agg", 32, "rademacher", 16),
+            "fast_profile at 10506")
+    model = torch_default_weights_(CPaiNN(f, layers, n_atoms=n))
+    params = {k: t.detach() for k, t in model.state_dict().items()}
+    bf = torch.bfloat16
+    w = with_mma_weights(pack_layer(params, 0, f, bf, "cuda"))
+    g = torch.Generator(device="cuda").manual_seed(11)
+    ms, plain_ms, errs = {}, {}, {}
+    for chains in (b, 128):
+        def rnd(*shape, scale=1.0):
+            return (scale * torch.randn(*shape, generator=g, device="cuda")).to(bf)
+
+        x = 0.3 * torch.randn(chains, n, 3, generator=g, device="cuda")
+        base = (x, rnd(chains, n, f), rnd(chains, 3, n, f, scale=0.3), rnd(chains, n * n, f))
+        out = pair_layer(*base, w, LENGTH_SCALE)
+        torch.cuda.synchronize()
+        require(_build.ROUTES["pair_layer"] == "pair_layer_mma_f256",
+                "bf16_agg at F = 256 launches pair_layer_mma_f256")
+        errs[chains] = compare(out, pair_layer_plain(*base, w, LENGTH_SCALE), bf,
+                               f"B1 pair_layer bf16_agg F={f} N={n} B={chains}")
+        for c in (1, 2, 4):
+            again = pair_layer(*base, w, LENGTH_SCALE, c)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, q) for a, q in zip(again, out)),
+                    f"F = {f}: B2 at chain_block {c} gives B1's outputs to the bit")
+        ms[chains] = [cuda_ms(lambda: pair_layer(*base, w, LENGTH_SCALE), 50, warm=5)
+                      for _ in range(2)]
+        plain_ms[chains] = cuda_ms(lambda: pair_layer_plain(*base, w, LENGTH_SCALE), 5)
+        rows = chains * n * n
+        flops = 2.0 * 15 * f * f * rows
+        bnd, by = bound_ms(flops, H100_BF16, nbytes(*base, w.mats, w.vecs, *out))
+        log(f"[B1 bf16_agg F={f} N={n} B={chains}] mma.sync bf16 (pair_layer_mma_f256, one "
+            f"64-row tile a CTA of 16 warps) {' and '.join(f'{t:.4f}' for t in ms[chains])} ms "
+            f"per launch (50 launches a reading); plain {plain_ms[chains]:.4f} ms; bound "
+            f"{bnd:.4f} ms ({by}, {flops:.4e} FLOP at 989 TFLOP/s bf16, "
+            f"{nbytes(*base, w.mats, w.vecs, *out) / 1e6:.2f} MB), at "
+            f"{min(ms[chains]) / bnd:.2f}x its bound ({card})")
+        if chains == b:
+            rows_kernels["pair_layer_bf16_agg_f256"] = dict(
+                err=errs[chains], ms=min(ms[chains]), plain=plain_ms[chains], bound=bnd, by=by)
+        del x, base, out, again
+    del w
+    torch.cuda.empty_cache()
+
+    # the profile through its entry point: a warm-up batch, then two counted
+    template = graph_template(make_synthetic_molecule(n, seed=0), t_cond=2)
+    rng = np.random.default_rng(5)
+    x0 = zero_com_x0(rng, 2 * b, n)
+    sample_ambient(cfg, model, None, template, x0[:b], save=False, batch_size=b,
+                   device="cuda")  # warm-up, not counted
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = sample_ambient(cfg, model, None, template, x0, save=False, batch_size=b, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    by_route = {k: v for k, v in _build.ROUTE_LAUNCHES.items() if v}
+    gaps = 1 + cfg.dlogp_quad_points  # GL-8: 9 trajectory gaps of 2 RK4 steps each
+    steps = -(-cfg.n_steps // gaps)
+    want = {k: 0 for k in launches}
+    want["pair_layer"] = 2 * gaps * steps * 4 * layers
+    log(f"[10506 fast_profile] {len(x0)} chains in 2 batches of {b}: {wall:.3f} s, "
+        f"{len(x0) / wall:.3f} samples/s (host clock, {card}); launches by library "
+        f"{ {f'{k}:{lib}': v for (k, lib), v in by_route.items()} }")
+    require(launches == want, f"10506 launch counts {launches} == {want}")
+    require(by_route == {("pair_layer", "pair_layer_mma_f256"): want["pair_layer"]},
+            f"every B1 launch of the 10506 profile comes from pair_layer_mma_f256: {by_route}")
+    require(out["samples"].shape == (len(x0), 2, n, 3) and out["dlogps"].shape == (len(x0),),
+            "10506: output shapes")
+    require(np.isfinite(out["samples"]).all() and np.isfinite(out["dlogps"]).all(),
+            "10506: finite samples and dlogp")
+    # the path's first layer on its own inputs (the first batch's x0, the
+    # embeddings at t = 0, v = 0), kernel against plain at the bar; then the
+    # path's drift through 5 layers on the first batch's states at t = 0 and
+    # at its samples at t = 1: each layer's rounding feeds the next, so the
+    # kernel's drift is held to the plain f32 drift no farther than twice the
+    # plain bf16_agg drift is
+    temps = np.tile(np.array([cfg.sampling_T0, cfg.sampling_T1], np.float32), (b, 1))
+    conds = torch.as_tensor(temps, device="cuda")
+    pm = prepare(model, None, template, "bf16_agg", "cuda")
+    xs = torch.as_tensor(x0[:b], device="cuda")
+    s0, e0 = embed(pm, torch.zeros(b, device="cuda"), conds, n)
+    args = (xs, s0.contiguous(), torch.zeros((b, 3, n, f), dtype=bf, device="cuda"), e0,
+            pm.layers[0], model.length_scale)
+    compare(pair_layer(*args), pair_layer_plain(*args), bf,
+            "10506 B1 layer 0 on the path's inputs, kernel against plain")
+    drifts = {k: pair_kernel_drift(model, None, template, compute_dtype=cd, device="cuda",
+                                   kernel=k == "kernel")
+              for k, cd in (("kernel", "bf16_agg"), ("plain", "bf16_agg"), ("f32", None))}
+    with torch.no_grad():
+        for t, xs in ((0.0, x0[:b]), (1.0, out["samples"][:b, -1])):
+            xs = torch.as_tensor(xs, device="cuda")
+            got = {k: d(xs, t, conds) for k, d in drifts.items()}
+            scale = got["f32"].abs().max().item()
+            rel = {k: (got[k] - got["f32"]).abs().max().item() / scale for k in ("kernel", "plain")}
+            kp = (got["kernel"] - got["plain"]).abs().max().item() / got["plain"].abs().max().item()
+            log(f"[10506 drift t={t:g}] max |. - f32 plain| / max |f32 plain|: kernel {rel['kernel']:.3e}, "
+                f"plain bf16_agg {rel['plain']:.3e}; kernel against plain bf16_agg {kp:.3e}")
+            require(all(bool(torch.isfinite(v).all()) for v in got.values())
+                    and rel["kernel"] <= 2.0 * rel["plain"],
+                    f"10506 drift at t={t:g}: the kernel no farther from f32 than twice the plain "
+                    "bf16_agg drift")
+        # where a batch's time goes: its 72 trajectory forwards (5 B1 launches
+        # and the plain glue each) and its 8 divergence nodes (the plain dense
+        # forward under 32 Rademacher JVP lanes)
+        v = molecular_v_fn_of(model, None, template, compute_dtype="bf16_agg", device="cuda")(conds)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        fwd_ms = cuda_ms(lambda: drifts["kernel"](xs, 0.5, conds), 10, warm=2)
+        node_ms = cuda_ms(lambda: value_and_divergence(
+            lambda y: v(y, 0.5), xs, mode="hutchinson", generator=gen, num_probes=cfg.num_probes,
+            probe_mode=cfg.probe_mode), 3, warm=1)
+    n_fwd = gaps * steps * 4
+    log(f"[10506 batch split B={b}] a trajectory forward {fwd_ms:.3f} ms ({layers} B1 launches x "
+        f"{min(ms[b]):.4f} ms = {layers * min(ms[b]):.3f} ms of it), a divergence node "
+        f"{node_ms:.3f} ms; {n_fwd} forwards + {cfg.dlogp_quad_points} nodes = "
+        f"{(n_fwd * fwd_ms + cfg.dlogp_quad_points * node_ms) / 1e3:.3f} s of the batch's "
+        f"{wall / 2:.3f} s ({card})")
+    del pm, args, drifts, got, v
+    # the first batch against the same sampler with B1's plain version on the
+    # trajectory, in bf16_agg and in f32 (the same generator seed: the same
+    # probes at the nodes). Along 18 RK4 steps of this field a rounding
+    # grows past the bf16_agg bar, so the kernel route is held to the f32
+    # route no farther than twice the plain bf16_agg route is
+    def plain_route(dtype):
+        return make_ode_sampler(
+            molecular_v_fn_of(model, None, template, compute_dtype=dtype, device="cuda"),
+            solver=cfg.solver_type, n_steps=cfg.n_steps, n_save=2, divergence=cfg.divergence,
+            steps_per_dispatch=cfg.steps_per_dispatch, dlogp_quad_points=cfg.dlogp_quad_points,
+            dlogp_quad="gauss", num_probes=cfg.num_probes, probe_mode=cfg.probe_mode,
+            traj_drift=pair_kernel_drift(model, None, template, compute_dtype=dtype,
+                                         device="cuda", kernel=False),
+            device="cuda",
+        )(x0[:b], temps, torch.Generator(device="cuda").manual_seed(int(cfg.seed)))
+
+    ref, ref32 = plain_route("bf16_agg"), plain_route(None)
+    ref_x, ref_d = ref.xs.cpu().numpy(), ref.dlogp[:, -1].cpu().numpy()
+    x32 = ref32.xs.cpu().numpy()
+    x_err = float(np.max(np.abs(out["samples"][:b] - ref_x)))
+    x_rel = x_err / float(np.max(np.abs(ref_x)))
+    d_err = float(np.max(np.abs(out["dlogps"][:b] - ref_d)))
+    k32 = float(np.max(np.abs(out["samples"][:b] - x32)))
+    p32 = float(np.max(np.abs(ref_x - x32)))
+    log(f"[10506 fast_profile] first batch: samples of the kernel route minus the plain "
+        f"bf16_agg route's max abs {x_err:.3e} (max err / max |plain| {x_rel:.3e}); from the "
+        f"plain f32 route's: kernel {k32:.3e}, plain bf16_agg {p32:.3e}; dlogp minus the plain "
+        f"bf16_agg route's max abs {d_err:.3e} (max |dlogp| {np.max(np.abs(ref_d)):.4f}); dlogp "
+        f"mean {out['dlogps'].mean():.5f}")
+    require(k32 <= 2.0 * p32, "10506: the kernel route's samples lie no farther from the f32 "
+            "route's than twice the plain bf16_agg route's")
+    del ref, ref32
+    torch.cuda.empty_cache()
+
+    # the SDE at the same width, bf16_agg, B1 (chain_block 1)
+    sde_b = 512
+    sample_molecular_sde(model, None, template, zero_com_x0(rng, sde_b, n), ambient_temps(sde_b),
+                         torch.Generator(device="cuda").manual_seed(0), g_fn=0.1, n_steps=1,
+                         n_save=2, forward_impl="pair_kernel", compute_dtype="bf16_agg",
+                         device="cuda")  # warm-up, not counted
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    xs = sample_molecular_sde(model, None, template, zero_com_x0(rng, sde_b, n),
+                              ambient_temps(sde_b), torch.Generator(device="cuda").manual_seed(1),
+                              g_fn=0.1, n_steps=SDE_STEPS, n_save=2, forward_impl="pair_kernel",
+                              compute_dtype="bf16_agg", device="cuda")
+    torch.cuda.synchronize()
+    wall_sde = time.perf_counter() - t0
+    sde_routes = {k: v for k, v in _build.ROUTE_LAUNCHES.items() if v}
+    log(f"[10506 SDE bf16_agg] {sde_b} chains, {SDE_STEPS} Euler-Maruyama steps, g=0.1: "
+        f"{wall_sde:.3f} s, {sde_b / wall_sde:.3f} samples/s (host clock, {card}); launches by "
+        f"library { {f'{k}:{lib}': v for (k, lib), v in sde_routes.items()} }")
+    require(sde_routes == {("pair_layer", "pair_layer_mma_f256"): SDE_STEPS * layers},
+            f"every B1 launch of the 10506 SDE comes from pair_layer_mma_f256: {sde_routes}")
+    require(xs.shape == (sde_b, 2, n, 3) and bool(torch.isfinite(xs).all()),
+            "10506 SDE: finite samples of the expected shape")
+    log(f"[10506] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def b7_macs(c: int, n: int, layers: int) -> float:
     """Multiply-adds the function of kernel B7 needs for c chains: per chain
     and layer the primal message MLPs once (phi 8F² + w 7F² per pair row),
@@ -2091,7 +2330,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
     for name in ("pair_tangent_mma", "pair_tangent_tf32x3", "pair_layer_tf32x3", "pair_layer_mma",
-                 "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3", "fused_mlp_tf32x3",
+                 "pair_layer_mma_f256", "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3", "fused_mlp_tf32x3",
                  "div_kernel_tf32x3"):
         spills = [ln.strip() for ln in report[name]["ptxas"].splitlines() if "spill" in ln]
         require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
@@ -2484,9 +2723,13 @@ def main() -> int:
     # ---- 14. the ADW family: training, transport, reweighted gEDMD ----
     phase_adw(card)
 
-    # ---- 15. result lines ----
+    # ---- 15. the large molecule's fast profile: B1 at F = 256 ----
+    launches10506 = phase_10506(rows_kernels, card)
+
+    # ---- 16. result lines ----
     path_launches = {"pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
+                     "pair_layer_bf16_agg_f256": launches10506["pair_layer"],
                      "pair_tangent": launches["pair_tangent"],
                      "pair_tangent_f32": exact_launches["pair_tangent"],
                      "pair_layer_cb": sde_launches["pair_layer_cb"],

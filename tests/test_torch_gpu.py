@@ -601,6 +601,92 @@ def test_pair_layer_mma_variants_refusals_and_counts():
             assert lib.pair_layer_mma_ctas(b, n, mma_tiles(c)) == mma_tile_plan(b, n, c).ctas
 
 
+F256 = 256  # the 10506 profile's width: B1 in bf16_agg only (pair_layer_mma_f256)
+
+
+def _layer256(dtype, b, n=29, k=0):
+    """One message layer at F = 256 (chip_smoke.py's field laws) and its
+    inputs; k > 0 adds B3's lanes."""
+    model = torch_default_weights_(CPaiNN(F256, 1, n_atoms=n))
+    params = {name: t.detach() for name, t in model.state_dict().items()}
+    w = with_mma_weights(with_tf32_weights(pack_layer(params, 0, F256, dtype, "cuda")))
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
+
+    x = 0.3 * torch.randn(b, n, 3, generator=g, device="cuda")
+    base = (x, rnd(b, n, F256), rnd(b, 3, n, F256, scale=0.3), rnd(b, n * n, F256))
+    lanes = (torch.randn(b, k, n, 3, generator=g, device="cuda"), rnd(b, k, n, F256, scale=0.1),
+             rnd(b, k, 3, n, F256, scale=0.1), rnd(b, k, n * n, F256, scale=0.1))
+    return w, base, lanes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n", [(16, 29), (128, 29), (13, 29), (7, 19), (3, 2), (5, 32)])
+def test_pair_layer_mma_f256_matches_plain(b, n):
+    """B1 in bf16_agg at F = 256 (pair_layer_mma_f256, one 64-row tile a CTA
+    of 16 warps) against its plain version: the 10506 molecule's 29 atoms
+    at the profile's 16 chains and at 128, 13 chains (the last tile holds one
+    of its two groups), 19 atoms, 32 groups a tile (2 atoms) and 2 (32
+    atoms). Two launches agree to the bit, and B2 at chain_block 2, 3, 4
+    and 8 is B1's launch at this width, to the bit."""
+    _card()
+    w, base, _ = _layer256(torch.bfloat16, b, n)
+    before = dict(_build.ROUTE_LAUNCHES)
+    out = pair_layer(*base, w, 10.0)
+    torch.cuda.synchronize()
+    key = ("pair_layer", "pair_layer_mma_f256")
+    assert _build.ROUTE_LAUNCHES[key] == before.get(key, 0) + 1
+    _assert_close(out, pair_layer_plain(*base, w, 10.0), torch.bfloat16)
+    for c in (1, 2, 3, 4, 8):
+        again = pair_layer(*base, w, 10.0, c)
+        torch.cuda.synchronize()
+        assert _build.ROUTES["pair_layer" if c == 1 else "pair_layer_cb"] == "pair_layer_mma_f256"
+        for a, r in zip(again, out):
+            assert torch.equal(a, r)
+
+
+@pytest.mark.gpu
+def test_pair_layer_f256_refusals_and_counts():
+    """At F = 256 the library's tile count, shared memory and CTAs are the
+    wrapper's (one 132,352-byte tile a CTA); B1 in f32, ``variant="fma"``,
+    B3 and B4 refuse the width on the card, naming the route that takes it,
+    and launch nothing."""
+    import ctypes
+
+    from ti_torch.ops.pair_layer_kernel import mma_max_tiles, mma_tile_bytes
+
+    _card()
+    lib = _build.load("pair_layer_mma_f256")
+    lib.pair_layer_mma_smem_bytes.restype = ctypes.c_ulonglong
+    lib.pair_layer_mma_ctas.restype = ctypes.c_longlong
+    assert lib.pair_layer_mma_max_tiles() == mma_max_tiles(F256) == 1
+    assert lib.pair_layer_mma_smem_bytes(1) == mma_tile_bytes(F256) == 132_352
+    for c in (1, 2, 4):
+        assert mma_smem_bytes(c, F256) == 132_352
+        for b, n in ((16, 29), (128, 29), (13, 29), (3, 2)):
+            assert lib.pair_layer_mma_ctas(b, n, mma_tiles(c, F256)) == \
+                mma_tile_plan(b, n, c, F256).ctas
+    w16, base16, lanes16 = _layer256(torch.bfloat16, 4, k=2)
+    w32, base32, lanes32 = _layer256(torch.float32, 4, k=2)
+    before = dict(_build.LAUNCHES)
+    route = "got F=256; F = 256 runs only in B1 and B2 in bf16_agg on the tensor cores"
+    with pytest.raises(ValueError, match="pair_layer_tf32x3 is built for F=128, " + route):
+        pair_layer(*base32, w32, 10.0)
+    with pytest.raises(ValueError, match="pair_layer is built for F=128, " + route):
+        pair_layer(*base16, w16, 10.0, variant="fma")
+    with pytest.raises(ValueError, match="pair_tangent_mma is built for F=128, " + route):
+        pair_tangent(*base16, *lanes16, w16, 10.0)
+    with pytest.raises(ValueError, match="pair_tangent_tf32x3 is built for F=128, " + route):
+        pair_tangent(*base32, *lanes32, w32, 10.0)
+    x, s = base32[0], base32[1]
+    rows = s.reshape(-1, F256)
+    with pytest.raises(ValueError, match="fused_edge_mlp_tf32x3 is built for F=128, " + route):
+        pk.fused_edge_mlp(torch.cat([rows, rows], dim=-1), rows, w32)
+    assert _build.LAUNCHES == before
+
+
 _BF16_CASES = [(torch.bfloat16, k, lane_block, b, "mma")
                for (k, lane_block) in ((8, 4), (16, 4), (6, 2), (3, 1)) for b in (B, 130)]
 _LIBS = {(torch.bfloat16, "mma"): "pair_tangent_mma", (torch.float32, "mma"): "pair_tangent_tf32x3",

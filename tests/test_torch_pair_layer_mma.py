@@ -2,7 +2,8 @@
 as far as the CPU reaches them: the wrapper's route table (B2 in f32 on B1's
 3xTF32 kernel too), the tile plan, the fragment-order packing done once in
 ``prepare``, a numpy walk of the packed fragments in the kernel's row
-mapping, and the CPU route. The plain version the kernels are held against
+mapping, and the CPU route; the tile plan and the walk at F = 256 too (the
+library pair_layer_mma_f256, one tile a CTA of 16 warps). The plain version the kernels are held against
 on the card (tests/test_torch_gpu.py) is held here against the JAX package's
 chain-blocked Pallas kernel in interpret mode, in bf16_agg and in f32.
 """
@@ -32,6 +33,8 @@ from ti_torch.ops.pair_layer_kernel import (
     TC_ROWS,
     _route,
     apply_dense_pair_kernel,
+    mma_max_tiles,
+    mma_tile_bytes,
     mma_tile_groups,
     mma_tile_plan,
     pack_mma_weights,
@@ -95,9 +98,23 @@ def test_mma_tile_plan_covers_every_group_once(b, n, chain_block):
     """Every (chain, dst atom) group in exactly one row tile of one CTA, the
     tiles' rows contiguous in e, for batches that fill neither the last tile
     nor the last CTA."""
-    plan = mma_tile_plan(b, n, chain_block)
-    assert plan.groups == TC_ROWS // n and plan.tiles == min(chain_block, MMA_MAX_TILES)
-    assert plan.smem == plan.tiles * MMA_TILE_BYTES <= SMEM_LIMIT
+    _tile_plan_covers_every_group_once(b, n, chain_block, 128)
+
+
+@pytest.mark.parametrize("chain_block", [1, 2, 4])
+@pytest.mark.parametrize("b,n", [(1, 2), (16, 29), (128, 29), (13, 29), (7, 19), (5, KERNEL_MAX_N)])
+def test_mma_tile_plan_covers_every_group_once_at_f256(b, n, chain_block):
+    """The same at F = 256, where one 132,352-byte tile fills a CTA and
+    every chain block takes one tile (so B2 is B1's launch); 29 atoms, the
+    10506 molecule, at its 16 and 128 chains."""
+    _tile_plan_covers_every_group_once(b, n, chain_block, 256)
+    assert mma_tile_plan(b, n, chain_block, 256).tiles == 1
+
+
+def _tile_plan_covers_every_group_once(b, n, chain_block, f):
+    plan = mma_tile_plan(b, n, chain_block, f)
+    assert plan.groups == TC_ROWS // n and plan.tiles == min(chain_block, mma_max_tiles(f))
+    assert plan.smem == plan.tiles * mma_tile_bytes(f) <= SMEM_LIMIT
     seen = []
     for cta in range(plan.ctas):
         in_cta = 0
@@ -122,6 +139,18 @@ def test_mma_plan_at_the_sde_batch():
     assert MMA_TILE_BYTES == 66_816 and got[3].smem == got[4].smem == 200_448
     assert (MMA_MAX_TILES + 1) * MMA_TILE_BYTES > SMEM_LIMIT
     assert mma_tile_plan(128, 19, 1).ctas == 811
+
+
+def test_mma_plan_at_f256():
+    """At F = 256 a tile is 64 (8F + 20) = 132,352 bytes and two exceed a
+    CTA's 232,448; 16 chains of 29 atoms are 464 groups in 232 tiles of two
+    groups (58 real rows), 1.76 waves over 132 SMs at one CTA an SM."""
+    assert mma_tile_bytes(256) == 132_352 and 2 * mma_tile_bytes(256) > SMEM_LIMIT
+    assert mma_max_tiles(256) == 1 and mma_max_tiles(128) == MMA_MAX_TILES == 3
+    plan = mma_tile_plan(16, 29, 1, 256)
+    assert (plan.groups, plan.tiles, plan.ctas, plan.smem) == (2, 1, 232, 132_352)
+    assert mma_tile_plan(16, 29, 4, 256) == plan
+    assert mma_tile_plan(128, 29, 1, 256).ctas == 1856
 
 
 @pytest.fixture(scope="module")
@@ -179,7 +208,19 @@ def test_fragment_walk_in_the_kernel_row_mapping_reproduces_the_dot(nwarp, tb, w
     of chunk ``chunk``; each B fragment it loads from the packed buffer feeds
     every tile of the CTA. Against ``dot_bf16`` on the same pair rows only the
     order of summation differs: rtol 1e-6, atol 2e-6 max |dot|."""
-    f, n, b = 128, 19, 9
+    _fragment_walk(128, 19, 9, nwarp, tb, which, chunk)
+
+
+@pytest.mark.parametrize("which,chunk", [(0, 0), (1, 0), (2, 3), (5, 4)])
+def test_fragment_walk_in_the_kernel_row_mapping_reproduces_the_dot_at_f256(which, chunk):
+    """The same walk at F = 256 (pair_layer_mma_f256): one tile a CTA of 16
+    warps, each a quarter of the columns, N = 29 (58 real rows and 6 of
+    padding), on the packing at F = 256 (phi.w1 512 x 256, phi.w2, w.w3 256 x
+    1280)."""
+    _fragment_walk(256, 29, 3, 16, 1, which, chunk)
+
+
+def _fragment_walk(f, n, b, nwarp, tb, which, chunk):
     wts = _weights(f, seed=1)
     mats = (wts.phi.w1, wts.phi.w2, wts.phi.w3, wts.w.w1, wts.w.w2, wts.w.w3)
     m = mats[which]
@@ -188,7 +229,8 @@ def test_fragment_walk_in_the_kernel_row_mapping_reproduces_the_dot(nwarp, tb, w
     packed = pack_mma_weights(wts)[off: off + k * n_out].float().numpy()
     rng = np.random.default_rng(2)
     rows_all = torch.as_tensor(rng.standard_normal((b * n * n, k)).astype(np.float32)).to(BF16)
-    plan = mma_tile_plan(b, n, tb)
+    plan = mma_tile_plan(b, n, tb, f)
+    assert plan.tiles == tb
     tiles = []
     for slot in range(tb):  # the first CTA's tiles
         groups = mma_tile_groups(plan, 0, slot, b, n)

@@ -13,7 +13,7 @@
 // bf16 (the products round there anyway), and each thread keeps working on
 // the elements its fragment gave it.
 //
-// Shared-memory tiles are bf16, row-major with a row stride ld of 128 or 256
+// Shared-memory tiles are bf16, row-major with a row stride ld of F or 2F
 // values, and swizzled in 16-byte chunks: chunk c of row r lives at chunk
 // c ^ (r & 7). ldmatrix's eight row addresses and the fragment's 4-byte
 // accesses then fall on 32 distinct banks.

@@ -25,7 +25,12 @@
 
 namespace pk {
 
-constexpr int F = 128;          // feature width
+// feature width: 128 for every library; pair_layer_mma.cu is built a second
+// time with -DPK_F=256 (ops/_build.py)
+#ifndef PK_F
+#define PK_F 128
+#endif
+constexpr int F = PK_F;
 constexpr int R = 32;           // pair rows per CTA (src atoms of one dst atom)
 constexpr int NT = 256;         // threads per CTA
 constexpr int NW = NT / 32;     // warps

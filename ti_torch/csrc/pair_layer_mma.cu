@@ -39,15 +39,16 @@
 //   in the fragment order of ops/pair_layer_kernel.pack_mma_weights. Warp w
 //   owns rows 16 (w % 4) .. of every tile of its CTA and column block w / 4
 //   of each F-wide product;
-// - B2: a CTA takes TB = 1..3 consecutive row tiles (the wrapper's
-//   mma_tiles maps chain_block to TB), and each weight fragment a warp loads
-//   feeds the same rows of all of them, which divides the L2 weight stream by
-//   TB. Three tiles fill the shared memory of a CTA; four do not fit, and
-//   walking four in two rounds of two was slower than three at once (PERF.md,
-//   section 6), so there are no rounds. A CTA of one tile has 8 warps (two
-//   CTAs an SM, each warp half the columns of a product); a CTA of more has
-//   16 (one an SM, each warp a quarter of the columns), so an SM keeps 16
-//   warps to hide latency either way. Each group's code and order of
+// - B2: a CTA takes TB = 1..3 consecutive row tiles at F = 128 (the
+//   wrapper's mma_tiles maps chain_block to TB; at F = 256 TB is 1), and each
+//   weight fragment a warp loads feeds the same rows of all of them, which
+//   divides the L2 weight stream by TB. Three tiles fill the shared memory of
+//   a CTA; four do not fit, and walking four in two rounds of two was slower
+//   than three at once (PERF.md, section 6), so there are no rounds. At F =
+//   128 a CTA of one tile has 8 warps (two CTAs an SM, each warp half the
+//   columns of a product); a CTA of more has 16 (one an SM, each warp a
+//   quarter of the columns), so an SM keeps 16 warps to hide latency either
+//   way. Each group's code and order of
 //   summation are B1's, so B2's outputs equal B1's to the bit;
 // - each product's accumulators are rounded once to bf16 plus the bf16 bias,
 //   into shared memory where the plain version rounds; LayerNorm and SiLU run
@@ -59,11 +60,19 @@
 //
 // Shared memory of a tile: X = [s_j | e_ij] (64 x 2F), Y = PE (64 x F) and
 // H (64 x F) bf16, swizzled in 16-byte chunks (mma_common.cuh), and the rows'
-// dist, mask and dir: 66,816 bytes. Every instantiation is held to 128
-// registers a thread (two CTAs of 256 threads an SM, or one of 512).
+// dist, mask and dir: 64 (8F + 20) bytes, 66,816 at F = 128 and 132,352 at
+// F = 256. Every instantiation is held to 128 registers a thread (two CTAs of
+// 256 threads an SM, or one of 512).
 //
-// F and the tile sizes are named constants (pair_common.cuh, mma_common.cuh);
-// only F = 128 is built.
+// F and the tile sizes are named constants (pair_common.cuh, mma_common.cuh).
+// The source is built twice (ops/_build.py): at F = 128 (pair_layer_mma) and
+// with -DPK_F=256 (pair_layer_mma_f256, the 10506 profile's 29 atoms x F =
+// 256). At F = 256 one tile fills a CTA's shared memory, so B2 takes one tile
+// a CTA whatever chain_block, and that CTA has 16 warps, each a quarter of
+// the columns of a product: a warp holds the same accumulators and weight
+// fragments as in the 8-warp CTA of one tile at F = 128, so the register
+// budget is the same. Each CTA streams the layer's 15 F^2 bf16 weights
+// (1,966,080 bytes at F = 256) from L2, as at F = 128.
 
 #include "mma_common.cuh"
 
@@ -72,8 +81,8 @@ namespace lmma {
 
 constexpr int TR = 64;          // pair rows of a row tile
 constexpr int LDX = 2 * F;      // row stride of X
-constexpr int MAX_TILES = 3;    // row tiles a CTA: three fill its shared memory
 constexpr int LCH = F / 128;    // 16-byte chunks a lane takes of a row in LayerNorm
+constexpr int WARPS1 = FP;      // warps of a CTA of one tile: 8 at F = 128, 16 at 256
 
 // one tile's shared memory: X, Y, H (bf16 element offsets), then dist (TR f32),
 // mask (TR f32) and dir (3 x TR pairs of equal bf16)
@@ -81,9 +90,10 @@ constexpr int X_OFF = 0, Y_OFF = TR * LDX, H_OFF = Y_OFF + TR * F;
 constexpr size_t TILE_BF16 = (size_t)TR * 4 * F;
 constexpr size_t TILE_BYTES = sizeof(bf16) * TILE_BF16 + sizeof(float) * 5 * TR;
 constexpr size_t TSTRIDE = TILE_BYTES / sizeof(bf16);  // tile c starts at c * TSTRIDE
+// row tiles a CTA: as many as fit its shared memory, three at F = 128, one at 256
+constexpr int MAX_TILES = (int)(232448 / TILE_BYTES);
 static_assert(TILE_BYTES % 16 == 0, "tiles start on 16-byte boundaries");
-static_assert(MAX_TILES * TILE_BYTES <= 232448 && (MAX_TILES + 1) * TILE_BYTES > 232448,
-              "three tiles, and no more, fit the shared memory of a CTA");
+static_assert(MAX_TILES == (F == 128 ? 3 : 1), "three tiles fit a CTA at F = 128, one at 256");
 
 // the shared memory of a CTA of TB row tiles
 __host__ __device__ constexpr size_t smem_bytes(int TB) { return TB * TILE_BYTES; }
@@ -443,6 +453,22 @@ int launch(const void* x, const void* s, const void* v, const void* e, const voi
   return (int)cudaGetLastError();
 }
 
+// WARPS1 warps for one tile (two CTAs an SM at F = 128, one at 256), 16 for
+// two or three (one CTA an SM; F = 128 only). A template over MAX_TILES, so
+// that at F = 256 the discarded branch instantiates no kernel.
+template <int MT>
+int launch_tiles(const void* x, const void* s, const void* v, const void* e, const void* mats,
+                 const void* vecs, void* dv, void* ds, void* e_out, int B, int N, int G,
+                 long long ctas, int TB, float pe_scale, void* stream) {
+  if (TB == 1) return launch<1, WARPS1>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, G, ctas, pe_scale, stream);
+  if constexpr (MT >= 3) {
+    if (TB == 2) return launch<2, 16>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, G, ctas, pe_scale, stream);
+    return launch<3, 16>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, G, ctas, pe_scale, stream);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
 long long cta_count(int B, int N, int TB) {
   const int G = TR / N;
   const long long tiles = ((long long)B * N + G - 1) / G;
@@ -461,12 +487,8 @@ extern "C" int pair_layer_mma(const void* x, const void* s, const void* v, const
   if (B < 1 || N < 2 || N > pk::R || TB < 1 || TB > MAX_TILES) return (int)cudaErrorInvalidValue;
   const int G = TR / N;
   const long long ctas = cta_count(B, N, TB);
-  // 8 warps for one tile (two CTAs an SM), 16 for two or three (one CTA an SM)
-  switch (TB) {
-    case 1: return launch<1, 8>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, G, ctas, pe_scale, stream);
-    case 2: return launch<2, 16>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, G, ctas, pe_scale, stream);
-    default: return launch<3, 16>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, G, ctas, pe_scale, stream);
-  }
+  return launch_tiles<MAX_TILES>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, G, ctas, TB, pe_scale,
+                                 stream);
 }
 
 extern "C" int pair_layer_mma_max_tiles() { return pk::lmma::MAX_TILES; }

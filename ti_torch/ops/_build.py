@@ -8,12 +8,14 @@ in .gitignore) and is reused while it is newer than its sources.
 
 Every wrapper counts its launches in ``LAUNCHES``, under its kernel's own
 name: one per kernel launch and nowhere else, so a run can show that its
-path went through the kernels. B1 (``pair_layer``) has three libraries:
+path went through the kernels. B1 (``pair_layer``) has four libraries:
 ``pair_layer_tf32x3`` (f32 on the tensor cores), ``pair_layer_mma``
-(bf16_agg on the tensor cores) and ``pair_layer`` (the f32-FMA kernels of
-both types, kept for timing); B2 (``pair_layer_cb``, chain_block > 1) has
-the same three: ``pair_layer_tf32x3`` (f32), ``pair_layer_mma`` (bf16_agg)
-and ``pair_layer`` (``variant="fma"``). B3
+(bf16_agg on the tensor cores), ``pair_layer_mma_f256`` (the same source
+built at F = 256) and ``pair_layer`` (the f32-FMA kernels of both types,
+kept for timing); B2 (``pair_layer_cb``, chain_block > 1) has the same
+four: ``pair_layer_tf32x3`` (f32), ``pair_layer_mma`` and
+``pair_layer_mma_f256`` (bf16_agg) and ``pair_layer`` (``variant="fma"``).
+Every library but ``pair_layer_mma_f256`` is built at F = 128. B3
 (``pair_tangent``) has three: ``pair_tangent_mma`` (bf16_agg on the tensor
 cores), ``pair_tangent_tf32x3`` (f32 on the tensor cores) and
 ``pair_tangent`` (the f32-FMA kernel, kept for timing). B4
@@ -42,10 +44,12 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("pair_layer", "pair_layer_tf32x3", "pair_layer_mma", "pair_tangent",
-           "pair_tangent_mma", "pair_tangent_tf32x3", "fused_edge_mlp", "fused_edge_mlp_tf32x3",
-           "fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3", "fused_mlp", "fused_mlp_tf32x3",
-           "div_kernel", "div_kernel_tf32x3")
+KERNELS = ("pair_layer", "pair_layer_tf32x3", "pair_layer_mma", "pair_layer_mma_f256",
+           "pair_tangent", "pair_tangent_mma", "pair_tangent_tf32x3", "fused_edge_mlp",
+           "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3", "fused_mlp",
+           "fused_mlp_tf32x3", "div_kernel", "div_kernel_tf32x3")
+# libraries built from another library's source: name -> (source, nvcc defines)
+BUILT_FROM = {"pair_layer_mma_f256": ("pair_layer_mma", ("-DPK_F=256",))}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "pair_layer", "pair_layer_cb", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp",
@@ -92,10 +96,11 @@ def _stale(name: str) -> bool:
 
 
 def _command(name: str, out: Path) -> list:
+    source, defines = BUILT_FROM.get(name, (name, ()))
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-I", str(CSRC), "-o", str(out), str(CSRC / f"{name}.cu"),
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *defines,
+        "-I", str(CSRC), "-o", str(out), str(CSRC / f"{source}.cu"),
     ]
 
 

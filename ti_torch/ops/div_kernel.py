@@ -49,6 +49,7 @@ from ti_torch.ops.pair_layer_kernel import (
     _mlp_store,
     _pack_tf32_matrix,
     agg,
+    check_width,
     tile_src,
 )
 from ti_torch.ops.pair_tangent_kernel import _mlp_tan
@@ -296,8 +297,7 @@ def _check_div_inputs(inp: DivInputs, stacks: MLPStacks, lanes_per_chunk: int):
     """Shape, dtype, device and contiguity checks of kernel B7; returns
     (C, N, SL, n_chunks)."""
     c, sl, n, f = inp.s.shape
-    if f != KERNEL_F:
-        raise ValueError(f"kernel B7 is built for F={KERNEL_F}, got F={f}")
+    check_width(f, "kernel B7")
     if not 2 <= n <= KERNEL_MAX_N:
         raise ValueError(f"kernel B7 takes 2..{KERNEL_MAX_N} atoms, got {n}")
     L = lanes_per_chunk

@@ -5,7 +5,10 @@ csrc/pair_layer_tf32x3.cu, the layer's matrices split and packed once in
 fragment order by ``pack_tf32_weights``), and B1 and B2 in bf16_agg
 (csrc/pair_layer_mma.cu, ``mma.sync`` bf16, the matrices packed once by
 ``pack_mma_weights``). B2 in f32 is B1's 3xTF32 kernel. csrc/pair_layer.cu
-(f32 FMA) keeps both types of B1 and B2 as ``variant="fma"``.
+(f32 FMA) keeps both types of B1 and B2 as ``variant="fma"``. Every kernel
+is built for F = 128; csrc/pair_layer_mma.cu is built at F = 256 as well
+(library ``pair_layer_mma_f256``), so B1 and B2 in bf16_agg take the 10506
+profile's width, where ``fast_profile`` sends the trajectory through them.
 
 Port of ti_tpu/ops/pair_layer_kernel.py (the Pallas ``_pair_layer_kernel``,
 and ``_pair_layer_kernel_cb`` for ``chain_block`` > 1). The chain-blocked
@@ -59,17 +62,32 @@ from ti_torch.ops.mlp_block import (
 )
 
 KERNEL_F = 128       # the feature width the CUDA kernels are built for
+LIB_WIDTHS = {"pair_layer_mma_f256": 256}  # the libraries built for another width
+F256_ROUTE = ("F = 256 runs only in B1 and B2 in bf16_agg on the tensor cores (pair_layer "
+              "with bf16 weights, variant None or 'tc': library pair_layer_mma_f256)")
 KERNEL_MAX_N = 32    # pair rows per thread group: one dst atom's N src atoms
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on Hopper
 MAX_CHAIN_BLOCK = 4   # of csrc/pair_layer.cu: 256 threads a chain, 1024 threads a CTA
 _R, _NW, _NGEO = 32, 8, 10  # tile rows, warps of a group, geometry rows (pair_common.cuh)
 TC_ROWS = 64         # pair rows of a row tile of the tensor-core kernels
 _TC_GEO = 5          # geometry rows of csrc/pair_layer_tf32x3.cu: dist, mask, dir (3)
-# one row tile of csrc/pair_layer_mma.cu: X = [s_j | e_ij], Y = PE, H (bf16, 4F
-# columns in all) and the rows' dist, mask and dir (5 x 4 bytes); three fill
-# the shared memory of a CTA
-MMA_TILE_BYTES = TC_ROWS * (2 * 4 * KERNEL_F + 4 * 5)
-MMA_MAX_TILES = 3
+
+
+def mma_tile_bytes(f: int = KERNEL_F) -> int:
+    """One row tile of csrc/pair_layer_mma.cu at width ``f``: X = [s_j |
+    e_ij], Y = PE, H (bf16, 4F columns in all) and the rows' dist, mask and
+    dir (5 x 4 bytes)."""
+    return TC_ROWS * (2 * 4 * f + 4 * 5)
+
+
+def mma_max_tiles(f: int = KERNEL_F) -> int:
+    """Row tiles that fit the shared memory of a CTA: three at F = 128, one
+    at F = 256."""
+    return SMEM_LIMIT // mma_tile_bytes(f)
+
+
+MMA_TILE_BYTES = mma_tile_bytes()
+MMA_MAX_TILES = mma_max_tiles()
 VARIANTS = ("tc", "fma")  # the tensor-core kernel of the weights' type, or the f32-FMA one
 
 
@@ -269,22 +287,22 @@ class MmaPlan(NamedTuple):
     smem: int
 
 
-def mma_tiles(chain_block: int) -> int:
-    """Row tiles a CTA of csrc/pair_layer_mma.cu takes for ``chain_block``:
-    as many, up to the three that fit its shared memory. Four walked in two
-    rounds of two were slower than three at once, so chain_block 4 takes
-    three (PERF.md, section 6)."""
-    return min(chain_block, MMA_MAX_TILES)
+def mma_tiles(chain_block: int, f: int = KERNEL_F) -> int:
+    """Row tiles a CTA of csrc/pair_layer_mma.cu takes for ``chain_block``
+    at width ``f``: as many, up to the ones that fit its shared memory (three
+    at F = 128, one at F = 256). Four walked in two rounds of two were slower
+    than three at once, so chain_block 4 takes three (PERF.md, section 6)."""
+    return min(chain_block, mma_max_tiles(f))
 
 
-def mma_smem_bytes(chain_block: int) -> int:
-    return mma_tiles(chain_block) * MMA_TILE_BYTES
+def mma_smem_bytes(chain_block: int, f: int = KERNEL_F) -> int:
+    return mma_tiles(chain_block, f) * mma_tile_bytes(f)
 
 
-def mma_tile_plan(b: int, n: int, chain_block: int) -> MmaPlan:
-    groups, tiles = TC_ROWS // n, mma_tiles(chain_block)
+def mma_tile_plan(b: int, n: int, chain_block: int, f: int = KERNEL_F) -> MmaPlan:
+    groups, tiles = TC_ROWS // n, mma_tiles(chain_block, f)
     row_tiles = -(-b * n // groups)
-    return MmaPlan(groups, tiles, -(-row_tiles // tiles), mma_smem_bytes(chain_block))
+    return MmaPlan(groups, tiles, -(-row_tiles // tiles), mma_smem_bytes(chain_block, f))
 
 
 def mma_tile_groups(plan: MmaPlan, cta: int, slot: int, b: int, n: int) -> range:
@@ -396,8 +414,16 @@ def pair_layer_plain(x, s, v, e, wts: PairLayerWeights, length_scale: float):
 _P = ctypes.c_void_p
 
 
-def _check_pair_inputs(x, s, v, e, wts: PairLayerWeights):
-    """Device, dtype, shape and contiguity checks shared by both kernels;
+def check_width(f: int, what: str, width: int = KERNEL_F) -> None:
+    """Raise unless ``what`` (a library or a kernel) is built for ``f``; the
+    message names the route that takes F = 256."""
+    if f != width:
+        raise ValueError(f"{what} is built for F={width}, got F={f}; {F256_ROUTE}")
+
+
+def _check_pair_inputs(x, s, v, e, wts: PairLayerWeights, lib: str):
+    """Device, dtype, shape and contiguity checks shared by the pair
+    kernels' libraries (B1, B2 and B3), the width against ``lib``'s;
     returns (B, N, F, working dtype)."""
     dev = x.device
     if x.dim() != 3 or x.shape[-1] != 3 or x.dtype != torch.float32:
@@ -405,8 +431,7 @@ def _check_pair_inputs(x, s, v, e, wts: PairLayerWeights):
     b, n, _ = x.shape
     f = s.shape[-1]
     wd = BF16 if wts.bf16 else torch.float32
-    if f != KERNEL_F:
-        raise ValueError(f"the CUDA pair kernels are built for F={KERNEL_F}, got F={f}")
+    check_width(f, lib, LIB_WIDTHS.get(lib, KERNEL_F))
     if not 2 <= n <= KERNEL_MAX_N:
         raise ValueError(f"the CUDA pair kernels take 2..{KERNEL_MAX_N} atoms, got {n}")
     want = {"s": (s, (b, n, f)), "v": (v, (b, 3, n, f)), "e": (e, (b, n * n, f))}
@@ -438,17 +463,21 @@ def group_smem_bytes(bf16: bool) -> int:
                                         + _NGEO * _R + 7 * KERNEL_F)
 
 
-def _route(bf16: bool, chain_block: int, variant: Optional[str]) -> str:
+def _route(bf16: bool, chain_block: int, variant: Optional[str], f: int = KERNEL_F) -> str:
     """The library a launch takes: the tensor-core kernel of the weights'
     type for every ``chain_block`` ("pair_layer_tf32x3" for f32,
-    "pair_layer_mma" for bf16_agg, min(C, 3) tiles a CTA), or, for
-    ``variant="fma"``, "pair_layer" (csrc/pair_layer.cu, which refuses
-    chain_block > MAX_CHAIN_BLOCK when it launches)."""
+    "pair_layer_mma" for bf16_agg, min(C, 3) tiles a CTA, and at F = 256
+    "pair_layer_mma_f256", one tile a CTA), or, for ``variant="fma"``,
+    "pair_layer" (csrc/pair_layer.cu, which refuses chain_block >
+    MAX_CHAIN_BLOCK when it launches). Only pair_layer_mma_f256 takes F =
+    256; the others refuse it when they launch."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"variant must be None or one of {VARIANTS}, got {variant!r}")
     if variant == "fma":
         return "pair_layer"
-    return "pair_layer_mma" if bf16 else "pair_layer_tf32x3"
+    if bf16:
+        return "pair_layer_mma_f256" if f == 256 else "pair_layer_mma"
+    return "pair_layer_tf32x3"
 
 
 def _packed(wts: PairLayerWeights, x, numel: int, dtype, what: str, how: str) -> torch.Tensor:
@@ -466,15 +495,15 @@ def _packed(wts: PairLayerWeights, x, numel: int, dtype, what: str, how: str) ->
 def _launch(lib: str, x, s, v, e, wts: PairLayerWeights, length_scale: float, c: int):
     """One launch of library ``lib``: pair_layer_tf32x3 (B1/B2 f32 on the
     tensor cores, whatever C), pair_layer_mma (B1/B2 bf16_agg on the tensor
-    cores, min(C, 3) row tiles a CTA) or pair_layer (f32 FMA, C chains a
-    CTA)."""
-    b, n, f, _ = _check_pair_inputs(x, s, v, e, wts)
+    cores, min(C, 3) row tiles a CTA), pair_layer_mma_f256 (the same at F =
+    256, one row tile a CTA) or pair_layer (f32 FMA, C chains a CTA)."""
+    b, n, f, _ = _check_pair_inputs(x, s, v, e, wts, lib)
     if lib == "pair_layer_tf32x3":
         mats = _packed(wts, x, 2 * wts.mats.numel(), torch.float32, "3xTF32", "with_tf32_weights")
         args = ()
-    elif lib == "pair_layer_mma":
+    elif lib in ("pair_layer_mma", "pair_layer_mma_f256"):
         mats = _packed(wts, x, wts.mats.numel(), BF16, "fragment-order", "with_mma_weights")
-        args = (mma_tiles(c),)
+        args = (mma_tiles(c, f),)
     else:
         smem = c * group_smem_bytes(wts.bf16)
         if c > MAX_CHAIN_BLOCK or smem > SMEM_LIMIT:
@@ -484,7 +513,8 @@ def _launch(lib: str, x, s, v, e, wts: PairLayerWeights, length_scale: float, c:
                 f"1024 threads and {SMEM_LIMIT} bytes (chain_block <= {MAX_CHAIN_BLOCK})")
         mats, args = wts.mats, (c,)
     handle = _build.load(lib)
-    fn = getattr(handle, lib if lib != "pair_layer" else
+    fn = getattr(handle, "pair_layer_mma" if lib == "pair_layer_mma_f256" else
+                 lib if lib != "pair_layer" else
                  "pair_layer_bf16" if wts.bf16 else "pair_layer_f32")
     fn.argtypes = [_P] * 9 + [ctypes.c_int] * (2 + len(args)) + [ctypes.c_float, _P]
     fn.restype = ctypes.c_int
@@ -506,10 +536,12 @@ def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float, chain_blo
     weights' type runs, for every ``chain_block``: 3xTF32 for f32
     (``with_tf32_weights``; C changes nothing in it), ``mma.sync`` bf16 for
     bf16_agg (``with_mma_weights``; ``mma_tiles``: min(C, 3) 64-row tiles a
-    CTA); every C gives B1's bits. ``variant="fma"`` takes the f32-FMA
-    kernel (C chains a CTA, C <= MAX_CHAIN_BLOCK)."""
+    CTA; one at F = 256, library pair_layer_mma_f256); every C gives B1's
+    bits. ``variant="fma"`` takes the f32-FMA kernel (C chains a CTA, C <=
+    MAX_CHAIN_BLOCK). Only bf16_agg on the tensor cores takes F = 256; the
+    others raise on a CUDA tensor of that width."""
     c = check_chain_block(chain_block)
-    lib = _route(wts.bf16, c, variant)
+    lib = _route(wts.bf16, c, variant, s.shape[-1])
     if x.device.type == "cpu":
         return pair_layer_plain(x, s, v, e, wts, length_scale)
     if x.device.type != "cuda":

@@ -247,7 +247,7 @@ def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
         return pair_tangent_plain(x, s, v, e, dx, ds, dv, de, wts, length_scale, lane_block)
     if x.device.type != "cuda":
         raise ValueError(f"pair_tangent runs on cuda or cpu, not {x.device}")
-    b, n, f, wd = _check_pair_inputs(x, s, v, e, wts)
+    b, n, f, wd = _check_pair_inputs(x, s, v, e, wts, lib)
     k_lanes = dx.shape[1] if dx.dim() == 4 else -1
     want = {"dx": (dx, (b, k_lanes, n, 3), torch.float32),
             "ds": (ds, (b, k_lanes, n, f), wd),

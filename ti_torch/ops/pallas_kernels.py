@@ -46,12 +46,14 @@ from ti_torch.ops import _build
 from ti_torch.ops.mlp_block import MLPWeights, _mlp_block, _mlp_block_jvp
 from ti_torch.ops.pair_layer_kernel import (
     _R,
+    F256_ROUTE,
     KERNEL_F,
     SMEM_LIMIT,
     TC_ROWS,
     PairLayerWeights,
     _pack_tf32_matrix,
     _packed,
+    check_width,
     unpack_pair_mlps,
 )
 
@@ -242,6 +244,7 @@ def fused_edge_mlp(in_feat, pe, wts: PairLayerWeights, variant: str = "tc"):
         PLAIN_CALLS["fused_edge_mlp"] += 1
         return fused_edge_mlp_reference(in_feat, pe, wts.phi, wts.w)
     dev, f, r = in_feat.device, KERNEL_F, _rows(in_feat)
+    check_width(pe.shape[-1], lib)
     _check("in_feat", in_feat, (r, 2 * f), dev)
     _check("pe", pe, (r, f), dev)
     _check_pair_mlps(wts, dev)
@@ -354,6 +357,7 @@ def fused_edge_mlp_jvp(in_feat, pe, din, dpe, wts: PairLayerWeights,
         PLAIN_CALLS["fused_edge_mlp_jvp"] += 1
         return edge_mlp_jvp_reference(in_feat, pe, din, dpe, wts.phi, wts.w)
     dev, f, r = in_feat.device, KERNEL_F, _rows(in_feat)
+    check_width(pe.shape[-1], lib)
     k_lanes = din.shape[0] if din.dim() == 3 else -1
     _check("in_feat", in_feat, (r, 2 * f), dev)
     _check("pe", pe, (r, f), dev)
@@ -430,7 +434,8 @@ def fused_mlp(x, pack: MLPPack, variant: str = "tc"):
     dev, f, r = x.device, KERNEL_F, _rows(x)
     _check("x", x, (r, pack.f_in), dev)
     if pack.w.w2.shape[0] != f:
-        raise ValueError(f"fused_mlp takes hidden width F={f}, got F={pack.w.w2.shape[0]}")
+        raise ValueError(f"fused_mlp takes hidden width F={f}, got F={pack.w.w2.shape[0]}; "
+                         f"{F256_ROUTE}")
     for t in (pack.mats, pack.vecs):
         if t.device != dev:
             raise ValueError(f"weights must be on {dev}, found them on {t.device}")

@@ -23,7 +23,23 @@ sigma_T0). The script
    endpoint only, and reports the NFE per chain against bench.py's
    REF_NFE = 500.
 
+With ``--atoms 29 --features 256`` it is the oracle of the large molecule's
+profile (``ambient_preset("10506")``, the 10506 rows of BASELINE.md): the
+same recipe trains a 29-atom F = 256 field, and step 2 transports through
+the field's exact floor (``fast_profile`` with ``divergence="exact",
+compute_dtype="f32", traj_forward_impl="default"``: the dense f32 forward
+and the exact divergence, no kernel), through the kernel route
+(``fast_profile`` as it stands: B1 in bf16_agg at F = 256 on the
+trajectory, Hutchinson-32 at the nodes) and through the same route with
+the plain dense bf16_agg forward on the trajectory (the same probes: the
+kernel is all that differs), in batches of 16; step 3 is left out (no
+kernel, and bench.py prices the 00031 shape). The gate is the exact
+route's |dF err| < 0.6 there (``ti_tpu``'s fields read 0.386-0.404,
+BASELINE.md) and ESS > 2%. On the H100 the training takes about 31
+minutes and step 2 about 16.
+
     python3 tools/torch_ambient_oracle.py [--epochs 100] [--out chiprun_out/ambient_oracle]
+    python3 tools/torch_ambient_oracle.py --atoms 29 --features 256 --out build/oracle_10506
 
 ``--reuse`` evaluates the weights a previous run saved in ``--out``
 instead of training. The last line of standard output is one JSON object
@@ -122,6 +138,9 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     result = {"card": card, "args": vars(args)}
     T0, T1, n = args.T0, args.T1, args.atoms
+    large = args.features >= 256  # the 10506 profile (fast_profile's rule)
+    mol_name = "10506" if large else "00031"
+    bs = 16 if large else 128  # chains a transport batch: the profiles' own
 
     def sigma(T):
         return args.jitter * math.sqrt(T / 300.0)
@@ -183,22 +202,29 @@ def main(argv=None) -> int:
         return np.sum((xc - p_eq) ** 2, axis=(-2, -1)) / (2.0 * sigma(T) ** 2)
 
     dF_exact = -3 * (n - 1) * math.log(sigma(T1) / sigma(T0))
-    routes = {
-        "exact": dict(divergence="exact", div_forward_impl="pair_tangent"),
-        "main": {},
-        "bf16_agg_full_frame": dict(divergence="exact"),
-    }
+    if large:  # B3 takes F = 128 only: the exact floor on the dense f32 forward
+        routes = {
+            "exact": dict(divergence="exact", compute_dtype="f32", traj_forward_impl="default"),
+            "main": {},
+            "default_trajectory": dict(traj_forward_impl="default"),
+        }
+    else:
+        routes = {
+            "exact": dict(divergence="exact", div_forward_impl="pair_tangent"),
+            "main": {},
+            "bf16_agg_full_frame": dict(divergence="exact"),
+        }
     dlogps = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, over in routes.items():
-            c = fast_profile(ambient_preset("00031"), data_save_path=tmp, sampling_T0=T0,
+            c = fast_profile(ambient_preset(mol_name), data_save_path=tmp, sampling_T0=T0,
                              sampling_T1=T1, **over)
-            sample_ambient(c, model, params, ds.template, x0[:128], save=False,
-                           batch_size=128, device="cuda")  # warm-up
+            sample_ambient(c, model, params, ds.template, x0[:bs], save=False,
+                           batch_size=bs, device="cuda")  # warm-up
             torch.cuda.synchronize()
             _build.reset_launches()
             t0 = time.perf_counter()
-            out = sample_ambient(c, model, params, ds.template, x0, save=False, batch_size=128,
+            out = sample_ambient(c, model, params, ds.template, x0, save=False, batch_size=bs,
                                  device="cuda")
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
@@ -221,7 +247,7 @@ def main(argv=None) -> int:
                   f"{100 * row['ess_fraction']:.2f}%, width {width:.4f} (sigma T0 "
                   f"{sigma(T0):.4f}, T1 {sigma(T1):.4f}); {secs:.2f} s, "
                   f"{row['samples_per_s']:.2f} samples/s; launches {by_lib} ({card})", flush=True)
-    for name in ("main", "bf16_agg_full_frame"):
+    for name in [r for r in routes if r != "exact"]:
         d = dlogps[name] - dlogps["exact"]
         result[f"{name}_minus_exact_dlogp"] = {
             "mean": float(d.mean()), "rms": float(np.sqrt((d ** 2).mean())),
@@ -230,8 +256,8 @@ def main(argv=None) -> int:
               f"{np.sqrt((d ** 2).mean()):.5f}, std error {d.std(ddof=1) / math.sqrt(len(d)):.5f}",
               flush=True)
 
-    # ---- 3. the reference sampler's NFE on the trained field ----
-    for label, n_save in (("save_points_100", None), ("endpoint_only", 2)):
+    # ---- 3. the reference sampler's NFE on the trained field (00031 only) ----
+    for label, n_save in () if large else (("save_points_100", None), ("endpoint_only", 2)):
         over = {} if n_save is None else {"n_steps": n_save}
         with tempfile.TemporaryDirectory() as tmp:
             c = ambient_preset("00031", data_save_path=tmp, sampling_T0=T0, sampling_T1=T1,
@@ -251,7 +277,8 @@ def main(argv=None) -> int:
               f"{nfe.min()}-{nfe.max()} (mean {nfe.mean():.1f}) against REF_NFE = {REF_NFE}; "
               f"{secs:.1f} s ({card})", flush=True)
 
-    ok = (result["exact"]["dF_err"] < 0.2 and result["exact"]["ess_fraction"] > 0.02
+    ok = (result["exact"]["dF_err"] < (0.6 if large else 0.2)
+          and result["exact"]["ess_fraction"] > 0.02
           and all(result[k]["finite"] for k in routes))
     result["ok"] = bool(ok)
     with open(os.path.join(args.out, "oracle.json"), "w") as f:
