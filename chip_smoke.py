@@ -36,7 +36,10 @@ that the path went through its kernels:
   spectrum (plain PyTorch: no kernel is on that path);
 - the large molecule's fast profile at its width (10506: 29 atoms, F =
   256, 5 layers): ``sample_ambient`` and the SDE through kernel B1 in
-  bf16_agg at F = 256.
+  bf16_agg at F = 256;
+- the analysis layer over the main path's transported samples: z-matrix
+  marginals on the card, the paper's multi-source results report and the
+  torsion-space gEDMD kinetics.
 
     python3 chip_smoke.py
 
@@ -196,7 +199,15 @@ Phases (any failure exits non-zero and prints no result):
      rounding feeds the next, and grows along the trajectory);
      ``sample_molecular_sde`` at 512 chains, bf16_agg, 20 steps (100 B1
      launches), finite;
- 16. the ``kernels`` line, the card line and the result line.
+ 16. the analysis layer (``phase_analysis``) over the main path's
+     transported samples: ``sample_ambient`` under ``fast_profile`` at 2
+     batches of 128 chains with its artifacts saved (360 B1 launches from
+     pair_layer_tf32x3, 80 B3 from pair_tangent_mma), read back; harmonic
+     stand-in energies and MD-reference frames; ``generate_full_report``
+     with its z-matrices on the card against the same on the CPU; the NeRF
+     reconstruction and its log|det J| at 29 atoms x 65,536 conformations;
+     the torsion-space generator spectrum and a model-selection grid;
+ 17. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -224,6 +235,20 @@ BAR = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # max |kernel - plain| / max 
 SDE_CHAINS, SDE_STEPS, BENCH_SDE_STEPS = 8192, 20, 100  # bench.py:378 runs 100 steps
 FUSED_CHAINS = 32  # the dense_fused exact sampler's batch
 LAYER_WEIGHT_BYTES = 2 * 15 * F * F  # one message layer's bf16 matrices, streamed a CTA
+# the harmonic well of phase 16's frames and stand-in energies: the width
+# tools/torch_ambient_oracle.py trains on (its --jitter), wide enough that
+# the random field's transported samples keep exp(-phi) above underflow
+WELL_JITTER = 0.4
+# the arrays phase 16's report saves (MD→TI with energies, the MD references
+# at T0 and T1), under the reference's names (results_00031.py:291-340)
+ANALYSIS_ARTIFACTS = (
+    *(f"{kind}_{src}" for kind in ("torsions", "bond_angles", "bond_lengths")
+      for src in ("md_ti_0", "md_ti_1")),
+    "torsions_md_T0", "torsions_md_T1", "bond_angles_md_T0", "bond_angles_md_T1",
+    "bond_lengths_md_0", "bond_lengths_md_1",
+    "ess_md_ti_percentage", "ess_md_ti_ci_percentage", "df_md_ti", "dF_md_ti_ci",
+    "weights_md_ti",
+)
 SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
     "pair_layer": ("ti_torch/csrc/pair_layer_tf32x3.cu", "ti_tpu/ops/pair_layer_kernel.py:83"),
     "pair_layer_bf16_agg": ("ti_torch/csrc/pair_layer_mma.cu",
@@ -2076,6 +2101,214 @@ def phase_10506(rows_kernels, card: str) -> dict:
     return launches
 
 
+def wrapped(a):
+    """Angle differences folded into (-pi, pi]."""
+    return (a + np.pi) % (2 * np.pi) - np.pi
+
+
+def harmonic_energy(x: np.ndarray, T: float, p_eq: np.ndarray, jitter: float = WELL_JITTER):
+    """Reduced energy of the isotropic well ``make_synthetic_frames`` draws
+    from (sigma_T = jitter sqrt(T/300) about the equilibrium geometry,
+    centre of mass removed): tools/torch_ambient_oracle.py's stand-in for
+    the OpenMM stage, which the card's machine does not have. In float64,
+    as the OpenMM stage writes them: the report's weights exp(-phi) and
+    their squares underflow in float32."""
+    x = np.asarray(x, dtype=np.float64)
+    xc = x - x.mean(axis=-2, keepdims=True)
+    return np.sum((xc - p_eq) ** 2, axis=(-2, -1)) / (2.0 * jitter ** 2 * T / 300.0)
+
+
+def nerf_check(n: int, conformations: int, device: str, card: str) -> None:
+    """Phase 16(d): the z-matrices of ``conformations`` frames of a
+    synthetic n-atom molecule on ``device``: construct -> deconstruct ->
+    construct within 1e-4 (torsions modulo 2 pi), the NeRF loop's log|det J|
+    against ``compute_jacobian_batch``'s closed form within 1e-3, every
+    z-matrix valid; each call's time (CUDA events). The frames are
+    ``make_synthetic_frames``' (bond angles 0.2-3.12 rad at 29 atoms):
+    arccos near 0 or pi turns a rounding of the cosine into sqrt(2 ulp) ~
+    3e-4 of angle, in the port as in ti_tpu."""
+    from ti_torch.analysis.sort_atoms import (
+        adjacency_from_bonds,
+        compute_atom_order_and_references_groups,
+    )
+    from ti_torch.analysis.zmatrix import (
+        compute_jacobian_batch,
+        construct_z_matrix,
+        deconstruct_z_matrix,
+        valid_z_mask,
+    )
+    from ti_torch.data.mdqm9 import make_synthetic_frames, make_synthetic_molecule
+
+    mol = make_synthetic_molecule(n, seed=0)
+    order, _, refs = compute_atom_order_and_references_groups(
+        adjacency_from_bonds(n, mol.bond_index))
+    x = torch.as_tensor(make_synthetic_frames(mol, conformations, 300.0, seed=3)[:, order],
+                        device=device)
+    z = construct_z_matrix(x, refs)
+    cart, logdet = deconstruct_z_matrix(z, refs)
+    again = construct_z_matrix(cart, refs)
+    err = (again - z).abs()
+    err[..., 2] = wrapped(again[..., 2] - z[..., 2]).abs()
+    closed = compute_jacobian_batch(z, refs)
+    ld_err = float((logdet - closed).abs().max())
+    ms = {name: cuda_ms(fn, 5) for name, fn in (
+        ("construct", lambda: construct_z_matrix(x, refs)),
+        ("deconstruct", lambda: deconstruct_z_matrix(z, refs)),
+        ("closed form", lambda: compute_jacobian_batch(z, refs)))}
+    log(f"[16d NeRF {n} atoms x {conformations} on {device}] round trip max err {float(err.max()):.3e} "
+        f"(lengths {float(err[..., 0].max()):.3e}, angles {float(err[..., 1].max()):.3e}, "
+        f"torsions {float(err[..., 2].max()):.3e}); log|det J| loop minus closed form max "
+        f"{ld_err:.3e} (|log det| up to {float(logdet.abs().max()):.2f}); ms a call: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" ({card})")
+    require(cart.shape == (conformations, n, 3) and bool(torch.isfinite(cart).all()),
+            "NeRF: finite cartesians")
+    require(bool(valid_z_mask(z).all()), "NeRF: every z-matrix valid")
+    require(float(err.max()) <= 1e-4, "NeRF: construct -> deconstruct -> construct within 1e-4")
+    require(ld_err <= 1e-3, "NeRF: the loop's log|det J| within 1e-3 of the closed form")
+
+
+def analysis_report(samples, dlogps, T0: float, T1: float, device: str, card: str, tmp: str):
+    """Phase 16(b) and (c): the harmonic stand-in energies and 1,024
+    MD-reference frames at T0 and at T1, then ``generate_full_report``
+    (k = 100, 1,000 bootstraps) with its z-matrices on ``device``, saved to
+    ``tmp``, against the same report with them on the CPU: the saved names
+    are ``ANALYSIS_ARTIFACTS``, every array finite, each ESS in [1, n] of
+    the weights left after the IQR filter, the marginals at atol 1e-4 /
+    rtol 1e-5 (torsions modulo 2 pi), ΔF, ESS and weights to 1e-12
+    relative. Returns the seconds of (b) and (c)."""
+    from ti_torch.analysis import results
+    from ti_torch.analysis.sort_atoms import adjacency_from_bonds
+    from ti_torch.data.mdqm9 import make_synthetic_frames, make_synthetic_molecule
+
+    n = len(samples)
+    t0 = time.perf_counter()
+    mol = make_synthetic_molecule(N_ATOMS, seed=0)
+    adj = adjacency_from_bonds(N_ATOMS, mol.bond_index)
+    p_eq = (mol.positions - mol.positions.mean(axis=0)).astype(np.float32)
+    x_0, x_1 = samples[:, 0], samples[:, -1]
+    src = results.MDTISource(x0s=x_0, x1s=x_1, E0s=harmonic_energy(x_0, T0, p_eq),
+                             E1s=harmonic_energy(x_1, T1, p_eq), neg_dlogps_ti=dlogps)
+    md_T0 = make_synthetic_frames(mol, 1024, T0, seed=1, jitter=WELL_JITTER)
+    md_T1 = make_synthetic_frames(mol, 1024, T1, seed=2, jitter=WELL_JITTER)
+    secs_b = time.perf_counter() - t0
+    require(np.isfinite(src.E0s).all() and np.isfinite(src.E1s).all(), "finite energies")
+    log(f"[16b energies] harmonic stand-in at {T0:g} K and {T1:g} K, MD references 1024 + "
+        f"1024 frames: {secs_b:.3f} s")
+
+    kw = dict(md_ti=src, md_T0=md_T0, md_T1=md_T1, k=100.0, n_bootstrap=1000)
+    saved = os.path.join(tmp, "report")
+    t0 = time.perf_counter()
+    rep = results.generate_full_report(adj, save_path=saved, device=device, **kw)
+    secs_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep_cpu = results.generate_full_report(adj, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    names = sorted(f[:-4] for f in os.listdir(saved))
+    require(names == sorted(ANALYSIS_ARTIFACTS), f"report artifacts {names}")
+    require(all(np.isfinite(np.load(os.path.join(saved, f"{m}.npy"))).all() for m in names),
+            "every saved array is finite")
+    kept = len(rep["weights_md_ti"])
+    ess = np.array([rep["ess_md_ti_percentage"], *rep["ess_md_ti_ci_percentage"]]) * n / 100
+    require(bool(np.all((ess >= 1 - 1e-9) & (ess <= kept + 1e-9))),
+            f"ESS {ess} in [1, {kept}] (the weights left after the IQR filter)")
+    worst = {}
+    for key in rep:
+        if key.startswith(("torsions", "bond_angles", "bond_lengths")):
+            a, b = rep[key], rep_cpu[key]
+            d = np.abs(wrapped(a - b) if key.startswith("torsions") else a - b)
+            worst[key] = float(d.max())
+            require(a.shape == b.shape and bool(np.all(d <= 1e-4 + 1e-5 * np.abs(b))),
+                    f"{key} on the card equals the CPU's (atol 1e-4, rtol 1e-5)")
+        else:
+            a, b = (np.asarray(rep[key], np.float64).ravel(),
+                    np.asarray(rep_cpu[key], np.float64).ravel())
+            require(np.allclose(a, b, rtol=1e-12, atol=0), f"{key} equals the CPU run's")
+    log(f"[16c report] generate_full_report (k = 100, 1000 bootstraps, z-matrices on {device}) "
+        f"{secs_c:.3f} s, the same with device='cpu' {cpu_s:.3f} s; {len(names)} artifacts; "
+        f"dF {rep['df_md_ti']:.5f} CI {rep['dF_md_ti_ci']}, ESS {rep['ess_md_ti_percentage']:.4f}% "
+        f"of {n} ({kept} kept); marginals {device} minus CPU max {max(worst.values()):.3e} "
+        f"({max(worst, key=worst.get)}) ({card})")
+    return secs_b, secs_c
+
+
+def analysis_kinetics(samples, T1: float, device: str) -> float:
+    """Phase 16(e): ``torsion_generator_spectrum`` on the transported
+    samples' torsions (z-matrices on ``device``) at T1 (p = 300, sigma = 5,
+    nev = 4; 100 bootstraps, cut from the reference's 1,000) and a 2 x 2
+    ``model_selection_scan`` with 5 test splits: finite and real, each
+    bootstrap interval holding its mean. Returns its seconds."""
+    from ti_torch.analysis import kinetics, results
+    from ti_torch.analysis.sort_atoms import adjacency_from_bonds
+    from ti_torch.data.mdqm9 import make_synthetic_molecule
+
+    t0 = time.perf_counter()
+    mol = make_synthetic_molecule(N_ATOMS, seed=0)
+    adj = adjacency_from_bonds(N_ATOMS, mol.bond_index)
+    X = results.gen_torsions(results.gen_z_matrix(adj, samples[:, -1], device)).T
+    X = X.astype(np.float64)
+    spec = kinetics.torsion_generator_spectrum(X, T1, p=300, sigma=5.0, nev=4, n_bootstrap=100,
+                                               seed=0)
+    scan = kinetics.model_selection_scan(X, 1.0 / spec["beta"], sigma_list=(1.0, 5.0),
+                                         p_list=(50, 300), ntest=5, nev=4, seed=0)
+    secs = time.perf_counter() - t0
+    ev = [np.asarray(spec[k]) for k in ("eigenvalues_mean", "lower_bound", "upper_bound")]
+    log(f"[16e kinetics] {X.shape[0]} torsions x {X.shape[1]} samples at {T1:g} K (p = 300, "
+        f"sigma = 5, 100 bootstraps, cut from 1000): eigenvalues {ev[0]}, 95% [{ev[1]}, {ev[2]}]; "
+        f"model selection 2 x 2 x 5: best (sigma, p) {kinetics.best_hyperparameters(scan)}, "
+        f"mean VAMP {scan['VAMP'].mean(axis=-1).ravel()}; {secs:.3f} s")
+    require(all(np.isrealobj(e) and np.isfinite(e).all() for e in ev), "finite real eigenvalues")
+    require(bool(np.all((ev[1] <= ev[0]) & (ev[0] <= ev[2]))), "each interval holds its mean")
+    require(np.isfinite(scan["EV"]).all() and np.isfinite(scan["VAMP"]).all(),
+            "model selection: finite")
+    return secs
+
+
+def phase_analysis(model, template, card: str) -> None:
+    """16. The analysis layer over the main path's transported samples, on
+    the card: (a) ``sample_ambient(fast_profile(ambient_preset("00031")),
+    save=True)`` at 2 batches of 128 chains of synthetic frames at 1000 K
+    (360 B1 launches from pair_layer_tf32x3, 80 B3 from pair_tangent_mma),
+    its ``samples_*`` and ``dlogps_*`` read back from disk; (b), (c) the
+    report (``analysis_report``); (d) the NeRF at 29 atoms x 65,536
+    conformations (``nerf_check``); (e) the kinetics (``analysis_kinetics``)."""
+    from ti_torch.config import ambient_preset, fast_profile
+    from ti_torch.data.mdqm9 import make_synthetic_frames, make_synthetic_molecule
+    from ti_torch.sampling.drivers import sample_ambient
+
+    t_phase = time.perf_counter()
+    secs = {}
+    cfg = fast_profile(ambient_preset("00031"))
+    require((cfg.traj_forward_impl, cfg.div_forward_impl, cfg.num_probes, cfg.probe_mode)
+            == ("pair_kernel", "pair_tangent_bf16", 16, "orthogonal"), "fast_profile route")
+    T0, T1 = cfg.sampling_T0, cfg.sampling_T1
+    n = 2 * CHAINS
+    x0 = make_synthetic_frames(make_synthetic_molecule(N_ATOMS, seed=0), n, T0, seed=999,
+                               jitter=WELL_JITTER)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg.data_save_path = tmp
+        out, secs["a"], routes = counted(lambda: sample_ambient(
+            cfg, model, None, template, x0, save=True, batch_size=CHAINS, device="cuda"))
+        samples = np.load(os.path.join(tmp, f"samples_{cfg.data_save_name}.npy"))
+        dlogps = np.load(os.path.join(tmp, f"dlogps_{cfg.data_save_name}.npy"))
+        want = {("pair_layer", "pair_layer_tf32x3"): 2 * 180,
+                ("pair_tangent", "pair_tangent_mma"): 2 * 40}
+        log(f"[16a artifacts] sample_ambient(fast_profile(00031)) {n} chains in 2 batches of "
+            f"{CHAINS}: {secs['a']:.3f} s, {n / secs['a']:.3f} samples/s; launches by library "
+            f"{by_lib(routes)}; read back samples {samples.shape}, dlogps {dlogps.shape} ({card})")
+        require(routes == want, f"phase 16 launch counts {routes} == {want}")
+        require(np.array_equal(samples, out["samples"]) and np.array_equal(dlogps, out["dlogps"]),
+                "the artifacts read back equal what sample_ambient returned")
+        require(samples.shape == (n, 2, N_ATOMS, 3) and np.isfinite(samples).all()
+                and np.isfinite(dlogps).all(), "finite artifacts of the expected shape")
+        secs["b"], secs["c"] = analysis_report(samples, dlogps, T0, T1, "cuda", card, tmp)
+    t0 = time.perf_counter()
+    nerf_check(29, 65536, "cuda", card)
+    secs["d"] = time.perf_counter() - t0
+    secs["e"] = analysis_kinetics(samples, T1, "cuda")
+    log(f"[16 analysis] " + ", ".join(f"({k}) {v:.3f} s" for k, v in secs.items())
+        + f"; phase {time.perf_counter() - t_phase:.3f} s ({card})")
+
+
 def b7_macs(c: int, n: int, layers: int) -> float:
     """Multiply-adds the function of kernel B7 needs for c chains: per chain
     and layer the primal message MLPs once (phi 8F² + w 7F² per pair row),
@@ -2726,7 +2959,10 @@ def main() -> int:
     # ---- 15. the large molecule's fast profile: B1 at F = 256 ----
     launches10506 = phase_10506(rows_kernels, card)
 
-    # ---- 16. result lines ----
+    # ---- 16. the analysis layer over the main path's samples ----
+    phase_analysis(model, template, card)
+
+    # ---- 17. result lines ----
     path_launches = {"pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_layer_bf16_agg_f256": launches10506["pair_layer"],

@@ -1320,3 +1320,95 @@ def test_train_adw_runs_on_the_card_by_default_in_f64(tmp_path):
     assert all(np.isfinite(v).all() for v in res["history"].values())
     assert res["state"].nan_count == 0 and res["state"].count == 2 * (1600 // 128)
     assert (tmp_path / "m" / "velocity" / "epoch_1.npz").exists()
+
+
+def _wrapped(a):
+    return (a + torch.pi) % (2 * torch.pi) - torch.pi
+
+
+def _zmatrix_case(n, conformations):
+    import numpy as np
+
+    from ti_torch.analysis.sort_atoms import (
+        adjacency_from_bonds,
+        compute_atom_order_and_references_groups,
+    )
+    from ti_torch.data.mdqm9 import make_synthetic_frames, make_synthetic_molecule
+
+    mol = make_synthetic_molecule(n, seed=0)
+    order, _, refs = compute_atom_order_and_references_groups(
+        adjacency_from_bonds(n, mol.bond_index))
+    x = make_synthetic_frames(mol, conformations, 300.0, seed=3)[:, np.asarray(order)]
+    return torch.from_numpy(x), refs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [19, 29])
+def test_zmatrix_nerf_and_log_det_on_the_card_match_the_cpu(n):
+    """The port's z-matrices, NeRF reconstruction and log|det J| on the card
+    against the same functions on the CPU, at the float32 bars of
+    tests/test_torch_zmatrix.py (rtol 1e-5 / atol 1e-6, torsions modulo
+    2 pi; ``valid_z_mask`` exactly). The cartesians' atol is one float32
+    ulp of the largest |coordinate| for each of the N - 3 placements: the
+    NeRF places each atom from earlier ones, so its rounding accumulates
+    along the placement order and a coordinate near 0 carries the error of
+    references far from it (the card and the CPU contract other products
+    into FMAs: 5.2e-6 apart at 29 atoms, coordinates up to 7.3, where the
+    bar is 2.3e-5)."""
+    from ti_torch.analysis.zmatrix import (
+        compute_jacobian_batch,
+        construct_z_matrix,
+        deconstruct_z_matrix,
+        valid_z_mask,
+    )
+
+    _card()
+    x, refs = _zmatrix_case(n, 4096)
+    z_cpu = construct_z_matrix(x, refs)
+    z = construct_z_matrix(x.cuda(), refs)
+    assert z.is_cuda and z.dtype == torch.float32
+    torch.testing.assert_close(z[..., :2].cpu(), z_cpu[..., :2], rtol=1e-5, atol=1e-6)
+    d = _wrapped(z[..., 2].cpu() - z_cpu[..., 2]).abs()
+    assert bool((d <= 1e-6 + 1e-5 * z_cpu[..., 2].abs()).all()), float(d.max())
+    assert torch.equal(valid_z_mask(z).cpu(), valid_z_mask(z_cpu))
+    cart, logdet = deconstruct_z_matrix(z_cpu.cuda(), refs)
+    cart_cpu, logdet_cpu = deconstruct_z_matrix(z_cpu, refs)
+    ulp = torch.finfo(torch.float32).eps * float(cart_cpu.abs().max())
+    torch.testing.assert_close(cart.cpu(), cart_cpu, rtol=1e-5, atol=(n - 3) * ulp)
+    torch.testing.assert_close(logdet.cpu(), logdet_cpu, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(compute_jacobian_batch(z_cpu.cuda(), refs).cpu(),
+                               compute_jacobian_batch(z_cpu, refs), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_full_report_on_the_card_matches_the_cpu(tmp_path):
+    """``generate_full_report`` with its z-matrices on the card against the
+    same on the CPU: the marginals at the float32 bar (torsions modulo
+    2 pi), everything else (host numpy on the same arrays) equal."""
+    import numpy as np
+
+    from ti_torch.analysis import results
+    from ti_torch.analysis.sort_atoms import adjacency_from_bonds
+    from ti_torch.data.mdqm9 import make_synthetic_frames, make_synthetic_molecule
+
+    _card()
+    mol = make_synthetic_molecule(N, seed=0)
+    adj = adjacency_from_bonds(N, mol.bond_index)
+    rng = np.random.default_rng(4)
+    src = results.MDTISource(x0s=make_synthetic_frames(mol, 512, 1000.0, seed=1),
+                             x1s=make_synthetic_frames(mol, 512, 300.0, seed=2),
+                             E0s=rng.normal(10, 1, 512), E1s=rng.normal(10.5, 1, 512),
+                             neg_dlogps_ti=rng.normal(0, 0.2, 512))
+    kw = dict(md_ti=src, md_T0=make_synthetic_frames(mol, 512, 1000.0, seed=3),
+              md_T1=make_synthetic_frames(mol, 512, 300.0, seed=4), n_bootstrap=50)
+    rep = results.generate_full_report(adj, save_path=str(tmp_path), **kw)  # device=None: cuda
+    ref = results.generate_full_report(adj, device="cpu", **kw)
+    assert set(rep) == set(ref) and len(list(tmp_path.iterdir())) == len(rep)
+    for key in ref:
+        if key.startswith(("torsions", "bond_angles", "bond_lengths")):
+            a, b = torch.from_numpy(rep[key]), torch.from_numpy(ref[key])
+            d = _wrapped(a - b) if key.startswith("torsions") else a - b
+            assert bool((d.abs() <= 1e-6 + 1e-5 * b.abs()).all()), (key, float(d.abs().max()))
+        else:
+            np.testing.assert_array_equal(np.asarray(rep[key], np.float64),
+                                          np.asarray(ref[key], np.float64))

@@ -40,7 +40,35 @@ def test_imports_with_jax_blocked():
             "ti_torch.train.latent", "ti_torch.analysis.potentials", "ti_torch.models.mlp",
             "ti_torch.models.convert", "ti_torch.data.adw", "ti_torch.train.adw",
             "ti_torch.sampling.drivers", "ti_torch.gedmd", "ti_torch.gedmd.rff",
-            "ti_torch.analysis.reweight"} <= set(mods)
+            "ti_torch.analysis.reweight", "ti_torch.analysis.sort_atoms",
+            "ti_torch.analysis.zmatrix", "ti_torch.analysis.results",
+            "ti_torch.analysis.kinetics", "ti_torch.analysis.plots",
+            "ti_torch.analysis.energy", "ti_torch.data.eval_dataset",
+            "ti_torch.gedmd.symbolic"} <= set(mods)
+
+
+def test_analysis_imports_without_its_optional_libraries():
+    """The card's machine has no sympy, matplotlib, h5py or OpenMM: the
+    analysis layer, the gEDMD package and the eval dataset import without
+    them (each is imported where it is used), and the parts that need none
+    run."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'ti_tpu', 'sympy', 'matplotlib', 'h5py', 'openmm'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "import ti_torch.analysis as a, ti_torch.gedmd, ti_torch.data.eval_dataset\n"
+        "from ti_torch.data.mdqm9 import make_synthetic_frames, make_synthetic_molecule\n"
+        "mol = make_synthetic_molecule(7)\n"
+        "adj = a.adjacency_from_bonds(mol.n_atoms, mol.bond_index)\n"
+        "r = a.generate_report(adj, make_synthetic_frames(mol, 8, 300), device='cpu')\n"
+        "assert r['torsions'].shape == (8, 4) and not a.openmm_available()\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
 
 
 def test_no_source_imports_jax_or_ti_tpu():

@@ -8,7 +8,8 @@ Subpackages
 - ``ti_torch.config``: the typed settings and presets (copy of ti_tpu's)
 - ``ti_torch.data``: SDF reader, molecule templates, synthetic molecules,
   the reference-layout trajectory ingest, ``MDQM9AmbientDataset`` and
-  ``MDQM9LatentDataset``; the ADW samples CSV and ``ADWDataset``
+  ``MDQM9LatentDataset``; the ADW samples CSV and ``ADWDataset``; the
+  energy stage's hdf5 reader ``MDQM9EvalDataset``
 - ``ti_torch.models``: cPaiNN as an ``nn.Module``, its edge (gather/scatter)
   form ``apply_edge``, the dense pair forward (``fused=True``: its message
   MLPs in kernels B4/B5), the fused edge-row forward (``cpainn_fused``), the
@@ -26,8 +27,12 @@ Subpackages
   Euler–Maruyama, the ambient, latent and ADW sampling drivers (the
   reference's dopri5 route and the quadrature routes) and the molecular SDE
 - ``ti_torch.analysis``: importance weights, TFEP free energies, the ADW
-  potential and its quadrature oracles, reweighted gEDMD spectra
-- ``ti_torch.gedmd``: gEDMD with random Fourier features (numpy)
+  potential and its quadrature oracles, reweighted gEDMD spectra; the atom
+  order, z-matrices and the NeRF reconstruction with log|det J| (torch),
+  the paper's multi-source results report, the torsion-space kinetics, the
+  OpenMM-gated energy stage and the figures
+- ``ti_torch.gedmd``: gEDMD with random Fourier features (numpy) and the
+  sympy dictionary ``SymbolicBasis`` (derivatives by ``torch.func``)
 - ``ti_torch.interpolants``, ``ti_torch.losses``: the stochastic
   interpolants and the antithetic velocity losses
 - ``ti_torch.train``: the optimizer (clip, L2 decay, Adam in optax's

@@ -1,4 +1,6 @@
-"""gEDMD with random Fourier features (numpy; a copy of ti_tpu/gedmd)."""
+"""gEDMD with random Fourier features (numpy; a copy of ti_tpu/gedmd/rff.py)
+and the symbolic dictionary ``SymbolicBasis`` (torch; sympy imported when one
+is built)."""
 
 from ti_torch.gedmd.rff import (
     sample_rff_gaussian,
@@ -16,6 +18,7 @@ from ti_torch.gedmd.rff import (
     filter_ev,
     split_by_lag,
 )
+from ti_torch.gedmd.symbolic import Sym2numeric, SymbolicBasis
 
 __all__ = [
     "sample_rff_gaussian",
@@ -32,4 +35,6 @@ __all__ = [
     "whitening_transform",
     "filter_ev",
     "split_by_lag",
+    "SymbolicBasis",
+    "Sym2numeric",
 ]
