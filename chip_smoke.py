@@ -39,7 +39,10 @@ that the path went through its kernels:
   bf16_agg at F = 256;
 - the analysis layer over the main path's transported samples: z-matrix
   marginals on the card, the paper's multi-source results report and the
-  torsion-space gEDMD kinetics.
+  torsion-space gEDMD kinetics;
+- the parallel layer (chip_smoke_parallel.py): the main path chain-sharded
+  on NCCL, the lane-sharded divergence, data-parallel training and the
+  sampling fan-out CLI.
 
     python3 chip_smoke.py
 
@@ -207,7 +210,14 @@ Phases (any failure exits non-zero and prints no result):
      with its z-matrices on the card against the same on the CPU; the NeRF
      reconstruction and its log|det J| at 29 atoms x 65,536 conformations;
      the torsion-space generator spectrum and a model-selection grid;
- 17. the ``kernels`` line, the card line and the result line.
+ 17. the parallel layer (``phase_parallel``, chip_smoke_parallel.py): NCCL
+     at world size 1, ``parallel_sampler`` over the main path at 128 chains
+     against the unsharded run (180 B1 launches from pair_layer_tf32x3, 40 B3
+     from pair_tangent_mma), the lane-sharded exact divergence and
+     ``parallel_update`` against their unsharded forms, and the fan-out CLI
+     (two shards of 128 chains on the one card, merged) against one
+     unsharded CLI run;
+ 18. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -2962,7 +2972,16 @@ def main() -> int:
     # ---- 16. the analysis layer over the main path's samples ----
     phase_analysis(model, template, card)
 
-    # ---- 17. result lines ----
+    # ---- 17. the parallel layer: chain- and lane-sharded sampling, data-parallel
+    # training on NCCL at world size 1, the fan-out CLI on the one card ----
+    from chip_smoke_parallel import phase_parallel
+
+    launches17 = phase_parallel(model, template, card)
+    require((launches17["pair_layer"], launches17["pair_tangent"])
+            == (launches["pair_layer"] // n_batches, launches["pair_tangent"] // n_batches),
+            f"the chain-sharded main path launches a batch's B1 and B3: {launches17}")
+
+    # ---- 18. result lines ----
     path_launches = {"pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_layer_bf16_agg_f256": launches10506["pair_layer"],

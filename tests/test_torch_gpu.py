@@ -1412,3 +1412,101 @@ def test_full_report_on_the_card_matches_the_cpu(tmp_path):
         else:
             np.testing.assert_array_equal(np.asarray(rep[key], np.float64),
                                           np.asarray(ref[key], np.float64))
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """NCCL at world size 1 (NCCL refuses two ranks on one card) and a 1-D
+    cuda mesh over it; the ranks themselves are the CPU tests' (gloo)."""
+    _card()
+    import torch.distributed as dist
+
+    from ti_torch.parallel import init_distributed, make_mesh
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    init_distributed("nccl", init_method=f"file://{store}", rank=0, world_size=1, local_rank=0,
+                     timeout_s=120)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_chain_sharded_main_path_on_nccl(nccl_mesh):
+    """``parallel_sampler`` over the main path's route (2 layers) on NCCL
+    equals ``sample_ambient`` unsharded with the same seed (phase 4's bars;
+    the probes are the same by construction), through B1 from
+    pair_layer_tf32x3 and B3 from pair_tangent_mma."""
+    import numpy as np
+
+    from ti_torch.config import ambient_preset, fast_profile
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+    from ti_torch.parallel import parallel_sampler
+    from ti_torch.sampling.drivers import _config_sampler, sample_ambient
+
+    _card()
+    model = torch_default_weights_(CPaiNN(F, 2, n_atoms=N))
+    template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=2)
+    cfg = fast_profile(ambient_preset("00031", score_layers=2))
+    rng = np.random.default_rng(3)
+    x0 = (0.1 * rng.standard_normal((B, N, 3))).astype("float32")
+    x0 -= x0.mean(axis=1, keepdims=True)
+    temps = np.tile(np.array([cfg.sampling_T0, cfg.sampling_T1], "float32"), (B, 1))
+    whole = sample_ambient(cfg, model, None, template, x0, save=False, batch_size=B)
+    sampler = parallel_sampler(_config_sampler(cfg, model, None, template, torch.device("cuda")),
+                               nccl_mesh)
+    _build.reset_launches()
+    sol = sampler(x0, temps, torch.Generator(device="cuda").manual_seed(cfg.seed))
+    routes = {k: n for k, n in _build.ROUTE_LAUNCHES.items() if n}
+    assert routes == {("pair_layer", "pair_layer_tf32x3"): 9 * 4 * 2,
+                      ("pair_tangent", "pair_tangent_mma"): 8 * 2}
+    np.testing.assert_allclose(sol.xs.cpu().numpy(), whole["samples"], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(sol.dlogp[:, -1].cpu().numpy(), whole["dlogps"], rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_lane_sharded_divergence_and_parallel_update_on_nccl(nccl_mesh):
+    """On the same group: the lane-sharded exact divergence of the dense
+    forward against ``divergence_exact`` (rtol 3e-4), and one
+    ``parallel_update`` step of the dense f32 loss against
+    ``make_update_step``'s (loss rtol 1e-5, parameters rtol 1e-4 / atol
+    1e-6)."""
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+    from ti_torch.interpolants import linear
+    from ti_torch.losses import molecular_velocity_loss
+    from ti_torch.ops.divergence import divergence_exact
+    from ti_torch.parallel import parallel_update
+    from ti_torch.sampling.drivers import molecular_v_fn_of
+    from ti_torch.train import common
+
+    _card()
+    init = torch_default_weights_(CPaiNN(F, 2, n_atoms=N))
+    template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=2)
+    x0, x1, temps, _, _ = (torch.from_numpy(a).cuda() for a in _train_batch(16))
+    v = molecular_v_fn_of(init, None, template, device="cuda")(temps[:B])
+    f = lambda y: v(y, 0.5)  # noqa: E731
+    _, lanes = divergence_exact(f, x0[:B], chunk=N, axis_name=nccl_mesh.get_group("data"))
+    _, ref = divergence_exact(f, x0[:B], chunk=N)
+    torch.testing.assert_close(lanes, ref, rtol=3e-4, atol=0.0)
+
+    class Cfg:
+        train_impl = "dense"
+        train_compute_dtype = "f32"
+
+    got = []
+    for wrap in (lambda s: s, lambda s: parallel_update(s, nccl_mesh)):
+        model = CPaiNN(F, 2, n_atoms=N)
+        model.load_state_dict(init.state_dict())
+        model.cuda()
+        params = dict(model.named_parameters())
+        apply = common.make_batched_apply(Cfg, model, template)
+        step = wrap(common.make_update_step(
+            lambda g, a, b, tp: molecular_velocity_loss(apply, params, a, b, tp,
+                                                        linear(a=1.0, gamma="sin2"), generator=g),
+            common.make_optimizer(list(params.values()), 1e-4)))
+        loss = step(torch.Generator(device="cuda").manual_seed(0), x0, x1, temps)
+        got.append((loss, {k: p.detach().cpu() for k, p in params.items()}))
+    assert abs(got[1][0] - got[0][0]) <= 1e-5 * abs(got[0][0])
+    for k, p in got[0][1].items():
+        torch.testing.assert_close(got[1][1][k], p, rtol=1e-4, atol=1e-6)

@@ -144,8 +144,13 @@ def test_hutchinson_dlogp_close_to_exact():
     np.testing.assert_allclose(chunked.dlogp.numpy(), exact.dlogp.numpy(), rtol=1e-6)
     with pytest.raises(ValueError, match="generator"):
         sample_ode(_linear(A4), x0, return_dlogp=True, divergence="hutchinson")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # a mesh dimension's name resolves only inside lane_parallel_sampler's
+    # mesh; Hutch++ refuses lane sharding, as in ti_tpu
+    with pytest.raises(ValueError, match="no mesh is in use"):
         sample_ode(_linear(A4), x0, return_dlogp=True, div_axis="lanes")
+    with pytest.raises(NotImplementedError, match="hutchpp"):
+        sample_ode(_linear(A4), x0, return_dlogp=True, divergence="hutchpp", num_probes=12,
+                   generator=torch.Generator().manual_seed(3), div_axis="lanes")
 
 
 @pytest.mark.parametrize("steps_per_dispatch", [None, 2])

@@ -16,6 +16,7 @@ def _port_sources():
     yield from sorted((ROOT / "ti_torch").rglob("*.py"))
     yield from sorted((ROOT / "tools").rglob("*.py"))
     yield ROOT / "chip_smoke.py"
+    yield ROOT / "chip_smoke_parallel.py"
 
 
 def test_imports_with_jax_blocked():
@@ -44,7 +45,11 @@ def test_imports_with_jax_blocked():
             "ti_torch.analysis.zmatrix", "ti_torch.analysis.results",
             "ti_torch.analysis.kinetics", "ti_torch.analysis.plots",
             "ti_torch.analysis.energy", "ti_torch.data.eval_dataset",
-            "ti_torch.gedmd.symbolic"} <= set(mods)
+            "ti_torch.gedmd.symbolic", "ti_torch.parallel", "ti_torch.parallel.mesh",
+            "ti_torch.parallel.fanout", "ti_torch.parallel.collectives",
+            "ti_torch.parallel.launch", "ti_torch.cli.mdqm9_train_ambient",
+            "ti_torch.cli.mdqm9_sample_ambient", "ti_torch.cli.merge_shards",
+            "ti_torch.cli.fanout_driver"} <= set(mods)
 
 
 def test_analysis_imports_without_its_optional_libraries():

@@ -208,6 +208,13 @@ def test_quadrature_guards():
         make_ode_sampler(_tf_of, solver="rk4", n_steps=8, dlogp_quad="gauss",
                          dlogp_quad_points=4, divergence="hutchinson", return_dlogp_var=True,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    # lane sharding: the axis name resolves only inside lane_parallel_sampler's
+    # mesh; Hutch++ refuses it, as in ti_tpu
+    lanes = make_ode_sampler(_tf_of, solver="rk4", n_steps=8, dlogp_quad="gauss",
+                             dlogp_quad_points=4, div_axis="lanes", device="cpu")
+    with pytest.raises(ValueError, match="no mesh is in use"):
+        lanes(X0, CONDS)
+    with pytest.raises(NotImplementedError, match="hutchpp"):
         make_ode_sampler(_tf_of, solver="rk4", n_steps=8, dlogp_quad="gauss",
-                         dlogp_quad_points=4, div_axis="lanes", device="cpu")
+                         dlogp_quad_points=4, divergence="hutchpp", num_probes=6,
+                         div_axis="lanes", device="cpu")

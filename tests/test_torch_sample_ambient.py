@@ -181,8 +181,9 @@ def test_sampler_guards(setup):
     with pytest.raises(ValueError, match="probe_crn"):
         make_ode_sampler(v_of, steps_per_dispatch=4, probe_crn=True, div_drift=div_fn, **gauss)
     # dopri5, stage-coupled dlogp, Simpson and the unsegmented Gauss sampler
-    # run now; lane sharding stays unported and raises, naming the slice it
-    # comes with
+    # run; lane sharding resolves its axis name only inside
+    # lane_parallel_sampler's mesh, and refuses div_drift, which does not
+    # shard its lanes
     x0 = x0[:2]
     temps = np.tile(np.array([700.0, 300.0], np.float32), (2, 1))
     d5 = make_ode_sampler(v_of, solver="dopri5", return_dlogp=False, device="cpu")(x0, temps)
@@ -194,8 +195,10 @@ def test_sampler_guards(setup):
     for sol in (rk, *quads):
         assert bool(torch.isfinite(sol.dlogp).all()) and bool((sol.dlogp[:, -1] != 0).all())
     assert d5.nfe.shape == (2,) and bool((d5.nfe > 0).all())
-    with pytest.raises(NotImplementedError, match="slice"):
-        make_ode_sampler(v_of, solver="rk4", n_steps=8, device="cpu", div_axis="lanes")
+    with pytest.raises(ValueError, match="no mesh is in use"):
+        make_ode_sampler(v_of, solver="rk4", n_steps=8, device="cpu", div_axis="lanes")(x0, temps)
+    with pytest.raises(ValueError, match="div_axis is not supported with div_drift"):
+        make_ode_sampler(v_of, steps_per_dispatch=4, div_drift=div_fn, div_axis="lanes", **gauss)
 
 
 def test_no_silent_cpu(setup, monkeypatch):

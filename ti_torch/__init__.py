@@ -40,11 +40,14 @@ Subpackages
   trainer ``train_ambient``, the latent trainer ``train_latent`` and the
   ADW trainer ``train_adw`` (plain PyTorch under autograd: no kernel has a
   backward)
+- ``ti_torch.parallel``: data-parallel training, chain- and lane-sharded
+  sampling over ``torch.distributed`` (NCCL on the cards, gloo on the CPU),
+  the sampling fan-out and a launcher of CPU gloo worlds
+- ``ti_torch.cli``: the MDQM9 ambient train and sample CLIs (``--shard``/
+  ``--num_shards``), the shard merge and the local fan-out driver
 - ``ti_torch.utils``: metric logging
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-What is not ported yet (lane sharding) raises ``NotImplementedError`` or
-is absent.
 """
 
 import torch

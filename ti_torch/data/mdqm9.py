@@ -281,3 +281,22 @@ def make_synthetic_frames(
     frames = mol.positions[None] + sigma * rng.standard_normal((n_frames, mol.n_atoms, 3))
     frames = frames - frames.mean(axis=1, keepdims=True)
     return frames.astype(np.float32)
+
+
+def write_synthetic_workspace(root: str, n_atoms: int, n_frames: int, mol_index: int = 31,
+                              seed: int = 0, jitter: float = 0.3) -> Molecule:
+    """An MDQM9 workspace in the reference's on-disk layout under ``root``:
+    ``trajs/{train,test}/{mol_index:05d}.npy`` of shape (8, n_frames,
+    n_atoms, 3), one block of harmonic frames (``make_synthetic_frames``)
+    per temperature of the grid, and ``mdqm9.sdf`` with the molecule at
+    record ``mol_index``. Returns the molecule."""
+    from ti_torch.data.sdf import write_sdf_v2000
+
+    mol = make_synthetic_molecule(n_atoms, seed=seed)
+    for split in ("train", "test"):
+        os.makedirs(os.path.join(root, "trajs", split), exist_ok=True)
+        frames = np.stack([make_synthetic_frames(mol, n_frames, t, seed=t, jitter=jitter)
+                           for t in TEMPERATURES])
+        np.save(os.path.join(root, "trajs", split, f"{mol_index:05d}.npy"), frames)
+    write_sdf_v2000(os.path.join(root, "mdqm9.sdf"), mol, mol_index)
+    return mol

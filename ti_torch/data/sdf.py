@@ -1,4 +1,5 @@
-"""Minimal in-repo SDF (MDL molfile V2000) reader.
+"""Minimal in-repo SDF (MDL molfile V2000) reader, and a writer for
+synthetic workspaces.
 
 The reference uses RDKit (C++) solely to read bonds/atomic numbers from
 mdqm9.sdf (mdqm9/data/mdqm9_ambient.py:222-250). RDKit isn't in this image
@@ -84,3 +85,25 @@ def parse_sdf_v2000(path: str, index: Optional[int] = None):
         rec = records[index]
         return _parse_one(rec.splitlines(), name=rec.splitlines()[0].strip())
     return [_parse_one(r.splitlines(), name=r.splitlines()[0].strip()) for r in records]
+
+
+_SYMBOL = {z: sym for sym, z in _PERIODIC.items()}
+
+
+def write_sdf_v2000(path: str, mol: Molecule, index: int = 0) -> None:
+    """Write an SDF of ``index + 1`` records, each ``mol``, so that
+    ``parse_sdf_v2000(path, index)`` reads ``mol`` back (the reference
+    layout keeps a molecule at its file id's record)."""
+    record = [f"{mol.name or 'mol'}", "  synthetic", "",
+              f"{mol.n_atoms:3d}{mol.bond_index.shape[1] // 2:3d}  0  0  0  0  0  0  0  0999 V2000"]
+    for (x, y, z), num in zip(mol.positions, mol.atomic_numbers):
+        record.append(f"{x:10.4f}{y:10.4f}{z:10.4f} {_SYMBOL[int(num)]:<3}0  0  0  0  0  0  0  0"
+                      "  0  0  0  0")
+    seen = set()
+    for s, d, t in zip(*mol.bond_index, mol.bond_types):
+        if (d, s) not in seen:
+            seen.add((s, d))
+            record.append(f"{s + 1:3d}{d + 1:3d}{t:3d}  0")
+    record += ["M  END", "$$$$"]
+    with open(path, "w") as f:
+        f.write("\n".join(record * (index + 1)) + "\n")

@@ -24,6 +24,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ti_torch.parallel.collectives import batch_draw
+
 ScalarFn = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -41,7 +43,8 @@ def _bcast(t, x: torch.Tensor) -> torch.Tensor:
 
 
 def _noise(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    return torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    """N(0, I) like x; a ``ChainShard`` draws the whole batch and keeps its rows."""
+    return batch_draw(torch.randn, generator, x.shape, dtype=x.dtype, device=x.device)
 
 
 @dataclasses.dataclass(frozen=True)

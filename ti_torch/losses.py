@@ -15,7 +15,11 @@ Kept from the reference:
 - the one-sided loss skips the reference's unused forward on x_t^-.
 
 Draws come from an explicit ``torch.Generator``: t first, then z. The
-``t=``/``z=`` arguments pin them.
+``t=``/``z=`` arguments pin them. A ``ChainShard`` in its place (one rank's
+rows of a batch split over a process group, ti_torch.parallel.parallel_update)
+draws the whole batch's t and z and keeps its rows, and the molecular loss
+then centres x_t^± over the atoms of the whole batch, through a
+differentiable all-reduce.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ti_torch.interpolants import Interpolant
+from ti_torch.parallel.collectives import ChainShard, all_reduce_sum, batch_draw
 
 
 def _sample_t(generator: Optional[torch.Generator], shape, t_distr: str, dtype,
@@ -36,12 +41,21 @@ def _sample_t(generator: Optional[torch.Generator], shape, t_distr: str, dtype,
     t²)."""
     if t_distr not in ("uniform", "beta", "beta21"):
         raise ValueError(f"unknown t distribution {t_distr!r}")
-    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    u = batch_draw(torch.rand, generator, shape, dtype=dtype, device=device)
     if t_distr == "beta":
         return torch.sin(0.5 * math.pi * u) ** 2
     if t_distr == "beta21":
         return torch.sqrt(u)
     return u
+
+
+def _batch_centre(x: torch.Tensor, generator) -> torch.Tensor:
+    """The mean of x (B, N, 3) over all atoms of the batch: of the whole
+    batch when ``generator`` is a ``ChainShard`` over a process group."""
+    if isinstance(generator, ChainShard) and generator.group is not None:
+        return all_reduce_sum(x.reshape(-1, 3).sum(dim=0), generator.group) / (
+            generator.total * x.shape[1])
+    return x.reshape(-1, 3).mean(dim=0)
 
 
 def _antithetic_objective(btp, btm, dtIt, gd, z) -> torch.Tensor:
@@ -74,7 +88,7 @@ def adw_velocity_loss(
     (B, D)) pin the draws.
     """
     if t is None:
-        t = torch.rand((x0.shape[0], 1), generator=generator, dtype=x0.dtype, device=x0.device)
+        t = batch_draw(torch.rand, generator, (x0.shape[0], 1), dtype=x0.dtype, device=x0.device)
     if z is None:
         xtp, xtm, z = interpolant.antithetic_xts(t, x0, x1, generator=generator)
     else:
@@ -126,8 +140,8 @@ def molecular_velocity_loss(
         It, g = interpolant.It(t3, x0, x1), interpolant.gamma(t3)
         xtp, xtm = It + g * z, It - g * z
     # global mean-centring over ALL atoms in the batch
-    xtp = xtp - xtp.reshape(-1, 3).mean(dim=0)
-    xtm = xtm - xtm.reshape(-1, 3).mean(dim=0)
+    xtp = xtp - _batch_centre(xtp, generator)
+    xtm = xtm - _batch_centre(xtm, generator)
 
     def bfwd(x_b, t_b, temps_b):
         return apply_fn(params, x_b, t_b, temps_b)

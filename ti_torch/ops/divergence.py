@@ -18,8 +18,17 @@ flattened state (d = prod(x.shape[1:])).
 - ``value_and_divergence``: dispatch over the three, with the probes drawn
   per chain, shared by every chain (``probe_crn``) or given (``draws``).
 
-Lane sharding over a device mesh (the JAX package's ``axis_name``) belongs
-to the parallel slice of the port and raises ``NotImplementedError``.
+Lane sharding (``axis_name``, a ``torch.distributed`` process group or
+the name of a mesh dimension, ti_torch.parallel.collectives.lane_group):
+the tangent lanes are independent, so each rank of the group evaluates its
+share of them through the same forward and one ``all_reduce`` of the (B,)
+partial traces completes the trace. The primal runs on every rank. Exact:
+rank r takes rows r·per .. r·per + per - 1 of the identity basis, per =
+ceil(d/n) (rows past d contribute exactly 0 and are skipped). Hutchinson:
+each rank takes ceil(K/n) probes of its own (the whole group draws an (n,
+ceil(K/n)) block of probes a chain from the same generator and rank r keeps
+block r, so the ranks' generators stay in step), and the all-reduced sum
+is divided by n. Hutch++ and ``return_var`` refuse it, as in ti_tpu.
 """
 
 from __future__ import annotations
@@ -27,7 +36,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.func import jvp, vmap
+
+from ti_torch.parallel.collectives import batch_draw, lane_group, unwrap
 
 
 def _probe_block(generator: torch.Generator, k: int, d: int, mode: str, *,
@@ -39,10 +51,17 @@ def _probe_block(generator: torch.Generator, k: int, d: int, mode: str, *,
     Haar-orthonormal rows (QR of a Gaussian, signs fixed so the frame is
     exactly Haar), w = d/k — unbiased for any J and exact at k = d, where
     QᵀQ = I.
+
+    A ``ChainShard`` generator draws the whole chain batch's block and keeps
+    its rows when ``shape`` has a chain axis (axis 0); a draw with no chain
+    axis comes from its generator as it is.
     """
     dev = generator.device
+    if not shape:
+        generator = unwrap(generator)
     if mode == "rademacher":
-        z = torch.randint(0, 2, (*shape, k, d), generator=generator, device=dev)
+        z = batch_draw(lambda s, **kw: torch.randint(0, 2, s, **kw), generator, (*shape, k, d),
+                       device=dev)
         return (2 * z - 1).to(dtype), torch.full((*shape, k), 1.0 / k, dtype=dtype, device=dev)
     if mode == "orthogonal":
         if k > d:
@@ -51,7 +70,7 @@ def _probe_block(generator: torch.Generator, k: int, d: int, mode: str, *,
                 "use num_probes=dim (exact) or probe_mode='rademacher'"
             )
         # QR in f32 whatever the compute dtype; probes cast back
-        g = torch.randn((*shape, d, k), generator=generator, device=dev, dtype=torch.float32)
+        g = batch_draw(torch.randn, generator, (*shape, d, k), device=dev, dtype=torch.float32)
         q, r = torch.linalg.qr(g)
         q = q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[..., None, :]
         return q.transpose(-1, -2).to(dtype), torch.full((*shape, k), d / k, dtype=dtype, device=dev)
@@ -78,12 +97,19 @@ def _lane_jvps(f, x: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
     return vmap(lambda z: jvp(f, (x,), (z,))[1])(lanes)
 
 
-def _no_lane_sharding(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name lane sharding over a device mesh is not ported yet "
-            "(the parallel slice of the port)"
-        )
+def _lane_split(axis_name, k: int, d: int, probe_mode: str):
+    """(group, ranks n, this rank r, probes a rank ceil(k/n)) of a
+    lane-sharded Hutchinson estimate; orthogonal frames of more than d rows
+    a rank are refused in the caller's terms."""
+    group = lane_group(axis_name)
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    per = -(-k // n)
+    if probe_mode == "orthogonal" and per > d:
+        raise ValueError(
+            f"orthogonal probe_mode over axis {axis_name!r} draws ceil({k}/{n}) = {per} "
+            f"probes per shard but dim is only {d}; use num_probes <= {n * d} (per-shard "
+            "frames are orthogonalized locally) or probe_mode='rademacher'")
+    return group, n, r, per
 
 
 def value_and_divergence(f, x: torch.Tensor, *, mode: str = "exact",
@@ -97,36 +123,50 @@ def value_and_divergence(f, x: torch.Tensor, *, mode: str = "exact",
     as its query budget), per chain, or once for every chain with
     ``probe_crn`` (common random numbers), unless ``draws`` gives the
     probes: (z (B, K, d), w (B, K)) for Hutchinson, (S (B, s, d), g (B, m,
-    d)) for Hutch++."""
-    _no_lane_sharding(axis_name)
+    d)) for Hutch++. ``axis_name`` shards the lanes over a process group
+    (exact and Hutchinson; with it ``draws`` are this rank's probes)."""
     if mode == "exact":
-        return divergence_exact(f, x, chunk=chunk)
+        return divergence_exact(f, x, chunk=chunk, axis_name=axis_name)
     if mode not in ("hutchinson", "hutchpp"):
         raise ValueError(f"unknown divergence mode {mode!r}")
+    if mode == "hutchpp" and axis_name is not None:
+        raise NotImplementedError(
+            "axis_name lane sharding is not implemented for hutchpp "
+            "(the sketch QR needs the full query basis)"
+        )
     if generator is None and draws is None:
         raise ValueError(f"{mode} mode requires a torch.Generator")
     if draws is None:
         draws = draw_probes(generator, mode, x.shape[0], x[0].numel(), num_probes=num_probes,
-                            probe_mode=probe_mode, probe_crn=probe_crn, dtype=x.dtype)
+                            probe_mode=probe_mode, probe_crn=probe_crn, dtype=x.dtype,
+                            axis_name=axis_name)
     a, c = (t.to(x.dtype) for t in draws)
     if mode == "hutchinson":
         return divergence_hutchinson(f, x, z=a, w=c, probe_mode=probe_mode,
-                                     return_var=return_var)
+                                     return_var=return_var, axis_name=axis_name)
     return divergence_hutchpp(f, x, S=a, g=c)
 
 
 def draw_probes(generator: torch.Generator, mode: str, b: int, d: int, *, num_probes: int = 8,
                 probe_mode: str = "rademacher", probe_crn: bool = False,
-                dtype=torch.float32):
+                dtype=torch.float32, axis_name=None):
     """The probes ``value_and_divergence`` draws for b chains of dimension
     d, in its order: Hutchinson (z (b, K, d), w (b, K)) in ``probe_mode``;
     Hutch++ (S (b, s, d), g (b, m, d)) Rademacher, s = num_probes // 3 (at
     least 1) and m = num_probes - 2s. Per chain, or one block shared by every
-    chain (``probe_crn``)."""
+    chain (``probe_crn``). Hutchinson lane-sharded over ``axis_name``: this
+    rank's ceil(K/n) probes (z (b, per, d), w (b, per)), block r of the
+    (n, per) probes drawn a chain."""
     shape = () if probe_crn else (b,)
+    if probe_crn:
+        generator = unwrap(generator)
     if mode == "hutchinson":
-        z, w = _probe_block(generator, num_probes, d, probe_mode, shape=shape)
-        out = (z, w)
+        if axis_name is None:
+            out = _probe_block(generator, num_probes, d, probe_mode, shape=shape)
+        else:
+            _, n, r, per = _lane_split(axis_name, num_probes, d, probe_mode)
+            z, w = _probe_block(generator, per, d, probe_mode, shape=(*shape, n))
+            out = (z[..., r, :, :], w[..., r, :])
     else:
         s = max(1, num_probes // 3)
         if num_probes - 2 * s < 1:
@@ -145,32 +185,54 @@ def divergence_exact(f, x: torch.Tensor, chunk: Optional[int] = None, axis_name=
 
     ``chunk`` bounds the lanes evaluated at once: ceil(d/chunk) blocks of
     vmapped JVPs whose partial traces are summed, so memory holds
-    ``chunk`` lanes of activations instead of d. None = all d at once."""
-    _no_lane_sharding(axis_name)
+    ``chunk`` lanes of activations instead of d. None = all d at once.
+    ``axis_name`` shards the lanes over a process group (rank r takes rows
+    r·per .. r·per + per - 1, per = ceil(d/n)) and all-reduces the partial
+    traces; ``chunk`` then bounds the lanes a rank evaluates at once."""
     b = x.shape[0]
     d = x[0].numel()
+    lo, hi, group = 0, d, None
+    if axis_name is not None:
+        group = lane_group(axis_name)
+        per = -(-d // dist.get_world_size(group))
+        lo = min(d, dist.get_rank(group) * per)
+        hi = min(d, lo + per)
     eye = torch.eye(d, dtype=x.dtype, device=x.device)
     step = d if chunk is None else max(1, min(chunk, d))
     div = torch.zeros(b, dtype=x.dtype, device=x.device)
-    for k0 in range(0, d, step):
-        k1 = min(k0 + step, d)
+    for k0 in range(lo, hi, step):
+        k1 = min(k0 + step, hi)
         lanes = eye[k0:k1].reshape(k1 - k0, 1, *x.shape[1:]).expand(k1 - k0, *x.shape)
         jz = _lane_jvps(f, x, lanes).reshape(k1 - k0, b, d)
         rows = torch.arange(k1 - k0, device=x.device)
         div = div + jz[rows, :, k0 + rows].sum(0)
+    if group is not None:
+        dist.all_reduce(div, group=group)
     return f(x), div
 
 
 def divergence_hutchinson(f, x: torch.Tensor, generator: Optional[torch.Generator] = None, *,
                           num_probes: int = 8, probe_mode: str = "rademacher",
                           return_var: bool = False, z: Optional[torch.Tensor] = None,
-                          w: Optional[torch.Tensor] = None):
+                          w: Optional[torch.Tensor] = None, axis_name=None):
     """(f(x), Σ_k w_k z_kᵀ J z_k per chain[, its plug-in variance]).
 
     Probes z (B, K, d) and weights w (B, K) are drawn per chain from
-    ``generator`` unless given."""
+    ``generator`` unless given. ``axis_name`` shards the probes over a
+    process group: a rank evaluates ceil(K/n) probes (drawn as
+    ``draw_probes`` draws them, or given: this rank's (B, per, d) and (B,
+    per)) and the estimate is the all-reduced sum over n."""
     b = x.shape[0]
     d = x[0].numel()
+    group = None
+    if axis_name is not None:
+        if return_var:
+            raise NotImplementedError("return_var is not supported with axis_name lane sharding")
+        group = lane_group(axis_name)
+        if z is None:
+            z, w = (t.to(x.dtype) for t in draw_probes(
+                generator, "hutchinson", b, d, num_probes=num_probes, probe_mode=probe_mode,
+                axis_name=axis_name))
     if z is None:
         z, w = _probe_block(generator, num_probes, d, probe_mode, shape=(b,), dtype=x.dtype)
     k = z.shape[1]
@@ -178,6 +240,9 @@ def divergence_hutchinson(f, x: torch.Tensor, generator: Optional[torch.Generato
     jz = _lane_jvps(f, x, lanes).reshape(k, b, d)
     est = (z.transpose(0, 1) * jz).sum(-1).transpose(0, 1)  # (B, K)
     div = (w * est).sum(-1)
+    if group is not None:
+        dist.all_reduce(div, group=group)
+        div = div / dist.get_world_size(group)
     if return_var:
         return f(x), div, hutchinson_var_estimate(est, w, d, probe_mode)
     return f(x), div

@@ -31,8 +31,9 @@ with ``chain_block`` > 1).
 through ``make_ode_sampler`` on any of its routes, in f32 or f64.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-Lane sharding (``div_axis``) raises NotImplementedError: it comes with the
-parallel slice.
+``div_axis`` shards the divergence's tangent lanes over a process group
+(ti_torch.parallel.lane_parallel_sampler); chain sharding wraps a sampler
+from outside (ti_torch.parallel.parallel_sampler).
 """
 
 from __future__ import annotations
@@ -74,10 +75,6 @@ def _compute_dtype(cfg):
     if name == "bf16_agg":
         return "bf16_agg"
     raise ValueError(f"unknown compute_dtype {name!r} (use f32, bf16 or bf16_agg)")
-
-
-def _later(what: str, slice_name: str):
-    return NotImplementedError(f"{what} is not ported yet: it comes with the {slice_name} slice")
 
 
 def make_ode_sampler(
@@ -146,14 +143,30 @@ def make_ode_sampler(
     as forward-mode JVPs: exact (in blocks of ``div_chunk`` lanes, None = all
     at once), or Hutchinson probes or Hutch++ queries (``num_probes`` of
     them) from ``generator``, per chain or shared (``probe_crn``).
-    ``div_axis`` lane sharding raises ``NotImplementedError``. The states
-    and the conditioning are cast to ``dtype`` (float64: the ADW family's
-    f64 mode).
+    ``div_axis`` (a process group, or the name of a mesh dimension that
+    ``lane_parallel_sampler`` resolves) shards the lanes of the divergence
+    over the group's ranks, exact or Hutchinson, on every route that
+    evaluates the divergence through ``v_fn_of``: not with Hutch++ (as in
+    ti_tpu) and not with ``div_drift``, whose batched estimator does not
+    shard. The states and the conditioning are cast to ``dtype``
+    (float64: the ADW family's f64 mode).
     """
     dev = resolve_device(device)
     gauss = (dlogp_quad_points is not None and return_dlogp and dlogp_quad == "gauss")
-    if div_axis is not None:
-        raise _later("div_axis lane sharding", "parallel")
+    if return_dlogp and divergence == "hutchpp" and div_axis is not None:
+        raise NotImplementedError(
+            "div_axis lane sharding is not implemented for "
+            "divergence='hutchpp' (the sketch QR needs the full query "
+            "basis); every lane shard would redundantly compute the full "
+            "estimator. Use divergence='exact' or 'hutchinson' with "
+            "div_axis, or drop div_axis."
+        )
+    if div_drift is not None and div_axis is not None:
+        raise ValueError(
+            "div_axis is not supported with div_drift: the batched divergence-node "
+            "estimator evaluates every lane on every rank, so the lanes would not be "
+            "sharded. Drop div_drift (cfg.div_forward_impl='default') to shard the lanes."
+        )
     if (traj_drift is not None or div_drift is not None) and not (
         gauss and steps_per_dispatch is not None
     ):
@@ -179,7 +192,7 @@ def make_ode_sampler(
         if solver == "dopri5":
             raise ValueError("dlogp_quad_points requires a fixed-step solver")
         quad = dict(solver=solver, t0=t0, t1=t1, n_steps=n_steps, n_save=n_save,
-                    divergence=divergence, div_chunk=div_chunk,
+                    divergence=divergence, div_chunk=div_chunk, div_axis=div_axis,
                     steps_per_dispatch=steps_per_dispatch, num_probes=num_probes,
                     probe_crn=probe_crn, probe_mode=probe_mode, node_batch=node_batch,
                     device=dev, dtype=dtype)
@@ -191,7 +204,8 @@ def make_ode_sampler(
             raise ValueError(f"unknown dlogp_quad {dlogp_quad!r} (simpson | gauss)")
         return _quad_dlogp_sampler(v_fn_of, div_points=dlogp_quad_points, **quad)
     div = dict(return_dlogp=return_dlogp, divergence=divergence, div_chunk=div_chunk,
-               num_probes=num_probes, probe_mode=probe_mode, probe_crn=probe_crn)
+               div_axis=div_axis, num_probes=num_probes, probe_mode=probe_mode,
+               probe_crn=probe_crn)
     if solver == "dopri5":
         return _dopri5_sampler(v_fn_of, t0=t0, t1=t1, n_save=n_save, atol=atol, rtol=rtol,
                                max_steps=max_steps, steps_per_dispatch=steps_per_dispatch,
@@ -302,7 +316,7 @@ def _dopri5_sampler(v_fn_of, *, t0, t1, n_save, atol, rtol, max_steps, steps_per
 
 
 def _quad_dlogp_sampler(
-    v_fn_of, *, solver, t0, t1, n_steps, n_save, div_points, divergence, div_chunk,
+    v_fn_of, *, solver, t0, t1, n_steps, n_save, div_points, divergence, div_chunk, div_axis,
     steps_per_dispatch, num_probes, probe_crn, probe_mode, node_batch, device, dtype,
 ):
     """Simpson-quadrature dlogp: ``sample_ode_quad_dlogp`` on the whole
@@ -311,7 +325,8 @@ def _quad_dlogp_sampler(
     then the divergence at every grid node and cumulative Simpson."""
     _check_quad(div_points, n_steps, n_save)
     div = dict(divergence=divergence, num_probes=num_probes, div_chunk=div_chunk,
-               probe_mode=probe_mode, probe_crn=probe_crn, node_batch=node_batch)
+               div_axis=div_axis, probe_mode=probe_mode, probe_crn=probe_crn,
+               node_batch=node_batch)
     n_stages = len(_tableau(solver)[2])
     traj = None
     if steps_per_dispatch is not None:
@@ -339,7 +354,7 @@ def _quad_dlogp_sampler(
 
 
 def _gauss_dlogp_sampler(
-    v_fn_of, *, solver, t0, t1, n_steps, n_save, gl_points, divergence, div_chunk,
+    v_fn_of, *, solver, t0, t1, n_steps, n_save, gl_points, divergence, div_chunk, div_axis,
     steps_per_dispatch, num_probes, probe_crn, probe_mode, node_batch,
     traj_drift, div_drift, return_dlogp_var, device, dtype,
 ):
@@ -353,7 +368,8 @@ def _gauss_dlogp_sampler(
         raise ValueError("gl_points must be >= 1")
     if steps_per_dispatch is None:
         div = dict(divergence=divergence, num_probes=num_probes, div_chunk=div_chunk,
-                   probe_mode=probe_mode, probe_crn=probe_crn, node_batch=node_batch)
+                   div_axis=div_axis, probe_mode=probe_mode, probe_crn=probe_crn,
+                   node_batch=node_batch)
 
         @torch.no_grad()
         def sampler_single(x0s, conds, generator: Optional[torch.Generator] = None):
@@ -399,7 +415,7 @@ def _gauss_dlogp_sampler(
                 _any_batch(v_fn_of, conds), xs_nodes, bounds[node_pos], divergence=divergence,
                 generator=generator, num_probes=num_probes, div_chunk=div_chunk,
                 probe_mode=probe_mode, probe_crn=probe_crn, node_batch=node_batch,
-                return_var=return_dlogp_var)
+                return_var=return_dlogp_var, div_axis=div_axis)
         outs = [div_drift(xb, float(t), conds, generator)
                 for xb, t in zip(xs_nodes, bounds[node_pos])]
         if return_dlogp_var:

@@ -10,7 +10,8 @@ and its divergence together (``_make_rhs_joint``, exact or stochastic over
 ops/divergence.py). The stochastic estimators draw fresh probes from the
 ``torch.Generator`` at every evaluation, where ti_tpu folds the evaluation
 index into its key; ``probes(eval_idx)`` replaces the draw (the parity
-tests pass JAX's).
+tests pass JAX's). ``div_axis`` shards the divergence's tangent lanes over
+a process group (ops/divergence.py: exact and Hutchinson).
 
 The quadrature samplers decouple dlogp from the trajectory: velocity-only
 RK steps, then the divergence at a few nodes, integrated by composite
@@ -38,7 +39,8 @@ from typing import Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from ti_torch.ops.divergence import _no_lane_sharding, draw_probes, value_and_divergence
+from ti_torch.ops.divergence import draw_probes, value_and_divergence
+from ti_torch.parallel.collectives import ChainShard
 
 DIVERGENCES = ("exact", "hutchinson", "hutchpp")
 
@@ -90,8 +92,13 @@ def _make_rhs_joint(v_fn, return_dlogp: bool, divergence: str = "exact",
                     probes: Optional[Callable] = None):
     """``rhs(x, t, eval_idx) -> (dx/dt (B, ...), d(dlogp)/dt = -div (B,))``,
     the velocity and its divergence in one evaluation (zeros for dlogp
-    without ``return_dlogp``)."""
-    _no_lane_sharding(div_axis)
+    without ``return_dlogp``). ``div_axis`` shards the divergence's lanes
+    over a process group (not Hutch++: its sketch QR needs every query)."""
+    if return_dlogp and divergence == "hutchpp" and div_axis is not None:
+        raise NotImplementedError(
+            "div_axis lane sharding is not implemented for hutchpp "
+            "(the sketch QR needs the full query basis)"
+        )
     if return_dlogp:
         check_divergence(divergence, num_probes)
         if divergence != "exact" and generator is None and probes is None:
@@ -102,8 +109,8 @@ def _make_rhs_joint(v_fn, return_dlogp: bool, divergence: str = "exact",
             return v_fn(x, t), x.new_zeros(x.shape[0])
         vel, div = value_and_divergence(
             lambda y: v_fn(y, t), x, mode=divergence, generator=generator,
-            num_probes=num_probes, chunk=div_chunk, probe_mode=probe_mode, probe_crn=probe_crn,
-            draws=None if probes is None else probes(eval_idx))
+            num_probes=num_probes, chunk=div_chunk, axis_name=div_axis, probe_mode=probe_mode,
+            probe_crn=probe_crn, draws=None if probes is None else probes(eval_idx))
         return vel, -div
 
     return rhs
@@ -221,7 +228,8 @@ def node_divergences(v_fn, xs_nodes: torch.Tensor, ts_nodes, *, divergence: str 
                      generator: Optional[torch.Generator] = None, num_probes: int = 8,
                      div_chunk: Optional[int] = None, probe_mode: str = "rademacher",
                      probe_crn: bool = False, probes: Optional[Callable] = None,
-                     node_batch: Optional[int] = None, return_var: bool = False):
+                     node_batch: Optional[int] = None, return_var: bool = False,
+                     div_axis=None):
     """The divergence of ``v_fn`` at P trajectory nodes, xs_nodes (P, B, ...)
     at times ``ts_nodes`` (P,): (B, P), and with ``return_var`` the
     Hutchinson probe variance (B, P) too.
@@ -230,7 +238,8 @@ def node_divergences(v_fn, xs_nodes: torch.Tensor, ts_nodes, *, divergence: str 
     node after node. ``node_batch`` evaluates the nodes in groups of that
     size, a group's k·B chains stacked into one batch for ``v_fn``, with
     per-chain times (k·B,): the draws and the results are those of one node
-    at a time."""
+    at a time. ``div_axis`` shards each node's lanes over a process group
+    (``probes(i)`` then gives this rank's probes)."""
     p, b = xs_nodes.shape[0], xs_nodes.shape[1]
     d = xs_nodes[0, 0].numel()
     step = 1 if node_batch is None else max(1, int(node_batch))
@@ -247,12 +256,14 @@ def node_divergences(v_fn, xs_nodes: torch.Tensor, ts_nodes, *, divergence: str 
         if divergence != "exact":
             per_node = [probes(i) if probes is not None else
                         draw_probes(generator, divergence, b, d, num_probes=num_probes,
-                                    probe_mode=probe_mode, probe_crn=probe_crn, dtype=xg.dtype)
+                                    probe_mode=probe_mode, probe_crn=probe_crn, dtype=xg.dtype,
+                                    axis_name=div_axis)
                         for i in group]
             draws = tuple(torch.cat(parts) for parts in zip(*per_node))
         res = value_and_divergence(lambda y: v_fn(y, tg), xg, mode=divergence,
                                    generator=generator, num_probes=num_probes, chunk=div_chunk,
-                                   probe_mode=probe_mode, return_var=return_var, draws=draws)
+                                   axis_name=div_axis, probe_mode=probe_mode,
+                                   return_var=return_var, draws=draws)
         divs.append(res[1].reshape(len(group), b))
         if return_var:
             dvars.append(res[2].reshape(len(group), b))
@@ -300,14 +311,13 @@ def sample_ode_quad_dlogp(v_fn, x0: torch.Tensor, *, t0: float = 0.0, t1: float 
     so the save times are grid nodes. Costs n_stages·n_steps velocity and
     div_points divergence evaluations a chain. With ``node_batch`` the
     divergence takes ``v_fn`` on node groups (``node_divergences``)."""
-    _no_lane_sharding(div_axis)
     check_divergence(divergence, num_probes)
     _check_quad(div_points, n_steps, n_save)
     sol = sample_ode(v_fn, x0, t0=t0, t1=t1, n_steps=n_steps, n_save=div_points, method=method)
     divs = node_divergences(
         v_fn, sol.xs.transpose(0, 1), np.linspace(t0, t1, div_points), divergence=divergence,
         generator=generator, num_probes=num_probes, div_chunk=div_chunk, probe_mode=probe_mode,
-        probe_crn=probe_crn, probes=probes, node_batch=node_batch)
+        probe_crn=probe_crn, probes=probes, node_batch=node_batch, div_axis=div_axis)
     out_idx = np.arange(n_save) * ((div_points - 1) // (n_save - 1))
     return ODESolution(xs=sol.xs[:, out_idx], dlogp=simpson_dlogp(divs, t0, t1, n_save),
                        nfe=sol.nfe + div_points)
@@ -327,7 +337,6 @@ def sample_ode_gauss_dlogp(v_fn, x0: torch.Tensor, *, t0: float = 0.0, t1: float
     (``sample_ode_times``), then the divergence at the nodes and their
     weighted sum per interval. With ``node_batch`` the divergence takes
     ``v_fn`` on node groups (``node_divergences``)."""
-    _no_lane_sharding(div_axis)
     check_divergence(divergence, num_probes)
     ts, node_idx, node_w, save_idx = gauss_dlogp_schedule(t0, t1, n_steps, gl_points, n_save)
     xs_all = sample_ode_times(v_fn, x0, ts, method=method)
@@ -335,7 +344,7 @@ def sample_ode_gauss_dlogp(v_fn, x0: torch.Tensor, *, t0: float = 0.0, t1: float
     divs = node_divergences(
         v_fn, xs_all[:, flat].transpose(0, 1), ts[flat], divergence=divergence,
         generator=generator, num_probes=num_probes, div_chunk=div_chunk, probe_mode=probe_mode,
-        probe_crn=probe_crn, probes=probes, node_batch=node_batch)
+        probe_crn=probe_crn, probes=probes, node_batch=node_batch, div_axis=div_axis)
     b = x0.shape[0]
     w = torch.as_tensor(node_w, dtype=x0.dtype, device=x0.device)
     per_interval = -(w[None] * divs.reshape(b, *node_idx.shape)).sum(2)
@@ -411,7 +420,14 @@ def dopri5_stepper(v_fn, *, t0: float = 0.0, t1: float = 1.0, atol=1e-5, rtol=1e
     control is on each chain's joint (x, dlogp) state (RMS of err / (atol +
     rtol·max(|y|, |y_new|))); a step is accepted at norm <= 1 and the next
     one scaled by 0.9·norm^(-1/5), clipped to [0.2, 10]. ``n_short``
-    counts the chains an ``advance`` left before its target."""
+    counts the chains an ``advance`` left before its target.
+
+    Under a ``ChainShard`` generator with a stochastic divergence the ranks
+    step in lockstep (one all-reduce of the "any chain active" flag a
+    step), so that every evaluation draws the batch's probes as the
+    unsharded run does."""
+    lockstep = (isinstance(generator, ChainShard) and return_dlogp and divergence != "exact"
+                and probes is None)
     rhs0 = _make_rhs_joint(v_fn, return_dlogp, divergence, generator, num_probes, div_chunk,
                            div_axis, probe_mode, probe_crn, probes)
     direction = 1.0 if t1 >= t0 else -1.0  # internal time tau = direction·(t - t0)
@@ -435,7 +451,7 @@ def dopri5_stepper(v_fn, *, t0: float = 0.0, t1: float = 1.0, atol=1e-5, rtol=1e
         done = tau >= target - t_eps
         while True:
             active = ~done & (nfe < budget)
-            if not bool(active.any()):
+            if not (generator.any(active.any()) if lockstep else bool(active.any())):
                 return Dopri5State(tau, x, lp, dt, nfe)
             dt_c = torch.minimum(dt, target - tau)
             dt_x = dt_c.view(bcast)

@@ -112,12 +112,9 @@ def _grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
-def make_update_step(
-    loss_fn: Callable[..., torch.Tensor],
-    optimizer: Optimizer,
-    accum_steps: int = 1,
-) -> Callable:
-    """Build ``step(generator, *batch) -> loss`` (a float) over
+@dataclasses.dataclass
+class UpdateStep:
+    """``step(generator, *batch) -> loss`` (a float) over
     ``optimizer.params``, with the NaN guard. ``loss_fn(generator, *batch)``
     returns the scalar loss of the live parameters.
 
@@ -125,27 +122,47 @@ def make_update_step(
     its first axis, each with its own draws from ``generator``, and takes
     ONE optimizer step on the mean of their gradients (the loss is the mean
     of theirs): activation memory stays at the microbatch size.
+    ``ti_torch.parallel.parallel_update`` reads the three fields to run the
+    same step data-parallel.
     """
-    params = optimizer.params
 
-    def step(generator, *batch) -> float:
-        if accum_steps == 1:
-            loss = loss_fn(generator, *batch)
-            return optimizer.step(loss, _grads(loss, params))
-        micro = [a.reshape(accum_steps, a.shape[0] // accum_steps, *a.shape[1:]) for a in batch]
-        grads, loss = None, None
-        for i in range(accum_steps):
-            l = loss_fn(generator, *(m[i] for m in micro))
-            g = _grads(l, params)
-            if grads is None:
-                grads, loss = g, l.detach()
-            else:
-                torch._foreach_add_(grads, g)
-                loss = loss + l.detach()
-        torch._foreach_div_(grads, float(accum_steps))
-        return optimizer.step(loss / accum_steps, grads)
+    loss_fn: Callable[..., torch.Tensor]
+    optimizer: Optimizer
+    accum_steps: int = 1
 
-    return step
+    def __call__(self, generator, *batch) -> float:
+        a = self.accum_steps
+        if a == 1:
+            loss = self.loss_fn(generator, *batch)
+            return self.optimizer.step(loss, _grads(loss, self.optimizer.params))
+        micro = [x.reshape(a, x.shape[0] // a, *x.shape[1:]) for x in batch]
+        parts = [(1.0 / a, generator, [m[i] for m in micro]) for i in range(a)]
+        return self.optimizer.step(*accumulate(self.loss_fn, self.optimizer.params, parts))
+
+
+def accumulate(loss_fn, params: List[torch.Tensor], parts) -> tuple:
+    """(Σ w·loss, [Σ w·∂loss/∂p]) over microbatches ``parts``, each a
+    (weight w, generator, batch leaves) for ``loss_fn(generator, *leaves)``."""
+    grads, loss = None, None
+    for w, gen, leaves in parts:
+        l = loss_fn(gen, *leaves)
+        g = _grads(l, params)
+        torch._foreach_mul_(g, w)
+        if grads is None:
+            grads, loss = g, l.detach() * w
+        else:
+            torch._foreach_add_(grads, g)
+            loss = loss + l.detach() * w
+    return loss, grads
+
+
+def make_update_step(
+    loss_fn: Callable[..., torch.Tensor],
+    optimizer: Optimizer,
+    accum_steps: int = 1,
+) -> UpdateStep:
+    """The update step of ``loss_fn`` under ``optimizer`` (``UpdateStep``)."""
+    return UpdateStep(loss_fn, optimizer, accum_steps)
 
 
 def make_batched_apply(cfg, model, template):
