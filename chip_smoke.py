@@ -42,7 +42,11 @@ that the path went through its kernels:
   torsion-space gEDMD kinetics;
 - the parallel layer (chip_smoke_parallel.py): the main path chain-sharded
   on NCCL, the lane-sharded divergence, data-parallel training and the
-  sampling fan-out CLI.
+  sampling fan-out CLI;
+- the user CLIs (chip_smoke_cli.py): the latent train and sample chain and
+  the SDE through B1 and B3, the results, figures, kinetics and ADW CLIs, a
+  reference checkpoint through ``torch_import``, a ``profile_trace`` of the
+  main path and ``device_time``.
 
     python3 chip_smoke.py
 
@@ -217,7 +221,17 @@ Phases (any failure exits non-zero and prints no result):
      ``parallel_update`` against their unsharded forms, and the fan-out CLI
      (two shards of 128 chains on the one card, merged) against one
      unsharded CLI run;
- 18. the ``kernels`` line, the card line and the result line.
+ 18. the user CLIs (``phase_cli``, chip_smoke_cli.py), in this process
+     through ``main(argv)`` on a synthetic workspace: the latent chain
+     (train, then 256 chains on the latent kernel route: 1,440 B1 from
+     pair_layer_tf32x3, 40 B3 from pair_tangent_tf32x3, equal to the bit to
+     ``sample_latent``), the SDE CLI (100 B1, equal to the bit to
+     ``sample_molecular_sde``), results, plots, gEDMD and model selection
+     over the ambient CLI's artifacts, the ADW chain (no kernel), a
+     reference-layout checkpoint through ``torch_import`` and the main
+     path, a ``profile_trace`` of one main-path batch (B1 x 180 and B3 x 40
+     on the card's lanes) and ``device_time`` against ``cuda_ms``;
+ 19. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -2981,7 +2995,12 @@ def main() -> int:
             == (launches["pair_layer"] // n_batches, launches["pair_tangent"] // n_batches),
             f"the chain-sharded main path launches a batch's B1 and B3: {launches17}")
 
-    # ---- 18. result lines ----
+    # ---- 18. the user CLIs, the checkpoint import, the trace and the timer ----
+    from chip_smoke_cli import phase_cli
+
+    phase_cli(model, template, card)
+
+    # ---- 19. result lines ----
     path_launches = {"pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_layer_bf16_agg_f256": launches10506["pair_layer"],

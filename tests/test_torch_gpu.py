@@ -1510,3 +1510,90 @@ def test_lane_sharded_divergence_and_parallel_update_on_nccl(nccl_mesh):
     assert abs(got[1][0] - got[0][0]) <= 1e-5 * abs(got[0][0])
     for k, p in got[0][1].items():
         torch.testing.assert_close(got[1][1][k], p, rtol=1e-4, atol=1e-6)
+
+
+def _cli_workspace(root, layers=2):
+    """A synthetic workspace at 19 atoms and the flags of the CLIs at F =
+    128 with ``layers`` message layers (no ``--device``: the card)."""
+    from ti_torch.data.mdqm9 import write_synthetic_workspace
+
+    write_synthetic_workspace(str(root), N, 8)
+    return ["--preset", "00031:300", "--traj_path", str(root / "trajs"), "--sdf_path", str(root),
+            "--model_save_path", str(root / "models"), "--data_save_path", str(root / "out"),
+            "--score_layers", str(layers), "--batch_size", "8", "--n_epochs", "1",
+            "--model_epoch", "0", "--data_save_name", "cli"]
+
+
+def _cli_json(main, argv, capsys):
+    import json
+
+    assert main(argv) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+@pytest.mark.gpu
+def test_latent_cli_kernel_route_on_the_card(tmp_path, capsys):
+    """``mdqm9_train_latent`` then ``mdqm9_sample_latent`` on the latent
+    kernel route with no ``--device`` (2 layers, 8 chains, RK4-9, GL-8):
+    every B1 launch from pair_layer_tf32x3 (9 gaps x 1 step x 4 stages x 2
+    layers), every B3 launch from pair_tangent_tf32x3 (8 nodes x 2 layers),
+    and the artifacts equal to ``sample_latent`` with the same config and
+    seed, to the bit."""
+    import numpy as np
+
+    from ti_torch.cli import mdqm9_sample_latent, mdqm9_train_latent
+    from ti_torch.data.mdqm9 import MDQM9LatentDataset
+    from ti_torch.sampling.drivers import sample_latent
+    from ti_torch.train.common import load_checkpoint
+    from ti_torch.train.latent import build_latent_model
+
+    _card()
+    flags = _cli_workspace(tmp_path) + ["--model_save_name", "lat", "--n_latent_samples", "8"]
+    _cli_json(mdqm9_train_latent.main, flags, capsys)
+    argv = flags + ["--fast_profile", "--compute_dtype", "f32", "--traj_forward_impl",
+                    "pair_kernel", "--div_forward_impl", "pair_tangent", "--n_steps", "9"]
+    line = _cli_json(mdqm9_sample_latent.main, argv, capsys)
+    assert line["route_launches"] == {"pair_layer:pair_layer_tf32x3": 9 * 4 * 2,
+                                      "pair_tangent:pair_tangent_tf32x3": 8 * 2}
+    cfg = mdqm9_train_latent.parse(argv)
+    ds = MDQM9LatentDataset.load(cfg.traj_path, cfg.sdf_path, cfg.mdqm9_traj_filename,
+                                 cfg.sdf_filename, split="test", Ts=cfg.T)
+    ref = sample_latent(cfg, build_latent_model(cfg, N), load_checkpoint(
+        str(tmp_path / "models" / "lat" / "lat_0.npz")), ds.template, save=False)
+    for stem in ("samples", "dlogps"):
+        np.testing.assert_array_equal(np.load(tmp_path / "out" / f"{stem}_cli_forward.npy"),
+                                      ref[stem])
+
+
+@pytest.mark.gpu
+def test_sde_cli_on_the_card(tmp_path, capsys):
+    """``mdqm9_sample_sde --sde_forward_impl pair_kernel`` with no
+    ``--device`` over the test split (8 chains, 4 steps, 2 layers): one B1
+    launch a layer a step, all from pair_layer_tf32x3, and the samples equal
+    to ``sample_molecular_sde`` with the same seed, to the bit."""
+    import numpy as np
+
+    from ti_torch.cli import mdqm9_sample_sde
+    from ti_torch.cli.mdqm9_train_ambient import parse
+    from ti_torch.data.mdqm9 import MDQM9AmbientDataset
+    from ti_torch.sampling.drivers import sample_molecular_sde
+    from ti_torch.train.ambient import build_ambient_model
+    from ti_torch.train.common import checkpoint_path, load_checkpoint, save_checkpoint
+
+    _card()
+    argv = _cli_workspace(tmp_path) + ["--model_save_name", "smoke", "--sde_forward_impl",
+                                       "pair_kernel", "--n_steps", "4"]
+    (tmp_path / "models" / "smoke").mkdir(parents=True)
+    ckpt = checkpoint_path(str(tmp_path / "models" / "smoke"), "smoke", 0)
+    save_checkpoint(ckpt, torch_default_weights_(CPaiNN(F, 2, n_atoms=N)).state_dict())
+    line = _cli_json(mdqm9_sample_sde.main, argv, capsys)
+    assert line["route_launches"] == {"pair_layer:pair_layer_tf32x3": 4 * 2}
+    cfg = parse(argv)
+    ds = MDQM9AmbientDataset.load(cfg.traj_path, cfg.sdf_path, cfg.mdqm9_traj_filename,
+                                  cfg.sdf_filename, split="test", Ts=[cfg.sampling_T0])
+    temps = np.tile(np.array([cfg.sampling_T0, cfg.sampling_T1], np.float32), (8, 1))
+    ref = sample_molecular_sde(build_ambient_model(cfg, N), load_checkpoint(ckpt), ds.template,
+                               ds.frames, temps, torch.Generator(device="cuda").manual_seed(0),
+                               g_fn=cfg.sde_g, n_steps=4, forward_impl="pair_kernel")
+    np.testing.assert_array_equal(np.load(tmp_path / "out" / "samples_cli_sde.npy"),
+                                  ref.cpu().numpy())

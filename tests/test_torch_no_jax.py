@@ -17,6 +17,7 @@ def _port_sources():
     yield from sorted((ROOT / "tools").rglob("*.py"))
     yield ROOT / "chip_smoke.py"
     yield ROOT / "chip_smoke_parallel.py"
+    yield ROOT / "chip_smoke_cli.py"
 
 
 def test_imports_with_jax_blocked():
@@ -49,7 +50,13 @@ def test_imports_with_jax_blocked():
             "ti_torch.parallel.fanout", "ti_torch.parallel.collectives",
             "ti_torch.parallel.launch", "ti_torch.cli.mdqm9_train_ambient",
             "ti_torch.cli.mdqm9_sample_ambient", "ti_torch.cli.merge_shards",
-            "ti_torch.cli.fanout_driver"} <= set(mods)
+            "ti_torch.cli.fanout_driver", "ti_torch.utils.timing", "ti_torch.utils.profiling",
+            "ti_torch.utils.torch_import", "ti_torch.cli.profile_summary",
+            "ti_torch.cli.mdqm9_train_latent", "ti_torch.cli.mdqm9_sample_latent",
+            "ti_torch.cli.mdqm9_sample_sde", "ti_torch.cli.mdqm9_results",
+            "ti_torch.cli.mdqm9_plots", "ti_torch.cli.mdqm9_gedmd", "ti_torch.cli.adw_train",
+            "ti_torch.cli.adw_sample", "ti_torch.cli.adw_reweight_gedmd",
+            "ti_torch.cli.model_selection", "ti_torch.cli.eval_energy"} <= set(mods)
 
 
 def test_analysis_imports_without_its_optional_libraries():
@@ -79,8 +86,9 @@ def test_analysis_imports_without_its_optional_libraries():
 def test_no_source_imports_jax_or_ti_tpu():
     assert {ROOT / "tools" / name for name in (
         "torch_ambient_oracle.py", "torch_latent_oracle.py", "latent_memory_probe.py",
-        "torch_adw_oracle.py")} <= set(
-        _port_sources())
+        "torch_adw_oracle.py")} | {ROOT / "ti_torch" / "cli" / "mdqm9_sample_sde.py",
+                                   ROOT / "ti_torch" / "utils" / "torch_import.py",
+                                   ROOT / "chip_smoke_cli.py"} <= set(_port_sources())
     bad = []
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))

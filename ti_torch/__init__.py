@@ -43,9 +43,14 @@ Subpackages
 - ``ti_torch.parallel``: data-parallel training, chain- and lane-sharded
   sampling over ``torch.distributed`` (NCCL on the cards, gloo on the CPU),
   the sampling fan-out and a launcher of CPU gloo worlds
-- ``ti_torch.cli``: the MDQM9 ambient train and sample CLIs (``--shard``/
-  ``--num_shards``), the shard merge and the local fan-out driver
-- ``ti_torch.utils``: metric logging
+- ``ti_torch.cli``: the user CLIs, ports of ``scripts/``: the MDQM9 ambient
+  and latent train and sample CLIs (``--shard``/``--num_shards``), the SDE
+  sampler, the results report, the figures, the kinetics and model
+  selection, the ADW train, sample and reweighted-gEDMD CLIs, the energy
+  stage, the trace summary, the shard merge and the local fan-out driver
+- ``ti_torch.utils``: metric logging, ``profile_trace`` (``torch.profiler``),
+  CUDA-event timing, the trace summariser and the import of the reference's
+  torch checkpoints
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -67,12 +67,21 @@ def main(argv=None) -> int:
     seconds = time.perf_counter() - t0
     print(json.dumps({
         "n": len(out["samples"]), "nfe": out["nfe"], "seed": cfg.seed, "shard": cfg.shard,
-        "num_shards": cfg.num_shards, "seconds": seconds,
+        "num_shards": cfg.num_shards, "seconds": seconds, **kernel_launches(),
+    }))
+    return 0
+
+
+def kernel_launches() -> dict:
+    """The launches of kernels B1 and B3 in this process since the last
+    ``_build.reset_launches()``, by kernel and by library."""
+    from ti_torch.ops import _build
+
+    return {
         "launches": {k: _build.LAUNCHES[k] for k in ("pair_layer", "pair_tangent")},
         "route_launches": {f"{k}:{lib}": n for (k, lib), n in _build.ROUTE_LAUNCHES.items()
                            if k in ("pair_layer", "pair_tangent")},
-    }))
-    return 0
+    }
 
 
 if __name__ == "__main__":

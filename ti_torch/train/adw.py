@@ -118,8 +118,11 @@ def train_adw(
 
         nv, val = batches(val0, val1)
         with torch.no_grad():
+            # a validation split smaller than one batch holds no batch: NaN,
+            # as the mean over ti_tpu's empty scan gives
             val_loss = torch.stack(
-                [loss_fn(draw_gen, *(a[i] for a in val)) for i in range(nv)]).mean().item()
+                [loss_fn(draw_gen, *(a[i] for a in val)) for i in range(nv)]
+            ).mean().item() if nv else float("nan")
 
         new_lr = scheduler.step(val_loss, opt.lr)
         opt.lr = new_lr

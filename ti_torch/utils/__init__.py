@@ -1,1 +1,4 @@
-"""Host-side utilities: metric logging."""
+"""Host-side utilities: metric logging and ``profile_trace``
+(``logging``), CUDA-event timing (``timing``), the trace summariser
+(``profiling``) and the import of the reference's torch checkpoints
+(``torch_import``)."""
