@@ -46,7 +46,11 @@ that the path went through its kernels:
 - the user CLIs (chip_smoke_cli.py): the latent train and sample chain and
   the SDE through B1 and B3, the results, figures, kinetics and ADW CLIs, a
   reference checkpoint through ``torch_import``, a ``profile_trace`` of the
-  main path and ``device_time``.
+  main path and ``device_time``;
+- the study CLIs (chip_smoke_studies.py): the SDE and 10506 scans through
+  B1 and B2 (and the width refusals at F = 256), the divergence profile
+  through B4, B5 and B6, the probe-mode, step-count and f32-against-f64
+  studies and the ADW figure.
 
     python3 chip_smoke.py
 
@@ -231,7 +235,17 @@ Phases (any failure exits non-zero and prints no result):
      reference-layout checkpoint through ``torch_import`` and the main
      path, a ``profile_trace`` of one main-path batch (B1 x 180 and B3 x 40
      on the card's lanes) and ``device_time`` against ``cuda_ms``;
- 19. the ``kernels`` line, the card line and the result line.
+ 19. the study CLIs (``phase_studies``, chip_smoke_studies.py), in this
+     process through ``main(argv)`` at cut sizes: ``sde_scan`` (B1 and B2,
+     f32 and bf16_agg, exactly layers x steps launches a run),
+     ``large_scale_scan`` at the 10506 width (360 launches of
+     pair_layer_mma_f256 a 16-chain batch; the rows that reach B1 in f32 or
+     B3 at F = 256 report the width refusal), ``profile_divergence`` (B4,
+     B5 and B6 through its fused rows), ``probe_mode_study`` on the smoke's
+     field (the K = d orthogonal frame exact within 1e-3), ``step_count_study``
+     and ``adw_f64_study`` (ADW trained on the card in f32 and f64) and
+     ``adw_plots`` (its refusal where matplotlib is missing);
+ 20. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -3000,7 +3014,12 @@ def main() -> int:
 
     phase_cli(model, template, card)
 
-    # ---- 19. result lines ----
+    # ---- 19. the study CLIs: B1, B2, B4, B5 and B6 through the scans and profiles ----
+    from chip_smoke_studies import phase_studies
+
+    phase_studies(model, template, card)
+
+    # ---- 20. result lines ----
     path_launches = {"pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_layer_bf16_agg_f256": launches10506["pair_layer"],

@@ -1597,3 +1597,50 @@ def test_sde_cli_on_the_card(tmp_path, capsys):
                                g_fn=cfg.sde_g, n_steps=4, forward_impl="pair_kernel")
     np.testing.assert_array_equal(np.load(tmp_path / "out" / "samples_cli_sde.npy"),
                                   ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_sde_scan_launches_b1_and_b2_on_the_card(capsys):
+    """``sde_scan`` with no ``--device`` (64 chains, 2 layers, 4 steps):
+    every pair_kernel row launches its kernel once a layer a step, B1 at
+    chain block 1 and B2 at 4, from pair_layer_tf32x3 (f32) or
+    pair_layer_mma (bf16_agg)."""
+    import json
+
+    from ti_torch.cli import sde_scan
+
+    _card()
+    assert sde_scan.main(["--chains", "64", "--layers", "2", "--steps", "4", "--reps", "1",
+                          "--dtypes", "f32,bf16_agg", "--impls", "pair_kernel",
+                          "--chain_blocks", "1,4"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    rows = json.loads(out[-1][len("rows: "):])
+    assert len(rows) == 4 and not any("FAILED" in line for line in out)
+    for r in rows:
+        lib = "pair_layer_tf32x3" if r["dtype"] == "f32" else "pair_layer_mma"
+        kernel = "pair_layer" if r["chain_block"] == 1 else "pair_layer_cb"
+        assert r["launches"] == {f"{kernel}:{lib}": 2 * 4}, r
+        assert r["samples_per_s"] > 0
+
+
+@pytest.mark.gpu
+def test_large_scale_scan_refuses_f32_at_f256_and_runs_bf16_agg(capsys):
+    """``large_scale_scan`` at F = 256 (29 atoms, one layer, 4 chains, RK4-2
+    over GL-2's three gaps): the f32 trajectory kernel's row reports the
+    width refusal, naming its library; the bf16_agg row runs through
+    pair_layer_mma_f256, 3 gaps x 1 step x 4 stages a batch."""
+    import json
+
+    from ti_torch.cli import large_scale_scan
+
+    _card()
+    assert large_scale_scan.main(["--layers", "1", "--chains", "4", "--probes", "4", "--steps",
+                                  "2", "--gl_points", "2", "--reps", "1", "--impls",
+                                  "pair_kernel,pair_kernel_bf16"]) == 0
+    refused, ran = (json.loads(line) for line in capsys.readouterr().out.strip().splitlines())
+    assert refused["impl"] == "pair_kernel"
+    assert refused["error"].startswith("WidthRefusal: pair_layer_tf32x3 is built for F=128, "
+                                       "got F=256")
+    assert ran["impl"] == "pair_kernel_bf16" and "error" not in ran
+    assert ran["launches"] == {"pair_layer:pair_layer_mma_f256": 3 * 1 * 4}
+    assert ran["samples_per_sec"] > 0

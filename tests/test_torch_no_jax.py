@@ -18,6 +18,7 @@ def _port_sources():
     yield ROOT / "chip_smoke.py"
     yield ROOT / "chip_smoke_parallel.py"
     yield ROOT / "chip_smoke_cli.py"
+    yield ROOT / "chip_smoke_studies.py"
 
 
 def test_imports_with_jax_blocked():
@@ -56,7 +57,11 @@ def test_imports_with_jax_blocked():
             "ti_torch.cli.mdqm9_sample_sde", "ti_torch.cli.mdqm9_results",
             "ti_torch.cli.mdqm9_plots", "ti_torch.cli.mdqm9_gedmd", "ti_torch.cli.adw_train",
             "ti_torch.cli.adw_sample", "ti_torch.cli.adw_reweight_gedmd",
-            "ti_torch.cli.model_selection", "ti_torch.cli.eval_energy"} <= set(mods)
+            "ti_torch.cli.model_selection", "ti_torch.cli.eval_energy",
+            "ti_torch.cli.adw_plots", "ti_torch.cli.step_count_study",
+            "ti_torch.cli.adw_f64_study", "ti_torch.cli.probe_mode_study",
+            "ti_torch.cli.sde_scan", "ti_torch.cli.large_scale_scan",
+            "ti_torch.cli.profile_divergence"} <= set(mods)
 
 
 def test_analysis_imports_without_its_optional_libraries():
@@ -88,7 +93,8 @@ def test_no_source_imports_jax_or_ti_tpu():
         "torch_ambient_oracle.py", "torch_latent_oracle.py", "latent_memory_probe.py",
         "torch_adw_oracle.py")} | {ROOT / "ti_torch" / "cli" / "mdqm9_sample_sde.py",
                                    ROOT / "ti_torch" / "utils" / "torch_import.py",
-                                   ROOT / "chip_smoke_cli.py"} <= set(_port_sources())
+                                   ROOT / "chip_smoke_cli.py",
+                                   ROOT / "chip_smoke_studies.py"} <= set(_port_sources())
     bad = []
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -47,7 +47,9 @@ Subpackages
   and latent train and sample CLIs (``--shard``/``--num_shards``), the SDE
   sampler, the results report, the figures, the kinetics and model
   selection, the ADW train, sample and reweighted-gEDMD CLIs, the energy
-  stage, the trace summary, the shard merge and the local fan-out driver
+  stage, the trace summary, the shard merge and the local fan-out driver;
+  the studies (step count, f32 against f64, probe modes, the SDE and 10506
+  scans, the divergence profile, the ADW figure)
 - ``ti_torch.utils``: metric logging, ``profile_trace`` (``torch.profiler``),
   CUDA-event timing, the trace summariser and the import of the reference's
   torch checkpoints

@@ -79,8 +79,8 @@ def kernel_launches() -> dict:
 
     return {
         "launches": {k: _build.LAUNCHES[k] for k in ("pair_layer", "pair_tangent")},
-        "route_launches": {f"{k}:{lib}": n for (k, lib), n in _build.ROUTE_LAUNCHES.items()
-                           if k in ("pair_layer", "pair_tangent")},
+        "route_launches": {k: n for k, n in _build.route_counts().items()
+                           if k.split(":")[0] in ("pair_layer", "pair_tangent")},
     }
 
 

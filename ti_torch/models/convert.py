@@ -18,7 +18,7 @@ so weights trained with the JAX package reach the port without JAX.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,20 +82,32 @@ def params_to_flax(state) -> dict:
     return {"params": root}
 
 
-def save_npz(path: str, state) -> None:
-    """Write a state dict as a flat flax-layout archive."""
+def save_npz(path: str, state, arch: Optional[dict] = None) -> None:
+    """Write a state dict as a flat flax-layout archive; ``arch`` (numbers
+    that shape the model, e.g. atoms, features, layers) is kept beside it
+    under ``arch/<name>``."""
     flat = {"/".join(p): v for p, v in _flatten(params_to_flax(state)["params"])}
+    flat.update({f"arch/{k}": np.asarray(v) for k, v in (arch or {}).items()})
     np.savez(path, **flat)
 
 
-def load_npz(path: str) -> Dict[str, torch.Tensor]:
-    """Read a flat flax-layout archive into a state dict."""
+def load_npz_arch(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[dict]]:
+    """Read a flat flax-layout archive: (state dict, its ``arch`` dict or
+    None when the archive holds none)."""
     with np.load(path) as z:
         tree: dict = {}
+        arch = {k[len("arch/"):]: z[k][()] for k in z.files if k.startswith("arch/")}
         for key in z.files:
+            if key.startswith("arch/"):
+                continue
             *mods, leaf = key.split("/")
             node = tree
             for k in mods:
                 node = node.setdefault(k, {})
             node[leaf] = z[key]
-    return params_from_flax({"params": tree})
+    return params_from_flax({"params": tree}), arch or None
+
+
+def load_npz(path: str) -> Dict[str, torch.Tensor]:
+    """Read a flat flax-layout archive into a state dict."""
+    return load_npz_arch(path)[0]

@@ -73,6 +73,12 @@ def count_launch(kernel: str, library: str) -> None:
     ROUTE_LAUNCHES[kernel, library] = ROUTE_LAUNCHES.get((kernel, library), 0) + 1
 
 
+def route_counts() -> Dict[str, int]:
+    """The launches since the last ``reset_launches()`` as
+    ``{"kernel:library": n}``, the libraries that launched only."""
+    return {f"{k}:{lib}": n for (k, lib), n in ROUTE_LAUNCHES.items() if n}
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -414,11 +414,17 @@ def pair_layer_plain(x, s, v, e, wts: PairLayerWeights, length_scale: float):
 _P = ctypes.c_void_p
 
 
+class WidthRefusal(ValueError):
+    """A kernel's library is not built for the width it was given: the
+    port refuses that route (and names the one that takes F = 256) rather
+    than run the plain version in its place."""
+
+
 def check_width(f: int, what: str, width: int = KERNEL_F) -> None:
-    """Raise unless ``what`` (a library or a kernel) is built for ``f``; the
-    message names the route that takes F = 256."""
+    """Raise ``WidthRefusal`` unless ``what`` (a library or a kernel) is
+    built for ``f``; the message names the route that takes F = 256."""
     if f != width:
-        raise ValueError(f"{what} is built for F={width}, got F={f}; {F256_ROUTE}")
+        raise WidthRefusal(f"{what} is built for F={width}, got F={f}; {F256_ROUTE}")
 
 
 def _check_pair_inputs(x, s, v, e, wts: PairLayerWeights, lib: str):

@@ -51,6 +51,7 @@ from ti_torch.ops.pair_layer_kernel import (
     SMEM_LIMIT,
     TC_ROWS,
     PairLayerWeights,
+    WidthRefusal,
     _pack_tf32_matrix,
     _packed,
     check_width,
@@ -434,8 +435,8 @@ def fused_mlp(x, pack: MLPPack, variant: str = "tc"):
     dev, f, r = x.device, KERNEL_F, _rows(x)
     _check("x", x, (r, pack.f_in), dev)
     if pack.w.w2.shape[0] != f:
-        raise ValueError(f"fused_mlp takes hidden width F={f}, got F={pack.w.w2.shape[0]}; "
-                         f"{F256_ROUTE}")
+        raise WidthRefusal(f"fused_mlp takes hidden width F={f}, got F={pack.w.w2.shape[0]}; "
+                           f"{F256_ROUTE}")
     for t in (pack.mats, pack.vecs):
         if t.device != dev:
             raise ValueError(f"weights must be on {dev}, found them on {t.device}")

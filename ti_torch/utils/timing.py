@@ -14,6 +14,8 @@ times the card with CUDA events recorded on the stream around the calls:
   device's own clock.
 - ``host_round_trip_latency`` is the least time of a tiny op followed by
   ``torch.cuda.synchronize()``: what one host fence costs.
+- ``synchronize(dev)`` waits for the card (nothing on the CPU), the fence
+  of a host-clock timing.
 - ``Stopwatch`` names single-shot stage timings on the host clock;
   ``Stopwatch.fence(x)`` synchronises the card that holds ``x`` (nothing
   on the CPU), so a stage ends when its work does.
@@ -31,7 +33,8 @@ from ti_torch import resolve_device
 _LATENCY: Dict[str, float] = {}
 
 
-def _sync(dev: torch.device) -> None:
+def synchronize(dev: torch.device) -> None:
+    """Wait for the card ``dev`` is (nothing on the CPU)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -43,12 +46,12 @@ def host_round_trip_latency(refresh: bool = False, device=None) -> float:
     if refresh or str(dev) not in _LATENCY:
         a = torch.zeros(8, 8, device=dev)
         (a + 1.0).sum()
-        _sync(dev)
+        synchronize(dev)
         best = float("inf")
         for _ in range(5):
             t0 = time.perf_counter()
             (a + 1.0).sum()
-            _sync(dev)
+            synchronize(dev)
             best = min(best, time.perf_counter() - t0)
         _LATENCY[str(dev)] = best
     return _LATENCY[str(dev)]
@@ -76,7 +79,7 @@ def device_time(fn: Callable, *args, reps: int = 8, device=None) -> float:
         device = t.device if t is not None else None
     dev = resolve_device(device)
     fn(*args, 0)  # warm-up: builds, caches, allocations
-    _sync(dev)
+    synchronize(dev)
     best = float("inf")
     for _ in range(3):
         if dev.type == "cuda":
@@ -92,7 +95,7 @@ def device_time(fn: Callable, *args, reps: int = 8, device=None) -> float:
             t0 = time.perf_counter()
             for i in range(reps):
                 fn(*args, i)
-            _sync(dev)
+            synchronize(dev)
             secs = time.perf_counter() - t0
         best = min(best, secs)
     return best / reps
