@@ -48,9 +48,12 @@ that the path went through its kernels:
   reference checkpoint through ``torch_import``, a ``profile_trace`` of the
   main path and ``device_time``;
 - the study CLIs (chip_smoke_studies.py): the SDE and 10506 scans through
-  B1 and B2 (and the width refusals at F = 256), the divergence profile
+  B1 and B2 (and B3's width refusals at F = 256), the divergence profile
   through B4, B5 and B6, the probe-mode, step-count and f32-against-f64
-  studies and the ADW figure.
+  studies and the ADW figure;
+- B1 and B2 in f32 at F = 256 (chip_smoke_validate.py): the 10506 profile's
+  f32 trajectory and the f32 SDE at its width, and the three
+  physics-validation CLIs against their closed forms.
 
     python3 chip_smoke.py
 
@@ -239,13 +242,25 @@ Phases (any failure exits non-zero and prints no result):
      process through ``main(argv)`` at cut sizes: ``sde_scan`` (B1 and B2,
      f32 and bf16_agg, exactly layers x steps launches a run),
      ``large_scale_scan`` at the 10506 width (360 launches of
-     pair_layer_mma_f256 a 16-chain batch; the rows that reach B1 in f32 or
-     B3 at F = 256 report the width refusal), ``profile_divergence`` (B4,
+     pair_layer_mma_f256 or pair_layer_tf32x3_f256 a 16-chain batch; the
+     rows that reach B3 at F = 256 report the width refusal), ``profile_divergence`` (B4,
      B5 and B6 through its fused rows), ``probe_mode_study`` on the smoke's
      field (the K = d orthogonal frame exact within 1e-3), ``step_count_study``
      and ``adw_f64_study`` (ADW trained on the card in f32 and f64) and
      ``adw_plots`` (its refusal where matplotlib is missing);
- 20. the ``kernels`` line, the card line and the result line.
+ 20. kernel B1 and B2 in f32 at F = 256 and the physics-validation CLIs
+     (``phase_validate``, chip_smoke_validate.py): B1 (16 and 128 chains)
+     and B2 (C = 4, 512 chains) from pair_layer_tf32x3_f256 against their
+     plain versions, timed; the f32 SDE at F = 256 (100 B2 launches); a
+     10506 fast-profile batch with ``traj_forward_impl="pair_kernel"`` (360
+     B1 launches from pair_layer_tf32x3_f256) against the plain f32
+     trajectory, beside the bf16_agg trajectory's samples/s;
+     ``validate_mdqm9_physics`` at its test's size to the closed-form bars,
+     and through its kernel route (1,320 B1 from pair_layer_tf32x3, 50 B3
+     from pair_tangent_mma) against its default route;
+     ``validate_latent_physics`` and ``validate_bg_ti_physics`` to the BG
+     and composed identities;
+ 21. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -294,6 +309,10 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
     "pair_layer_bf16_agg_f256": ("ti_torch/csrc/pair_layer_mma.cu",
                                  "ti_tpu/ops/pair_layer_kernel.py:83"),
     "pair_layer_cb": ("ti_torch/csrc/pair_layer_mma.cu", "ti_tpu/ops/pair_layer_kernel.py:190"),
+    "pair_layer_f256": ("ti_torch/csrc/pair_layer_tf32x3.cu",
+                        "ti_tpu/ops/pair_layer_kernel.py:83"),
+    "pair_layer_cb_f256": ("ti_torch/csrc/pair_layer_tf32x3.cu",
+                           "ti_tpu/ops/pair_layer_kernel.py:190"),
     "pair_tangent": ("ti_torch/csrc/pair_tangent_mma.cu", "ti_tpu/ops/pair_tangent_kernel.py:76"),
     "pair_tangent_f32": ("ti_torch/csrc/pair_tangent_tf32x3.cu",
                          "ti_tpu/ops/pair_tangent_kernel.py:76"),
@@ -2151,9 +2170,9 @@ def harmonic_energy(x: np.ndarray, T: float, p_eq: np.ndarray, jitter: float = W
     the OpenMM stage, which the card's machine does not have. In float64,
     as the OpenMM stage writes them: the report's weights exp(-phi) and
     their squares underflow in float32."""
-    x = np.asarray(x, dtype=np.float64)
-    xc = x - x.mean(axis=-2, keepdims=True)
-    return np.sum((xc - p_eq) ** 2, axis=(-2, -1)) / (2.0 * jitter ** 2 * T / 300.0)
+    from ti_torch.analysis.oracles import well_energy, well_sigma
+
+    return well_energy(np.asarray(x, dtype=np.float64), well_sigma(T, jitter), p_eq)
 
 
 def nerf_check(n: int, conformations: int, device: str, card: str) -> None:
@@ -2600,8 +2619,9 @@ def main() -> int:
         for line in r["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
-    for name in ("pair_tangent_mma", "pair_tangent_tf32x3", "pair_layer_tf32x3", "pair_layer_mma",
-                 "pair_layer_mma_f256", "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3", "fused_mlp_tf32x3",
+    for name in ("pair_tangent_mma", "pair_tangent_tf32x3", "pair_layer_tf32x3",
+                 "pair_layer_tf32x3_f256", "pair_layer_mma", "pair_layer_mma_f256",
+                 "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3", "fused_mlp_tf32x3",
                  "div_kernel_tf32x3"):
         spills = [ln.strip() for ln in report[name]["ptxas"].splitlines() if "spill" in ln]
         require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
@@ -3019,8 +3039,13 @@ def main() -> int:
 
     phase_studies(model, template, card)
 
-    # ---- 20. result lines ----
-    path_launches = {"pair_layer": launches["pair_layer"],
+    # ---- 20. B1 and B2 in f32 at F = 256, the physics-validation CLIs ----
+    from chip_smoke_validate import phase_validate
+
+    launches20 = phase_validate(model, rows_kernels, card)
+
+    # ---- 21. result lines ----
+    path_launches = {**launches20,"pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_layer_bf16_agg_f256": launches10506["pair_layer"],
                      "pair_tangent": launches["pair_tangent"],

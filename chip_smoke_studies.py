@@ -15,10 +15,11 @@ prints are those of one run of each row:
 - (b) ``large_scale_scan`` at the 10506 width (29 atoms, F = 256 x 5), 16
   chains, Hutchinson-32, impls default, pair_kernel and pair_kernel_bf16
   crossed with node impls default and pair_tangent_bf16, best of 2: exactly
-  the rows that reach B1 in f32 or B3 at F = 256 report ``WidthRefusal``
-  (naming the refused library), the two others run at a finite positive
-  rate, ``pair_kernel_bf16`` with exactly 360 launches of
-  pair_layer_mma_f256 a batch (72 forwards x 5 layers, as in phase 15);
+  the rows that reach B3 at F = 256 report ``WidthRefusal`` (naming the
+  refused library), the three others run at a finite positive rate,
+  ``pair_kernel`` with exactly 360 launches of pair_layer_tf32x3_f256 a
+  batch and ``pair_kernel_bf16`` 360 of pair_layer_mma_f256 (72 forwards x
+  5 layers, as in phase 15);
 - (c) ``profile_divergence`` at 16 chains: every row a finite positive
   time; one fused forward exactly 5 B4 launches (fused_edge_mlp_tf32x3),
   the fully fused forward 5 B4 and 7 B6 (fused_mlp_tf32x3), one
@@ -129,7 +130,7 @@ def _sde_scan(card: str) -> None:
 
 
 def _large_scale_scan(card: str) -> None:
-    """(b): the 10506 width; B1 bf16_agg at F = 256 runs, the rest refuses."""
+    """(b): the 10506 width; B1 at F = 256 runs in both types, B3 refuses."""
     from ti_torch.cli import large_scale_scan
 
     lines = _cli(large_scale_scan.main, [
@@ -142,7 +143,7 @@ def _large_scale_scan(card: str) -> None:
     gaps = LARGE["gl_points"] + 1
     forwards = gaps * min(25, -(-LARGE["steps"] // gaps)) * 4  # RK4 steps a gap, 4 stages
     for r in rows:
-        refused = r["impl"] == "pair_kernel" or r["div_impl"] == "pair_tangent_bf16"
+        refused = r["div_impl"] == "pair_tangent_bf16"
         if "error" in r:
             require(r["error"].startswith("WidthRefusal: "),
                     f"19b: the only error a row reports is the width refusal: {r}")
@@ -152,8 +153,9 @@ def _large_scale_scan(card: str) -> None:
             log(f"[19b large_scale_scan] {r['impl']}/{r['div_impl']}: {r['error']}")
             continue
         require(_rate_ok(r["samples_per_sec"]), f"19b: a finite positive rate: {r}")
-        want = ({"pair_layer:pair_layer_mma_f256": forwards * LARGE["layers"]}
-                if r["impl"] == "pair_kernel_bf16" else {})
+        lib = {"pair_kernel": "pair_layer_tf32x3_f256",
+               "pair_kernel_bf16": "pair_layer_mma_f256"}.get(r["impl"])
+        want = {f"pair_layer:{lib}": forwards * LARGE["layers"]} if lib else {}
         _card_check(r["launches"] == want, f"19b: {r['impl']}/{r['div_impl']} launches {want} a "
                                           f"batch: {r['launches']}")
         log(f"[19b large_scale_scan] {r['chains']} chains h-{r['probes']} {r['impl']}/"

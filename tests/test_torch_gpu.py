@@ -601,7 +601,7 @@ def test_pair_layer_mma_variants_refusals_and_counts():
             assert lib.pair_layer_mma_ctas(b, n, mma_tiles(c)) == mma_tile_plan(b, n, c).ctas
 
 
-F256 = 256  # the 10506 profile's width: B1 in bf16_agg only (pair_layer_mma_f256)
+F256 = 256  # the 10506 profile's width: B1 on the tensor cores (pair_layer_mma_f256, pair_layer_tf32x3_f256)
 
 
 def _layer256(dtype, b, n=29, k=0):
@@ -648,11 +648,48 @@ def test_pair_layer_mma_f256_matches_plain(b, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,n", [(16, 29), (128, 29), (13, 29), (130, 19), (3, 2), (5, 32)])
+def test_pair_layer_tf32x3_f256_matches_plain(b, n):
+    """B1 in f32 at F = 256 (pair_layer_tf32x3_f256: the 3xTF32 kernel with
+    16 warps a CTA) against its plain version at the f32 bar, 2e-5 of max
+    |plain|: the 10506 molecule at 16 and 128 chains, a ragged last tile (13
+    chains; 130 at 19 atoms), 32 groups a tile (2 atoms) and 2 (32 atoms).
+    The library's shared memory, threads and CTAs an SM are the wrapper's
+    reckoning (197,888 bytes, 512 threads, one CTA); two launches agree to
+    the bit, and B2 at chain_block 2 and 4 is B1's launch, to the bit."""
+    import ctypes
+
+    from ti_torch.ops.pair_layer_kernel import tc_smem_bytes, tc_threads, tile_plan
+
+    _card()
+    lib = _build.load("pair_layer_tf32x3_f256")
+    lib.pair_layer_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+    assert lib.pair_layer_tf32x3_smem_bytes() == tc_smem_bytes(F256) == 197_888
+    assert tile_plan(b, n, F256).smem == tc_smem_bytes(F256)
+    assert lib.pair_layer_tf32x3_threads() == tc_threads(F256) == 512
+    assert lib.pair_layer_tf32x3_ctas_per_sm() == 1
+    w, base, _ = _layer256(torch.float32, b, n)
+    before = dict(_build.ROUTE_LAUNCHES)
+    out = pair_layer(*base, w, 10.0)
+    torch.cuda.synchronize()
+    key = ("pair_layer", "pair_layer_tf32x3_f256")
+    assert _build.ROUTE_LAUNCHES[key] == before.get(key, 0) + 1
+    _assert_close(out, pair_layer_plain(*base, w, 10.0), torch.float32)
+    for c in (1, 2, 4):
+        again = pair_layer(*base, w, 10.0, c)
+        torch.cuda.synchronize()
+        assert _build.ROUTES["pair_layer" if c == 1 else "pair_layer_cb"] == \
+            "pair_layer_tf32x3_f256"
+        for a, r in zip(again, out):
+            assert torch.equal(a, r)
+
+
+@pytest.mark.gpu
 def test_pair_layer_f256_refusals_and_counts():
-    """At F = 256 the library's tile count, shared memory and CTAs are the
-    wrapper's (one 132,352-byte tile a CTA); B1 in f32, ``variant="fma"``,
-    B3 and B4 refuse the width on the card, naming the route that takes it,
-    and launch nothing."""
+    """At F = 256 the bf16_agg library's tile count, shared memory and CTAs
+    are the wrapper's (one 132,352-byte tile a CTA); ``variant="fma"``, B3
+    and B4 refuse the width on the card, naming the routes that take it,
+    and launch nothing (B1 in f32 runs: test_pair_layer_tf32x3_f256_matches_plain)."""
     import ctypes
 
     from ti_torch.ops.pair_layer_kernel import mma_max_tiles, mma_tile_bytes
@@ -671,9 +708,9 @@ def test_pair_layer_f256_refusals_and_counts():
     w16, base16, lanes16 = _layer256(torch.bfloat16, 4, k=2)
     w32, base32, lanes32 = _layer256(torch.float32, 4, k=2)
     before = dict(_build.LAUNCHES)
-    route = "got F=256; F = 256 runs only in B1 and B2 in bf16_agg on the tensor cores"
-    with pytest.raises(ValueError, match="pair_layer_tf32x3 is built for F=128, " + route):
-        pair_layer(*base32, w32, 10.0)
+    route = "got F=256; F = 256 runs only in B1 and B2 on the tensor cores"
+    with pytest.raises(ValueError, match="pair_layer is built for F=128, " + route):
+        pair_layer(*base32, w32, 10.0, variant="fma")
     with pytest.raises(ValueError, match="pair_layer is built for F=128, " + route):
         pair_layer(*base16, w16, 10.0, variant="fma")
     with pytest.raises(ValueError, match="pair_tangent_mma is built for F=128, " + route):
@@ -1626,9 +1663,11 @@ def test_sde_scan_launches_b1_and_b2_on_the_card(capsys):
 @pytest.mark.gpu
 def test_large_scale_scan_refuses_f32_at_f256_and_runs_bf16_agg(capsys):
     """``large_scale_scan`` at F = 256 (29 atoms, one layer, 4 chains, RK4-2
-    over GL-2's three gaps): the f32 trajectory kernel's row reports the
-    width refusal, naming its library; the bf16_agg row runs through
-    pair_layer_mma_f256, 3 gaps x 1 step x 4 stages a batch."""
+    over GL-2's three gaps): both trajectory kernels run, the f32 row
+    through pair_layer_tf32x3_f256 and the bf16_agg row through
+    pair_layer_mma_f256, 3 gaps x 1 step x 4 stages a batch; a row whose
+    nodes reach B3 (``pair_tangent_bf16``) reports the width refusal,
+    naming its library."""
     import json
 
     from ti_torch.cli import large_scale_scan
@@ -1636,11 +1675,17 @@ def test_large_scale_scan_refuses_f32_at_f256_and_runs_bf16_agg(capsys):
     _card()
     assert large_scale_scan.main(["--layers", "1", "--chains", "4", "--probes", "4", "--steps",
                                   "2", "--gl_points", "2", "--reps", "1", "--impls",
-                                  "pair_kernel,pair_kernel_bf16"]) == 0
-    refused, ran = (json.loads(line) for line in capsys.readouterr().out.strip().splitlines())
-    assert refused["impl"] == "pair_kernel"
-    assert refused["error"].startswith("WidthRefusal: pair_layer_tf32x3 is built for F=128, "
-                                       "got F=256")
-    assert ran["impl"] == "pair_kernel_bf16" and "error" not in ran
-    assert ran["launches"] == {"pair_layer:pair_layer_mma_f256": 3 * 1 * 4}
-    assert ran["samples_per_sec"] > 0
+                                  "pair_kernel,pair_kernel_bf16", "--div_impls",
+                                  "default,pair_tangent_bf16"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    ran = {r["impl"]: r for r in rows if r["div_impl"] == "default"}
+    for impl, lib in (("pair_kernel", "pair_layer_tf32x3_f256"),
+                      ("pair_kernel_bf16", "pair_layer_mma_f256")):
+        assert "error" not in ran[impl], ran[impl]
+        assert ran[impl]["launches"] == {f"pair_layer:{lib}": 3 * 1 * 4}
+        assert ran[impl]["samples_per_sec"] > 0
+    refused = [r for r in rows if r["div_impl"] == "pair_tangent_bf16"]
+    assert len(refused) == 2
+    for r in refused:
+        assert r["error"].startswith("WidthRefusal: pair_tangent_mma is built for F=128, "
+                                     "got F=256"), r

@@ -19,6 +19,7 @@ def _port_sources():
     yield ROOT / "chip_smoke_parallel.py"
     yield ROOT / "chip_smoke_cli.py"
     yield ROOT / "chip_smoke_studies.py"
+    yield ROOT / "chip_smoke_validate.py"
 
 
 def test_imports_with_jax_blocked():
@@ -94,7 +95,11 @@ def test_no_source_imports_jax_or_ti_tpu():
         "torch_adw_oracle.py")} | {ROOT / "ti_torch" / "cli" / "mdqm9_sample_sde.py",
                                    ROOT / "ti_torch" / "utils" / "torch_import.py",
                                    ROOT / "chip_smoke_cli.py",
-                                   ROOT / "chip_smoke_studies.py"} <= set(_port_sources())
+                                   ROOT / "chip_smoke_studies.py",
+                                   ROOT / "chip_smoke_validate.py",
+                                   ROOT / "ti_torch" / "analysis" / "oracles.py"} | {
+        ROOT / "ti_torch" / "cli" / f"validate_{name}_physics.py"
+        for name in ("mdqm9", "latent", "bg_ti")} <= set(_port_sources())
     bad = []
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -1,16 +1,20 @@
-"""Kernel B1 in bf16_agg at F = 256 (library pair_layer_mma_f256, built from
-csrc/pair_layer_mma.cu with -DPK_F=256), as far as the CPU reaches it, and
-the path ``ti_tpu`` runs through it: ``sample_ambient`` under
-``fast_profile(ambient_preset("10506"))``.
+"""Kernel B1 at F = 256 on the tensor cores, in bf16_agg (library
+pair_layer_mma_f256, built from csrc/pair_layer_mma.cu with -DPK_F=256) and
+in f32 (library pair_layer_tf32x3_f256, csrc/pair_layer_tf32x3.cu with
+-DPK_F=256), as far as the CPU reaches them, and the path ``ti_tpu`` runs
+through them: ``sample_ambient`` under ``fast_profile(ambient_preset(
+"10506"))``, with its bf16_agg trajectory and with the f32 one
+(``traj_forward_impl="pair_kernel"``).
 
-- The route table at F = 256: bf16_agg on the tensor cores takes the new
-  library for every chain block; f32 (``pair_layer_tf32x3``), ``variant=
-  "fma"`` (``pair_layer``), B3's libraries and B4-B7 refuse the width, each
-  naming the route that takes it.
-- The plain bf16_agg forward at F = 256 (the kernel's yardstick on the
-  card) against ``ti_tpu``'s Pallas kernel in interpret mode on weights
-  carried across by ``params_from_flax``: atol 4e-2 of max |ref|, the
-  bf16_agg bar of tests/test_torch_pair_layer.py.
+- The route table at F = 256: the tensor cores take the new libraries for
+  every chain block, bf16_agg and f32; ``variant="fma"`` (``pair_layer``),
+  B3's libraries and B4-B7 refuse the width, each naming the routes that
+  take it; every library refuses F = 64.
+- The plain forward at F = 256 (the kernels' yardstick on the card) against
+  ``ti_tpu``'s Pallas kernel in interpret mode on weights carried across by
+  ``params_from_flax``: bf16_agg at atol 4e-2 of max |ref|, the bf16_agg bar
+  of tests/test_torch_pair_layer.py; f32 at 2e-5 of max |ref|, the f32
+  kernels' bar on the card.
 - ``sample_ambient`` under the 10506 fast profile, cut to 6 atoms, F = 256,
   2 layers, 3 chains and ``n_steps=9`` (one RK4 step a Gauss gap: 9 steps
   where the profile's 16 take 18; the JAX side runs the Pallas kernel in
@@ -80,24 +84,38 @@ def _inputs(dtype, f=F256, n=5, b=2, seed=3):
     (True, 2, None, "pair_layer_mma_f256"), (True, 4, "tc", "pair_layer_mma_f256"),
     (True, 8, None, "pair_layer_mma_f256"),
     (True, 1, "fma", "pair_layer"), (True, 4, "fma", "pair_layer"),
-    (False, 1, None, "pair_layer_tf32x3"), (False, 4, "tc", "pair_layer_tf32x3"),
-    (False, 1, "fma", "pair_layer"),
+    (False, 1, None, "pair_layer_tf32x3_f256"), (False, 4, "tc", "pair_layer_tf32x3_f256"),
+    (False, 2, None, "pair_layer_tf32x3_f256"), (False, 1, "fma", "pair_layer"),
 ])
 def test_route_table_at_f256(bf16, chain_block, variant, lib):
-    """At F = 256 bf16_agg on the tensor cores takes pair_layer_mma_f256 for
-    every chain block, and its input check passes; f32 and ``variant="fma"``
-    route as at F = 128 and their launch check refuses the width, naming
-    the route that takes it."""
+    """At F = 256 the tensor cores take pair_layer_mma_f256 (bf16_agg) and
+    pair_layer_tf32x3_f256 (f32) for every chain block, and their input
+    check passes; ``variant="fma"`` routes as at F = 128 and its launch
+    check refuses the width, naming the routes that take it."""
     assert plk._route(bf16, chain_block, variant, F256) == lib
     dtype = BF16 if bf16 else torch.float32
     args = (*_inputs(dtype), _weights(F256, dtype))
-    if lib == "pair_layer_mma_f256":
+    if lib != "pair_layer":
         assert plk._check_pair_inputs(*args, lib) == (2, 5, F256, dtype)
         assert plk.LIB_WIDTHS[lib] == F256
         return
-    with pytest.raises(ValueError, match=f"{lib} is built for F=128, got F=256; F = 256 runs "
-                                         "only in B1 and B2 in bf16_agg on the tensor cores"):
+    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=128, got F=256; F = 256 "
+                                               "runs only in B1 and B2 on the tensor cores"):
         plk._check_pair_inputs(*args, lib)
+
+
+@pytest.mark.parametrize("lib", ["pair_layer", "pair_layer_tf32x3", "pair_layer_mma",
+                                 "pair_layer_tf32x3_f256", "pair_layer_mma_f256",
+                                 "pair_tangent", "pair_tangent_mma", "pair_tangent_tf32x3"])
+def test_every_library_refuses_f64(lib):
+    """F = 64 (the validation CLIs' default width) is built by no library:
+    the launch check of each refuses it, naming the library and the routes
+    that take F = 256; at F = 64 the routes are F = 128's."""
+    assert plk._route(False, 1, None, 64) == "pair_layer_tf32x3"
+    assert plk._route(True, 1, None, 64) == "pair_layer_mma"
+    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=(128|256), got F=64; "
+                                               "F = 256 runs only in B1 and B2"):
+        plk.check_width(64, lib, plk.LIB_WIDTHS.get(lib, plk.KERNEL_F))
 
 
 @pytest.mark.parametrize("bf16,variant,lib", [
@@ -109,7 +127,8 @@ def test_b3_refuses_f256(bf16, variant, lib):
     refuses F = 256 and names the route that takes it."""
     assert ptk._route(bf16, variant) == lib
     dtype = BF16 if bf16 else torch.float32
-    with pytest.raises(ValueError, match="got F=256; F = 256 runs only in B1 and B2 in bf16_agg"):
+    with pytest.raises(ValueError, match="got F=256; F = 256 runs only in B1 and B2 on the tensor "
+                                         "cores"):
         plk._check_pair_inputs(*_inputs(dtype), _weights(F256, dtype), lib)
 
 
@@ -152,24 +171,28 @@ def setup():
     return jm, jp, jt, params, model, template, x0
 
 
-def test_plain_bf16_agg_forward_matches_jax_at_f256(setup):
-    """``apply_dense_pair_kernel`` in bf16_agg at F = 256 (the plain version,
-    the CPU's route) against ``ti_tpu``'s bf16 Pallas kernel in interpret
-    mode: atol 4e-2 of max |ref|."""
+@pytest.mark.parametrize("compute_dtype,packed,bar", [
+    ("bf16_agg", 15 * F256 ** 2, 4e-2), (None, 2 * 15 * F256 ** 2, 2e-5)])
+def test_plain_bf16_agg_forward_matches_jax_at_f256(setup, compute_dtype, packed, bar):
+    """``apply_dense_pair_kernel`` at F = 256 (the plain version, the CPU's
+    route) against ``ti_tpu``'s Pallas kernel in interpret mode: in bf16_agg
+    at atol 4e-2 of max |ref|, in f32 (the weights with their 3xTF32 hi/lo
+    packing, 2 x 15 F² values, which pair_layer_tf32x3_f256 reads) at
+    2e-5."""
     jm, jp, jt, params, model, template, x = setup
     x = 3.0 * x
     t = np.array([0.2, 0.5, 0.9], np.float32)
     temps = np.tile(np.array([700.0, 300.0], np.float32), (B, 1))
     ref = np.asarray(jax_pair_kernel(jm, jp, jnp.asarray(x), jnp.asarray(t), jnp.asarray(temps),
                                      jt.atom_ids, jt.edges, interpret=True,
-                                     compute_dtype="bf16_agg"))
-    pm = plk.prepare(model, params, template, "bf16_agg", torch.device("cpu"))
-    assert all(w.mma is not None and w.mats.numel() == 15 * F256 ** 2 for w in pm.layers)
+                                     compute_dtype=compute_dtype))
+    pm = plk.prepare(model, params, template, compute_dtype, torch.device("cpu"))
+    assert all(w.mma is not None and w.mma.numel() == packed for w in pm.layers)
     out = plk.apply_dense_pair_kernel(pm, torch.from_numpy(x), torch.from_numpy(t),
                                       torch.from_numpy(temps)).numpy()
     assert out.shape == (B, N_ATOMS, 3) and np.isfinite(out).all()
     scale = max(np.abs(ref).max(), 1e-3)
-    np.testing.assert_allclose(out / scale, ref / scale, atol=4e-2)
+    np.testing.assert_allclose(out / scale, ref / scale, atol=bar)
 
 
 def _jax_node_probes(seed: int, b: int, k: int, d: int):

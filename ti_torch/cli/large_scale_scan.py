@@ -11,17 +11,18 @@ Hutchinson dlogp, bf16_agg) through ``make_ode_sampler`` across:
   - chain batch (16 was the JAX package's unchunked sweet spot),
   - Hutchinson probe count (the physics-qualified count is 32),
   - trajectory impl (``traj_drift``): ``default`` (the dense forward),
-    ``pair_kernel`` (kernel B1 in f32, csrc/pair_layer_tf32x3.cu) or
-    ``pair_kernel_bf16`` (B1 in bf16_agg, csrc/pair_layer_mma.cu; at F = 256
-    the library pair_layer_mma_f256),
+    ``pair_kernel`` (kernel B1 in f32, csrc/pair_layer_tf32x3.cu; at F = 256
+    the library pair_layer_tf32x3_f256) or ``pair_kernel_bf16`` (B1 in
+    bf16_agg, csrc/pair_layer_mma.cu; at F = 256 the library
+    pair_layer_mma_f256),
   - divergence-node impl (``div_drift``): ``default`` (forward-mode JVPs of
     the dense forward), ``pair_tangent`` / ``pair_tangent_bf16`` (kernel B3
     in f32 / bf16_agg, ``pair_tangent_div_fn``).
 
-Only B1 in bf16_agg is built at F = 256. At that width on the card the
-f32 trajectory kernel and both node kernels refuse it (``WidthRefusal``,
-naming the route that takes F = 256): the scan prints such a row as an
-``error`` row and goes on, and never runs the plain version in its place.
+Of the kernels only B1 (both types) is built at F = 256. At that width on
+the card both node kernels refuse it (``WidthRefusal``, naming the routes
+that take F = 256): the scan prints such a row as an ``error`` row and goes
+on, and never runs the plain version in its place.
 At F = 128 (``--atoms 19 --features 128``) every impl runs its kernel. On
 the CPU every wrapper takes its plain version.
 

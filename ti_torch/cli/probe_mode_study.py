@@ -49,6 +49,7 @@ def _oracle_study(args, dev):
     closed form and the Kish ESS."""
     import torch
 
+    from ti_torch.analysis import oracles
     from ti_torch.analysis.free_energy import calc_phis_tfep, calc_tfep_dF
     from ti_torch.analysis.weights import calc_ess
     from ti_torch.config import MDQM9Config
@@ -64,7 +65,7 @@ def _oracle_study(args, dev):
     T0, T1, jitter = 1000, 300, 0.4
 
     def sig(T):
-        return jitter * np.sqrt(T / 300.0)
+        return oracles.well_sigma(T, jitter)
 
     n = args.atoms
     d = 3 * n
@@ -72,8 +73,7 @@ def _oracle_study(args, dev):
     p_eq = (mol.positions - mol.positions.mean(axis=0, keepdims=True)).astype(np.float32)
 
     def energy(x, T):
-        xc = x - x.mean(axis=-2, keepdims=True)
-        return np.sum((xc - p_eq) ** 2, axis=(-2, -1)) / (2.0 * sig(T) ** 2)
+        return oracles.well_energy(x, sig(T), p_eq)
 
     frames = {T: make_synthetic_frames(mol, 1024, T, seed=T, jitter=jitter) for T in (T0, T1)}
     stack = np.concatenate([frames[T0], frames[T1]])
@@ -108,7 +108,7 @@ def _oracle_study(args, dev):
     n_chains = args.chains
     x0 = make_synthetic_frames(mol, n_chains, T0, seed=999, jitter=jitter)
     tt = np.tile(np.array([float(T0), float(T1)], np.float32), (n_chains, 1))
-    dF_exact = -3 * (n - 1) * np.log(sig(T1) / sig(T0))
+    dF_exact = oracles.tfep_dF_exact(n, sig(T0), sig(T1))
 
     def run(divergence, k=None, mode="rademacher", crn=False):
         sampler = make_ode_sampler(

@@ -9,7 +9,8 @@ spot over (chains, compute_dtype, impl, chain_block) at the bench config.
 ``dense`` is the plain dense forward; ``pair_kernel`` runs the message
 layers in kernel B1 (``chain_block`` 1) or B2 (above 1), f32 in
 csrc/pair_layer_tf32x3.cu and ``bf16_agg`` in csrc/pair_layer_mma.cu
-(plain ``bf16`` has no kernel and is skipped for it).
+(built at F = 128 and, as pair_layer_tf32x3_f256 and pair_layer_mma_f256,
+at F = 256; plain ``bf16`` has no kernel and is skipped for it).
 
 Timing: the whole rollout, fenced by ``torch.cuda.synchronize()``, on the
 host clock; best of ``--reps`` after one warm-up run. Each row carries the

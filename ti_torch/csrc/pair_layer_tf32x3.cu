@@ -48,9 +48,17 @@
 //   with rolled loops (with a register fragment the bf16 kernel spilled);
 // - the epilogues are f32 (bias, LayerNorm with f32 statistics and eps 1e-5,
 //   SiLU, the mask, sincosf), as the plain version computes them.
-// 99,584 bytes of shared memory and 128 registers a thread, no spills: two
-// CTAs of 8 warps an SM. Only F = 128 is built. The tile, mma3 and the
-// epilogues live in tf32_common.cuh, shared with B3 in f32.
+// Built at two widths from this file (PK_F, pair_common.cuh; ops/_build.py):
+// - F = 128 (library pair_layer_tf32x3): 8 warps, 99,584 bytes of shared
+//   memory and 128 registers a thread, no spills: two CTAs of 8 warps an SM;
+// - F = 256 (library pair_layer_tf32x3_f256, -DPK_F=256): the same 64-row
+//   tile and warp block, so the CTA has F / 16 = 16 warps (two row halves x
+//   F / 32 column blocks) and 197,888 bytes of shared memory (X 64 x 512, Y
+//   64 x 256): one CTA of 16 warps an SM, at the same 128-register cap a
+//   thread. LayerNorm then takes 4 rows a warp and 8 columns a lane. The
+//   layer's f32 weights are 3.9 MB, 7.9 MB packed hi/lo: still in L2.
+// The tile, mma3 and the epilogues live in tf32_common.cuh, shared with B3
+// in f32.
 
 #include "tf32_common.cuh"
 
@@ -60,8 +68,56 @@ namespace tf32x3 {
 // geometry rows kept in shared memory, TGEO arrays of TR floats
 enum { T_DIST, T_MASK, T_DIR0, T_DIR1, T_DIR2, TGEO };
 constexpr size_t SMEM = sizeof(float) * ((size_t)TR * (LDX + F) + TGEO * TR);
+// threads of a CTA: two 32-row halves x F / 32 column blocks of 32, a warp
+// each (8 warps at F = 128, 16 at F = 256); CTAs an SM the launch bounds ask
+constexpr int BNT = 2 * F;
+constexpr int BNW = BNT / 32;
+constexpr int MIN_CTAS = F == 128 ? 2 : 1;
 
-__global__ void __launch_bounds__(NT, 2)
+// LayerNorm (f32 statistics, eps 1e-5) -> SiLU in place on a swizzled TR x F
+// tile: ln_silu_rows at F = 128; wider, warp w takes rows TR / BNW * w ..
+// and lane l the columns 128 c + 4 l .. + 3 of each 128-wide chunk c, read
+// from the tile once for the mean, once for the variance and once to write
+// (holding a row's 8 values across the two reductions spilled registers)
+__device__ __forceinline__ void ln_silu_tile(float* T, int ld, const float* __restrict__ scale,
+                                             const float* __restrict__ bias) {
+  if constexpr (F == 128) {
+    ln_silu_rows(T, ld, scale, bias);
+  } else {
+    constexpr int CH = F / 128, RW = TR / BNW;
+    const int lane = lane_id(), w = (threadIdx.x & (BNT - 1)) >> 5;
+#pragma unroll 1
+    for (int rr = 0; rr < RW; ++rr) {
+      const int r = RW * w + rr;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const float4 v = *reinterpret_cast<const float4*>(T + swz(r, 128 * c + 4 * lane, ld));
+        sum += v.x + v.y + v.z + v.w;
+      }
+      const float mu = warp_sum(sum) * (1.f / F);
+      float sq = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const float4 v = *reinterpret_cast<const float4*>(T + swz(r, 128 * c + 4 * lane, ld));
+        const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+        sq += d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+      }
+      const float rstd = 1.f / sqrtf(warp_sum(sq) * (1.f / F) + 1e-5f);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        float4* at = reinterpret_cast<float4*>(T + swz(r, 128 * c + 4 * lane, ld));
+        const float4 v = *at;
+        const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + 128 * c + 4 * lane));
+        const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + 128 * c + 4 * lane));
+        *at = make_float4(silu((v.x - mu) * rstd * sc.x + bi.x), silu((v.y - mu) * rstd * sc.y + bi.y),
+                          silu((v.z - mu) * rstd * sc.z + bi.z), silu((v.w - mu) * rstd * sc.w + bi.w));
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BNT, MIN_CTAS)
 pair_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ s,
                          const float* __restrict__ v, const float* __restrict__ e,
                          const float* __restrict__ wpk, const float* __restrict__ vecs,
@@ -73,7 +129,7 @@ pair_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ 
   float* X2 = X + F;               // phi's pre-LN products, then a2 of phi
   float* Y = X + TR * LDX;         // PE; later the 5F chunk h (row stride F)
   float* geo = Y + TR * F;
-  const int tid = threadIdx.x, warp = warp_id();
+  const int tid = threadIdx.x, warp = (tid & (BNT - 1)) >> 5;  // warp_id() at F = 128
   const int row0 = 32 * (warp & 1), col0 = 32 * (warp >> 1), nt0 = 4 * (warp >> 1);
   const int q0 = blockIdx.x * G;                 // the CTA's first group
   const int ng = min(G, B * N - q0);             // its groups
@@ -81,7 +137,7 @@ pair_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ 
   const size_t e0 = (size_t)q0 * N;              // its first row of e
 
   // geometry of row r: r = x_j - x_i, dist, mask, dir = r / (1 + dist)
-  for (int r = tid; r < TR; r += NT) {
+  for (int r = tid; r < TR; r += BNT) {
     float d = 0.f, msk = 0.f, dir[3] = {0.f, 0.f, 0.f};
     if (r < rows) {
       const int q = q0 + r / N, j = r % N, b = q / N, i = q % N;
@@ -104,7 +160,7 @@ pair_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ 
 
   // X = [s_j | e_ij], Y = PE(dist) (interleaved cos/sin, rank f/2 + 1); zero
   // past the last real row
-  for (int idx = tid; idx < TR * F / 4; idx += NT) {
+  for (int idx = tid; idx < TR * F / 4; idx += BNT) {
     const int r = idx / (F / 4), f = 4 * (idx % (F / 4));
     float4 sv = make_float4(0.f, 0.f, 0.f, 0.f), ev = sv;
     if (r < rows) {
@@ -136,26 +192,26 @@ pair_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ 
   __syncthreads();  // every warp has read X
   acc_store(X1, LDX, row0, col0, acc, vp + V_B1);
   __syncthreads();
-  ln_silu_rows(X1, LDX, vp + V_LN1S, vp + V_LN1B);
+  ln_silu_tile(X1, LDX, vp + V_LN1S, vp + V_LN1B);
   __syncthreads();
   acc_zero(acc);
   mma3<F / 8, FN>(acc, X1, LDX, row0, wmat(wpk, M_PHI2), nt0);
   acc_store(X2, LDX, row0, col0, acc, vp + V_B2);  // X2 was last read before the barriers above
   __syncthreads();
-  ln_silu_rows(X2, LDX, vp + V_LN2S, vp + V_LN2B);
+  ln_silu_tile(X2, LDX, vp + V_LN2S, vp + V_LN2B);
   // w's front: Y (64 x F) -> Y -> a2 of w in X1
   acc_zero(acc);
   mma3<F / 8, FN>(acc, Y, F, row0, wmat(wpk, M_W1), nt0);
   __syncthreads();  // every warp has read Y
   acc_store(Y, F, row0, col0, acc, vw + V_B1);
   __syncthreads();
-  ln_silu_rows(Y, F, vw + V_LN1S, vw + V_LN1B);
+  ln_silu_tile(Y, F, vw + V_LN1S, vw + V_LN1B);
   __syncthreads();
   acc_zero(acc);
   mma3<F / 8, FN>(acc, Y, F, row0, wmat(wpk, M_W2), nt0);
   acc_store(X1, LDX, row0, col0, acc, vw + V_B2);  // X1 was last read by phi's second product
   __syncthreads();
-  ln_silu_rows(X1, LDX, vw + V_LN2S, vw + V_LN2B);
+  ln_silu_tile(X1, LDX, vw + V_LN2S, vw + V_LN2B);
   __syncthreads();
 
   // the 5F product, one F-wide chunk k at a time, into Y (gates | scale_dir |
@@ -172,7 +228,7 @@ pair_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ 
     acc_gate(Y, row0, col0, acc, vw + V_B3 + k * F, mask);  // h = p q mask
     __syncthreads();
     if (k == 3) {  // e + de, on whole rows
-      for (int idx = tid; idx < rows * (F / 4); idx += NT) {
+      for (int idx = tid; idx < rows * (F / 4); idx += BNT) {
         const int r = idx / (F / 4), f = 4 * (idx % (F / 4));
         const float4 ev = __ldg(reinterpret_cast<const float4*>(e + (e0 + r) * F + f));
         const float4 h = *reinterpret_cast<const float4*>(Y + swz(r, f, F));
@@ -180,7 +236,7 @@ pair_layer_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ 
             make_float4(ev.x + h.x, ev.y + h.y, ev.z + h.z, ev.w + h.w);
       }
     } else {
-      for (int idx = tid; idx < ng * F; idx += NT) {
+      for (int idx = tid; idx < ng * F; idx += BNT) {
         const int grp = idx / F, f = idx % F, q = q0 + grp, b = q / N, i = q % N;
         const int r0 = grp * N;
         float* dvq[3];
@@ -239,7 +295,7 @@ extern "C" int pair_layer_tf32x3(const void* x, const void* s, const void* v, co
   cudaError_t err = cudaFuncSetAttribute(pair_layer_tf32x3_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (err != cudaSuccess) return (int)err;
-  pair_layer_tf32x3_kernel<<<(unsigned)ctas, pk::NT, SMEM, (cudaStream_t)stream>>>(
+  pair_layer_tf32x3_kernel<<<(unsigned)ctas, BNT, SMEM, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)s, (const float*)v, (const float*)e, (const float*)mats,
       (const float*)vecs, (float*)dv, (float*)ds, (float*)e_out, B, N, G, pe_scale);
   return (int)cudaGetLastError();
@@ -247,4 +303,18 @@ extern "C" int pair_layer_tf32x3(const void* x, const void* s, const void* v, co
 
 extern "C" unsigned long long pair_layer_tf32x3_smem_bytes() {
   return (unsigned long long)pk::tf32x3::SMEM;
+}
+
+extern "C" int pair_layer_tf32x3_threads() { return pk::tf32x3::BNT; }
+
+// CTAs of the kernel an SM holds (two at F = 128, one at F = 256), or minus
+// the CUDA error
+extern "C" int pair_layer_tf32x3_ctas_per_sm() {
+  using namespace pk::tf32x3;
+  cudaError_t err = cudaFuncSetAttribute(pair_layer_tf32x3_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pair_layer_tf32x3_kernel, BNT, SMEM);
+  return err == cudaSuccess ? n : -(int)err;
 }

@@ -6,9 +6,12 @@ fragment order by ``pack_tf32_weights``), and B1 and B2 in bf16_agg
 (csrc/pair_layer_mma.cu, ``mma.sync`` bf16, the matrices packed once by
 ``pack_mma_weights``). B2 in f32 is B1's 3xTF32 kernel. csrc/pair_layer.cu
 (f32 FMA) keeps both types of B1 and B2 as ``variant="fma"``. Every kernel
-is built for F = 128; csrc/pair_layer_mma.cu is built at F = 256 as well
-(library ``pair_layer_mma_f256``), so B1 and B2 in bf16_agg take the 10506
-profile's width, where ``fast_profile`` sends the trajectory through them.
+is built for F = 128; csrc/pair_layer_mma.cu and csrc/pair_layer_tf32x3.cu
+are built at F = 256 as well (libraries ``pair_layer_mma_f256`` and
+``pair_layer_tf32x3_f256``), so B1 and B2 on the tensor cores take the
+10506 profile's width in both types: ``fast_profile`` sends its bf16_agg
+trajectory through the first, ``traj_forward_impl="pair_kernel"`` its f32
+trajectory through the second.
 
 Port of ti_tpu/ops/pair_layer_kernel.py (the Pallas ``_pair_layer_kernel``,
 and ``_pair_layer_kernel_cb`` for ``chain_block`` > 1). The chain-blocked
@@ -62,9 +65,11 @@ from ti_torch.ops.mlp_block import (
 )
 
 KERNEL_F = 128       # the feature width the CUDA kernels are built for
-LIB_WIDTHS = {"pair_layer_mma_f256": 256}  # the libraries built for another width
-F256_ROUTE = ("F = 256 runs only in B1 and B2 in bf16_agg on the tensor cores (pair_layer "
-              "with bf16 weights, variant None or 'tc': library pair_layer_mma_f256)")
+# the libraries built for another width
+LIB_WIDTHS = {"pair_layer_mma_f256": 256, "pair_layer_tf32x3_f256": 256}
+F256_ROUTE = ("F = 256 runs only in B1 and B2 on the tensor cores (pair_layer, variant None "
+              "or 'tc': library pair_layer_mma_f256 for bf16_agg weights, "
+              "pair_layer_tf32x3_f256 for f32 weights)")
 KERNEL_MAX_N = 32    # pair rows per thread group: one dst atom's N src atoms
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on Hopper
 MAX_CHAIN_BLOCK = 4   # of csrc/pair_layer.cu: 256 threads a chain, 1024 threads a CTA
@@ -257,16 +262,23 @@ class TilePlan(NamedTuple):
     smem: int
 
 
-def tc_smem_bytes() -> int:
-    """Shared memory of one CTA of csrc/pair_layer_tf32x3.cu: the f32 tiles
-    X = [s_j | e_ij] (TC_ROWS x 2F) and Y = PE (TC_ROWS x F), and the
-    geometry rows."""
-    return 4 * TC_ROWS * (3 * KERNEL_F + _TC_GEO)
+def tc_smem_bytes(f: int = KERNEL_F) -> int:
+    """Shared memory of one CTA of csrc/pair_layer_tf32x3.cu at width ``f``:
+    the f32 tiles X = [s_j | e_ij] (TC_ROWS x 2F) and Y = PE (TC_ROWS x F),
+    and the geometry rows. 99,584 bytes at F = 128 (two CTAs an SM),
+    197,888 at F = 256 (one)."""
+    return 4 * TC_ROWS * (3 * f + _TC_GEO)
 
 
-def tile_plan(b: int, n: int) -> TilePlan:
+def tc_threads(f: int = KERNEL_F) -> int:
+    """Threads of a CTA of csrc/pair_layer_tf32x3.cu: a warp for each 32 x 32
+    block of the 64-row tile's F columns (8 warps at F = 128, 16 at 256)."""
+    return 2 * f
+
+
+def tile_plan(b: int, n: int, f: int = KERNEL_F) -> TilePlan:
     groups = TC_ROWS // n
-    return TilePlan(groups, groups * n, -(-b * n // groups), tc_smem_bytes())
+    return TilePlan(groups, groups * n, -(-b * n // groups), tc_smem_bytes(f))
 
 
 def tile_groups(plan: TilePlan, cta: int, b: int, n: int) -> range:
@@ -416,13 +428,13 @@ _P = ctypes.c_void_p
 
 class WidthRefusal(ValueError):
     """A kernel's library is not built for the width it was given: the
-    port refuses that route (and names the one that takes F = 256) rather
+    port refuses that route (and names the ones that take F = 256) rather
     than run the plain version in its place."""
 
 
 def check_width(f: int, what: str, width: int = KERNEL_F) -> None:
     """Raise ``WidthRefusal`` unless ``what`` (a library or a kernel) is
-    built for ``f``; the message names the route that takes F = 256."""
+    built for ``f``; the message names the routes that take F = 256."""
     if f != width:
         raise WidthRefusal(f"{what} is built for F={width}, got F={f}; {F256_ROUTE}")
 
@@ -471,19 +483,19 @@ def group_smem_bytes(bf16: bool) -> int:
 
 def _route(bf16: bool, chain_block: int, variant: Optional[str], f: int = KERNEL_F) -> str:
     """The library a launch takes: the tensor-core kernel of the weights'
-    type for every ``chain_block`` ("pair_layer_tf32x3" for f32,
-    "pair_layer_mma" for bf16_agg, min(C, 3) tiles a CTA, and at F = 256
-    "pair_layer_mma_f256", one tile a CTA), or, for ``variant="fma"``,
-    "pair_layer" (csrc/pair_layer.cu, which refuses chain_block >
-    MAX_CHAIN_BLOCK when it launches). Only pair_layer_mma_f256 takes F =
-    256; the others refuse it when they launch."""
+    type for every ``chain_block`` ("pair_layer_tf32x3" for f32, and at F =
+    256 "pair_layer_tf32x3_f256"; "pair_layer_mma" for bf16_agg, min(C, 3)
+    tiles a CTA, and at F = 256 "pair_layer_mma_f256", one tile a CTA), or,
+    for ``variant="fma"``, "pair_layer" (csrc/pair_layer.cu, which refuses
+    chain_block > MAX_CHAIN_BLOCK when it launches). Only the two ``_f256``
+    libraries take F = 256; the others refuse it, and every library refuses
+    any other width, when they launch."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"variant must be None or one of {VARIANTS}, got {variant!r}")
     if variant == "fma":
         return "pair_layer"
-    if bf16:
-        return "pair_layer_mma_f256" if f == 256 else "pair_layer_mma"
-    return "pair_layer_tf32x3"
+    lib = "pair_layer_mma" if bf16 else "pair_layer_tf32x3"
+    return f"{lib}_f256" if f == 256 else lib
 
 
 def _packed(wts: PairLayerWeights, x, numel: int, dtype, what: str, how: str) -> torch.Tensor:
@@ -500,11 +512,12 @@ def _packed(wts: PairLayerWeights, x, numel: int, dtype, what: str, how: str) ->
 
 def _launch(lib: str, x, s, v, e, wts: PairLayerWeights, length_scale: float, c: int):
     """One launch of library ``lib``: pair_layer_tf32x3 (B1/B2 f32 on the
-    tensor cores, whatever C), pair_layer_mma (B1/B2 bf16_agg on the tensor
-    cores, min(C, 3) row tiles a CTA), pair_layer_mma_f256 (the same at F =
-    256, one row tile a CTA) or pair_layer (f32 FMA, C chains a CTA)."""
+    tensor cores, whatever C), pair_layer_tf32x3_f256 (the same at F = 256,
+    16 warps a CTA), pair_layer_mma (B1/B2 bf16_agg on the tensor cores,
+    min(C, 3) row tiles a CTA), pair_layer_mma_f256 (the same at F = 256,
+    one row tile a CTA) or pair_layer (f32 FMA, C chains a CTA)."""
     b, n, f, _ = _check_pair_inputs(x, s, v, e, wts, lib)
-    if lib == "pair_layer_tf32x3":
+    if lib in ("pair_layer_tf32x3", "pair_layer_tf32x3_f256"):
         mats = _packed(wts, x, 2 * wts.mats.numel(), torch.float32, "3xTF32", "with_tf32_weights")
         args = ()
     elif lib in ("pair_layer_mma", "pair_layer_mma_f256"):
@@ -519,8 +532,7 @@ def _launch(lib: str, x, s, v, e, wts: PairLayerWeights, length_scale: float, c:
                 f"1024 threads and {SMEM_LIMIT} bytes (chain_block <= {MAX_CHAIN_BLOCK})")
         mats, args = wts.mats, (c,)
     handle = _build.load(lib)
-    fn = getattr(handle, "pair_layer_mma" if lib == "pair_layer_mma_f256" else
-                 lib if lib != "pair_layer" else
+    fn = getattr(handle, lib.removesuffix("_f256") if lib != "pair_layer" else
                  "pair_layer_bf16" if wts.bf16 else "pair_layer_f32")
     fn.argtypes = [_P] * 9 + [ctypes.c_int] * (2 + len(args)) + [ctypes.c_float, _P]
     fn.restype = ctypes.c_int
@@ -543,9 +555,11 @@ def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float, chain_blo
     (``with_tf32_weights``; C changes nothing in it), ``mma.sync`` bf16 for
     bf16_agg (``with_mma_weights``; ``mma_tiles``: min(C, 3) 64-row tiles a
     CTA; one at F = 256, library pair_layer_mma_f256); every C gives B1's
-    bits. ``variant="fma"`` takes the f32-FMA kernel (C chains a CTA, C <=
-    MAX_CHAIN_BLOCK). Only bf16_agg on the tensor cores takes F = 256; the
-    others raise on a CUDA tensor of that width."""
+    bits. At F = 256 f32 takes library pair_layer_tf32x3_f256.
+    ``variant="fma"`` takes the f32-FMA kernel (C chains a CTA, C <=
+    MAX_CHAIN_BLOCK). Only the tensor-core kernels take F = 256; the
+    f32-FMA one raises on a CUDA tensor of that width, and every library at
+    any other width but 128."""
     c = check_chain_block(chain_block)
     lib = _route(wts.bf16, c, variant, s.shape[-1])
     if x.device.type == "cpu":

@@ -118,6 +118,7 @@ def main(argv=None) -> int:
         print("torch_ambient_oracle: no CUDA device is available", file=sys.stderr)
         return 2
 
+    from ti_torch.analysis import oracles
     from ti_torch.analysis.free_energy import calc_phis_tfep, calc_tfep_dF
     from ti_torch.analysis.weights import calc_ess
     from ti_torch.config import MDQM9Config, ambient_preset, fast_profile
@@ -143,7 +144,7 @@ def main(argv=None) -> int:
     bs = 16 if large else 128  # chains a transport batch: the profiles' own
 
     def sigma(T):
-        return args.jitter * math.sqrt(T / 300.0)
+        return oracles.well_sigma(T, args.jitter)
 
     mol = make_synthetic_molecule(n, seed=0)
     frames = {T: make_synthetic_frames(mol, args.frames, T, seed=T, jitter=args.jitter)
@@ -198,10 +199,9 @@ def main(argv=None) -> int:
     p_eq = (mol.positions - mol.positions.mean(axis=0, keepdims=True)).astype(np.float32)
 
     def energy(x, T):
-        xc = x - x.mean(axis=-2, keepdims=True)
-        return np.sum((xc - p_eq) ** 2, axis=(-2, -1)) / (2.0 * sigma(T) ** 2)
+        return oracles.well_energy(x, sigma(T), p_eq)
 
-    dF_exact = -3 * (n - 1) * math.log(sigma(T1) / sigma(T0))
+    dF_exact = oracles.tfep_dF_exact(n, sigma(T0), sigma(T1))
     if large:  # B3 takes F = 128 only: the exact floor on the dense f32 forward
         routes = {
             "exact": dict(divergence="exact", compute_dtype="f32", traj_forward_impl="default"),
@@ -234,8 +234,7 @@ def main(argv=None) -> int:
             phis, _ = calc_phis_tfep(energy(x0, T0), energy(x1, T1), dl)
             dF = float(calc_tfep_dF(phis))
             w = np.exp(-phis - np.max(-phis))
-            x1c = x1 - x1.mean(axis=1, keepdims=True)
-            width = math.sqrt(float(np.sum((x1c - p_eq) ** 2, axis=(1, 2)).mean()) / (3 * (n - 1)))
+            width = oracles.rms_width(x1, 3 * (n - 1), p_eq)
             row = {"dF_est": dF, "dF_exact": dF_exact, "dF_err": abs(dF - dF_exact),
                    "ess_fraction": float(calc_ess(w)) / len(x0), "width": width,
                    "sigma_T0": sigma(T0), "sigma_T1": sigma(T1), "seconds": secs,

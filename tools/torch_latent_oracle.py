@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import sys
 import tempfile
@@ -85,7 +84,8 @@ def main(argv=None) -> int:
         print("torch_latent_oracle: no CUDA device is available", file=sys.stderr)
         return 2
 
-    from ti_torch.analysis.weights import calc_ess, calc_importance_weights
+    from ti_torch.analysis import oracles
+    from ti_torch.analysis.weights import calc_importance_weights
     from ti_torch.config import MDQM9Config, ambient_preset, fast_profile, latent_preset
     from ti_torch.data.mdqm9 import (
         MDQM9AmbientDataset,
@@ -109,10 +109,10 @@ def main(argv=None) -> int:
     d_eff = 3 * (n - 1)
 
     def sigma(T):
-        return args.jitter * math.sqrt(T / 300.0)
+        return oracles.well_sigma(T, args.jitter)
 
     def neg_log_z(T):
-        return -0.5 * d_eff * math.log(2 * math.pi * sigma(T) ** 2)
+        return oracles.neg_log_z_exact(sigma(T), d_eff)
 
     rng = np.random.default_rng(7)
 
@@ -121,22 +121,17 @@ def main(argv=None) -> int:
         return (f - f.mean(axis=1, keepdims=True)).astype(np.float32)
 
     def energy(x, T):
-        xc = x - x.mean(axis=1, keepdims=True)
-        return np.sum(xc.astype(np.float64) ** 2, axis=(1, 2)) / (2.0 * sigma(T) ** 2)
+        return oracles.well_energy(x.astype(np.float64), sigma(T))
 
     def log_pz(z):
-        return -0.5 * np.sum(z.astype(np.float64) ** 2, axis=(1, 2)) \
-            - 0.5 * d_eff * math.log(2 * math.pi)
+        return oracles.gaussian_log_pz(z.astype(np.float64), d_eff)
 
     def identity(log_w, x, T):
-        mx = log_w.max()
-        est = float(-(mx + np.log(np.mean(np.exp(log_w - mx)))))
-        xc = x - x.mean(axis=1, keepdims=True)
+        est = oracles.neg_log_mean_exp(log_w)
         return {"neg_log_Z_est": est, "neg_log_Z_exact": neg_log_z(T),
                 "abs_err": abs(est - neg_log_z(T)),
-                "ess_fraction": calc_ess(np.exp(log_w - mx)) / len(x),
-                "width": math.sqrt(float(np.sum(xc ** 2, axis=(1, 2)).mean()) / d_eff),
-                "width_target": sigma(T),
+                "ess_fraction": oracles.ess_of_log_w(log_w) / len(x),
+                "width": oracles.rms_width(x, d_eff), "width_target": sigma(T),
                 "finite": bool(np.isfinite(x).all() and np.isfinite(log_w).all())}
 
     def train_cfg(**kw):
@@ -263,8 +258,7 @@ def main(argv=None) -> int:
             lambda c, lg: train_ambient(c, amb_ds, amb_ds, logger=lg), 2 * args.ambient_frames)
         bg = outs["exact"]
         z, x0, dlogp_bg = bg["samples"][:, 0], bg["samples"][:, -1], bg["dlogps"]
-        q, _ = np.linalg.qr(np.eye(n) - 1.0 / n)  # z in a zero-COM basis
-        z_sub = np.einsum("ij,njc->nic", q[:, : n - 1].T, z.astype(np.float64))
+        z_sub = oracles.zero_com_coords(z.astype(np.float64))
         for name, over in (("exact_slice", dict(divergence="exact",
                                                 div_forward_impl="pair_tangent")),
                            ("main_path", {})):
