@@ -48,12 +48,14 @@ that the path went through its kernels:
   reference checkpoint through ``torch_import``, a ``profile_trace`` of the
   main path and ``device_time``;
 - the study CLIs (chip_smoke_studies.py): the SDE and 10506 scans through
-  B1 and B2 (and B3's width refusals at F = 256), the divergence profile
+  B1 and B2 (and B3 at F = 256 at the scan's nodes), the divergence profile
   through B4, B5 and B6, the probe-mode, step-count and f32-against-f64
   studies and the ADW figure;
 - B1 and B2 in f32 at F = 256 (chip_smoke_validate.py): the 10506 profile's
   f32 trajectory and the f32 SDE at its width, and the three
-  physics-validation CLIs against their closed forms.
+  physics-validation CLIs against their closed forms;
+- B3 at F = 256 in both types (chip_smoke_b3_f256.py): against its plain
+  version, timed, and the 10506 profile's divergence nodes through it.
 
     python3 chip_smoke.py
 
@@ -243,7 +245,8 @@ Phases (any failure exits non-zero and prints no result):
      f32 and bf16_agg, exactly layers x steps launches a run),
      ``large_scale_scan`` at the 10506 width (360 launches of
      pair_layer_mma_f256 or pair_layer_tf32x3_f256 a 16-chain batch; the
-     rows that reach B3 at F = 256 report the width refusal), ``profile_divergence`` (B4,
+     rows whose nodes reach B3 at F = 256 launch it 40 times a batch from
+     pair_tangent_mma_f256), ``profile_divergence`` (B4,
      B5 and B6 through its fused rows), ``probe_mode_study`` on the smoke's
      field (the K = d orthogonal frame exact within 1e-3), ``step_count_study``
      and ``adw_f64_study`` (ADW trained on the card in f32 and f64) and
@@ -260,7 +263,17 @@ Phases (any failure exits non-zero and prints no result):
      from pair_tangent_mma) against its default route;
      ``validate_latent_physics`` and ``validate_bg_ti_physics`` to the BG
      and composed identities;
- 21. the ``kernels`` line, the card line and the result line.
+ 21. kernel B3 at F = 256 (``phase_b3_f256``, chip_smoke_b3_f256.py):
+     pair_tangent_mma_f256 (bf16_agg) and pair_tangent_tf32x3_f256 (f32)
+     against their plain versions at the 10506 node shape (16 chains, 29
+     atoms, K = 32; f32 also at K = 87) and at ragged shapes, two launches
+     to the bit, timed in turns with the plain versions beside their bounds;
+     the 10506 fast profile with ``div_forward_impl="pair_tangent_bf16"``
+     and ``"pair_tangent"`` (360 B1 and 40 B3 launches a batch), samples
+     equal to the bit to the default node route's, dlogps against B3's
+     plain version at the nodes on the same probes, samples/s beside the
+     default route's;
+ 22. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -316,6 +329,10 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
     "pair_tangent": ("ti_torch/csrc/pair_tangent_mma.cu", "ti_tpu/ops/pair_tangent_kernel.py:76"),
     "pair_tangent_f32": ("ti_torch/csrc/pair_tangent_tf32x3.cu",
                          "ti_tpu/ops/pair_tangent_kernel.py:76"),
+    "pair_tangent_bf16_agg_f256": ("ti_torch/csrc/pair_tangent_mma.cu",
+                                   "ti_tpu/ops/pair_tangent_kernel.py:76"),
+    "pair_tangent_f32_f256": ("ti_torch/csrc/pair_tangent_tf32x3.cu",
+                              "ti_tpu/ops/pair_tangent_kernel.py:76"),
     "fused_edge_mlp": ("ti_torch/csrc/fused_edge_mlp_tf32x3.cu",
                        "ti_tpu/ops/pallas_kernels.py:180"),
     "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp_tf32x3.cu",
@@ -2619,7 +2636,8 @@ def main() -> int:
         for line in r["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
-    for name in ("pair_tangent_mma", "pair_tangent_tf32x3", "pair_layer_tf32x3",
+    for name in ("pair_tangent_mma", "pair_tangent_tf32x3", "pair_tangent_mma_f256",
+                 "pair_tangent_tf32x3_f256", "pair_layer_tf32x3",
                  "pair_layer_tf32x3_f256", "pair_layer_mma", "pair_layer_mma_f256",
                  "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3", "fused_mlp_tf32x3",
                  "div_kernel_tf32x3"):
@@ -3044,8 +3062,13 @@ def main() -> int:
 
     launches20 = phase_validate(model, rows_kernels, card)
 
-    # ---- 21. result lines ----
-    path_launches = {**launches20,"pair_layer": launches["pair_layer"],
+    # ---- 21. B3 at F = 256 in both types, the 10506 nodes through it ----
+    from chip_smoke_b3_f256 import phase_b3_f256
+
+    launches21 = phase_b3_f256(rows_kernels, report, card)
+
+    # ---- 22. result lines ----
+    path_launches = {**launches20, **launches21, "pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_layer_bf16_agg_f256": launches10506["pair_layer"],
                      "pair_tangent": launches["pair_tangent"],

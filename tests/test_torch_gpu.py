@@ -687,9 +687,11 @@ def test_pair_layer_tf32x3_f256_matches_plain(b, n):
 @pytest.mark.gpu
 def test_pair_layer_f256_refusals_and_counts():
     """At F = 256 the bf16_agg library's tile count, shared memory and CTAs
-    are the wrapper's (one 132,352-byte tile a CTA); ``variant="fma"``, B3
-    and B4 refuse the width on the card, naming the routes that take it,
-    and launch nothing (B1 in f32 runs: test_pair_layer_tf32x3_f256_matches_plain)."""
+    are the wrapper's (one 132,352-byte tile a CTA); ``variant="fma"`` of B1
+    and of B3 and B4 refuse the width on the card, naming the routes that
+    take it, and launch nothing (B1 in f32 runs:
+    test_pair_layer_tf32x3_f256_matches_plain; B3 on the tensor cores:
+    test_pair_tangent_f256_matches_plain)."""
     import ctypes
 
     from ti_torch.ops.pair_layer_kernel import mma_max_tiles, mma_tile_bytes
@@ -708,15 +710,15 @@ def test_pair_layer_f256_refusals_and_counts():
     w16, base16, lanes16 = _layer256(torch.bfloat16, 4, k=2)
     w32, base32, lanes32 = _layer256(torch.float32, 4, k=2)
     before = dict(_build.LAUNCHES)
-    route = "got F=256; F = 256 runs only in B1 and B2 on the tensor cores"
+    route = "got F=256; F = 256 runs only in B1, B2 and B3 on the tensor cores"
     with pytest.raises(ValueError, match="pair_layer is built for F=128, " + route):
         pair_layer(*base32, w32, 10.0, variant="fma")
     with pytest.raises(ValueError, match="pair_layer is built for F=128, " + route):
         pair_layer(*base16, w16, 10.0, variant="fma")
-    with pytest.raises(ValueError, match="pair_tangent_mma is built for F=128, " + route):
-        pair_tangent(*base16, *lanes16, w16, 10.0)
-    with pytest.raises(ValueError, match="pair_tangent_tf32x3 is built for F=128, " + route):
-        pair_tangent(*base32, *lanes32, w32, 10.0)
+    with pytest.raises(ValueError, match="pair_tangent is built for F=128, " + route):
+        pair_tangent(*base32, *lanes32, w32, 10.0, variant="fma")
+    with pytest.raises(ValueError, match="takes f32 weights"):
+        pair_tangent(*base16, *lanes16, w16, 10.0, variant="fma")
     x, s = base32[0], base32[1]
     rows = s.reshape(-1, F256)
     with pytest.raises(ValueError, match="fused_edge_mlp_tf32x3 is built for F=128, " + route):
@@ -805,6 +807,87 @@ def test_pair_tangent_smem_count_is_the_kernels_own():
     assert lib.pair_tangent_tf32x3_smem_bytes() == tf32_smem_bytes()
     for n in (2, 5, 19, 29, 32):
         assert lib.pair_tangent_tf32x3_lanes(n) == lane_tile_plan(n, 57).lanes
+    # the F = 256 builds: lane blocks 1, 2 and the refused 4; 32-row lane tiles;
+    # the scratch the wrapper allocates
+    from ti_torch.ops.pair_tangent_kernel import tf32_scratch_floats
+
+    lib = _build.load("pair_tangent_mma_f256")
+    lib.pair_tangent_mma_smem_bytes.restype = ctypes.c_ulonglong
+    for lane_block in (1, 2, 4):
+        assert lib.pair_tangent_mma_smem_bytes(lane_block) == smem_bytes(True, lane_block, F256)
+    lib = _build.load("pair_tangent_tf32x3_f256")
+    lib.pair_tangent_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+    lib.pair_tangent_tf32x3_scratch_floats.restype = ctypes.c_ulonglong
+    assert lib.pair_tangent_tf32x3_smem_bytes() == tf32_smem_bytes(F256) == 169_856
+    for n in (2, 5, 16, 29, 32):
+        assert lib.pair_tangent_tf32x3_lanes(n) == lane_tile_plan(n, 87, F256).lanes
+        assert lib.pair_tangent_tf32x3_scratch_floats(n) == tf32_scratch_floats(n, F256)
+
+
+# B3 at F = 256 (chip_smoke.py phase 21(b)): the 10506 node shape (16
+# chains, 29 atoms, K = 32; f32 also at the exact frame K = 87), 17 chains,
+# 32 and 17 atoms, K = 6 at lane blocks 2 and 1, partial last lane tiles
+_F256_CASES = [(torch.bfloat16, 16, 29, 32, None), (torch.bfloat16, 17, 29, 8, None),
+               (torch.bfloat16, 3, 32, 4, None), (torch.bfloat16, 3, 17, 4, None),
+               (torch.bfloat16, 3, 29, 6, 2), (torch.bfloat16, 3, 29, 6, 1),
+               (torch.float32, 16, 29, 32, None), (torch.float32, 4, 29, 87, None),
+               (torch.float32, 17, 29, 8, None), (torch.float32, 3, 32, 4, None),
+               (torch.float32, 3, 17, 4, None), (torch.float32, 3, 10, 7, None),
+               (torch.float32, 3, 16, 5, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,n,k,lane_block", _F256_CASES)
+def test_pair_tangent_f256_matches_plain(dtype, b, n, k, lane_block):
+    """B3 at F = 256 against its plain version: bf16_agg from
+    pair_tangent_mma_f256 (lane blocks of 1 or 2), f32 from
+    pair_tangent_tf32x3_f256 (32-row lane tiles)."""
+    _card()
+    bf16 = dtype == torch.bfloat16
+    w, base, lanes = _layer256(dtype, b, n, k)
+    lib = "pair_tangent_mma_f256" if bf16 else "pair_tangent_tf32x3_f256"
+    before = _build.ROUTE_LAUNCHES.get(("pair_tangent", lib), 0)
+    out = pair_tangent(*base, *lanes, w, 10.0, lane_block)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[("pair_tangent", lib)] == before + 1
+    ref = pair_tangent_plain(*base, *lanes, w, 10.0, lane_block or (2 if bf16 else 1))
+    _assert_close(out, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_tangent_f256_is_deterministic(dtype):
+    """No atomics at F = 256 either: two launches on the 10506 node shape
+    agree to the bit."""
+    _card()
+    w, base, lanes = _layer256(dtype, 16, 29, 32)
+    one = pair_tangent(*base, *lanes, w, 10.0)
+    two = pair_tangent(*base, *lanes, w, 10.0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, q) for a, q in zip(one, two))
+
+
+@pytest.mark.gpu
+def test_validate_mdqm9_cli_b3_route_at_f256(tmp_path, capsys):
+    """``validate_mdqm9_physics --features 256 --layers 1 --div_impl
+    pair_tangent_bf16`` (4 atoms, one epoch of 64 frames a temperature, 1024
+    chains, GL-2 nodes): its nodes run B3 from pair_tangent_mma_f256, 2
+    nodes x 1 layer, nothing else launches, and its JSON is finite."""
+    import json
+    import math
+
+    from ti_torch.cli import validate_mdqm9_physics
+
+    _card()
+    _build.reset_launches()
+    assert validate_mdqm9_physics.main([
+        "--features", "256", "--layers", "1", "--epochs", "1", "--frames", "64", "--batch", "32",
+        "--eval_steps", "8", "--quad_dlogp", "--div_impl", "pair_tangent_bf16", "--divergence",
+        "hutchinson", "--num_probes", "4", "--gl_points", "2", "--out_dir", str(tmp_path)]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert _build.route_counts() == {"pair_tangent:pair_tangent_mma_f256": 2}
+    assert row["div_impl"] == "pair_tangent_bf16"
+    assert all(math.isfinite(v) for v in row.values() if isinstance(v, float))
 
 
 @pytest.mark.gpu
@@ -1665,9 +1748,9 @@ def test_large_scale_scan_refuses_f32_at_f256_and_runs_bf16_agg(capsys):
     """``large_scale_scan`` at F = 256 (29 atoms, one layer, 4 chains, RK4-2
     over GL-2's three gaps): both trajectory kernels run, the f32 row
     through pair_layer_tf32x3_f256 and the bf16_agg row through
-    pair_layer_mma_f256, 3 gaps x 1 step x 4 stages a batch; a row whose
-    nodes reach B3 (``pair_tangent_bf16``) reports the width refusal,
-    naming its library."""
+    pair_layer_mma_f256, 3 gaps x 1 step x 4 stages a batch; the rows whose
+    nodes reach B3 (``pair_tangent_bf16``) run it from
+    pair_tangent_mma_f256, 2 nodes x 1 layer a batch."""
     import json
 
     from ti_torch.cli import large_scale_scan
@@ -1684,8 +1767,11 @@ def test_large_scale_scan_refuses_f32_at_f256_and_runs_bf16_agg(capsys):
         assert "error" not in ran[impl], ran[impl]
         assert ran[impl]["launches"] == {f"pair_layer:{lib}": 3 * 1 * 4}
         assert ran[impl]["samples_per_sec"] > 0
-    refused = [r for r in rows if r["div_impl"] == "pair_tangent_bf16"]
-    assert len(refused) == 2
-    for r in refused:
-        assert r["error"].startswith("WidthRefusal: pair_tangent_mma is built for F=128, "
-                                     "got F=256"), r
+    nodes = {r["impl"]: r for r in rows if r["div_impl"] == "pair_tangent_bf16"}
+    assert len(nodes) == 2
+    for impl, lib in (("pair_kernel", "pair_layer_tf32x3_f256"),
+                      ("pair_kernel_bf16", "pair_layer_mma_f256")):
+        assert "error" not in nodes[impl], nodes[impl]
+        assert nodes[impl]["launches"] == {f"pair_layer:{lib}": 3 * 1 * 4,
+                                           "pair_tangent:pair_tangent_mma_f256": 2 * 1}
+        assert nodes[impl]["samples_per_sec"] > 0

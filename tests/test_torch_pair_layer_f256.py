@@ -8,8 +8,9 @@ through them: ``sample_ambient`` under ``fast_profile(ambient_preset(
 
 - The route table at F = 256: the tensor cores take the new libraries for
   every chain block, bf16_agg and f32; ``variant="fma"`` (``pair_layer``),
-  B3's libraries and B4-B7 refuse the width, each naming the routes that
-  take it; every library refuses F = 64.
+  B3's F = 128 libraries and B4-B7 refuse the width, each naming the routes
+  that take it, and B3's tensor-core variants take their ``_f256`` builds
+  (tests/test_torch_pair_tangent_f256.py); every library refuses F = 64.
 - The plain forward at F = 256 (the kernels' yardstick on the card) against
   ``ti_tpu``'s Pallas kernel in interpret mode on weights carried across by
   ``params_from_flax``: bf16_agg at atol 4e-2 of max |ref|, the bf16_agg bar
@@ -100,13 +101,14 @@ def test_route_table_at_f256(bf16, chain_block, variant, lib):
         assert plk.LIB_WIDTHS[lib] == F256
         return
     with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=128, got F=256; F = 256 "
-                                               "runs only in B1 and B2 on the tensor cores"):
+                                               "runs only in B1, B2 and B3 on the tensor cores"):
         plk._check_pair_inputs(*args, lib)
 
 
 @pytest.mark.parametrize("lib", ["pair_layer", "pair_layer_tf32x3", "pair_layer_mma",
                                  "pair_layer_tf32x3_f256", "pair_layer_mma_f256",
-                                 "pair_tangent", "pair_tangent_mma", "pair_tangent_tf32x3"])
+                                 "pair_tangent", "pair_tangent_mma", "pair_tangent_tf32x3",
+                                 "pair_tangent_mma_f256", "pair_tangent_tf32x3_f256"])
 def test_every_library_refuses_f64(lib):
     """F = 64 (the validation CLIs' default width) is built by no library:
     the launch check of each refuses it, naming the library and the routes
@@ -114,7 +116,7 @@ def test_every_library_refuses_f64(lib):
     assert plk._route(False, 1, None, 64) == "pair_layer_tf32x3"
     assert plk._route(True, 1, None, 64) == "pair_layer_mma"
     with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=(128|256), got F=64; "
-                                               "F = 256 runs only in B1 and B2"):
+                                               "F = 256 runs only in B1, B2 and B3"):
         plk.check_width(64, lib, plk.LIB_WIDTHS.get(lib, plk.KERNEL_F))
 
 
@@ -123,13 +125,23 @@ def test_every_library_refuses_f64(lib):
     (False, "fma", "pair_tangent"),
 ])
 def test_b3_refuses_f256(bf16, variant, lib):
-    """B3's libraries are built at F = 128 only: the check its launch makes
-    refuses F = 256 and names the route that takes it."""
+    """B3 at F = 256 (``lib`` is the F = 128 route): the tensor-core
+    variants take ``lib``'s ``_f256`` build, whose launch check passes the
+    width while ``lib``'s own refuses it, naming the routes that take F =
+    256; the f32-FMA kernel, built at F = 128 only, refuses the width in
+    its route."""
     assert ptk._route(bf16, variant) == lib
     dtype = BF16 if bf16 else torch.float32
-    with pytest.raises(ValueError, match="got F=256; F = 256 runs only in B1 and B2 on the tensor "
-                                         "cores"):
-        plk._check_pair_inputs(*_inputs(dtype), _weights(F256, dtype), lib)
+    args = (*_inputs(dtype), _weights(F256, dtype))
+    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=128, got F=256; F = 256 "
+                                               "runs only in B1, B2 and B3 on the tensor cores"):
+        plk._check_pair_inputs(*args, lib)
+    if variant == "fma":
+        with pytest.raises(plk.WidthRefusal, match="pair_tangent is built for F=128, got F=256"):
+            ptk._route(bf16, variant, F256)
+        return
+    assert ptk._route(bf16, variant, F256) == f"{lib}_f256"
+    assert plk._check_pair_inputs(*args, f"{lib}_f256") == (2, 5, F256, dtype)
 
 
 @pytest.mark.parametrize("what", ["fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3",

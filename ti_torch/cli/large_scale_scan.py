@@ -17,14 +17,14 @@ Hutchinson dlogp, bf16_agg) through ``make_ode_sampler`` across:
     pair_layer_mma_f256),
   - divergence-node impl (``div_drift``): ``default`` (forward-mode JVPs of
     the dense forward), ``pair_tangent`` / ``pair_tangent_bf16`` (kernel B3
-    in f32 / bf16_agg, ``pair_tangent_div_fn``).
+    in f32 / bf16_agg, ``pair_tangent_div_fn``; at F = 256 the libraries
+    pair_tangent_tf32x3_f256 / pair_tangent_mma_f256).
 
-Of the kernels only B1 (both types) is built at F = 256. At that width on
-the card both node kernels refuse it (``WidthRefusal``, naming the routes
-that take F = 256): the scan prints such a row as an ``error`` row and goes
-on, and never runs the plain version in its place.
-At F = 128 (``--atoms 19 --features 128``) every impl runs its kernel. On
-the CPU every wrapper takes its plain version.
+At F = 256 and at F = 128 (``--atoms 19 --features 128``) every impl runs
+its kernel; at another width a kernel row reports the width refusal
+(``WidthRefusal``, naming the routes that take F = 256) as an ``error`` row
+and the scan goes on, never running the plain version in its place. On the
+CPU every wrapper takes its plain version.
 
 Timing: the whole rollout fenced by ``torch.cuda.synchronize()`` on the
 host clock, best of ``--reps`` after one warm-up run. Each row carries the

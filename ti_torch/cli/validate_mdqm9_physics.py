@@ -16,7 +16,7 @@ arch flags that shape them); ``--reuse`` reads them back and exits on an
 arch mismatch. ``--traj_impl``, ``--div_impl`` and ``--probe_debias`` need
 ``--quad_dlogp``; on the card a kernel flag whose library is not built for
 ``--features`` raises ``WidthRefusal`` before anything trains (the kernels
-take F = 128, and B1 F = 256 as well; ``ops/pair_layer_kernel.py``).
+take F = 128, and B1 and B3 F = 256 as well; ``ops/pair_layer_kernel.py``).
 """
 from __future__ import annotations
 
@@ -132,7 +132,7 @@ def check_flags(args, dev) -> None:
     if args.traj_impl != "default":
         libs.append(plk._route(args.traj_impl.endswith("bf16"), 1, None, args.features))
     if args.div_impl != "default":
-        libs.append(ptk._route(args.div_impl.endswith("bf16"), "mma"))
+        libs.append(ptk._route(args.div_impl.endswith("bf16"), "mma", args.features))
     for lib in libs:
         plk.check_width(args.features, lib, plk.LIB_WIDTHS.get(lib, plk.KERNEL_F))
 

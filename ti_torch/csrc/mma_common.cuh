@@ -7,7 +7,7 @@
 // One warp owns 16 rows of a product and NTL n-tiles of 8 columns. With
 // g = lane / 4 and t = lane % 4, accumulator acc[nt][c] is the element at
 //   row  row0 + g + 8 * (c / 2),   column 8 * nt + 2 * t + (c % 2)
-// (the C fragment of mma.m16n8k16). A full row of F = 128 columns sits in the
+// (the C fragment of mma.m16n8k16). A full row of F columns sits in the
 // four threads of a quad, so a row statistic is a thread-local sum and two
 // shuffles. Between two products the activations live in shared memory as
 // bf16 (the products round there anyway), and each thread keeps working on
@@ -105,7 +105,7 @@ __device__ __forceinline__ void mma_rows(float (&acc)[2 * NP][4], const bf16* A,
   uint4 cur[NP], nxt[NP];
 #pragma unroll
   for (int p = 0; p < NP; ++p) cur[p] = __ldg(wp + p * 32);
-  constexpr int U = NP >= FP ? KTU_WIDE : KTU;
+  constexpr int U = NP >= 8 ? KTU_WIDE : KTU;  // 16 n-tiles: 64 accumulators
 #pragma unroll U
   for (int kt = 0; kt < KT; ++kt) {
     if (kt + 1 < KT) {
@@ -204,28 +204,55 @@ __device__ __forceinline__ float quad_sum(float x) {
 // A[.][0 .. 16*KT) * W (an (in, F) matrix), rounded to bf16 (plus the bf16 bias
 // where one is given), into the same rows of the swizzled tile out, which may
 // be A itself: the warp owns these rows.
+// At F = 256 the row's 128 accumulators do not fit beside the weight
+// fragments: the product runs in two column halves of 64 and stores each
+// half as it ends, so out must not be A (the F = 256 callers keep them apart).
 template <int KT>
 __device__ __forceinline__ void front_product(bf16* out, int ldo, const bf16* A, int lda,
                                               int row0, const uint4* __restrict__ W,
                                               const float* __restrict__ b = nullptr) {
   const int g = lane_id() >> 2, t = lane_id() & 3;
-  float acc[FT][4];
-  frag_zero(acc);
-  mma_rows<FP, KT, FP>(acc, A, lda, row0, W, 0);
-  __syncwarp();
+  if constexpr (F == 256) {
+    constexpr int HT = FT / 2;  // n-tiles of a half
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      float acc[HT][4];
+      frag_zero(acc);
+      mma_rows<FP / 2, KT, FP>(acc, A, lda, row0, W, half * FP / 2);
 #pragma unroll
-  for (int nt = 0; nt < FT; ++nt) {
-    bf162 lo = round2(acc[nt][0], acc[nt][1]), hi = round2(acc[nt][2], acc[nt][3]);
-    if (b) {
-      const float2 bb = __ldg(reinterpret_cast<const float2*>(b + 8 * nt + 2 * t));
-      const bf162 b2 = round2(bb.x, bb.y);
-      lo = add2(lo, b2);
-      hi = add2(hi, b2);
+      for (int nt = 0; nt < HT; ++nt) {
+        const int col = F / 2 * half + 8 * nt + 2 * t;
+        bf162 lo = round2(acc[nt][0], acc[nt][1]), hi = round2(acc[nt][2], acc[nt][3]);
+        if (b) {
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(b + col));
+          const bf162 b2 = round2(bb.x, bb.y);
+          lo = add2(lo, b2);
+          hi = add2(hi, b2);
+        }
+        sts_b2(out, row0 + g, col, ldo, lo);
+        sts_b2(out, row0 + g + 8, col, ldo, hi);
+      }
     }
-    sts_b2(out, row0 + g, 8 * nt + 2 * t, ldo, lo);
-    sts_b2(out, row0 + g + 8, 8 * nt + 2 * t, ldo, hi);
+    __syncwarp();
+  } else {
+    float acc[FT][4];
+    frag_zero(acc);
+    mma_rows<FP, KT, FP>(acc, A, lda, row0, W, 0);
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < FT; ++nt) {
+      bf162 lo = round2(acc[nt][0], acc[nt][1]), hi = round2(acc[nt][2], acc[nt][3]);
+      if (b) {
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(b + 8 * nt + 2 * t));
+        const bf162 b2 = round2(bb.x, bb.y);
+        lo = add2(lo, b2);
+        hi = add2(hi, b2);
+      }
+      sts_b2(out, row0 + g, 8 * nt + 2 * t, ldo, lo);
+      sts_b2(out, row0 + g + 8, 8 * nt + 2 * t, ldo, hi);
+    }
+    __syncwarp();
   }
-  __syncwarp();
 }
 
 // LayerNorm (f32 statistics, eps 1e-5) -> SiLU of rows row0 .. row0 + 15 of the

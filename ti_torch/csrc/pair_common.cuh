@@ -25,8 +25,9 @@
 
 namespace pk {
 
-// feature width: 128 for every library; pair_layer_mma.cu is built a second
-// time with -DPK_F=256 (ops/_build.py)
+// feature width: 128 for every library; pair_layer_mma.cu,
+// pair_layer_tf32x3.cu, pair_tangent_mma.cu and pair_tangent_tf32x3.cu are
+// built a second time with -DPK_F=256 (ops/_build.py BUILT_FROM)
 #ifndef PK_F
 #define PK_F 128
 #endif

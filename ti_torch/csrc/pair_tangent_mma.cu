@@ -50,8 +50,39 @@
 // MLPs (64 KB) and 26 KB of f32 side buffers: 222,976 of the 232,448 bytes a
 // CTA may have.
 //
-// F and the tile counts are named constants (pair_common.cuh, mma_common.cuh);
-// only F = 128 is built.
+// F and the tile counts are named constants (pair_common.cuh, mma_common.cuh).
+// The source is built twice (ops/_build.py): at F = 128 (pair_tangent_mma) and
+// with -DPK_F=256 (pair_tangent_mma_f256, the 10506 profile's 29 atoms x F =
+// 256). At F = 256 the buffers above would need 294,144 bytes at L = 1, so
+// that build keeps 2 of the 8 residual tiles in shared memory (dPE/ddist and
+// the gates) and moves the other 6 out:
+// - the primal keeps them in the work buffers while it runs (at F = 256 the
+//   work buffers are laid out for 2 lanes: XB 6 tiles, DAp and DAw 2 each),
+//   and writes the 4 pre-LN tiles the lanes replay (h1, h2 of phi and of w)
+//   to the CTA's scratch beside its p, q (14 tiles of 32 x 256 bf16 a CTA,
+//   in L2 while the CTA runs). a2 of phi and of w only feed the primal's 5F
+//   product;
+// - a lane block reads phi's two tiles from the second p, q stage, where the
+//   previous block's chunk 4 fetched them (cp.async, while that chunk's
+//   products ran), and w's two from the same stage, fetched between phi's
+//   front and w's: two CTA barriers a block more than at F = 128, the fetch
+//   hidden behind dPE and w's first product;
+// - the MLP fronts run in two column halves of 64 accumulators
+//   (mma_common.cuh::front_product), never in place: phi's first tangent
+//   product goes to DAw and w's to XB's second half. The lane chunks take
+//   every warp, in passes of 32 columns: two a warp at L = 2, one at L = 1
+//   (at F = 128 only the 2L warps that own stacked rows, 64 columns each:
+//   64-column passes spilled at F = 256);
+// - lane blocks of 1 or 2: 229,632 bytes of shared memory either way; at L =
+//   4 this layout would need 343,296.
+// The choice against a 2-CTA cluster that splits the columns (LayerNorm sums
+// through distributed shared memory): the residual move keeps one CTA's code
+// and order of summation, so F = 256 is F = 128's arithmetic at another
+// width, and costs a 64 KB copy a CTA and 64 KB of L2 reads a lane block
+// where the cluster would exchange row sums at every LayerNorm. At the 10506
+// node shape (16 chains, N = 29, K = 32) the operations bound is 0.883 ms;
+// the kernel takes about 12 times that (PERF.md section 6): in the fronts
+// only the 2L warps that own stacked rows work.
 
 #include "mma_common.cuh"
 
@@ -61,13 +92,29 @@ namespace pk {
 // lanes, later the gates tangent of L lanes and two stages of the primal p, q
 __host__ __device__ constexpr int xb_tiles(int L) { return 2 * L > L + 4 ? 2 * L : L + 4; }
 
-// f32 side buffers: the sums over j (4 x 7F), geometry, lane geometry (4 lanes),
-// primal sums (7F), LayerNorm statistics (4 x 2R) and vectors (8F)
-constexpr int MAX_L = 4;
-constexpr size_t SIDE_FLOATS = 4 * 7 * F + NGEO * R + 4 * MAX_L * R + 7 * F + 4 * 2 * R + 8 * F;
+// lanes a block (1, 2 or MAX_L): 4 at F = 128, 2 at F = 256
+constexpr int MAX_L = F == 128 ? 4 : 2;
+// the lanes the work buffers are laid out for (F = 128: L; F = 256: at least
+// MAX_L, the primal's room), and the slots of per-lane sums (F = 128: 4)
+__host__ __device__ constexpr int lay_lanes(int L) { return F == 128 || L > MAX_L ? L : MAX_L; }
+__host__ __device__ constexpr int sum_slots(int L) { return F == 128 ? 4 : lay_lanes(L); }
+// residual tiles kept in shared memory: 8 at F = 128; dPE/ddist and the gates at 256
+constexpr int RES_TILES = F == 128 ? 8 : 2;
+// scratch tiles a CTA: p, q of 5 chunks; at F = 256 also h1, h2 of phi and of w
+constexpr int SCR_TILES = F == 128 ? 10 : 14;
+
+// f32 side buffers: the sums over j (slots x 7F), geometry, lane geometry
+// (slots lanes), primal sums (7F), LayerNorm statistics (4 x 2R) and vectors (8F)
+__host__ __device__ constexpr size_t side_floats(int L) {
+  return (size_t)sum_slots(L) * 7 * F + NGEO * R + 4 * sum_slots(L) * R + 7 * F + 4 * 2 * R +
+         8 * F;
+}
+constexpr size_t SIDE_FLOATS = side_floats(MAX_L);
 
 size_t tangent_mma_smem_bytes(int L) {
-  return sizeof(bf16) * (size_t)(8 + xb_tiles(L) + 2 * L) * RF + sizeof(float) * SIDE_FLOATS;
+  const int lb = lay_lanes(L);
+  return sizeof(bf16) * (size_t)(RES_TILES + xb_tiles(lb) + 2 * lb) * RF +
+         sizeof(float) * side_floats(L);
 }
 
 // What every phase of one CTA needs: the launch's tensors, the tile (b, i)
@@ -83,7 +130,8 @@ struct Tile {
   bf16* ep;
   float *dvt, *dst;
   bf16* et;
-  bf16* scr;          // this CTA's primal p, q: [chunk][p | q], swizzled R x F tile images
+  bf16* scr;          // this CTA's primal p, q: [chunk][p | q], swizzled R x F tile images;
+                      // at F = 256 then h1p, h2p, h1w, h2w
   int N, K, L, b, i;
   float pe_scale;
   // shared memory
@@ -152,7 +200,7 @@ __device__ __forceinline__ void primal_phase(const Tile& c) {
   __syncthreads();
 
   // X = [s_j | e_ij] (row stride 2F), Y = PE(dist_ij), dPE/ddist
-  bf16 *X = c.XB, *Y = c.DAp;
+  bf16 *X = c.XB, *Y = F == 128 ? c.DAp : c.XB + 2 * RF;
   for (int idx = tid; idx < RF; idx += NT) {
     const int j = idx / F, f = idx % F;
     float sv = 0.f, ev = 0.f;
@@ -186,13 +234,22 @@ __device__ __forceinline__ void primal_phase(const Tile& c) {
     tile_ln_silu(c.h2w, F, c.a2w, F, row0, lnv + 6 * F, lnv + 7 * F, c.stat + 6 * R);
   }
   __syncthreads();
+  if constexpr (F == 256) {  // the pre-LN tiles the lanes replay, after p, q in the scratch
+    bf16* res = scr + 10 * RF;
+    for (int idx = tid; idx < 4 * RF / 8; idx += NT) {
+      const int k = idx / (RF / 8), off = 8 * (idx % (RF / 8));
+      const bf16* src = k == 0 ? c.h1p : k == 1 ? c.h2p : k == 2 ? c.h1w : c.h2w;
+      *reinterpret_cast<uint4*>(res + k * RF + off) = *reinterpret_cast<const uint4*>(src + off);
+    }
+  }
 
   // the 5F product, one F-wide chunk at a time (gates | scale_dir | ds | de |
   // cross_gates), split over all warps: warp w owns rows 16 (w & 1) .. and
-  // columns 32 (w >> 1) .. of the tile
+  // columns PCW (w >> 1) .. of the tile (PNT n-tiles)
+  constexpr int PNP = F / 64, PNT = 2 * PNP, PCW = F / 4;
   const int rt = warp & 1, cb = warp >> 1;
   const bf162 zero2 = both2(0.f);
-  bf162 gk[4][2];
+  bf162 gk[PNT][2];
   float* wa = c.wacc + rt * 7 * F;
   const int jh[2] = {16 * rt + g, 16 * rt + g + 8};  // the thread's two pair rows
   const bool on[2] = {geo[G_MASK * R + jh[0]] != 0.f, geo[G_MASK * R + jh[1]] != 0.f};
@@ -202,30 +259,30 @@ __device__ __forceinline__ void primal_phase(const Tile& c) {
 #pragma unroll
     for (int c3 = 0; c3 < 3; ++c3) dir2[h][c3] = dirw[c3 * R + jh[h]];
   for (int k = 0; k < 5; ++k) {
-    bf162 p[4][2], q[4][2];
-    float a[4][4];
+    bf162 p[PNT][2], q[PNT][2];
+    float a[PNT][4];
     frag_zero(a);
-    mma_rows<2, F / 16, 5 * FP>(a, a2p, F, 16 * rt, wmat(wpk, M_PHI3), k * FP + 2 * cb);
-    frag_bias_pack(a, vecs + V_PHI + V_B3 + k * F + 32 * cb, p);
+    mma_rows<PNP, F / 16, 5 * FP>(a, a2p, F, 16 * rt, wmat(wpk, M_PHI3), k * FP + PNP * cb);
+    frag_bias_pack(a, vecs + V_PHI + V_B3 + k * F + PCW * cb, p);
     frag_zero(a);
-    mma_rows<2, F / 16, 5 * FP>(a, a2w, F, 16 * rt, wmat(wpk, M_W3), k * FP + 2 * cb);
-    frag_bias_pack(a, vecs + V_W + V_B3 + k * F + 32 * cb, q);
-    frag_store2(scr + k * 2 * RF, F, 16 * rt, 32 * cb, p);  // for the lane blocks, through L2
-    frag_store2(scr + k * 2 * RF + RF, F, 16 * rt, 32 * cb, q);
+    mma_rows<PNP, F / 16, 5 * FP>(a, a2w, F, 16 * rt, wmat(wpk, M_W3), k * FP + PNP * cb);
+    frag_bias_pack(a, vecs + V_W + V_B3 + k * F + PCW * cb, q);
+    frag_store2(scr + k * 2 * RF, F, 16 * rt, PCW * cb, p);  // for the lane blocks, through L2
+    frag_store2(scr + k * 2 * RF + RF, F, 16 * rt, PCW * cb, q);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < PNT; ++nt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) p[nt][h] = on[h] ? mul2(p[nt][h], q[nt][h]) : zero2;  // h
     if (k == 0) {
-      frag_store2(G, F, 16 * rt, 32 * cb, p);
+      frag_store2(G, F, 16 * rt, PCW * cb, p);
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+      for (int nt = 0; nt < PNT; ++nt)
 #pragma unroll
         for (int h = 0; h < 2; ++h) gk[nt][h] = p[nt][h];
     } else if (k == 1) {  // Σ_j gates·v_j + scale_dir·dir
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = 32 * cb + 8 * nt + 2 * t;
+      for (int nt = 0; nt < PNT; ++nt) {
+        const int col = PCW * cb + 8 * nt + 2 * t;
         float part[3][2] = {};
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -242,15 +299,15 @@ __device__ __forceinline__ void primal_phase(const Tile& c) {
       }
     } else if (k == 2) {  // Σ_j ds
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+      for (int nt = 0; nt < PNT; ++nt) {
         const float2 u0 = f2(p[nt][0]), u1 = f2(p[nt][1]);
         const float part[1][2] = {{u0.x + u1.x, u0.y + u1.y}};
-        rows_sum_store<1>(part, wa + 3 * F, 32 * cb + 8 * nt + 2 * t);
+        rows_sum_store<1>(part, wa + 3 * F, PCW * cb + 8 * nt + 2 * t);
       }
     } else if (k == 3) {  // e + de
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = 32 * cb + 8 * nt + 2 * t;
+      for (int nt = 0; nt < PNT; ++nt) {
+        const int col = PCW * cb + 8 * nt + 2 * t;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           if (jh[h] >= N) continue;
@@ -260,7 +317,7 @@ __device__ __forceinline__ void primal_phase(const Tile& c) {
       }
     } else {  // t_cg = Σ_j cross_gates·dir
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+      for (int nt = 0; nt < PNT; ++nt) {
         float part[3][2] = {};
 #pragma unroll
         for (int h = 0; h < 2; ++h)
@@ -270,7 +327,7 @@ __device__ __forceinline__ void primal_phase(const Tile& c) {
             part[c3][0] += u.x;
             part[c3][1] += u.y;
           }
-        rows_sum_store<3>(part, wa + 4 * F, 32 * cb + 8 * nt + 2 * t);
+        rows_sum_store<3>(part, wa + 4 * F, PCW * cb + 8 * nt + 2 * t);
       }
     }
   }
@@ -294,10 +351,18 @@ __device__ __forceinline__ void primal_phase(const Tile& c) {
   }
 }
 
+// The parts of a lane block's fronts: all of them at F = 128; at F = 256
+// three, between the CTA barriers around the fetch of w's residuals into the
+// stage: the input and phi's front; dPE and w's first product; w's
+// LayerNorm tangents and second product.
+enum { FR_ALL, FR_PHI, FR_W1, FR_W2 };
+
 // The MLP fronts of lane block kb: geometry tangents, then both tangent
 // chains of the warp's 16 stacked rows (rows jr0 .. jr0 + 15 of lane l's
 // tile), replayed at the primal's residuals; the a2 tangents go to DAp, DAw.
-// Only warp barriers: the warp touches its own rows of XB and DA.
+// Only warp barriers: the warp touches its own rows of XB and DA. At F = 256
+// the residuals of phi, then of w, are in the second p, q stage.
+template <int PART>
 __device__ __forceinline__ void lane_fronts(const Tile& c, int kb) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int N = c.N, i = c.i;
@@ -307,9 +372,15 @@ __device__ __forceinline__ void lane_fronts(const Tile& c, int kb) {
   bf162* lg = c.lgw + 4 * l * R;
   bf16* XB = c.XB;
   const uint4* wpk = c.wpk;
-  const bf16 *h1p = c.h1p, *h2p = c.h2p, *h1w = c.h1w, *h2w = c.h2w, *pef = c.pef;
+  // at F = 256 h1p, h2p sit in the second p, q stage, and w's residuals are
+  // fetched there after phi's front
+  const bf16 *h1p = c.h1p, *h2p = c.h2p;
+  const bf16 *h1w = F == 128 ? c.h1w : c.h1p, *h2w = F == 128 ? c.h2w : c.h2p;
+  const bf16* pef = c.pef;
   bf16 *DAp = c.DAp, *DAw = c.DAw;
+  const float *stat = c.stat, *lnv = c.lnv;
 
+  if constexpr (PART == FR_ALL || PART == FR_PHI) {
   if (lane < 16) {
     const int j = jr0 + lane;
     float d0 = 0.f, d1 = 0.f, d2 = 0.f;
@@ -328,50 +399,82 @@ __device__ __forceinline__ void lane_fronts(const Tile& c, int kb) {
     lg[2 * R + j] = both2(d2 * inv + r2 * dinv);
     lg[3 * R + j] = both2(dd);
   }
-  // din = [ds_j | de_ij]: a row is 32 16-byte chunks, one a lane
-  const bf16* src = lane < 16 ? c.dsT + bk * N * F + 8 * lane
-                              : c.deT + (bk * N + i) * N * F + 8 * (lane - 16);
   const uint4 none = make_uint4(0u, 0u, 0u, 0u);
-  for (int rr = 0; rr < 16; ++rr) {
-    const int j = jr0 + rr;
-    bf16* dst = XB + swz(row0 + rr, 8 * lane, 2 * F);
-    if (j < N) cp_async16(dst, src + (size_t)j * F);
-    else *reinterpret_cast<uint4*>(dst) = none;
+  if constexpr (F == 128) {
+    // din = [ds_j | de_ij]: a row is 32 16-byte chunks, one a lane
+    const bf16* src = lane < 16 ? c.dsT + bk * N * F + 8 * lane
+                                : c.deT + (bk * N + i) * N * F + 8 * (lane - 16);
+    for (int rr = 0; rr < 16; ++rr) {
+      const int j = jr0 + rr;
+      bf16* dst = XB + swz(row0 + rr, 8 * lane, 2 * F);
+      if (j < N) cp_async16(dst, src + (size_t)j * F);
+      else *reinterpret_cast<uint4*>(dst) = none;
+    }
+  } else {
+    // a row is 64 16-byte chunks: lane takes chunk lane of ds_j and of de_ij
+    const bf16* ds_src = c.dsT + bk * N * F + 8 * lane;
+    const bf16* de_src = c.deT + (bk * N + i) * N * F + 8 * lane;
+    for (int rr = 0; rr < 16; ++rr) {
+      const int j = jr0 + rr;
+      bf16* dst = XB + swz(row0 + rr, 8 * lane, 2 * F);
+      bf16* dse = XB + swz(row0 + rr, F + 8 * lane, 2 * F);
+      if (j < N) {
+        cp_async16(dst, ds_src + (size_t)j * F);
+        cp_async16(dse, de_src + (size_t)j * F);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = none;
+        *reinterpret_cast<uint4*>(dse) = none;
+      }
+    }
   }
   cp_async_commit();
   cp_async_wait_all();
   __syncwarp();
 
-  const float *stat = c.stat, *lnv = c.lnv;
-  // phi's tangent front, replayed at h1p, h2p
-  front_product<2 * F / 16>(XB, 2 * F, XB, 2 * F, row0, wmat(wpk, M_PHI1));
-  tile_ln_silu_tan(XB, 2 * F, row0, h1p, stat, lnv, lnv + F);
-  front_product<F / 16>(DAp, F, XB, 2 * F, row0, wmat(wpk, M_PHI2));
+  // phi's tangent front, replayed at h1p, h2p (at F = 256 its first product
+  // goes to DAw, free until w's second: front_product there takes no out = A)
+  bf16* H1 = F == 128 ? XB : DAw;
+  const int ld1 = F == 128 ? 2 * F : F;
+  front_product<2 * F / 16>(H1, ld1, XB, 2 * F, row0, wmat(wpk, M_PHI1));
+  tile_ln_silu_tan(H1, ld1, row0, h1p, stat, lnv, lnv + F);
+  front_product<F / 16>(DAp, F, H1, ld1, row0, wmat(wpk, M_PHI2));
   tile_ln_silu_tan(DAp, F, row0, h2p, stat + 2 * R, lnv + 2 * F, lnv + 3 * F);
+  }
+  if constexpr (PART == FR_ALL || PART == FR_W1) {
   // dPE = dPE/ddist * ddist, then w's tangent front at h1w, h2w
   for (int rr = 0; rr < 16; ++rr) {
     const int j = jr0 + rr;
     const bf162 dd2 = lg[3 * R + j];
-    sts_b2(XB, row0 + rr, 4 * lane, 2 * F, mul2(lds_b2(pef, j, 4 * lane, F), dd2));
-    sts_b2(XB, row0 + rr, 4 * lane + 2, 2 * F, mul2(lds_b2(pef, j, 4 * lane + 2, F), dd2));
+#pragma unroll
+    for (int cc = 0; cc < F / 128; ++cc) {
+      const int col = 128 * cc + 4 * lane;
+      sts_b2(XB, row0 + rr, col, 2 * F, mul2(lds_b2(pef, j, col, F), dd2));
+      sts_b2(XB, row0 + rr, col + 2, 2 * F, mul2(lds_b2(pef, j, col + 2, F), dd2));
+    }
   }
   __syncwarp();
-  front_product<F / 16>(XB, 2 * F, XB, 2 * F, row0, wmat(wpk, M_W1));
-  tile_ln_silu_tan(XB, 2 * F, row0, h1w, stat + 4 * R, lnv + 4 * F, lnv + 5 * F);
-  front_product<F / 16>(DAw, F, XB, 2 * F, row0, wmat(wpk, M_W2));
+  // at F = 256 w's first product goes to XB's second half, free since phi's front
+  front_product<F / 16>(F == 128 ? XB : XB + F, 2 * F, XB, 2 * F, row0, wmat(wpk, M_W1));
+  }
+  if constexpr (PART == FR_ALL || PART == FR_W2) {
+  bf16* W1o = F == 128 ? XB : XB + F;
+  tile_ln_silu_tan(W1o, 2 * F, row0, h1w, stat + 4 * R, lnv + 4 * F, lnv + 5 * F);
+  front_product<F / 16>(DAw, F, W1o, 2 * F, row0, wmat(wpk, M_W2));
   tile_ln_silu_tan(DAw, F, row0, h2w, stat + 6 * R, lnv + 6 * F, lnv + 7 * F);
+  }
 }
 
-// Chunk k of the 5F product for the warp's lane l and column half ch: the
-// lane's 32 rows (row q of the thread is j = g + 8 q) x 64 columns. Each
-// weight fragment feeds two row tiles; the product rule against the primal
-// P, Q (shared memory); the sums over j end inside the warp.
+// Chunk k of the 5F product for the warp's lane l and its columns col0 ..
+// col0 + 16 NPW: the lane's 32 rows (row q of the thread is j = g + 8 q).
+// Each weight fragment feeds two row tiles; the product rule against the
+// primal P, Q (shared memory); the sums over j end inside the warp.
+template <int NPW>
 __device__ __forceinline__ void lane_chunk(const Tile& c, int kb, int k, const bf16* P,
-                                        const bf16* Q) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+                                        const bf16* Q, int l, int col0) {
+  constexpr int NTW = 2 * NPW;  // n-tiles of the warp
+  const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int N = c.N, i = c.i, b = c.b;
-  const int l = warp >> 1, ch = warp & 1;
   const size_t bk = (size_t)b * c.K + kb * c.L + l;
   const bf162 *lg = c.lgw + 4 * l * R, *dirw = c.dirw;
   float* wa = c.wacc + l * 7 * F;
@@ -381,23 +484,23 @@ __device__ __forceinline__ void lane_chunk(const Tile& c, int kb, int k, const b
   const uint4* wpk = c.wpk;
   const bf162 zero2 = both2(0.f);
 
-  float d[2][FT / 2][4];
-  bf162 dp[2][FT / 2][2];  // [row tile][n-tile][row half]
+  float d[2][NTW][4];
+  bf162 dp[2][NTW][2];  // [row tile][n-tile][row half]
   frag_zero(d[0]);
   frag_zero(d[1]);
-  mma_rows2<FP / 2, F / 16, 5 * FP>(d[0], d[1], c.DAp, F, 32 * l, wmat(wpk, M_PHI3),
-                                     k * FP + ch * FP / 2);
+  mma_rows2<NPW, F / 16, 5 * FP>(d[0], d[1], c.DAp, F, 32 * l, wmat(wpk, M_PHI3),
+                                  k * FP + col0 / 16);
 #pragma unroll
   for (int r2 = 0; r2 < 2; ++r2)
 #pragma unroll
-    for (int nt = 0; nt < FT / 2; ++nt) {
+    for (int nt = 0; nt < NTW; ++nt) {
       dp[r2][nt][0] = round2(d[r2][nt][0], d[r2][nt][1]);
       dp[r2][nt][1] = round2(d[r2][nt][2], d[r2][nt][3]);
     }
   frag_zero(d[0]);
   frag_zero(d[1]);
-  mma_rows2<FP / 2, F / 16, 5 * FP>(d[0], d[1], c.DAw, F, 32 * l, wmat(wpk, M_W3),
-                                     k * FP + ch * FP / 2);
+  mma_rows2<NPW, F / 16, 5 * FP>(d[0], d[1], c.DAw, F, 32 * l, wmat(wpk, M_W3),
+                                  k * FP + col0 / 16);
 
   bool on[4], real[4];
   int jc[4];  // the row, or the last real one where the row is padding (loads stay in bounds)
@@ -415,8 +518,8 @@ __device__ __forceinline__ void lane_chunk(const Tile& c, int kb, int k, const b
     }
   }
 #pragma unroll
-  for (int nt = 0; nt < FT / 2; ++nt) {
-    const int col = 64 * ch + 8 * nt + 2 * t;
+  for (int nt = 0; nt < NTW; ++nt) {
+    const int col = col0 + 8 * nt + 2 * t;
     bf162 h[4], dh[4];  // [row]: columns col, col + 1
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -500,38 +603,75 @@ pair_tangent_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ s,
   c.x = x, c.s = s, c.v = v, c.e = e, c.dx = dx, c.dsT = dsT, c.dvT = dvT, c.deT = deT;
   c.wpk = wpk, c.vecs = vecs, c.dvp = dvp, c.dsp = dsp, c.ep = ep, c.dvt = dvt, c.dst = dst;
   c.et = et, c.N = N, c.K = K, c.L = L, c.b = blockIdx.y, c.i = blockIdx.x, c.pe_scale = pe_scale;
-  c.scr = scratch + ((size_t)c.b * N + c.i) * (5 * 2 * RF);
+  c.scr = scratch + ((size_t)c.b * N + c.i) * (SCR_TILES * RF);
   // shared memory: what does not depend on L first, at constant offsets
   bf16* base = reinterpret_cast<bf16*>(smem);
-  c.h1p = base, c.h2p = base + RF, c.a2p = base + 2 * RF, c.h1w = base + 3 * RF;
-  c.h2w = base + 4 * RF, c.a2w = base + 5 * RF, c.pef = base + 6 * RF, c.G = base + 7 * RF;
-  c.wacc = reinterpret_cast<float*>(base + 8 * RF);
-  c.geo = c.wacc + 4 * 7 * F;
+  if constexpr (F == 128) {
+    c.h1p = base, c.h2p = base + RF, c.a2p = base + 2 * RF, c.h1w = base + 3 * RF;
+    c.h2w = base + 4 * RF, c.a2w = base + 5 * RF, c.pef = base + 6 * RF, c.G = base + 7 * RF;
+    c.wacc = reinterpret_cast<float*>(base + 8 * RF);
+  } else {  // the work buffers for MAX_L lanes, then dPE/ddist and the gates
+    c.XB = base;
+    c.DAp = c.XB + xb_tiles(MAX_L) * RF;
+    c.DAw = c.DAp + MAX_L * RF;
+    c.pef = c.DAw + MAX_L * RF, c.G = c.pef + RF;
+    c.wacc = reinterpret_cast<float*>(c.G + RF);
+    // the primal's other residuals, in the work buffers (its X, Y take XB's
+    // first 3 tiles); h1p, h2p sit in the second p, q stage, where the first
+    // lane block's fronts read them
+    c.a2p = c.XB + 3 * RF, c.h1p = c.XB + 4 * RF, c.h2p = c.XB + 5 * RF;
+    c.h1w = c.DAp, c.h2w = c.DAp + RF, c.a2w = c.DAw;
+  }
+  c.geo = c.wacc + MAX_L * 7 * F;
   c.dirw = reinterpret_cast<bf162*>(c.geo + G_DIR0 * R);
   c.lgw = reinterpret_cast<bf162*>(c.geo + NGEO * R);
   c.acc = c.geo + NGEO * R + 4 * MAX_L * R;
   c.stat = c.acc + 7 * F;
   c.lnv = c.stat + 4 * 2 * R;
-  c.XB = reinterpret_cast<bf16*>(c.wacc + SIDE_FLOATS);
-  c.DAp = c.XB + xb_tiles(L) * RF;
-  c.DAw = c.DAp + L * RF;
+  if constexpr (F == 128) {
+    c.XB = reinterpret_cast<bf16*>(c.wacc + SIDE_FLOATS);
+    c.DAp = c.XB + xb_tiles(L) * RF;
+    c.DAw = c.DAp + L * RF;
+  }
 
   primal_phase(c);
 
   const bool active = warp < 2 * L;  // the warps that own stacked rows
-  bf16* PQ = c.XB + L * RF;          // XB in the chunk loop: DG | two stages of p | q
+  // XB in the chunk loop: DG | two stages of p | q
+  bf16* PQ = c.XB + (F == 128 ? L : MAX_L) * RF;
   const int nblk = K / L;
   for (int kb = 0; kb < nblk; ++kb) {
-    if (active) lane_fronts(c, kb);
+    if constexpr (F == 128) {
+      if (active) lane_fronts<FR_ALL>(c, kb);
+    } else {
+      if (active) lane_fronts<FR_PHI>(c, kb);
+      __syncthreads();  // phi's residuals are read: the stage takes w's
+      fetch_pq(PQ + 2 * RF, c.scr + 12 * RF);
+      if (active) lane_fronts<FR_W1>(c, kb);
+      cp_async_wait_all();
+      __syncthreads();
+      if (active) lane_fronts<FR_W2>(c, kb);
+    }
     __syncthreads();  // every front is done: XB becomes DG and the two stages of p, q
     fetch_pq(PQ, c.scr);
     for (int k = 0; k < 5; ++k) {
       cp_async_wait_all();
       __syncthreads();  // chunk k's p, q are in; chunk k - 1 is done with the other stage
       const bf16* P = PQ + (k & 1) * 2 * RF;
-      if (k + 1 < 5) fetch_pq(PQ + ((k + 1) & 1) * 2 * RF, c.scr + (k + 1) * 2 * RF);
-      if (active) lane_chunk(c, kb, k, P, P + RF);
+      if (k + 1 < 5) {
+        fetch_pq(PQ + ((k + 1) & 1) * 2 * RF, c.scr + (k + 1) * 2 * RF);
+      } else if constexpr (F == 256) {  // the next block's phi residuals, into the free stage
+        if (kb + 1 < nblk) fetch_pq(PQ + 2 * RF, c.scr + 10 * RF);
+      }
+      if constexpr (F == 128) {
+        if (active) lane_chunk<FP / 2>(c, kb, k, P, P + RF, warp >> 1, 64 * (warp & 1));
+      } else {  // every warp, 32 columns a pass: at L = 2 4 warps a lane, two passes each
+        const int wpl = NW / L;
+        for (int col0 = 32 * (warp % wpl); col0 < F; col0 += 32 * wpl)
+          lane_chunk<2>(c, kb, k, P, P + RF, warp / wpl, col0);
+      }
     }
+    if constexpr (F == 256) cp_async_wait_all();
     __syncthreads();
 
     // per lane outputs of dst atom i: dv with the chirality tangent, ds
@@ -562,7 +702,8 @@ pair_tangent_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ s,
 }  // namespace pk
 
 // mats is the layer's matrices in fragment order (pack_mma_weights), bf16;
-// scratch holds B * N * 10 tiles of R x F bf16 (the primal p, q of each CTA).
+// scratch holds B * N * SCR_TILES tiles of R x F bf16 (the primal p, q of
+// each CTA; at F = 256 also its pre-LN residuals).
 extern "C" int pair_tangent_bf16(const void* x, const void* s, const void* v, const void* e,
                                  const void* dx, const void* ds, const void* dv, const void* de,
                                  const void* mats, const void* vecs, void* dvp, void* dsp,

@@ -44,24 +44,158 @@
 // input (64 x 2F f32, reused by the fronts and, in the 5F chunks, by the dh
 // tile and chunk k's p, q), the a2 tangents of both MLPs (2 x 64 x F), five
 // residual tiles of 32 x F and the geometry. One CTA of 8 warps an SM, 248
-// registers a thread, no spills. Only F = 128 is built.
+// registers a thread, no spills.
+// Built at two widths from this file (PK_F, pair_common.cuh; ops/_build.py):
+// F = 128 (library pair_tangent_tf32x3) as above, and F = 256 (library
+// pair_tangent_tf32x3_f256, -DPK_F=256; the 10506 profile's 29 atoms x F =
+// 256), where the buffers above would need 433,920 bytes. There:
+// - lane tiles of TT = 32 rows (one lane a tile at N = 29, two or more at
+//   N <= 16); a warp owns the tile's 32 rows and 32 of its 256 columns, so
+//   the warp's block, its accumulators and its weight fragments are F =
+//   128's;
+// - the five residual tiles (the pre-LN products of both MLPs and dPE/ddist)
+//   live in the CTA's scratch after its p, q (in L2 while the CTA runs) and
+//   are read from there by the tangent LayerNorms and dPE: 5 x 32 KB a lane
+//   tile;
+// - a chunk's p, q (2 x 32 x 256) take the room after dh, past the stacked
+//   input: 169,856 bytes of shared memory (tf32_smem_bytes(256));
+// - LayerNorm takes 4 rows a warp and 8 columns a lane (two 128-wide halves).
+// At the 10506 node shape (16 chains, N = 29, K = 32) the bound is 5.29 ms
+// (three TF32 passes); the kernel takes about 6.3 times that (PERF.md
+// section 6; the F = 128 build sits at 5.9 times its own).
 
 #include "tf32_common.cuh"
 
 namespace pk {
 namespace tf32x3 {
 
-// geometry of source atom j (arrays of TR floats; zero from row N on)
+// geometry of source atom j (arrays of TT floats; zero from row N on)
 enum { P_R0, P_R1, P_R2, P_DIST, P_INV, P_SID, P_MASK, P_DIR0, P_DIR1, P_DIR2, PGEO };
-// geometry tangents of a tile's stacked rows (arrays of TR floats)
+// geometry tangents of a tile's stacked rows (arrays of TT floats)
 enum { L_DDIR0, L_DDIR1, L_DDIR2, L_DDIST, LGEO };
 
-constexpr int XB_F = TR * LDX;  // the stacked input tile
-constexpr int DA_F = TR * F;    // an a2-tangent tile
+constexpr int TT = F == 128 ? TR : 32;  // rows of a lane tile
+constexpr int RT = TT / 32;             // row blocks of 32: warp w owns rows 32 (w % RT) ..
+constexpr int NTL = TT / NW;            // rows a warp in the LayerNorms
+// the stacked input tile; in the 5F chunks dh, then chunk k's p, q
+constexpr int XB_F = TT * LDX > TT * F + 2 * R * F ? TT * LDX : TT * F + 2 * R * F;
+constexpr int DA_F = TT * F;    // an a2-tangent tile
 constexpr int RES_F = R * F;    // a residual tile, one row a source atom
 constexpr int NRES = 5;         // h1, h2 of phi and of w; dPE/ddist
-constexpr int SIDE_F = (PGEO + LGEO) * TR + 4 * 2 * R + 3 * F + TR;
-constexpr size_t TANGENT_SMEM = sizeof(float) * (size_t)(XB_F + 2 * DA_F + NRES * RES_F + SIDE_F);
+constexpr int NRES_SMEM = F == 128 ? NRES : 0;  // of them in shared memory; else in the scratch
+constexpr int SIDE_F = (PGEO + LGEO) * TT + 4 * 2 * R + 3 * F + TT;
+constexpr size_t TANGENT_SMEM =
+    sizeof(float) * (size_t)(XB_F + 2 * DA_F + NRES_SMEM * RES_F + SIDE_F);
+
+// scratch floats a CTA: its primal p, q (10 N F), at F = 256 then the residuals
+__host__ __device__ constexpr size_t scratch_floats(int N) {
+  return 10 * (size_t)N * F + (NRES - NRES_SMEM) * (size_t)RES_F;
+}
+
+// LayerNorm -> SiLU keeping its pre-LN rows and statistics (ln_silu_keep) and
+// its tangent (ln_silu_tan_rows) on the TT-row tile: tf32_common.cuh's at F =
+// 128; at F = 256 warp w takes rows NTL w .. NTL w + NTL - 1, lane l the
+// columns 128 c + 4 l .. + 3 of each 128-wide half c
+__device__ __forceinline__ void ln_keep(float* T, int ld, float* H, float* stat, int nrows,
+                                        const float* __restrict__ scale,
+                                        const float* __restrict__ bias) {
+  if constexpr (F == 128) {
+    ln_silu_keep(T, ld, H, stat, nrows, scale, bias);
+  } else {
+    constexpr int CH = F / 128;
+    const int lane = lane_id(), w = warp_id();
+#pragma unroll 1
+    for (int rr = 0; rr < NTL; ++rr) {
+      const int r = NTL * w + rr;
+      if (r >= nrows) break;
+      float4 v[CH];
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        v[c] = *reinterpret_cast<const float4*>(T + swz(r, 128 * c + 4 * lane, ld));
+        *reinterpret_cast<float4*>(H + swz(r, 128 * c + 4 * lane, F)) = v[c];
+        sum += v[c].x + v[c].y + v[c].z + v[c].w;
+      }
+      const float mu = warp_sum(sum) * (1.f / F);
+      float sq = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const float d0 = v[c].x - mu, d1 = v[c].y - mu, d2 = v[c].z - mu, d3 = v[c].w - mu;
+        sq += d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+      }
+      const float rstd = 1.f / sqrtf(warp_sum(sq) * (1.f / F) + 1e-5f);
+      if (lane == 0) {
+        stat[r] = mu;
+        stat[R + r] = rstd;
+      }
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + 128 * c + 4 * lane));
+        const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + 128 * c + 4 * lane));
+        *reinterpret_cast<float4*>(T + swz(r, 128 * c + 4 * lane, ld)) =
+            make_float4(silu((v[c].x - mu) * rstd * sc.x + bi.x),
+                        silu((v[c].y - mu) * rstd * sc.y + bi.y),
+                        silu((v[c].z - mu) * rstd * sc.z + bi.z),
+                        silu((v[c].w - mu) * rstd * sc.w + bi.w));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void ln_tan(float* T, int ld, const float* H, const float* stat,
+                                       const int* rowj, const float* __restrict__ scale,
+                                       const float* __restrict__ bias) {
+  if constexpr (F == 128) {
+    ln_silu_tan_rows(T, ld, H, stat, rowj, scale, bias);
+  } else {
+    constexpr int CH = F / 128;
+    const int lane = lane_id(), w = warp_id();
+#pragma unroll 1
+    for (int rr = 0; rr < NTL; ++rr) {
+      const int r = NTL * w + rr, j = rowj[r];
+      if (j < 0) {
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          *reinterpret_cast<float4*>(T + swz(r, 128 * c + 4 * lane, ld)) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+        continue;
+      }
+      const float mu = stat[j], rstd = stat[R + j];
+      float dv[CH][4], cen[CH][4], sd = 0.f, cd = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const float4 d4 = *reinterpret_cast<const float4*>(T + swz(r, 128 * c + 4 * lane, ld));
+        const float4 h4 = *reinterpret_cast<const float4*>(H + swz(j, 128 * c + 4 * lane, F));
+        dv[c][0] = d4.x, dv[c][1] = d4.y, dv[c][2] = d4.z, dv[c][3] = d4.w;
+        cen[c][0] = h4.x - mu, cen[c][1] = h4.y - mu, cen[c][2] = h4.z - mu, cen[c][3] = h4.w - mu;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sd += dv[c][e];
+          cd += cen[c][e] * dv[c][e];
+        }
+      }
+      const float dmu = warp_sum(sd) * (1.f / F);
+      const float dvar = 2.f * (warp_sum(cd) * (1.f / F));
+      const float drstd = -0.5f * rstd * rstd * rstd * dvar;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const float4 s4 = __ldg(reinterpret_cast<const float4*>(scale + 128 * c + 4 * lane));
+        const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + 128 * c + 4 * lane));
+        const float sc[4] = {s4.x, s4.y, s4.z, s4.w}, bi[4] = {b4.x, b4.y, b4.z, b4.w};
+        float o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float dl = ((dv[c][e] - dmu) * rstd + cen[c][e] * drstd) * sc[e];
+          const float l = cen[c][e] * rstd * sc[e] + bi[e];
+          const float sig = 1.f / (1.f + expf(-l));
+          o[e] = sig * (1.f + l * (1.f - sig)) * dl;
+        }
+        *reinterpret_cast<float4*>(T + swz(r, 128 * c + 4 * lane, ld)) =
+            make_float4(o[0], o[1], o[2], o[3]);
+      }
+    }
+  }
+}
 
 // p = acc + bias into the warp's block of the swizzled F-wide tile T, and
 // its rows below nrows into the scratch rows scr (row stride F)
@@ -124,33 +258,35 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
   float* X1 = XB;                  // pre-LN products, then a2 (row stride LDX)
   float* X2 = XB + F;
   float* DH = XB;                  // in the 5F chunks: dh of the tile (row stride F)
-  float* SP = XB + TR * F;         // ... and chunk k's primal p, q of the N atoms
+  float* SP = XB + TT * F;         // ... and chunk k's primal p, q of the N atoms
   float* SQ = SP + R * F;
   float* DAp = XB + XB_F;          // a2 tangent of phi; in the primal PE, then h
   float* DAw = DAp + DA_F;         // a2 tangent of w
-  float* H1P = DAw + DA_F;         // residuals, one row a source atom
+  const int b = blockIdx.y, i = blockIdx.x;
+  float* scr = scratch + ((size_t)b * N + i) * scratch_floats(N);  // [chunk][p | q][N][F]
+  // residuals, one row a source atom: in shared memory at F = 128, after
+  // p, q in the scratch at F = 256
+  float* H1P = F == 128 ? DAw + DA_F : scr + 10 * (size_t)N * F;
   float* H2P = H1P + RES_F;
   float* H1W = H2P + RES_F;
   float* H2W = H1W + RES_F;
   float* PEF = H2W + RES_F;        // dPE/ddist
-  float* geo = PEF + RES_F;        // PGEO x TR
-  float* lgeo = geo + PGEO * TR;   // LGEO x TR
-  float* stat = lgeo + LGEO * TR;  // per LayerNorm (h1p, h2p, h1w, h2w): mean (R), 1/std (R)
+  float* geo = DAw + DA_F + NRES_SMEM * RES_F;  // PGEO x TT
+  float* lgeo = geo + PGEO * TT;   // LGEO x TT
+  float* stat = lgeo + LGEO * TT;  // per LayerNorm (h1p, h2p, h1w, h2w): mean (R), 1/std (R)
   float* tcg = stat + 8 * R;       // the primal's Σ_j cross_gates·dir (3F)
   int* rowj = reinterpret_cast<int*>(tcg + 3 * F);  // a tile's row -> source atom, or -1
 
   const int tid = threadIdx.x, warp = warp_id(), lane = lane_id();
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = 32 * (warp & 1), col0 = 32 * (warp >> 1), nt0 = 4 * (warp >> 1);
-  const int b = blockIdx.y, i = blockIdx.x;
+  const int row0 = 32 * (warp % RT), col0 = 32 * (warp / RT), nt0 = 4 * (warp / RT);
   const size_t NN = (size_t)N * N;
   const size_t pair0 = ((size_t)b * N + i) * N;  // pair row (b, i, j = 0)
-  float* scr = scratch + ((size_t)b * N + i) * (10 * (size_t)N * F);  // [chunk][p | q][N][F]
   const float *vp = vecs + V_PHI, *vw = vecs + V_W;
-  const float* pmask = geo + P_MASK * TR;
+  const float* pmask = geo + P_MASK * TT;
 
   // ---- the primal: geometry of source atom j ----
-  for (int r = tid; r < TR; r += NT) {
+  for (int r = tid; r < TT; r += NT) {
     float rv[3] = {0.f, 0.f, 0.f}, dist = 0.f, msk = 0.f;
     if (r < N) {
       const float* xb = x + (size_t)b * N * 3;
@@ -162,19 +298,19 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
     const float inv = 1.f / (1.f + dist);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      geo[(P_R0 + c) * TR + r] = rv[c];
-      geo[(P_DIR0 + c) * TR + r] = rv[c] * inv;
+      geo[(P_R0 + c) * TT + r] = rv[c];
+      geo[(P_DIR0 + c) * TT + r] = rv[c] * inv;
     }
-    geo[P_DIST * TR + r] = dist;
-    geo[P_INV * TR + r] = inv;
-    geo[P_SID * TR + r] = dist > 0.f ? 1.f / fmaxf(dist, 1e-30f) : 0.f;
-    geo[P_MASK * TR + r] = msk;
+    geo[P_DIST * TT + r] = dist;
+    geo[P_INV * TT + r] = inv;
+    geo[P_SID * TT + r] = dist > 0.f ? 1.f / fmaxf(dist, 1e-30f) : 0.f;
+    geo[P_MASK * TT + r] = msk;
   }
   __syncthreads();
 
   // X = [s_j | e_ij], PE(dist) into DAp, dPE/ddist into PEF (interleaved
   // cos/sin, rank f/2 + 1); zero past row N
-  for (int idx = tid; idx < TR * F / 4; idx += NT) {
+  for (int idx = tid; idx < TT * F / 4; idx += NT) {
     const int r = idx / (F / 4), f = 4 * (idx % (F / 4));
     float4 sv = make_float4(0.f, 0.f, 0.f, 0.f), ev = sv;
     if (r < N) {
@@ -183,7 +319,7 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
     }
     *reinterpret_cast<float4*>(XB + swz(r, f, LDX)) = sv;
     *reinterpret_cast<float4*>(XB + swz(r, F + f, LDX)) = ev;
-    const float dist = geo[P_DIST * TR + r];
+    const float dist = geo[P_DIST * TT + r];
     float pe[4], pd[4];
 #pragma unroll
     for (int c = 0; c < 4; c += 2) {
@@ -209,25 +345,25 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
   __syncthreads();  // every warp has read X
   acc_store(X1, LDX, row0, col0, acc, vp + V_B1);
   __syncthreads();
-  ln_silu_keep(X1, LDX, H1P, stat, N, vp + V_LN1S, vp + V_LN1B);
+  ln_keep(X1, LDX, H1P, stat, N, vp + V_LN1S, vp + V_LN1B);
   __syncthreads();
   acc_zero(acc);
   if (primal_rows) mma3_ahead<F / 8, FN>(acc, X1, LDX, row0, wmat(wpk, M_PHI2), nt0);
   acc_store(X2, LDX, row0, col0, acc, vp + V_B2);  // X2 was last read before the barriers above
   __syncthreads();
-  ln_silu_keep(X2, LDX, H2P, stat + 2 * R, N, vp + V_LN2S, vp + V_LN2B);  // a2 of phi
+  ln_keep(X2, LDX, H2P, stat + 2 * R, N, vp + V_LN2S, vp + V_LN2B);  // a2 of phi
   acc_zero(acc);
   if (primal_rows) mma3_ahead<F / 8, FN>(acc, DAp, F, row0, wmat(wpk, M_W1), nt0);
   __syncthreads();  // every warp has read PE
   acc_store(DAp, F, row0, col0, acc, vw + V_B1);
   __syncthreads();
-  ln_silu_keep(DAp, F, H1W, stat + 4 * R, N, vw + V_LN1S, vw + V_LN1B);
+  ln_keep(DAp, F, H1W, stat + 4 * R, N, vw + V_LN1S, vw + V_LN1B);
   __syncthreads();
   acc_zero(acc);
   if (primal_rows) mma3_ahead<F / 8, FN>(acc, DAp, F, row0, wmat(wpk, M_W2), nt0);
   acc_store(X1, LDX, row0, col0, acc, vw + V_B2);  // X1 was last read by phi's second product
   __syncthreads();
-  ln_silu_keep(X1, LDX, H2W, stat + 6 * R, N, vw + V_LN2S, vw + V_LN2B);  // a2 of w
+  ln_keep(X1, LDX, H2W, stat + 6 * R, N, vw + V_LN2S, vw + V_LN2B);  // a2 of w
   __syncthreads();
 
   // the 5F product chunk by chunk (gates | scale_dir | ds | de | cross_gates):
@@ -271,7 +407,7 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
           for (int j = 0; j < N; ++j) {
             const float h = DAp[swz(j, f, F)];
 #pragma unroll
-            for (int c = 0; c < 3; ++c) a[c] += h * geo[(P_DIR0 + c) * TR + j];
+            for (int c = 0; c < 3; ++c) a[c] += h * geo[(P_DIR0 + c) * TT + j];
           }
           if (k == 4) {
             float vi[3];
@@ -294,12 +430,12 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
   }
 
   // ---- the lanes, T a tile ----
-  const int T = TR / N;
+  const int T = TT / N;
   for (int l0 = 0; l0 < K; l0 += T) {
     const int nl = min(T, K - l0), rows = nl * N;
     const bool real = row0 < rows;  // the warp's 32 rows are not all padding
     // din = [ds_j | de_ij] of each row's lane (cp.async); zero past the last real row
-    for (int idx = tid; idx < TR * F / 4; idx += NT) {
+    for (int idx = tid; idx < TT * F / 4; idx += NT) {
       const int r = idx / (F / 4), f = 4 * (idx % (F / 4));
       float* xs = XB + swz(r, f, LDX);
       float* xe = XB + swz(r, F + f, LDX);
@@ -315,7 +451,7 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
     }
     cp_async_commit();
     // row r: lane l0 + r / N, source atom r % N; its geometry tangents, while the copies fly
-    for (int r = tid; r < TR; r += NT) {
+    for (int r = tid; r < TT; r += NT) {
       int j = -1;
       float dd[3] = {0.f, 0.f, 0.f}, ddist = 0.f;
       if (r < rows) {
@@ -325,9 +461,9 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
         float d[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c) d[c] = dxl[j * 3 + c] - dxl[i * 3 + c];
-        const float r0 = geo[P_R0 * TR + j], r1 = geo[P_R1 * TR + j], r2 = geo[P_R2 * TR + j];
-        const float inv = geo[P_INV * TR + j];
-        ddist = (r0 * d[0] + r1 * d[1] + r2 * d[2]) * geo[P_SID * TR + j];
+        const float r0 = geo[P_R0 * TT + j], r1 = geo[P_R1 * TT + j], r2 = geo[P_R2 * TT + j];
+        const float inv = geo[P_INV * TT + j];
+        ddist = (r0 * d[0] + r1 * d[1] + r2 * d[2]) * geo[P_SID * TT + j];
         const float dinv = -(inv * inv) * ddist;
         dd[0] = d[0] * inv + r0 * dinv;
         dd[1] = d[1] * inv + r1 * dinv;
@@ -335,8 +471,8 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
       }
       rowj[r] = j;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) lgeo[(L_DDIR0 + c) * TR + r] = dd[c];
-      lgeo[L_DDIST * TR + r] = ddist;
+      for (int c = 0; c < 3; ++c) lgeo[(L_DDIR0 + c) * TT + r] = dd[c];
+      lgeo[L_DDIST * TT + r] = ddist;
     }
     cp_async_wait_all();
     __syncthreads();
@@ -357,20 +493,20 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
     __syncthreads();  // every warp has read the input
     acc_put(X1, LDX, row0, col0, acc);
     __syncthreads();
-    ln_silu_tan_rows(X1, LDX, H1P, stat, rowj, vp + V_LN1S, vp + V_LN1B);
+    ln_tan(X1, LDX, H1P, stat, rowj, vp + V_LN1S, vp + V_LN1B);
     __syncthreads();
     acc_zero(acc);
     if (real) mma3_ahead<F / 8, FN>(acc, X1, LDX, row0, wmat(wpk, M_PHI2), nt0);
     acc_put(DAp, F, row0, col0, acc);
     __syncthreads();  // every warp has read X1
-    ln_silu_tan_rows(DAp, F, H2P, stat + 2 * R, rowj, vp + V_LN2S, vp + V_LN2B);
+    ln_tan(DAp, F, H2P, stat + 2 * R, rowj, vp + V_LN2S, vp + V_LN2B);
     // dPE = dPE/ddist * ddist into X1
-    for (int idx = tid; idx < TR * F / 4; idx += NT) {
+    for (int idx = tid; idx < TT * F / 4; idx += NT) {
       const int r = idx / (F / 4), f = 4 * (idx % (F / 4)), j = rowj[r];
       float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
       if (j >= 0) {
         const float4 pd = *reinterpret_cast<const float4*>(PEF + swz(j, f, F));
-        const float dd = lgeo[L_DDIST * TR + r];
+        const float dd = lgeo[L_DDIST * TT + r];
         o = make_float4(pd.x * dd, pd.y * dd, pd.z * dd, pd.w * dd);
       }
       *reinterpret_cast<float4*>(X1 + swz(r, f, LDX)) = o;
@@ -382,13 +518,13 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
     __syncthreads();  // every warp has read dPE
     acc_put(X1, LDX, row0, col0, acc);
     __syncthreads();
-    ln_silu_tan_rows(X1, LDX, H1W, stat + 4 * R, rowj, vw + V_LN1S, vw + V_LN1B);
+    ln_tan(X1, LDX, H1W, stat + 4 * R, rowj, vw + V_LN1S, vw + V_LN1B);
     __syncthreads();
     acc_zero(acc);
     if (real) mma3_ahead<F / 8, FN>(acc, X1, LDX, row0, wmat(wpk, M_W2), nt0);
     acc_put(DAw, F, row0, col0, acc);
     __syncthreads();  // every warp has read X1: XB is free
-    ln_silu_tan_rows(DAw, F, H2W, stat + 6 * R, rowj, vw + V_LN2S, vw + V_LN2B);
+    ln_tan(DAw, F, H2W, stat + 6 * R, rowj, vw + V_LN2S, vw + V_LN2B);
     __syncthreads();
 
     // the 5F chunks: dh = (dp q + p dq) mask into DH, then the sums over j of
@@ -480,7 +616,7 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
               const float hh = SP[swz(j, f, F)] * SQ[swz(j, f, F)] * pmask[j];
 #pragma unroll
               for (int c = 0; c < 3; ++c)
-                a[c] += dh * geo[(P_DIR0 + c) * TR + j] + hh * lgeo[(L_DDIR0 + c) * TR + r0 + j];
+                a[c] += dh * geo[(P_DIR0 + c) * TT + j] + hh * lgeo[(L_DDIR0 + c) * TT + r0 + j];
             }
             if (k == 4) {
               float vi[3], dvi[3], tc[3];
@@ -510,7 +646,8 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
 
 // mats is the layer's matrices split into TF32 hi and lo parts in fragment
 // order (ops/pair_layer_kernel.pack_tf32_weights, 2 x 15 F^2 f32 values);
-// scratch holds B * N * 10 * N * F floats (each CTA's primal p, q).
+// scratch holds B * N * scratch_floats(N) floats (each CTA's primal p, q;
+// at F = 256 also its residuals).
 extern "C" int pair_tangent_tf32x3(const void* x, const void* s, const void* v, const void* e,
                                    const void* dx, const void* ds, const void* dv,
                                    const void* de, const void* mats, const void* vecs,
@@ -535,5 +672,10 @@ extern "C" unsigned long long pair_tangent_tf32x3_smem_bytes() {
   return (unsigned long long)pk::tf32x3::TANGENT_SMEM;
 }
 
-// lanes a 64-row tile takes at N atoms
-extern "C" int pair_tangent_tf32x3_lanes(int N) { return pk::tf32x3::TR / N; }
+// scratch floats a CTA takes at N atoms
+extern "C" unsigned long long pair_tangent_tf32x3_scratch_floats(int N) {
+  return (unsigned long long)pk::tf32x3::scratch_floats(N);
+}
+
+// lanes a lane tile takes at N atoms
+extern "C" int pair_tangent_tf32x3_lanes(int N) { return pk::tf32x3::TT / N; }

@@ -16,11 +16,13 @@ and ``pair_layer`` (the f32-FMA kernels of both types, kept for timing); B2
 (``pair_layer_cb``, chain_block > 1) has the same five:
 ``pair_layer_tf32x3`` and ``pair_layer_tf32x3_f256`` (f32),
 ``pair_layer_mma`` and ``pair_layer_mma_f256`` (bf16_agg) and
-``pair_layer`` (``variant="fma"``). Every library but the two ``_f256``
-ones is built at F = 128. B3
-(``pair_tangent``) has three: ``pair_tangent_mma`` (bf16_agg on the tensor
-cores), ``pair_tangent_tf32x3`` (f32 on the tensor cores) and
-``pair_tangent`` (the f32-FMA kernel, kept for timing). B4
+``pair_layer`` (``variant="fma"``). B3 (``pair_tangent``) has five:
+``pair_tangent_mma`` (bf16_agg on the tensor cores),
+``pair_tangent_mma_f256`` (the same source built at F = 256),
+``pair_tangent_tf32x3`` (f32 on the tensor cores),
+``pair_tangent_tf32x3_f256`` (the same source built at F = 256) and
+``pair_tangent`` (the f32-FMA kernel, kept for timing). Every library but
+the four ``_f256`` ones is built at F = 128. B4
 (``fused_edge_mlp``) has two: ``fused_edge_mlp_tf32x3`` (on the tensor
 cores) and ``fused_edge_mlp`` (the f32-FMA kernel, kept for timing); B5
 (``fused_edge_mlp_jvp``) has two: ``fused_edge_mlp_jvp_tf32x3`` (on the
@@ -47,12 +49,15 @@ from typing import Dict, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("pair_layer", "pair_layer_tf32x3", "pair_layer_tf32x3_f256", "pair_layer_mma",
-           "pair_layer_mma_f256", "pair_tangent", "pair_tangent_mma", "pair_tangent_tf32x3", "fused_edge_mlp",
+           "pair_layer_mma_f256", "pair_tangent", "pair_tangent_mma", "pair_tangent_mma_f256",
+           "pair_tangent_tf32x3", "pair_tangent_tf32x3_f256", "fused_edge_mlp",
            "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3", "fused_mlp",
            "fused_mlp_tf32x3", "div_kernel", "div_kernel_tf32x3")
 # libraries built from another library's source: name -> (source, nvcc defines)
 BUILT_FROM = {"pair_layer_mma_f256": ("pair_layer_mma", ("-DPK_F=256",)),
-              "pair_layer_tf32x3_f256": ("pair_layer_tf32x3", ("-DPK_F=256",))}
+              "pair_layer_tf32x3_f256": ("pair_layer_tf32x3", ("-DPK_F=256",)),
+              "pair_tangent_mma_f256": ("pair_tangent_mma", ("-DPK_F=256",)),
+              "pair_tangent_tf32x3_f256": ("pair_tangent_tf32x3", ("-DPK_F=256",))}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "pair_layer", "pair_layer_cb", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp",

@@ -11,7 +11,8 @@ are built at F = 256 as well (libraries ``pair_layer_mma_f256`` and
 ``pair_layer_tf32x3_f256``), so B1 and B2 on the tensor cores take the
 10506 profile's width in both types: ``fast_profile`` sends its bf16_agg
 trajectory through the first, ``traj_forward_impl="pair_kernel"`` its f32
-trajectory through the second.
+trajectory through the second. B3 (ops/pair_tangent_kernel.py) has the
+same two ``_f256`` builds of its tensor-core sources.
 
 Port of ti_tpu/ops/pair_layer_kernel.py (the Pallas ``_pair_layer_kernel``,
 and ``_pair_layer_kernel_cb`` for ``chain_block`` > 1). The chain-blocked
@@ -66,10 +67,12 @@ from ti_torch.ops.mlp_block import (
 
 KERNEL_F = 128       # the feature width the CUDA kernels are built for
 # the libraries built for another width
-LIB_WIDTHS = {"pair_layer_mma_f256": 256, "pair_layer_tf32x3_f256": 256}
-F256_ROUTE = ("F = 256 runs only in B1 and B2 on the tensor cores (pair_layer, variant None "
-              "or 'tc': library pair_layer_mma_f256 for bf16_agg weights, "
-              "pair_layer_tf32x3_f256 for f32 weights)")
+LIB_WIDTHS = {"pair_layer_mma_f256": 256, "pair_layer_tf32x3_f256": 256,
+              "pair_tangent_mma_f256": 256, "pair_tangent_tf32x3_f256": 256}
+F256_ROUTE = ("F = 256 runs only in B1, B2 and B3 on the tensor cores (pair_layer, variant "
+              "None or 'tc': library pair_layer_mma_f256 for bf16_agg weights, "
+              "pair_layer_tf32x3_f256 for f32 weights; pair_tangent, variant 'mma': "
+              "pair_tangent_mma_f256 for bf16_agg, pair_tangent_tf32x3_f256 for f32)")
 KERNEL_MAX_N = 32    # pair rows per thread group: one dst atom's N src atoms
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on Hopper
 MAX_CHAIN_BLOCK = 4   # of csrc/pair_layer.cu: 256 threads a chain, 1024 threads a CTA

@@ -6,7 +6,12 @@ of ``pair_layer_kernel.pack_mma_weights``), f32 in
 csrc/pair_tangent_tf32x3.cu (``mma.sync`` in 3xTF32, the split of
 ``pair_layer_kernel.pack_tf32_weights``, lanes stacked into 64-row tiles).
 csrc/pair_tangent.cu keeps the f32-FMA kernel, reachable as
-``variant="fma"`` to be timed beside the f32 one.
+``variant="fma"`` to be timed beside the f32 one. Both tensor-core sources
+are built at F = 128 and, with -DPK_F=256, at the 10506 profile's F = 256
+(libraries ``pair_tangent_mma_f256`` and ``pair_tangent_tf32x3_f256``: the
+residuals the lanes replay move from shared memory to each CTA's scratch,
+lane blocks of 1 or 2 in bf16_agg, 32-row lane tiles in f32). The f32-FMA
+kernel and every library at F = 64 refuse their width (``WidthRefusal``).
 
 Port of ti_tpu/ops/pair_tangent_kernel.py (the Pallas
 ``_pair_tangent_kernel``). Per chain the layer computes kernel B1's primal
@@ -48,6 +53,7 @@ from ti_torch.ops.pair_layer_kernel import (
     _check_pair_inputs,
     _packed,
     agg,
+    check_width,
     embed,
     pe_scale,
     prepare,
@@ -60,55 +66,83 @@ VARIANTS = ("mma", "fma")  # the tensor-core kernel of the weights' type, or the
 _TC_GEO = 14  # geometry rows of csrc/pair_tangent_tf32x3.cu: 10 of the atoms, 4 of a tile
 
 
-def smem_bytes(bf16: bool, lane_block: int) -> int:
-    """Dynamic shared memory of one CTA of the lane-block kernels:
-    csrc/pair_tangent_mma.cu for bf16_agg, csrc/pair_tangent.cu (f32,
+def smem_bytes(bf16: bool, lane_block: int, f: int = KERNEL_F) -> int:
+    """Dynamic shared memory of one CTA of the lane-block kernels at width
+    ``f``: csrc/pair_tangent_mma.cu for bf16_agg, csrc/pair_tangent.cu (f32,
     ``variant="fma"``) for f32."""
-    f, L = KERNEL_F, lane_block
+    L = lane_block
     if bf16:
-        # 7 residual tiles and the primal gates, the stacked work buffer, 2L a2-tangent
-        # tiles; per-lane sums, geometry, lane geometry (4 lanes), primal sums, LayerNorm
+        # residual tiles (F = 128: 7 and the primal gates; wider: dPE/ddist and the
+        # gates, the primal keeping the others in the work buffers), the stacked work
+        # buffer and 2 lb a2-tangent tiles for lb lanes (wider: at least 2); per-lane
+        # sums and lane geometry (slots lanes), geometry, primal sums, LayerNorm
         # statistics and vectors
-        return (2 * (8 + max(2 * L, L + 4) + 2 * L) * _R * f
-                + 4 * (4 * 7 * f + _NGEO * _R + 4 * 4 * _R + 7 * f + 8 * _R + 8 * f))
+        res, lb, slots = (8, L, 4) if f == KERNEL_F else (2, max(L, 2), max(L, 2))
+        return (2 * (res + max(2 * lb, lb + 4) + 2 * lb) * _R * f
+                + 4 * (slots * 7 * f + _NGEO * _R + 4 * slots * _R + 7 * f + 8 * _R + 8 * f))
     return (4 * (9 + 3 * L) * _R * f
             + 4 * (_NW * 3 * f + _NGEO * _R + 4 * L * _R + 7 * f + 7 * f * L))
 
 
-def tf32_smem_bytes() -> int:
-    """Dynamic shared memory of one CTA of csrc/pair_tangent_tf32x3.cu, for
-    any N: the stacked input (TC_ROWS x 2F f32), the a2 tangents of both
-    MLPs (2 x TC_ROWS x F), five residual tiles of 32 rows (h1, h2 of both
-    MLPs, dPE/ddist), the geometry, the LayerNorm statistics, the primal's
-    chirality sums and the row map."""
-    f = KERNEL_F
-    return 4 * (4 * TC_ROWS * f + 5 * _R * f + _TC_GEO * TC_ROWS + 8 * _R + 3 * f + TC_ROWS)
+def tf32_tile_rows(f: int = KERNEL_F) -> int:
+    """Rows of a lane tile of csrc/pair_tangent_tf32x3.cu: TC_ROWS at F =
+    128, 32 at F = 256."""
+    return TC_ROWS if f == KERNEL_F else _R
+
+
+def tf32_smem_bytes(f: int = KERNEL_F) -> int:
+    """Dynamic shared memory of one CTA of csrc/pair_tangent_tf32x3.cu at
+    width ``f``, for any N: the stacked input (T x 2F f32, T the tile's
+    rows; at F = 256 T x F more, which a chunk's p, q need), the a2 tangents
+    of both MLPs (2 x T x F), at F = 128 five residual tiles of 32 rows (h1,
+    h2 of both MLPs, dPE/ddist; at F = 256 they are in the scratch), the
+    geometry, the LayerNorm statistics, the primal's chirality sums and the
+    row map."""
+    t = tf32_tile_rows(f)
+    xb = max(2 * t * f, t * f + 2 * _R * f)
+    res = 5 * _R * f if f == KERNEL_F else 0
+    return 4 * (xb + 2 * t * f + res + _TC_GEO * t + 8 * _R + 3 * f + t)
+
+
+def tf32_scratch_floats(n: int, f: int = KERNEL_F) -> int:
+    """Floats of one CTA's scratch in csrc/pair_tangent_tf32x3.cu: its
+    primal p, q of the N source atoms (10 N F); at F = 256 then its five
+    residual tiles (5 x 32 x F)."""
+    return 10 * n * f + (0 if f == KERNEL_F else 5 * _R * f)
+
+
+def mma_scratch_tiles(f: int = KERNEL_F) -> int:
+    """32 x F bf16 tiles of one CTA's scratch in csrc/pair_tangent_mma.cu:
+    its primal p, q (10); at F = 256 then the pre-LN residuals its lanes
+    replay (h1, h2 of both MLPs)."""
+    return 10 if f == KERNEL_F else 14
 
 
 class LaneTilePlan(NamedTuple):
     """How csrc/pair_tangent_tf32x3.cu stacks the K lanes of one (chain,
-    dst atom): ``lanes`` whole lanes a TC_ROWS-row tile (stacked row l·N + j
-    is source atom j of the tile's lane l), ``tiles`` tiles, the last with
-    ``last`` lanes."""
+    dst atom): ``lanes`` whole lanes a tile of ``tf32_tile_rows(f)`` rows
+    (stacked row l·N + j is source atom j of the tile's lane l), ``tiles``
+    tiles, the last with ``last`` lanes."""
 
     lanes: int
     tiles: int
     last: int
 
 
-def lane_tile_plan(n: int, k_lanes: int) -> LaneTilePlan:
-    lanes = TC_ROWS // n
+def lane_tile_plan(n: int, k_lanes: int, f: int = KERNEL_F) -> LaneTilePlan:
+    lanes = tf32_tile_rows(f) // n
     tiles = -(-k_lanes // lanes)
     return LaneTilePlan(lanes, tiles, k_lanes - (tiles - 1) * lanes)
 
 
-def _pick_lane_block(k_lanes: int, bf16: bool) -> int:
-    """Lanes replayed together per primal recompute: 4 (or 2) in bf16,
-    where their buffers fit one CTA's shared memory, 1 in f32."""
+def _pick_lane_block(k_lanes: int, bf16: bool, f: int = KERNEL_F) -> int:
+    """Lanes replayed together per primal recompute: the largest of 4 and 2
+    that divides K and whose buffers fit one CTA's shared memory (4 at F =
+    128, 2 at F = 256), else 1, in bf16; 1 in f32."""
     if not bf16:
         return 1
     for cand in (4, 2):
-        if k_lanes % cand == 0:
+        if k_lanes % cand == 0 and smem_bytes(True, cand, f) <= SMEM_LIMIT:
             return cand
     return 1
 
@@ -194,41 +228,48 @@ def pair_tangent_plain(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
 _P = ctypes.c_void_p
 
 
-def _route(bf16: bool, variant: str) -> str:
+def _route(bf16: bool, variant: str, f: int = KERNEL_F) -> str:
     """The library a launch takes: the tensor-core kernel of the weights'
-    type ("pair_tangent_mma" for bf16_agg, "pair_tangent_tf32x3" for f32),
-    or for ``variant="fma"`` the f32-FMA kernel ("pair_tangent", f32 only)."""
+    type ("pair_tangent_mma" for bf16_agg, "pair_tangent_tf32x3" for f32; at
+    F = 256 "pair_tangent_mma_f256" and "pair_tangent_tf32x3_f256"), or for
+    ``variant="fma"`` the f32-FMA kernel ("pair_tangent", f32 only, F = 128
+    only: another width raises ``WidthRefusal``). At any other width the
+    route is F = 128's, whose launch check refuses the width."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if variant == "fma":
         if bf16:
             raise ValueError("variant='fma' is the f32-FMA kernel and takes f32 weights; "
                              "bf16_agg runs on the tensor cores (variant='mma')")
+        check_width(f, "pair_tangent")
         return "pair_tangent"
-    return "pair_tangent_mma" if bf16 else "pair_tangent_tf32x3"
+    lib = "pair_tangent_mma" if bf16 else "pair_tangent_tf32x3"
+    return f"{lib}_f256" if f == 256 else lib
 
 
 def _kernel_weights(lib: str, wts: PairLayerWeights, x) -> torch.Tensor:
     """The matrices library ``lib`` reads: the packing ``prepare`` attached
     (3xTF32 hi/lo pairs for pair_tangent_tf32x3, the bf16 fragment order for
-    pair_tangent_mma), checked; the row-major ones for pair_tangent."""
-    if lib == "pair_tangent_tf32x3":
+    pair_tangent_mma, at either width), checked; the row-major ones for
+    pair_tangent."""
+    if lib.startswith("pair_tangent_tf32x3"):
         return _packed(wts, x, 2 * wts.mats.numel(), torch.float32, "3xTF32", "with_tf32_weights")
-    if lib == "pair_tangent_mma":
+    if lib.startswith("pair_tangent_mma"):
         return _packed(wts, x, wts.mats.numel(), BF16, "fragment-order", "with_mma_weights")
     return wts.mats
 
 
-def _check_lane_block(bf16: bool, k_lanes: int, L: int) -> None:
-    """Raise on a lane block a lane-block kernel cannot launch with."""
+def _check_lane_block(bf16: bool, k_lanes: int, L: int, f: int = KERNEL_F) -> None:
+    """Raise on a lane block a lane-block kernel cannot launch with at
+    width ``f`` (at F = 256 bf16_agg takes 1 or 2: 4 does not fit)."""
     if k_lanes < 1 or L < 1 or k_lanes % L:
         raise ValueError(f"lane_block {L} must divide the lane count {k_lanes}")
     if bf16 and L not in (1, 2, 4):
         raise ValueError(f"the tensor-core kernel takes lane_block 1, 2 or 4, got {L}")
-    need = smem_bytes(bf16, L)
+    need = smem_bytes(bf16, L, f)
     if need > SMEM_LIMIT:
-        raise ValueError(f"lane_block {L} needs {need} bytes of shared memory per CTA; "
-                         f"the card has {SMEM_LIMIT}")
+        raise ValueError(f"lane_block {L} needs {need} bytes of shared memory per CTA at "
+                         f"F={f}; the card has {SMEM_LIMIT}")
 
 
 def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
@@ -238,15 +279,18 @@ def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
     the tensor-core kernel of the weights' type: bf16_agg in
     csrc/pair_tangent_mma.cu (which needs ``with_mma_weights``), f32 in
     csrc/pair_tangent_tf32x3.cu (which needs ``with_tf32_weights``, and
-    stacks the lanes it is given into 64-row tiles of 64 // N whole lanes:
-    it ignores ``lane_block``). ``variant="fma"`` takes the f32-FMA kernel
-    (f32 weights only; bf16 raises), kept for timing. ``lane_block`` is the
-    lanes a block of the plain version and of the lane-block kernels."""
-    lib = _route(wts.bf16, variant)
+    stacks the lanes it is given into tiles of T // N whole lanes, T = 64
+    at F = 128 and 32 at F = 256: it ignores ``lane_block``); at F = 256
+    their ``_f256`` libraries. ``variant="fma"`` takes the f32-FMA kernel
+    (f32 weights only; bf16 raises; F = 128 only), kept for timing.
+    ``lane_block`` is the lanes a block of the plain version and of the
+    lane-block kernels."""
     if x.device.type == "cpu":
+        _route(wts.bf16, variant)
         return pair_tangent_plain(x, s, v, e, dx, ds, dv, de, wts, length_scale, lane_block)
     if x.device.type != "cuda":
         raise ValueError(f"pair_tangent runs on cuda or cpu, not {x.device}")
+    lib = _route(wts.bf16, variant, s.shape[-1])
     b, n, f, wd = _check_pair_inputs(x, s, v, e, wts, lib)
     k_lanes = dx.shape[1] if dx.dim() == 4 else -1
     want = {"dx": (dx, (b, k_lanes, n, 3), torch.float32),
@@ -260,15 +304,17 @@ def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
             raise ValueError(f"{name} must be contiguous on {x.device}")
     if k_lanes < 1:
         raise ValueError(f"pair_tangent needs at least one lane, got {k_lanes}")
+    tf32 = lib.startswith("pair_tangent_tf32x3")
+    mma = lib.startswith("pair_tangent_mma")
     args = ()
-    if lib != "pair_tangent_tf32x3":
-        L = lane_block or _pick_lane_block(k_lanes, wts.bf16)
-        _check_lane_block(wts.bf16, k_lanes, L)
+    if not tf32:
+        L = lane_block or _pick_lane_block(k_lanes, wts.bf16, f)
+        _check_lane_block(wts.bf16, k_lanes, L, f)
         args = (L,)
     mats = _kernel_weights(lib, wts, x)
     handle = _build.load(lib)
     fn = getattr(handle, "pair_tangent_f32" if lib == "pair_tangent" else
-                 "pair_tangent_bf16" if lib == "pair_tangent_mma" else lib)
+                 "pair_tangent_bf16" if mma else "pair_tangent_tf32x3")
     scratch = lib != "pair_tangent"
     fn.argtypes = ([_P] * (17 if scratch else 16) + [ctypes.c_int] * (3 + len(args))
                    + [ctypes.c_float, _P])
@@ -281,10 +327,11 @@ def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
     dst = torch.empty((b, k_lanes, n, f), device=dev, dtype=torch.float32)
     et = torch.empty_like(de)
     bufs = [x, s, v, e, dx, ds, dv, de, mats, wts.vecs, dvp, dsp, ep, dvt, dst, et]
-    if lib == "pair_tangent_mma":  # each CTA's primal 5F products, kept in L2 between its lane blocks
-        bufs.append(torch.empty((b * n, 5 * 2 * _R * f), device=dev, dtype=BF16))
-    elif scratch:  # each CTA's primal p, q of its N source atoms, read back by every lane tile
-        bufs.append(torch.empty((b * n, 5 * 2 * n * f), device=dev, dtype=torch.float32))
+    if mma:  # each CTA's primal 5F products (and at F = 256 residuals), in L2 between its lane blocks
+        bufs.append(torch.empty((b * n, mma_scratch_tiles(f) * _R * f), device=dev, dtype=BF16))
+    elif scratch:  # each CTA's primal p, q of its N source atoms (at F = 256 and its residuals)
+        bufs.append(torch.empty((b * n, tf32_scratch_floats(n, f)), device=dev,
+                                dtype=torch.float32))
     rc = fn(*(t.data_ptr() for t in bufs), b, n, k_lanes, *args, pe_scale(length_scale),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(handle, rc, f"{lib} launch")
@@ -304,7 +351,7 @@ def apply_dense_pair_tangent(pm, x, t, temps, z, *, lane_block: Optional[int] = 
     f = model.n_features
     k_lanes = z.shape[1]
     wd = BF16 if pm.bf16 else torch.float32
-    L = lane_block or _pick_lane_block(k_lanes, pm.bf16)
+    L = lane_block or _pick_lane_block(k_lanes, pm.bf16, f)
     layer_fn = pair_tangent if kernel else pair_tangent_plain
     dev = x.device
 
