@@ -55,7 +55,10 @@ that the path went through its kernels:
   f32 trajectory and the f32 SDE at its width, and the three
   physics-validation CLIs against their closed forms;
 - B3 at F = 256 in both types (chip_smoke_b3_f256.py): against its plain
-  version, timed, and the 10506 profile's divergence nodes through it.
+  version, timed, and the 10506 profile's divergence nodes through it;
+- B1/B2 and B3 at F = 64 in both types (chip_smoke_f64.py): against their
+  plain versions, timed, and ``validate_mdqm9_physics`` on its kernel routes
+  at its own default width, and the SDE through B2 at that width.
 
     python3 chip_smoke.py
 
@@ -153,9 +156,9 @@ Phases (any failure exits non-zero and prints no result):
  11. the reference's own sampler: ``sample_ambient(ambient_preset("00031"))``
      with no overrides (dopri5 at atol = rtol = 1e-5, the exact divergence
      inside every stage, 12 chains, 100 save points), its per-chain NFE,
-     seconds and samples/s, against stage-coupled RK4 at 256 steps (rtol
+     seconds and samples/s, against stage-coupled RK4 at 64 steps (rtol
      1e-3 / atol 1e-3); bench.py's reference shape: the edge-form Euler
-     sampler (64 steps, exact dlogp, batch 12) and its ms per evaluation in
+     sampler (32 of its 64 steps, exact dlogp, batch 12) and its ms per evaluation in
      turns beside the dense form's, the edge velocity against the dense one
      (rtol 2e-3 / atol 2e-4) and the sampler against the same over the dense
      form; stage-coupled RK4 (8 steps, exact dlogp, 12 chains) through
@@ -167,7 +170,7 @@ Phases (any failure exits non-zero and prints no result):
      gradients on the card against the CPU from the same weights, batch, t
      and z (edge f32 at batch 12: loss rtol 1e-5, gradients rtol 1e-4 with
      atol 1e-5 of each leaf's largest |gradient|; dense bf16_agg at batch
-     256: loss and the whole gradient within 2e-2); about 20 timed update
+     64: loss and the whole gradient within 2e-2); about 20 timed update
      steps each of edge f32 at batch 12, dense f32 and dense bf16_agg at
      batch 256 and grad_accum 4 x 256 in bf16_agg (ms a step, molecules/s,
      peak memory; finite losses, moved parameters); ``train_ambient`` for a
@@ -189,7 +192,7 @@ Phases (any failure exits non-zero and prints no result):
      field through the kernel route; the BG→TI composition (a generator at
      1000 K, then ``sample_ambient`` under ``fast_profile`` at 128 chains,
      the noise and dlogp passed through, ``calc_importance_weights``);
-     Simpson-9 and unsegmented GL-8 over t in [0, 0.25] at 128 chains in
+     Simpson-9 and unsegmented GL-8 over t in [0, 0.25] at 64 chains in
      f32, each against its rule recomputed through B3's full frame (rtol
      1e-3, atol 1e-3 max |dlogp|), beside stage-coupled RK4-16 (the gap
      reported);
@@ -199,7 +202,7 @@ Phases (any failure exits non-zero and prints no result):
      f64 (1e-10); two epochs of ``train_adw`` on the card; ``sample_adw`` of
      the 30,000-chain test split on RK4-64 + GL-8 and on the default dopri5
      (atol = rtol = 1e-4, 400 save points), samples/s, NFE and no kernel
-     launch, the first 256 chains against the CPU at phase 4's bars;
+     launch, the first 64 chains against the CPU at phase 4's bars;
      ``reweighted_gedmd_spectrum`` (50 bootstraps) finite on both;
  15. the large molecule's fast profile (``phase_10506``, 10506: 29 atoms,
      F = 256 x 5 layers): kernel B1 in bf16_agg at F = 256
@@ -258,9 +261,10 @@ Phases (any failure exits non-zero and prints no result):
      10506 fast-profile batch with ``traj_forward_impl="pair_kernel"`` (360
      B1 launches from pair_layer_tf32x3_f256) against the plain f32
      trajectory, beside the bf16_agg trajectory's samples/s;
-     ``validate_mdqm9_physics`` at its test's size to the closed-form bars,
-     and through its kernel route (1,320 B1 from pair_layer_tf32x3, 50 B3
-     from pair_tangent_mma) against its default route;
+     ``validate_mdqm9_physics`` through its kernel route on the smoke's
+     field at 4 atoms (1,320 B1 from pair_layer_tf32x3, 50 B3 from
+     pair_tangent_mma) against its default route (its closed-form bars on a
+     field it trains are phase 22's);
      ``validate_latent_physics`` and ``validate_bg_ti_physics`` to the BG
      and composed identities;
  21. kernel B3 at F = 256 (``phase_b3_f256``, chip_smoke_b3_f256.py):
@@ -273,7 +277,16 @@ Phases (any failure exits non-zero and prints no result):
      equal to the bit to the default node route's, dlogps against B3's
      plain version at the nodes on the same probes, samples/s beside the
      default route's;
- 22. the ``kernels`` line, the card line and the result line.
+ 22. kernels B1/B2 and B3 at F = 64 (``phase_f64``, chip_smoke_f64.py):
+     the four ``_f64`` libraries' registers (0 spills; the F = 128 and 256
+     builds of B3 keep theirs), each kernel against its plain version at
+     the CLI's shape (4 atoms, 1,024 chains, K = 12) and at 19 atoms, 128
+     chains, timed in turns beside its bound, B2 at C = 2-4 to B1's bits,
+     ragged shapes; ``validate_mdqm9_physics`` at its defaults (epochs cut)
+     on the f32 and the bf16_agg kernel flags (792 B1 and 30 B3 launches a
+     run, all ``_f64``) against its default route on the same field and
+     the closed-form bars; the SDE on that field through B2 (C = 4);
+ 23. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -299,6 +312,18 @@ H100_TF32 = 495e12    # FLOP/s, dense TF32 tensor cores
 H100_HBM = 3.35e12    # bytes/s
 BAR = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # max |kernel - plain| / max |plain|
 SDE_CHAINS, SDE_STEPS, BENCH_SDE_STEPS = 8192, 20, 100  # bench.py:378 runs 100 steps
+# the stage-coupled RK4 reference of phase 11(a), cut from 256 steps (187 s on a
+# slow host): its gap to dopri5 read 1.356e-6 in the samples and 4.1e-4 in the
+# dlogps at 256 steps, 8.0e-7 and 5.4e-4 at 96 (dopri5's own error) and 4.4e-6
+# and 5.4e-3 at 64 (|dlogp| 50-125; PERF.md section 6), an order of magnitude
+# inside the bar of 1e-3 + 1e-3 |ref|
+REF_RK4_STEPS = 64
+# Euler steps a run of phase 11(b)'s timed edge-form sampler (bench.py's shape
+# takes 64; the metric is ms an evaluation; cut for the smoke's time)
+REF_SHAPE_STEPS = 32
+# batch of phase 12(a)'s dense bf16_agg step held against the CPU's (cut from
+# 256: the CPU's step took 31.8 s there)
+CPU_DENSE_BATCH = 64
 FUSED_CHAINS = 32  # the dense_fused exact sampler's batch
 LAYER_WEIGHT_BYTES = 2 * 15 * F * F  # one message layer's bf16 matrices, streamed a CTA
 # the harmonic well of phase 16's frames and stand-in energies: the width
@@ -333,6 +358,15 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
                                    "ti_tpu/ops/pair_tangent_kernel.py:76"),
     "pair_tangent_f32_f256": ("ti_torch/csrc/pair_tangent_tf32x3.cu",
                               "ti_tpu/ops/pair_tangent_kernel.py:76"),
+    "pair_layer_f64": ("ti_torch/csrc/pair_layer_tf32x3.cu", "ti_tpu/ops/pair_layer_kernel.py:83"),
+    "pair_layer_bf16_agg_f64": ("ti_torch/csrc/pair_layer_mma.cu",
+                                "ti_tpu/ops/pair_layer_kernel.py:83"),
+    "pair_layer_cb_f64": ("ti_torch/csrc/pair_layer_mma.cu",
+                          "ti_tpu/ops/pair_layer_kernel.py:190"),
+    "pair_tangent_f32_f64": ("ti_torch/csrc/pair_tangent_tf32x3.cu",
+                             "ti_tpu/ops/pair_tangent_kernel.py:76"),
+    "pair_tangent_bf16_agg_f64": ("ti_torch/csrc/pair_tangent_mma.cu",
+                                  "ti_tpu/ops/pair_tangent_kernel.py:76"),
     "fused_edge_mlp": ("ti_torch/csrc/fused_edge_mlp_tf32x3.cu",
                        "ti_tpu/ops/pallas_kernels.py:180"),
     "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp_tf32x3.cu",
@@ -440,7 +474,10 @@ def compare(outs, refs, dtype, what: str, bar=None) -> float:
     return worst_abs
 
 
-def layer_inputs(params, dtype, k: int, seed: int, b: int = CHAINS, n: int = N_ATOMS):
+def layer_inputs(params, dtype, k: int, seed: int, b: int = CHAINS, n: int = N_ATOMS,
+                 f: int = F):
+    """Layer 0 of ``params`` (width ``f``) packed for both tensor-core types,
+    and random inputs with k lanes for b chains of n atoms."""
     from ti_torch.ops.pair_layer_kernel import pack_layer, with_mma_weights, with_tf32_weights
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -448,11 +485,11 @@ def layer_inputs(params, dtype, k: int, seed: int, b: int = CHAINS, n: int = N_A
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
 
-    w = with_mma_weights(with_tf32_weights(pack_layer(params, 0, F, dtype, "cuda")))
+    w = with_mma_weights(with_tf32_weights(pack_layer(params, 0, f, dtype, "cuda")))
     x = 0.3 * torch.randn(b, n, 3, generator=g, device="cuda")
-    base = (x, rnd(b, n, F), rnd(b, 3, n, F, scale=0.3), rnd(b, n * n, F))
-    lanes = (torch.randn(b, k, n, 3, generator=g, device="cuda"), rnd(b, k, n, F, scale=0.1),
-             rnd(b, k, 3, n, F, scale=0.1), rnd(b, k, n * n, F, scale=0.1))
+    base = (x, rnd(b, n, f), rnd(b, 3, n, f, scale=0.3), rnd(b, n * n, f))
+    lanes = (torch.randn(b, k, n, 3, generator=g, device="cuda"), rnd(b, k, n, f, scale=0.1),
+             rnd(b, k, 3, n, f, scale=0.1), rnd(b, k, n * n, f, scale=0.1))
     return w, base, lanes
 
 
@@ -1046,8 +1083,9 @@ def phase_reference(model, template, card: str) -> dict:
     """11. The reference's own sampler and bench.py's reference shape: (a)
     ``sample_ambient(ambient_preset("00031"))`` with no overrides (dopri5 at
     atol = rtol = 1e-5, the exact divergence inside every stage, 12 chains)
-    against stage-coupled RK4 at 256 steps; (b) the edge-form Euler sampler
-    bench.py prices (64 steps, exact dlogp, batch 12), its ms per evaluation,
+    against stage-coupled RK4 at ``REF_RK4_STEPS`` steps; (b) the edge-form Euler sampler
+    bench.py prices (exact dlogp, batch 12; ``REF_SHAPE_STEPS`` of its 64
+    steps), its ms per evaluation,
     the edge velocity against the dense one and the sampler against the
     same over the dense form; (c) stage-coupled RK4 through
     ``impl="dense_fused"`` (B4, B5) against ``impl="dense"``, with its
@@ -1086,22 +1124,24 @@ def phase_reference(model, template, card: str) -> dict:
             "reference sampler: finite samples and dlogp")
     require(len(files) == 4, f"reference sampler wrote its four artifacts: {files}")
     t0 = time.perf_counter()
-    fine = make_ode_sampler(dense_of, solver="rk4", n_steps=256, n_save=2, return_dlogp=True,
-                            divergence="exact", device="cuda")(x0, ambient_temps(b))
+    fine = make_ode_sampler(dense_of, solver="rk4", n_steps=REF_RK4_STEPS, n_save=2,
+                            return_dlogp=True, divergence="exact", device="cuda")(x0,
+                                                                                 ambient_temps(b))
     torch.cuda.synchronize()
     wall_fine = time.perf_counter() - t0
     s_err = float(np.abs(out["samples"][:, -1] - fine.xs[:, -1].cpu().numpy()).max())
     d_ref = fine.dlogp[:, -1].cpu().numpy()
     d_err = float(np.abs(out["dlogps"] - d_ref).max())
-    log(f"[reference sampler] against stage-coupled RK4, 256 steps ({wall_fine:.3f} s): samples "
+    log(f"[reference sampler] against stage-coupled RK4, {REF_RK4_STEPS} steps ({wall_fine:.3f} s): "
+        f"samples "
         f"max abs err {s_err:.3e} (max |x| {float(np.abs(out['samples']).max()):.4f}), dlogp max "
         f"abs err {d_err:.3e} (max |dlogp| {float(np.abs(d_ref).max()):.4f}); bar rtol 1e-3 / "
         f"atol 1e-3, 100 x the solver's tolerance (tests/test_integrators.py holds dopri5 at "
         f"1e-7 to 2e-5 of fine RK4)")
     require(np.allclose(out["samples"][:, -1], fine.xs[:, -1].cpu().numpy(), rtol=1e-3, atol=1e-3),
-            "reference sampler: samples agree with RK4-256 (rtol 1e-3, atol 1e-3)")
+            f"reference sampler: samples agree with RK4-{REF_RK4_STEPS} (rtol 1e-3, atol 1e-3)")
     require(np.allclose(out["dlogps"], d_ref, rtol=1e-3, atol=1e-3),
-            "reference sampler: dlogp agrees with RK4-256 (rtol 1e-3, atol 1e-3)")
+            f"reference sampler: dlogp agrees with RK4-{REF_RK4_STEPS} (rtol 1e-3, atol 1e-3)")
 
     # (b) bench.py's reference shape: Euler steps as pure RHS evaluations over the edge form
     edge_of = molecular_v_fn_of(model, None, template, impl="edge", device="cuda")
@@ -1112,8 +1152,8 @@ def phase_reference(model, template, card: str) -> dict:
     v_err = (v_edge - v_dense).abs().max().item()
     require(bool(torch.allclose(v_edge, v_dense, rtol=2e-3, atol=2e-4)),
             f"edge-form velocity agrees with the dense form (rtol 2e-3, atol 2e-4): {v_err:.3e}")
-    kw = dict(solver="euler", n_steps=64, n_save=2, return_dlogp=True, divergence="exact",
-              steps_per_dispatch=64, device="cuda")
+    kw = dict(solver="euler", n_steps=REF_SHAPE_STEPS, n_save=2, return_dlogp=True,
+              divergence="exact", steps_per_dispatch=REF_SHAPE_STEPS, device="cuda")
     edge_s, dense_s = make_ode_sampler(edge_of, **kw), make_ode_sampler(dense_of, **kw)
     make_ode_sampler(edge_of, **dict(kw, n_steps=2))(x0, temps)  # warm-up, not timed
     walls = {}
@@ -1128,9 +1168,10 @@ def phase_reference(model, template, card: str) -> dict:
             edge_sol = sol
         else:
             dense_sol = sol
-    t_eval = min(walls["edge"]) / 64
-    fmt = lambda ws: " and ".join(f"{1e3 * w / 64:.3f}" for w in ws)
-    log(f"[reference shape, bench.py:353-363] edge-form Euler, 64 steps, exact dlogp, batch 12: "
+    t_eval = min(walls["edge"]) / REF_SHAPE_STEPS
+    fmt = lambda ws: " and ".join(f"{1e3 * w / REF_SHAPE_STEPS:.3f}" for w in ws)
+    log(f"[reference shape, bench.py:353-363] edge-form Euler, {REF_SHAPE_STEPS} steps, exact "
+        f"dlogp, batch 12: "
         f"ms per evaluation, in turns, edge {fmt(walls['edge'])}, dense {fmt(walls['dense'])} "
         f"(host clock, {card}); priced at REF_NFE = 500: {12.0 / (500 * t_eval):.4f} samples/s; "
         f"edge velocity against dense max abs err {v_err:.3e}")
@@ -1199,7 +1240,7 @@ def phase_training(card: str) -> None:
     loss and gradients on the card against the CPU from the same weights
     (``torch_default_weights_``), batch, t and z, in edge f32 at batch 12 (loss rtol 1e-5; gradients rtol
     1e-4 with atol 1e-5 of each leaf's largest |gradient|, TF32 off) and in
-    dense bf16_agg at batch 256 (loss and the whole gradient within 2e-2 of
+    dense bf16_agg at batch 64 (loss and the whole gradient within 2e-2 of
     the CPU's); (b) ~20 timed update steps (CUDA events after warm-up) of
     edge f32 at batch 12, dense f32 and dense bf16_agg at batch 256 and
     grad_accum 4 x 256 in bf16_agg: ms a step, molecules/s, peak memory;
@@ -1242,7 +1283,7 @@ def phase_training(card: str) -> None:
 
     # (a) one update's loss and gradients, card against CPU
     rng = np.random.default_rng(12)
-    for impl, dtype, b in (("edge", "f32", 12), ("dense", "bf16_agg", 256)):
+    for impl, dtype, b in (("edge", "f32", 12), ("dense", "bf16_agg", CPU_DENSE_BATCH)):
         c = ambient_preset("00031", **base, train_impl=impl, train_compute_dtype=dtype)
         idx0, idx1 = rng.choice(len(stack), b), rng.choice(len(stack), b)
         batch = [stack[idx0], stack[idx1], np.stack([stack_t[idx0], stack_t[idx1]], -1),
@@ -1368,12 +1409,13 @@ LATENT_CHAINS, LATENT_CMP = 256, 64  # latent_preset's batch; the plain-version 
 # earlier phases (13.2 GiB of the allocator's cache reserved but unallocated),
 # so it runs at 160 (51.8 GiB)
 PUBLISHED_LATENT_CHAINS = 160
-# phase 13(e): 128 chains, 16 RK4 steps, Simpson-9 and GL-8 over t in [0, 0.25].
+# phase 13(e): 64 chains (cut from 128 for the smoke's time), 16 RK4
+# steps, Simpson-9 and GL-8 over t in [0, 0.25].
 # Along this random field's trajectories the divergence has kinks (the norms of
 # equivariant features that pass near zero), which no rule of 8-9 nodes
 # resolves: the rules are held to themselves recomputed through B3, and their
 # gap to stage-coupled RK4 is reported
-QUAD_CHAINS, QUAD_STEPS, QUAD_POINTS, QUAD_T1 = 128, 16, 9, 0.25
+QUAD_CHAINS, QUAD_STEPS, QUAD_POINTS, QUAD_T1 = 64, 16, 9, 0.25
 
 
 def counted(fn):
@@ -1434,7 +1476,7 @@ def phase_latent(ambient_model, card: str) -> None:
         128 chains, its samples through ``sample_ambient`` under
         ``fast_profile(ambient_preset("00031"))`` with the noise and dlogp
         passed through (180 B1, 40 B3), and ``calc_importance_weights``;
-    (e) Simpson-9 and the unsegmented GL-8 sampler at 128 chains in f32
+    (e) Simpson-9 and the unsegmented GL-8 sampler at 64 chains in f32
         (``impl="dense_fused"``: B4, B5) over t in [0, 0.25], each against
         its rule recomputed by hand from B3's full frame at its nodes (phase
         4's bars), and beside stage-coupled RK4-16 with the exact divergence
@@ -1730,7 +1772,10 @@ def phase_latent(ambient_model, card: str) -> None:
     log(f"[phase 13] {time.perf_counter() - t_phase:.1f} s")
 
 
-ADW_CMP = 256  # chains of phase 14's card-against-CPU transport comparison
+# chains of phase 14's card-against-CPU transport comparison (cut from 256: the
+# CPU's dopri5 on 256 chains took 45.8 s on a slow host; dopri5 steps each
+# chain on its own clock, so the first chains' results do not depend on the batch)
+ADW_CMP = 64
 
 
 def adw_step_check(cfg, init, batch, dtype_name: str) -> dict:
@@ -1813,7 +1858,7 @@ def phase_adw(card: str) -> None:
         on the production route (RK4-64, GL-8 dlogp, the unsegmented Gauss
         sampler) and on the default dopri5 (the exact divergence in every
         stage, atol = rtol = 1e-4, 400 save points): samples/s and NFE, no
-        kernel launched; the first 256 chains against the CPU on the same
+        kernel launched; the first 64 chains against the CPU on the same
         weights (samples rtol 1e-4 / atol 1e-5, dlogp rtol 1e-3 / atol 1e-5);
     (d) ``reweighted_gedmd_spectrum`` (50 bootstraps) of both routes'
         output: finite eigenvalues."""
@@ -2622,6 +2667,11 @@ def main() -> int:
     from ti_torch.sampling.drivers import make_ode_sampler, molecular_v_fn_of, sample_ambient
 
     t_start = time.perf_counter()
+    marks = [("1", 0.0)]  # (phase, the smoke's seconds when it started)
+
+    def mark(phase: str) -> None:
+        marks.append((phase, time.perf_counter() - t_start))
+
     # ---- 1. card, precision flags, build ----
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2637,8 +2687,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[build]   {line.strip()}")
     for name in ("pair_tangent_mma", "pair_tangent_tf32x3", "pair_tangent_mma_f256",
-                 "pair_tangent_tf32x3_f256", "pair_layer_tf32x3",
-                 "pair_layer_tf32x3_f256", "pair_layer_mma", "pair_layer_mma_f256",
+                 "pair_tangent_tf32x3_f256", "pair_tangent_mma_f64", "pair_tangent_tf32x3_f64",
+                 "pair_layer_tf32x3", "pair_layer_tf32x3_f256", "pair_layer_tf32x3_f64",
+                 "pair_layer_mma", "pair_layer_mma_f256", "pair_layer_mma_f64",
                  "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3", "fused_mlp_tf32x3",
                  "div_kernel_tf32x3"):
         spills = [ln.strip() for ln in report[name]["ptxas"].splitlines() if "spill" in ln]
@@ -2652,6 +2703,7 @@ def main() -> int:
     rows_kernels = {}
 
     # ---- 2. B1 against its plain version ----
+    mark("2")
     # f32, the main path's trajectory profile: the 3xTF32 tensor-core kernel
     # and, timed beside it in turns, the f32-FMA kernel
     f32 = torch.float32
@@ -2745,6 +2797,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3. B3 against its plain version ----
+    mark("3")
     # bf16_agg, the main path's divergence profile: the tensor-core kernel
     k, lane_block, reps = 16, 4, 5
     w, base, lanes = layer_inputs(params, torch.bfloat16, k, seed=2)
@@ -2832,6 +2885,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. the exact slice against the plain-version sampler ----
+    mark("4")
     mol = make_synthetic_molecule(N_ATOMS, seed=0)
     template = graph_template(mol, t_cond=2)
     rng = np.random.default_rng(1)
@@ -2894,6 +2948,7 @@ def main() -> int:
             "exact slice: dlogp agrees with the plain versions (rtol 1e-3, atol 1e-3 max|dlogp|)")
 
     # ---- 5. the slice as users run it ----
+    mark("5")
     cfg = fast_profile(ambient_preset("00031"))
     require((cfg.traj_forward_impl, cfg.div_forward_impl, cfg.num_probes, cfg.probe_mode)
             == ("pair_kernel", "pair_tangent_bf16", 16, "orthogonal"), "fast_profile route")
@@ -3012,34 +3067,43 @@ def main() -> int:
         f"{math.sqrt(float((d16 ** 2).mean())):.5f}")
 
     # ---- 6-9. the SDE and fused-MLP slices ----
+    mark("6-9")
     phase_b2(params, rows_kernels, card)
     sde_launches = phase_sde(model, template, card)
     phase_fused_kernels(params, rows_kernels, report, card)
     fwd_launches, smp_launches = phase_fused_paths(model, template, card)
 
     # ---- 10. kernel B7 and the exact-divergence node ----
+    mark("10")
     div_launches = phase_div(model, template, card, rows_kernels, report)
 
     # ---- 11. the reference's sampler, bench.py's reference shape, stage-coupled B4/B5 ----
+    mark("11")
     phase_reference(model, template, card)
 
     # ---- 12. ambient training on the card, a trained field through B1 and B3 ----
+    mark("12")
     phase_training(card)
 
     # ---- 13. the latent family through B1 and B3, the BG→TI composition, quadrature ----
+    mark("13")
     phase_latent(model, card)
 
     # ---- 14. the ADW family: training, transport, reweighted gEDMD ----
+    mark("14")
     phase_adw(card)
 
     # ---- 15. the large molecule's fast profile: B1 at F = 256 ----
+    mark("15")
     launches10506 = phase_10506(rows_kernels, card)
 
     # ---- 16. the analysis layer over the main path's samples ----
+    mark("16")
     phase_analysis(model, template, card)
 
     # ---- 17. the parallel layer: chain- and lane-sharded sampling, data-parallel
     # training on NCCL at world size 1, the fan-out CLI on the one card ----
+    mark("17")
     from chip_smoke_parallel import phase_parallel
 
     launches17 = phase_parallel(model, template, card)
@@ -3048,27 +3112,38 @@ def main() -> int:
             f"the chain-sharded main path launches a batch's B1 and B3: {launches17}")
 
     # ---- 18. the user CLIs, the checkpoint import, the trace and the timer ----
+    mark("18")
     from chip_smoke_cli import phase_cli
 
     phase_cli(model, template, card)
 
     # ---- 19. the study CLIs: B1, B2, B4, B5 and B6 through the scans and profiles ----
+    mark("19")
     from chip_smoke_studies import phase_studies
 
     phase_studies(model, template, card)
 
     # ---- 20. B1 and B2 in f32 at F = 256, the physics-validation CLIs ----
+    mark("20")
     from chip_smoke_validate import phase_validate
 
     launches20 = phase_validate(model, rows_kernels, card)
 
     # ---- 21. B3 at F = 256 in both types, the 10506 nodes through it ----
+    mark("21")
     from chip_smoke_b3_f256 import phase_b3_f256
 
     launches21 = phase_b3_f256(rows_kernels, report, card)
 
-    # ---- 22. result lines ----
-    path_launches = {**launches20, **launches21, "pair_layer": launches["pair_layer"],
+    # ---- 22. B1/B2 and B3 at F = 64, validate_mdqm9_physics at its own width ----
+    mark("22")
+    from chip_smoke_f64 import phase_f64
+
+    launches22 = phase_f64(rows_kernels, report, card)
+
+    # ---- 23. result lines ----
+    mark("23")
+    path_launches = {**launches20, **launches21, **launches22, "pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_layer_bf16_agg_f256": launches10506["pair_layer"],
                      "pair_tangent": launches["pair_tangent"],
@@ -3087,6 +3162,9 @@ def main() -> int:
                         "launches": path_launches[name], "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain"], "bound_ms": r["bound"], "bound_by": r["by"],
                         "library_ms": None})
+    mark("end")
+    log("[phase seconds] " + ", ".join(f"{p} {t1 - t0:.1f}"
+                                       for (p, t0), (_, t1) in zip(marks, marks[1:])))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

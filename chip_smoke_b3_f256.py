@@ -51,6 +51,7 @@ from chip_smoke import (
     bound_ms,
     compare,
     cuda_ms,
+    layer_inputs,
     log,
     nbytes,
     ptxas_kernels,
@@ -64,24 +65,6 @@ LIBS = {torch.bfloat16: "pair_tangent_mma_f256", torch.float32: "pair_tangent_tf
 NAMES = {torch.bfloat16: "pair_tangent_bf16_agg_f256", torch.float32: "pair_tangent_f32_f256"}
 
 
-def _inputs(params, dtype, b: int, n: int, k: int, seed: int):
-    """Layer 0 of ``params`` packed for both tensor-core types, and random
-    inputs with k lanes for b chains of n atoms (F = 256)."""
-    from ti_torch.ops.pair_layer_kernel import pack_layer, with_mma_weights, with_tf32_weights
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-
-    def rnd(*shape, scale=1.0):
-        return (scale * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
-
-    w = with_mma_weights(with_tf32_weights(pack_layer(params, 0, F256, dtype, "cuda")))
-    x = 0.3 * torch.randn(b, n, 3, generator=g, device="cuda")
-    base = (x, rnd(b, n, F256), rnd(b, 3, n, F256, scale=0.3), rnd(b, n * n, F256))
-    lanes = (torch.randn(b, k, n, 3, generator=g, device="cuda"), rnd(b, k, n, F256, scale=0.1),
-             rnd(b, k, 3, n, F256, scale=0.1), rnd(b, k, n * n, F256, scale=0.1))
-    return w, base, lanes
-
-
 def _check(params, dtype, b: int, n: int, k: int, seed: int, lane_block=None, time_it=False,
            card: str = "") -> dict:
     """One launch against the plain version, a second to the bit, and with
@@ -89,7 +72,7 @@ def _check(params, dtype, b: int, n: int, k: int, seed: int, lane_block=None, ti
     from ti_torch.ops import _build
     from ti_torch.ops.pair_tangent_kernel import pair_tangent, pair_tangent_plain
 
-    w, base, lanes = _inputs(params, dtype, b, n, k, seed)
+    w, base, lanes = layer_inputs(params, dtype, k, seed, b, n, F256)
     what = f"B3 {'bf16_agg' if dtype == torch.bfloat16 else 'f32'} F={F256} B={b} N={n} K={k}"
     if lane_block:
         what += f" L={lane_block}"

@@ -710,7 +710,7 @@ def test_pair_layer_f256_refusals_and_counts():
     w16, base16, lanes16 = _layer256(torch.bfloat16, 4, k=2)
     w32, base32, lanes32 = _layer256(torch.float32, 4, k=2)
     before = dict(_build.LAUNCHES)
-    route = "got F=256; F = 256 runs only in B1, B2 and B3 on the tensor cores"
+    route = "got F=256; F = 64, 128 and 256 run in B1, B2 and B3 on the tensor cores"
     with pytest.raises(ValueError, match="pair_layer is built for F=128, " + route):
         pair_layer(*base32, w32, 10.0, variant="fma")
     with pytest.raises(ValueError, match="pair_layer is built for F=128, " + route):
@@ -931,8 +931,8 @@ def test_pair_tangent_div_fn_f32_frame_matches_plain():
 def test_wrappers_reject_what_the_kernels_do_not_take():
     _card()
     w, (x, s, v, e), lanes = _layer(torch.float32, 4)
-    with pytest.raises(ValueError, match="F=128"):
-        pair_layer(x, s[..., :64].contiguous(), v, e, w, 10.0)
+    with pytest.raises(ValueError, match="F=128"):  # F = 32: no library is built for it
+        pair_layer(x, s[..., :32].contiguous(), v, e, w, 10.0)
     with pytest.raises(ValueError, match="contiguous"):
         pair_layer(x, s.transpose(0, 1).contiguous().transpose(0, 1), v, e, w, 10.0)
     with pytest.raises(ValueError, match="must be"):
@@ -957,7 +957,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="variant"):
         pair_tangent(xb, sb, vb, eb, *lb, wb, 10.0, variant="wgmma")
     with pytest.raises(ValueError, match="F=128"):
-        pair_tangent(xb, sb[..., :64].contiguous(), vb, eb, *lb, wb, 10.0)
+        pair_tangent(xb, sb[..., :32].contiguous(), vb, eb, *lb, wb, 10.0)
     big = torch.zeros(1, 33, 3, device="cuda")
     with pytest.raises(ValueError, match="2..32 atoms, got 33"):
         pair_tangent(big, sb, vb, eb, *lb, wb, 10.0)
@@ -1775,3 +1775,104 @@ def test_large_scale_scan_refuses_f32_at_f256_and_runs_bf16_agg(capsys):
         assert nodes[impl]["launches"] == {f"pair_layer:{lib}": 3 * 1 * 4,
                                            "pair_tangent:pair_tangent_mma_f256": 2 * 1}
         assert nodes[impl]["samples_per_sec"] > 0
+
+
+F64 = 64
+F64_LIBS = {("pair_layer", torch.float32): "pair_layer_tf32x3_f64",
+            ("pair_layer", torch.bfloat16): "pair_layer_mma_f64",
+            ("pair_tangent", torch.float32): "pair_tangent_tf32x3_f64",
+            ("pair_tangent", torch.bfloat16): "pair_tangent_mma_f64"}
+
+
+def _layer64(dtype, n, b, k=0, seed=3):
+    """Layer 0 of an F = 64 field packed for both tensor-core types, and
+    inputs for b chains of n atoms with k lanes."""
+    model = torch_default_weights_(CPaiNN(F64, 1, n_atoms=n))
+    params = {name: t.detach() for name, t in model.state_dict().items()}
+    w = with_mma_weights(with_tf32_weights(pack_layer(params, 0, F64, dtype, "cuda")))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
+
+    x = 0.3 * torch.randn(b, n, 3, generator=g, device="cuda")
+    base = (x, rnd(b, n, F64), rnd(b, 3, n, F64, scale=0.3), rnd(b, n * n, F64))
+    lanes = (torch.randn(b, k, n, 3, generator=g, device="cuda"), rnd(b, k, n, F64, scale=0.1),
+             rnd(b, k, 3, n, F64, scale=0.1), rnd(b, k, n * n, F64, scale=0.1))
+    return w, base, lanes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,b", [(4, 37), (19, 13), (32, 5)])
+def test_pair_layer_f64_matches_plain(dtype, n, b):
+    """B1 at F = 64 (pair_layer_tf32x3_f64, pair_layer_mma_f64) against its
+    plain version at N = 4, 19 and 32, each batch leaving the last 64-row
+    tile ragged; B2 at C = 2, 3 and 4 equal to B1 to the bit, every launch
+    from the type's ``_f64`` library."""
+    _card()
+    w, base, _ = _layer64(dtype, n, b)
+    _build.reset_launches()
+    out = pair_layer(*base, w, 10.0)
+    torch.cuda.synchronize()
+    _assert_close(out, pair_layer_plain(*base, w, 10.0), dtype)
+    for c in (2, 3, 4):
+        cb = pair_layer(*base, w, 10.0, c)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, q) for a, q in zip(cb, out))
+    lib = F64_LIBS["pair_layer", dtype]
+    assert _build.route_counts() == {f"pair_layer:{lib}": 1, f"pair_layer_cb:{lib}": 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,lane_block", [(torch.float32, None), (torch.bfloat16, None),
+                                              (torch.bfloat16, 2), (torch.bfloat16, 1)])
+@pytest.mark.parametrize("n,b,k", [(4, 9, 12), (19, 3, 8), (32, 2, 6)])
+def test_pair_tangent_f64_matches_plain(dtype, lane_block, n, b, k):
+    """B3 at F = 64 (pair_tangent_tf32x3_f64, pair_tangent_mma_f64) against
+    its plain version at N = 4, 19 and 32: f32 in 128-row lane tiles (32
+    lanes a tile at N = 4, 6 at N = 19 with a partial last tile, 4 at N =
+    32 with 2 tiles of 4 and 2), bf16_agg in lane blocks of 4 (where they
+    divide K), 2 and 1; two launches agree to the bit."""
+    _card()
+    if lane_block is None and dtype == torch.bfloat16 and k % 4:
+        lane_block = 2
+    w, base, lanes = _layer64(dtype, n, b, k)
+    _build.reset_launches()
+    out = pair_tangent(*base, *lanes, w, 10.0, lane_block)
+    again = pair_tangent(*base, *lanes, w, 10.0, lane_block)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, q) for a, q in zip(out, again))
+    _assert_close(out, pair_tangent_plain(*base, *lanes, w, 10.0, lane_block), dtype)
+    assert _build.route_counts() == {f"pair_tangent:{F64_LIBS['pair_tangent', dtype]}": 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("traj_impl,div_impl", [
+    ("pair_kernel", "pair_tangent"), ("pair_kernel_bf16", "pair_tangent_bf16"),
+    ("pair_kernel", "pair_tangent_bf16"), ("pair_kernel_bf16", "pair_tangent")])
+def test_validate_mdqm9_cli_kernel_routes_at_f64(tmp_path, capsys, traj_impl, div_impl):
+    """``validate_mdqm9_physics`` at its default ``--features 64`` and 3
+    layers, one epoch of 64 frames a temperature, 1024 chains, RK4-8 over
+    GL-2's three gaps with the exact divergence (the K = 12 frame): B1 runs
+    3 gaps x 3 steps x 4 stages x 3 layers, B3 2 nodes x 3 layers, each from
+    its type's ``_f64`` library, and the JSON is finite."""
+    import json
+    import math
+
+    from ti_torch.cli import validate_mdqm9_physics
+
+    _card()
+    _build.reset_launches()
+    assert validate_mdqm9_physics.main([
+        "--epochs", "1", "--frames", "64", "--batch", "32", "--eval_steps", "8", "--quad_dlogp",
+        "--traj_impl", traj_impl, "--div_impl", div_impl, "--gl_points", "2", "--out_dir",
+        str(tmp_path)]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    layer = F64_LIBS["pair_layer", torch.bfloat16 if traj_impl.endswith("bf16") else torch.float32]
+    tangent = F64_LIBS["pair_tangent",
+                       torch.bfloat16 if div_impl.endswith("bf16") else torch.float32]
+    assert _build.route_counts() == {f"pair_layer:{layer}": 3 * 3 * 4 * 3,
+                                     f"pair_tangent:{tangent}": 2 * 3}
+    assert (row["traj_impl"], row["div_impl"]) == (traj_impl, div_impl)
+    assert all(math.isfinite(v) for v in row.values() if isinstance(v, float))

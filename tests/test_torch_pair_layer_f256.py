@@ -10,7 +10,8 @@ through them: ``sample_ambient`` under ``fast_profile(ambient_preset(
   every chain block, bf16_agg and f32; ``variant="fma"`` (``pair_layer``),
   B3's F = 128 libraries and B4-B7 refuse the width, each naming the routes
   that take it, and B3's tensor-core variants take their ``_f256`` builds
-  (tests/test_torch_pair_tangent_f256.py); every library refuses F = 64.
+  (tests/test_torch_pair_tangent_f256.py); every library refuses F = 32,
+  a width no library is built for.
 - The plain forward at F = 256 (the kernels' yardstick on the card) against
   ``ti_tpu``'s Pallas kernel in interpret mode on weights carried across by
   ``params_from_flax``: bf16_agg at atol 4e-2 of max |ref|, the bf16_agg bar
@@ -53,6 +54,7 @@ from ti_torch.sampling import drivers
 
 F256 = 256
 N_ATOMS, LAYERS, B = 6, 2, 3
+ROUTE = "F = 64, 128 and 256 run in B1, B2 and B3 on the tensor cores"
 SIZE = dict(n_features=F256, score_layers=LAYERS, batch_size=B)
 STEPS = dict(n_steps=9)
 
@@ -100,8 +102,7 @@ def test_route_table_at_f256(bf16, chain_block, variant, lib):
         assert plk._check_pair_inputs(*args, lib) == (2, 5, F256, dtype)
         assert plk.LIB_WIDTHS[lib] == F256
         return
-    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=128, got F=256; F = 256 "
-                                               "runs only in B1, B2 and B3 on the tensor cores"):
+    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=128, got F=256; {ROUTE}"):
         plk._check_pair_inputs(*args, lib)
 
 
@@ -110,14 +111,15 @@ def test_route_table_at_f256(bf16, chain_block, variant, lib):
                                  "pair_tangent", "pair_tangent_mma", "pair_tangent_tf32x3",
                                  "pair_tangent_mma_f256", "pair_tangent_tf32x3_f256"])
 def test_every_library_refuses_f64(lib):
-    """F = 64 (the validation CLIs' default width) is built by no library:
-    the launch check of each refuses it, naming the library and the routes
-    that take F = 256; at F = 64 the routes are F = 128's."""
-    assert plk._route(False, 1, None, 64) == "pair_layer_tf32x3"
-    assert plk._route(True, 1, None, 64) == "pair_layer_mma"
-    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=(128|256), got F=64; "
-                                               "F = 256 runs only in B1, B2 and B3"):
-        plk.check_width(64, lib, plk.LIB_WIDTHS.get(lib, plk.KERNEL_F))
+    """F = 32 is built by no library (F = 64, the validation CLIs' default
+    width, now is: tests/test_torch_pair_kernels_f64.py): the launch check
+    of each refuses it, naming the library and the widths that run; at F =
+    32 the routes are F = 128's."""
+    assert plk._route(False, 1, None, 32) == "pair_layer_tf32x3"
+    assert plk._route(True, 1, None, 32) == "pair_layer_mma"
+    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=(128|256), got F=32; "
+                                               f"{ROUTE}"):
+        plk.check_width(32, lib, plk.LIB_WIDTHS.get(lib, plk.KERNEL_F))
 
 
 @pytest.mark.parametrize("bf16,variant,lib", [
@@ -127,14 +129,13 @@ def test_every_library_refuses_f64(lib):
 def test_b3_refuses_f256(bf16, variant, lib):
     """B3 at F = 256 (``lib`` is the F = 128 route): the tensor-core
     variants take ``lib``'s ``_f256`` build, whose launch check passes the
-    width while ``lib``'s own refuses it, naming the routes that take F =
-    256; the f32-FMA kernel, built at F = 128 only, refuses the width in
-    its route."""
+    width while ``lib``'s own refuses it, naming the widths that run and
+    their routes; the f32-FMA kernel, built at F = 128 only, refuses the
+    width in its route."""
     assert ptk._route(bf16, variant) == lib
     dtype = BF16 if bf16 else torch.float32
     args = (*_inputs(dtype), _weights(F256, dtype))
-    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=128, got F=256; F = 256 "
-                                               "runs only in B1, B2 and B3 on the tensor cores"):
+    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=128, got F=256; {ROUTE}"):
         plk._check_pair_inputs(*args, lib)
     if variant == "fma":
         with pytest.raises(plk.WidthRefusal, match="pair_tangent is built for F=128, got F=256"):
@@ -151,7 +152,7 @@ def test_b4_b5_b7_width_check_refuses_f256(what):
     F = 256 raises with the route that takes it (B6's own check is held on
     the card, tests/test_torch_gpu.py)."""
     plk.check_width(128, what)
-    with pytest.raises(ValueError, match=f"{what} is built for F=128, got F=256; F = 256 runs"):
+    with pytest.raises(ValueError, match=f"{what} is built for F=128, got F=256; {ROUTE}"):
         plk.check_width(F256, what)
 
 

@@ -6,7 +6,7 @@ runs through them: the 10506 profile's divergence nodes.
 
 - The route table at F = 256: both types on ``"mma"`` take their ``_f256``
   library, ``"fma"`` refuses the width naming the routes that take it, and
-  every B3 library refuses F = 64.
+  every B3 library refuses F = 32, a width no library is built for.
 - The shared memory of every lane block the wrapper accepts at F = 256 (1
   and 2 in bf16_agg; 4 is refused), the f32 kernel's, and the lane tiles
   of 32 rows.
@@ -27,7 +27,7 @@ runs through them: the 10506 profile's divergence nodes.
   on this field, tests/test_torch_pair_layer_f256.py).
 - ``validate_mdqm9_physics.check_flags`` on a ``cuda`` device object (it
   touches no card): ``--features 256`` passes with either B3 route,
-  ``--features 64`` is refused.
+  ``--features 32`` is refused.
 """
 
 import jax
@@ -59,7 +59,7 @@ N_ATOMS, LAYERS, B = 6, 2, 3
 SIZE = dict(n_features=F256, score_layers=LAYERS, batch_size=B)
 LIBS = ("pair_tangent", "pair_tangent_mma", "pair_tangent_tf32x3", "pair_tangent_mma_f256",
         "pair_tangent_tf32x3_f256")
-B3_ROUTE = "F = 256 runs only in B1, B2 and B3 on the tensor cores"
+B3_ROUTE = "F = 64, 128 and 256 run in B1, B2 and B3 on the tensor cores"
 
 
 def _inputs(dtype, f=F256, n=5, b=2, k=4, seed=3):
@@ -108,15 +108,16 @@ def test_fma_refuses_f256():
 
 @pytest.mark.parametrize("lib", LIBS)
 def test_every_b3_library_refuses_f64(lib):
-    """F = 64 is built by no B3 library: at F = 64 the tensor-core routes are
-    F = 128's, and the launch check of each library refuses the width."""
-    assert ptk._route(True, "mma", 64) == "pair_tangent_mma"
-    assert ptk._route(False, "mma", 64) == "pair_tangent_tf32x3"
-    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=(128|256), got F=64; "
+    """F = 32 is built by no B3 library (F = 64 now is:
+    tests/test_torch_pair_kernels_f64.py): at F = 32 the tensor-core routes
+    are F = 128's, and the launch check of each library refuses the width."""
+    assert ptk._route(True, "mma", 32) == "pair_tangent_mma"
+    assert ptk._route(False, "mma", 32) == "pair_tangent_tf32x3"
+    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=(128|256), got F=32; "
                                                f"{B3_ROUTE}"):
-        plk.check_width(64, lib, plk.LIB_WIDTHS.get(lib, plk.KERNEL_F))
+        plk.check_width(32, lib, plk.LIB_WIDTHS.get(lib, plk.KERNEL_F))
     with pytest.raises(plk.WidthRefusal):
-        ptk._route(False, "fma", 64)
+        ptk._route(False, "fma", 32)
 
 
 @pytest.mark.parametrize("lane_block,accepted", [(1, True), (2, True), (4, False)])
@@ -236,14 +237,14 @@ def test_sample_ambient_10506_b3_nodes_match_jax(setup):
 @pytest.mark.parametrize("div_impl", ["pair_tangent", "pair_tangent_bf16"])
 def test_validate_cli_takes_f256_and_refuses_f64_on_cuda(div_impl):
     """``check_flags`` with a ``cuda`` device object (no card is touched):
-    B3 at ``--features 256`` passes, ``--features 64`` raises the width
-    refusal naming the library."""
+    B3 at ``--features 256`` passes, ``--features 32`` (built by no
+    library) raises the width refusal naming the library."""
     dev = torch.device("cuda")
     args = validate_mdqm9_physics.parse(["--quad_dlogp", "--div_impl", div_impl,
                                          "--features", "256"])
     validate_mdqm9_physics.check_flags(args, dev)
     lib = "pair_tangent_mma" if div_impl.endswith("bf16") else "pair_tangent_tf32x3"
     args = validate_mdqm9_physics.parse(["--quad_dlogp", "--div_impl", div_impl,
-                                         "--features", "64"])
-    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=128, got F=64"):
+                                         "--features", "32"])
+    with pytest.raises(plk.WidthRefusal, match=f"{lib} is built for F=128, got F=32"):
         validate_mdqm9_physics.check_flags(args, dev)

@@ -456,8 +456,8 @@ def test_scans_record_only_oom_and_the_width_refusal(monkeypatch, capsys):
     rows = [json.loads(ln) for ln in _lines(capsys)]
     assert [("error" in r) for r in rows] == [False, True, False]
     assert rows[1]["error"].startswith("WidthRefusal: pair_layer_tf32x3 is built for F=128, "
-                                       "got F=256; F = 256 runs only in B1, B2 and B3 on the "
-                                       "tensor cores")
+                                       "got F=256; F = 64, 128 and 256 run in B1, B2 and B3 on "
+                                       "the tensor cores")
 
     real_sde = drivers.sample_molecular_sde
 

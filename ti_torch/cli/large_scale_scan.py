@@ -20,9 +20,10 @@ Hutchinson dlogp, bf16_agg) through ``make_ode_sampler`` across:
     in f32 / bf16_agg, ``pair_tangent_div_fn``; at F = 256 the libraries
     pair_tangent_tf32x3_f256 / pair_tangent_mma_f256).
 
-At F = 256 and at F = 128 (``--atoms 19 --features 128``) every impl runs
-its kernel; at another width a kernel row reports the width refusal
-(``WidthRefusal``, naming the routes that take F = 256) as an ``error`` row
+At F = 256, at F = 128 (``--atoms 19 --features 128``) and at F = 64 (the
+``_f64`` builds of the same sources) every impl runs its kernel; at another
+width a kernel row reports the width refusal (``WidthRefusal``, naming the
+widths that run and their routes) as an ``error`` row
 and the scan goes on, never running the plain version in its place. On the
 CPU every wrapper takes its plain version.
 

@@ -10,7 +10,8 @@ spot over (chains, compute_dtype, impl, chain_block) at the bench config.
 layers in kernel B1 (``chain_block`` 1) or B2 (above 1), f32 in
 csrc/pair_layer_tf32x3.cu and ``bf16_agg`` in csrc/pair_layer_mma.cu
 (built at F = 128 and, as pair_layer_tf32x3_f256 and pair_layer_mma_f256,
-at F = 256; plain ``bf16`` has no kernel and is skipped for it).
+at F = 256, and as pair_layer_tf32x3_f64 and pair_layer_mma_f64 at F = 64;
+plain ``bf16`` has no kernel and is skipped for it).
 
 Timing: the whole rollout, fenced by ``torch.cuda.synchronize()``, on the
 host clock; best of ``--reps`` after one warm-up run. Each row carries the
@@ -72,7 +73,8 @@ def main(argv=None) -> int:
     p.add_argument(
         "--chain_blocks", type=str, default="1",
         help="comma-separated chain blocks for pair_kernel (min(C, 3) 64-row "
-        "tiles a CTA in bf16_agg, B1's tiles in f32; dense ignores it)",
+        "tiles a CTA in bf16_agg, min(C, 4) at F = 64, B1's tiles in f32; dense "
+        "ignores it)",
     )
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)

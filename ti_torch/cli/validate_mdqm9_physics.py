@@ -15,8 +15,8 @@ weights go to ``out_dir/oracle_params.npz`` (``convert.save_npz`` with the
 arch flags that shape them); ``--reuse`` reads them back and exits on an
 arch mismatch. ``--traj_impl``, ``--div_impl`` and ``--probe_debias`` need
 ``--quad_dlogp``; on the card a kernel flag whose library is not built for
-``--features`` raises ``WidthRefusal`` before anything trains (the kernels
-take F = 128, and B1 and B3 F = 256 as well; ``ops/pair_layer_kernel.py``).
+``--features`` raises ``WidthRefusal`` before anything trains (B1 and B3 take
+F = 64, the default, 128 and 256; ``ops/pair_layer_kernel.py``).
 """
 from __future__ import annotations
 

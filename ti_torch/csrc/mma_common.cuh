@@ -207,6 +207,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 // At F = 256 the row's 128 accumulators do not fit beside the weight
 // fragments: the product runs in two column halves of 64 and stores each
 // half as it ends, so out must not be A (the F = 256 callers keep them apart).
+// At F = 64 and 128 the row's FT n-tiles run at once (32 and 64 accumulators).
 template <int KT>
 __device__ __forceinline__ void front_product(bf16* out, int ldo, const bf16* A, int lda,
                                               int row0, const uint4* __restrict__ W,
@@ -234,7 +235,7 @@ __device__ __forceinline__ void front_product(bf16* out, int ldo, const bf16* A,
       }
     }
     __syncwarp();
-  } else {
+  } else {  // F = 64 or 128
     float acc[FT][4];
     frag_zero(acc);
     mma_rows<FP, KT, FP>(acc, A, lda, row0, W, 0);

@@ -27,11 +27,13 @@ namespace pk {
 
 // feature width: 128 for every library; pair_layer_mma.cu,
 // pair_layer_tf32x3.cu, pair_tangent_mma.cu and pair_tangent_tf32x3.cu are
-// built a second time with -DPK_F=256 (ops/_build.py BUILT_FROM)
+// built twice more, with -DPK_F=256 and -DPK_F=64 (ops/_build.py BUILT_FROM).
+// Their width choices name all three widths, so no width runs another's design.
 #ifndef PK_F
 #define PK_F 128
 #endif
 constexpr int F = PK_F;
+static_assert(F == 64 || F == 128 || F == 256, "the pair kernels are built at F = 64, 128 or 256");
 constexpr int R = 32;           // pair rows per CTA (src atoms of one dst atom)
 constexpr int NT = 256;         // threads per CTA
 constexpr int NW = NT / 32;     // warps

@@ -65,9 +65,17 @@
 // 256 threads an SM, or one of 512).
 //
 // F and the tile sizes are named constants (pair_common.cuh, mma_common.cuh).
-// The source is built twice (ops/_build.py): at F = 128 (pair_layer_mma) and
+// The source is built three times (ops/_build.py): at F = 128 (pair_layer_mma),
+// with -DPK_F=64 (pair_layer_mma_f64, the validation CLIs' default width) and
 // with -DPK_F=256 (pair_layer_mma_f256, the 10506 profile's 29 atoms x F =
-// 256). At F = 256 one tile fills a CTA's shared memory, so B2 takes one tile
+// 256). At F = 64 a tile is 34,048 bytes and six would fit a CTA; B2 takes up
+// to four (min(C, 4): C = 4 is the largest chain block a path runs, and each
+// tile count is a kernel of its own). A CTA of one tile has F / 16 = 4 warps,
+// each all 64 columns of a product (the accumulators and weight fragments of
+// the 8-warp CTA at F = 128), four CTAs an SM; a CTA of 2-4 tiles has 16
+// warps, each a quarter of the columns (one CTA an SM): 16 warps an SM
+// either way. A row of 64 columns is one 16-byte chunk a lane of a
+// quarter-warp, so LayerNorm takes a row a quarter-warp. At F = 256 one tile fills a CTA's shared memory, so B2 takes one tile
 // a CTA whatever chain_block, and that CTA has 16 warps, each a quarter of
 // the columns of a product: a warp holds the same accumulators and weight
 // fragments as in the 8-warp CTA of one tile at F = 128, so the register
@@ -81,8 +89,10 @@ namespace lmma {
 
 constexpr int TR = 64;          // pair rows of a row tile
 constexpr int LDX = 2 * F;      // row stride of X
-constexpr int LCH = F / 128;    // 16-byte chunks a lane takes of a row in LayerNorm
-constexpr int WARPS1 = FP;      // warps of a CTA of one tile: 8 at F = 128, 16 at 256
+// 16-byte chunks a lane takes of a row in LayerNorm: a half-warp a row at F =
+// 128 and 256; at F = 64 a quarter-warp a row, one chunk a lane
+constexpr int LCH = F == 64 ? 1 : F / 128;
+constexpr int WARPS1 = FP;      // warps of a CTA of one tile: 4 at F = 64, 8 at 128, 16 at 256
 
 // one tile's shared memory: X, Y, H (bf16 element offsets), then dist (TR f32),
 // mask (TR f32) and dir (3 x TR pairs of equal bf16)
@@ -90,10 +100,13 @@ constexpr int X_OFF = 0, Y_OFF = TR * LDX, H_OFF = Y_OFF + TR * F;
 constexpr size_t TILE_BF16 = (size_t)TR * 4 * F;
 constexpr size_t TILE_BYTES = sizeof(bf16) * TILE_BF16 + sizeof(float) * 5 * TR;
 constexpr size_t TSTRIDE = TILE_BYTES / sizeof(bf16);  // tile c starts at c * TSTRIDE
-// row tiles a CTA: as many as fit its shared memory, three at F = 128, one at 256
-constexpr int MAX_TILES = (int)(232448 / TILE_BYTES);
+// row tiles a CTA: as many as fit its shared memory, three at F = 128, one at
+// 256; four at F = 64, where six fit
+constexpr int MAX_TILES = F == 64 ? 4 : (int)(232448 / TILE_BYTES);
 static_assert(TILE_BYTES % 16 == 0, "tiles start on 16-byte boundaries");
-static_assert(MAX_TILES == (F == 128 ? 3 : 1), "three tiles fit a CTA at F = 128, one at 256");
+static_assert(MAX_TILES * TILE_BYTES <= 232448, "a CTA's tiles fit its shared memory");
+static_assert(MAX_TILES == (F == 64 ? 4 : F == 128 ? 3 : 1),
+              "four tiles a CTA at F = 64, three at F = 128, one at 256");
 
 // the shared memory of a CTA of TB row tiles
 __host__ __device__ constexpr size_t smem_bytes(int TB) { return TB * TILE_BYTES; }
@@ -155,12 +168,59 @@ __device__ __forceinline__ void store_tiles(bf16* out, int ldo, int col0, int ro
 
 // LayerNorm (f32 statistics, eps 1e-5) -> SiLU in place on the F columns
 // col0 .. of every row of the TB tiles of T (row stride ld): a half-warp
-// takes a row, a lane LCH 16-byte chunks of 8 columns; scale and bias come
-// from global memory once a call
+// takes a row, a lane LCH 16-byte chunks of 8 columns (at F = 64 a
+// quarter-warp a row, a lane one chunk); scale and bias come from global
+// memory once a call
 template <int TB, int NWARP>
 __device__ __forceinline__ void ln_silu_tiles(bf16* T, int ld, int col0,
                                               const float* __restrict__ scale,
                                               const float* __restrict__ bias) {
+  if constexpr (F == 64) {
+    const int lane = lane_id(), ql = lane & 7;
+    float sc[8], bi[8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(scale + 8 * ql + 4 * h));
+      const float4 o = __ldg(reinterpret_cast<const float4*>(bias + 8 * ql + 4 * h));
+      sc[4 * h] = a.x, sc[4 * h + 1] = a.y, sc[4 * h + 2] = a.z, sc[4 * h + 3] = a.w;
+      bi[4 * h] = o.x, bi[4 * h + 1] = o.y, bi[4 * h + 2] = o.z, bi[4 * h + 3] = o.w;
+    }
+#pragma unroll 1
+    for (int rr = 4 * (threadIdx.x >> 5) + (lane >> 3); rr < TB * TR; rr += 4 * NWARP) {
+      const int r = rr % TR;
+      bf16* row = T + (rr / TR) * TSTRIDE;
+      uint4* at = reinterpret_cast<uint4*>(row + swz(r, col0 + 8 * ql, ld));
+      const uint4 u = *at;
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+      float v[8], s = 0.f;
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float2 f = f2(as_bf162(w[h]));
+        v[2 * h] = f.x;
+        v[2 * h + 1] = f.y;
+        s += f.x + f.y;
+      }
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+      const float mu = s * (1.f / F);
+      float q = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) q += (v[e] - mu) * (v[e] - mu);
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) q += __shfl_xor_sync(FULL, q, o);
+      const float rstd = 1.f / sqrtf(q * (1.f / F) + 1e-5f);
+      uint32_t out[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float l0 = (v[2 * h] - mu) * rstd * sc[2 * h] + bi[2 * h];
+        const float l1 = (v[2 * h + 1] - mu) * rstd * sc[2 * h + 1] + bi[2 * h + 1];
+        const bf162 o = round2(l0 * sigmoidf(l0), l1 * sigmoidf(l1));
+        out[h] = *reinterpret_cast<const uint32_t*>(&o);
+      }
+      *at = make_uint4(out[0], out[1], out[2], out[3]);
+    }
+    return;
+  }
   const int lane = lane_id(), hl = lane & 15;
   float sc[LCH][8], bi[LCH][8];
 #pragma unroll
@@ -223,7 +283,7 @@ __device__ __forceinline__ const uint4* wmat(const uint4* wpk, size_t off) { ret
 // owns rows 16 (w % 4) .. of every tile and column block w / 4 of each F-wide
 // product (NWARP / 4 blocks of CW columns).
 template <int TB, int NWARP>
-__global__ void __launch_bounds__(32 * NWARP, NWARP == 8 ? 2 : 1)
+__global__ void __launch_bounds__(32 * NWARP, NWARP == 4 ? 4 : NWARP == 8 ? 2 : 1)
 pair_layer_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ s,
                       const bf16* __restrict__ v, const bf16* __restrict__ e,
                       const uint4* __restrict__ wpk, const float* __restrict__ vecs,
@@ -453,9 +513,10 @@ int launch(const void* x, const void* s, const void* v, const void* e, const voi
   return (int)cudaGetLastError();
 }
 
-// WARPS1 warps for one tile (two CTAs an SM at F = 128, one at 256), 16 for
-// two or three (one CTA an SM; F = 128 only). A template over MAX_TILES, so
-// that at F = 256 the discarded branch instantiates no kernel.
+// WARPS1 warps for one tile (four CTAs an SM at F = 64, two at F = 128, one at
+// 256), 16 for two or three (one CTA an SM; F = 64 and 128), and for four (F =
+// 64 only). A template over MAX_TILES, so that the discarded branches
+// instantiate no kernel.
 template <int MT>
 int launch_tiles(const void* x, const void* s, const void* v, const void* e, const void* mats,
                  const void* vecs, void* dv, void* ds, void* e_out, int B, int N, int G,
@@ -463,6 +524,9 @@ int launch_tiles(const void* x, const void* s, const void* v, const void* e, con
   if (TB == 1) return launch<1, WARPS1>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, G, ctas, pe_scale, stream);
   if constexpr (MT >= 3) {
     if (TB == 2) return launch<2, 16>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, G, ctas, pe_scale, stream);
+    if constexpr (MT >= 4) {
+      if (TB == 4) return launch<4, 16>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, G, ctas, pe_scale, stream);
+    }
     return launch<3, 16>(x, s, v, e, mats, vecs, dv, ds, e_out, B, N, G, ctas, pe_scale, stream);
   } else {
     return (int)cudaErrorInvalidValue;

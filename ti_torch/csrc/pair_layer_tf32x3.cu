@@ -48,9 +48,16 @@
 //   with rolled loops (with a register fragment the bf16 kernel spilled);
 // - the epilogues are f32 (bias, LayerNorm with f32 statistics and eps 1e-5,
 //   SiLU, the mask, sincosf), as the plain version computes them.
-// Built at two widths from this file (PK_F, pair_common.cuh; ops/_build.py):
+// Built at three widths from this file (PK_F, pair_common.cuh; ops/_build.py):
 // - F = 128 (library pair_layer_tf32x3): 8 warps, 99,584 bytes of shared
 //   memory and 128 registers a thread, no spills: two CTAs of 8 warps an SM;
+// - F = 64 (library pair_layer_tf32x3_f64, -DPK_F=64; the validation CLIs'
+//   default width): the same 64-row tile and 32 x 32 warp block, so a CTA has
+//   F / 16 = 4 warps and 50,432 bytes of shared memory (X 64 x 128, Y 64 x
+//   64), and four CTAs share an SM at the same 128-register cap a thread (16
+//   warps an SM, as at F = 128). A row of 64 columns is half a warp's 32 x
+//   4: LayerNorm takes a row a half-warp, with its own shuffle sums (16
+//   rows a warp). The layer's f32 weights are 0.25 MB, 0.49 MB packed hi/lo;
 // - F = 256 (library pair_layer_tf32x3_f256, -DPK_F=256): the same 64-row
 //   tile and warp block, so the CTA has F / 16 = 16 warps (two row halves x
 //   F / 32 column blocks) and 197,888 bytes of shared memory (X 64 x 512, Y
@@ -69,19 +76,37 @@ namespace tf32x3 {
 enum { T_DIST, T_MASK, T_DIR0, T_DIR1, T_DIR2, TGEO };
 constexpr size_t SMEM = sizeof(float) * ((size_t)TR * (LDX + F) + TGEO * TR);
 // threads of a CTA: two 32-row halves x F / 32 column blocks of 32, a warp
-// each (8 warps at F = 128, 16 at F = 256); CTAs an SM the launch bounds ask
+// each (4 warps at F = 64, 8 at F = 128, 16 at F = 256); CTAs an SM the
+// launch bounds ask
 constexpr int BNT = 2 * F;
 constexpr int BNW = BNT / 32;
-constexpr int MIN_CTAS = F == 128 ? 2 : 1;
+constexpr int MIN_CTAS = F == 64 ? 4 : F == 128 ? 2 : 1;
 
 // LayerNorm (f32 statistics, eps 1e-5) -> SiLU in place on a swizzled TR x F
-// tile: ln_silu_rows at F = 128; wider, warp w takes rows TR / BNW * w ..
-// and lane l the columns 128 c + 4 l .. + 3 of each 128-wide chunk c, read
-// from the tile once for the mean, once for the variance and once to write
-// (holding a row's 8 values across the two reductions spilled registers)
+// tile: ln_silu_rows at F = 128; at F = 64 warp w takes rows TR / BNW * w ..
+// (16), two at a time, a half-warp a row and lane l of it the columns
+// 4 (l % 16) .. + 3; at F = 256 warp w takes rows TR / BNW * w .. and lane l
+// the columns 128 c + 4 l .. + 3 of each 128-wide chunk c, read from the
+// tile once for the mean, once for the variance and once to write (holding
+// a row's 8 values across the two reductions spilled registers)
 __device__ __forceinline__ void ln_silu_tile(float* T, int ld, const float* __restrict__ scale,
                                              const float* __restrict__ bias) {
-  if constexpr (F == 128) {
+  if constexpr (F == 64) {
+    constexpr int RW = TR / BNW;
+    const int lane = lane_id(), hl = lane & 15, w = (threadIdx.x & (BNT - 1)) >> 5;
+    const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + 4 * hl));
+    const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + 4 * hl));
+#pragma unroll 1
+    for (int rr = lane >> 4; rr < RW; rr += 2) {  // both halves take RW / 2 rows
+      float4* at = reinterpret_cast<float4*>(T + swz(RW * w + rr, 4 * hl, ld));
+      const float4 v = *at;
+      const float mu = half_sum(v.x + v.y + v.z + v.w) * (1.f / F);
+      const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+      const float rstd = 1.f / sqrtf(half_sum(d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3) * (1.f / F) + 1e-5f);
+      *at = make_float4(silu(d0 * rstd * sc.x + bi.x), silu(d1 * rstd * sc.y + bi.y),
+                        silu(d2 * rstd * sc.z + bi.z), silu(d3 * rstd * sc.w + bi.w));
+    }
+  } else if constexpr (F == 128) {
     ln_silu_rows(T, ld, scale, bias);
   } else {
     constexpr int CH = F / 128, RW = TR / BNW;
@@ -307,8 +332,8 @@ extern "C" unsigned long long pair_layer_tf32x3_smem_bytes() {
 
 extern "C" int pair_layer_tf32x3_threads() { return pk::tf32x3::BNT; }
 
-// CTAs of the kernel an SM holds (two at F = 128, one at F = 256), or minus
-// the CUDA error
+// CTAs of the kernel an SM holds (four at F = 64, two at F = 128, one at F =
+// 256), or minus the CUDA error
 extern "C" int pair_layer_tf32x3_ctas_per_sm() {
   using namespace pk::tf32x3;
   cudaError_t err = cudaFuncSetAttribute(pair_layer_tf32x3_kernel,

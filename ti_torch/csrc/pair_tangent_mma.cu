@@ -51,9 +51,18 @@
 // CTA may have.
 //
 // F and the tile counts are named constants (pair_common.cuh, mma_common.cuh).
-// The source is built twice (ops/_build.py): at F = 128 (pair_tangent_mma) and
-// with -DPK_F=256 (pair_tangent_mma_f256, the 10506 profile's 29 atoms x F =
-// 256). At F = 256 the buffers above would need 294,144 bytes at L = 1, so
+// The source is built three times (ops/_build.py): at F = 128
+// (pair_tangent_mma), with -DPK_F=64 (pair_tangent_mma_f64, the validation
+// CLIs' default width) and with -DPK_F=256 (pair_tangent_mma_f256, the 10506
+// profile's 29 atoms x F = 256).
+// F = 64 keeps F = 128's layout (SMEM_RES): the 8 residual tiles (32 KB) in
+// shared memory, lane blocks of 1, 2 or 4 stacked along the rows, a warp's 16
+// stacked rows in the fronts and a lane's 32 rows and half the columns (32)
+// in the 5F chunks: 113,664 bytes at L = 4. Four lanes divide the CLI's exact
+// frame (K = 3N = 12) and the Hutchinson counts (K = 8, 16), so no lane of a
+// block is wasted there. Where F = 128's code takes a row of 128 columns as
+// 32 lanes x 4 (the fronts' input copy, dPE), F = 64 takes a row a half-warp.
+// At F = 256 the buffers above would need 294,144 bytes at L = 1, so
 // that build keeps 2 of the 8 residual tiles in shared memory (dPE/ddist and
 // the gates) and moves the other 6 out:
 // - the primal keeps them in the work buffers while it runs (at F = 256 the
@@ -92,16 +101,20 @@ namespace pk {
 // lanes, later the gates tangent of L lanes and two stages of the primal p, q
 __host__ __device__ constexpr int xb_tiles(int L) { return 2 * L > L + 4 ? 2 * L : L + 4; }
 
-// lanes a block (1, 2 or MAX_L): 4 at F = 128, 2 at F = 256
-constexpr int MAX_L = F == 128 ? 4 : 2;
-// the lanes the work buffers are laid out for (F = 128: L; F = 256: at least
-// MAX_L, the primal's room), and the slots of per-lane sums (F = 128: 4)
-__host__ __device__ constexpr int lay_lanes(int L) { return F == 128 || L > MAX_L ? L : MAX_L; }
-__host__ __device__ constexpr int sum_slots(int L) { return F == 128 ? 4 : lay_lanes(L); }
-// residual tiles kept in shared memory: 8 at F = 128; dPE/ddist and the gates at 256
-constexpr int RES_TILES = F == 128 ? 8 : 2;
+// the layout: at F = 64 and 128 every residual tile lives in shared memory;
+// at F = 256 six move to the scratch (above)
+constexpr bool SMEM_RES = F == 64 || F == 128;
+// lanes a block (1, 2 or MAX_L): 4 at F = 64 and 128, 2 at F = 256
+constexpr int MAX_L = SMEM_RES ? 4 : 2;
+// the lanes the work buffers are laid out for (F = 64, 128: L; F = 256: at
+// least MAX_L, the primal's room), and the slots of per-lane sums (F = 64,
+// 128: 4)
+__host__ __device__ constexpr int lay_lanes(int L) { return SMEM_RES || L > MAX_L ? L : MAX_L; }
+__host__ __device__ constexpr int sum_slots(int L) { return SMEM_RES ? 4 : lay_lanes(L); }
+// residual tiles kept in shared memory: 8 at F = 64, 128; dPE/ddist and the gates at 256
+constexpr int RES_TILES = SMEM_RES ? 8 : 2;
 // scratch tiles a CTA: p, q of 5 chunks; at F = 256 also h1, h2 of phi and of w
-constexpr int SCR_TILES = F == 128 ? 10 : 14;
+constexpr int SCR_TILES = SMEM_RES ? 10 : 14;
 
 // f32 side buffers: the sums over j (slots x 7F), geometry, lane geometry
 // (slots lanes), primal sums (7F), LayerNorm statistics (4 x 2R) and vectors (8F)
@@ -200,7 +213,7 @@ __device__ __forceinline__ void primal_phase(const Tile& c) {
   __syncthreads();
 
   // X = [s_j | e_ij] (row stride 2F), Y = PE(dist_ij), dPE/ddist
-  bf16 *X = c.XB, *Y = F == 128 ? c.DAp : c.XB + 2 * RF;
+  bf16 *X = c.XB, *Y = SMEM_RES ? c.DAp : c.XB + 2 * RF;
   for (int idx = tid; idx < RF; idx += NT) {
     const int j = idx / F, f = idx % F;
     float sv = 0.f, ev = 0.f;
@@ -234,7 +247,7 @@ __device__ __forceinline__ void primal_phase(const Tile& c) {
     tile_ln_silu(c.h2w, F, c.a2w, F, row0, lnv + 6 * F, lnv + 7 * F, c.stat + 6 * R);
   }
   __syncthreads();
-  if constexpr (F == 256) {  // the pre-LN tiles the lanes replay, after p, q in the scratch
+  if constexpr (!SMEM_RES) {  // the pre-LN tiles the lanes replay, after p, q in the scratch
     bf16* res = scr + 10 * RF;
     for (int idx = tid; idx < 4 * RF / 8; idx += NT) {
       const int k = idx / (RF / 8), off = 8 * (idx % (RF / 8));
@@ -351,7 +364,7 @@ __device__ __forceinline__ void primal_phase(const Tile& c) {
   }
 }
 
-// The parts of a lane block's fronts: all of them at F = 128; at F = 256
+// The parts of a lane block's fronts: all of them at F = 64, 128; at F = 256
 // three, between the CTA barriers around the fetch of w's residuals into the
 // stage: the input and phi's front; dPE and w's first product; w's
 // LayerNorm tangents and second product.
@@ -375,7 +388,7 @@ __device__ __forceinline__ void lane_fronts(const Tile& c, int kb) {
   // at F = 256 h1p, h2p sit in the second p, q stage, and w's residuals are
   // fetched there after phi's front
   const bf16 *h1p = c.h1p, *h2p = c.h2p;
-  const bf16 *h1w = F == 128 ? c.h1w : c.h1p, *h2w = F == 128 ? c.h2w : c.h2p;
+  const bf16 *h1w = SMEM_RES ? c.h1w : c.h1p, *h2w = SMEM_RES ? c.h2w : c.h2p;
   const bf16* pef = c.pef;
   bf16 *DAp = c.DAp, *DAw = c.DAw;
   const float *stat = c.stat, *lnv = c.lnv;
@@ -400,7 +413,18 @@ __device__ __forceinline__ void lane_fronts(const Tile& c, int kb) {
     lg[3 * R + j] = both2(dd);
   }
   const uint4 none = make_uint4(0u, 0u, 0u, 0u);
-  if constexpr (F == 128) {
+  if constexpr (F == 64) {
+    // din = [ds_j | de_ij]: a row is 16 16-byte chunks, a half-warp a row
+    const int hl = lane & 15;
+    const bf16* src = hl < 8 ? c.dsT + bk * N * F + 8 * hl
+                             : c.deT + (bk * N + i) * N * F + 8 * (hl - 8);
+    for (int rr = lane >> 4; rr < 16; rr += 2) {
+      const int j = jr0 + rr;
+      bf16* dst = XB + swz(row0 + rr, 8 * hl, 2 * F);
+      if (j < N) cp_async16(dst, src + (size_t)j * F);
+      else *reinterpret_cast<uint4*>(dst) = none;
+    }
+  } else if constexpr (F == 128) {
     // din = [ds_j | de_ij]: a row is 32 16-byte chunks, one a lane
     const bf16* src = lane < 16 ? c.dsT + bk * N * F + 8 * lane
                                 : c.deT + (bk * N + i) * N * F + 8 * (lane - 16);
@@ -433,8 +457,8 @@ __device__ __forceinline__ void lane_fronts(const Tile& c, int kb) {
 
   // phi's tangent front, replayed at h1p, h2p (at F = 256 its first product
   // goes to DAw, free until w's second: front_product there takes no out = A)
-  bf16* H1 = F == 128 ? XB : DAw;
-  const int ld1 = F == 128 ? 2 * F : F;
+  bf16* H1 = SMEM_RES ? XB : DAw;
+  const int ld1 = SMEM_RES ? 2 * F : F;
   front_product<2 * F / 16>(H1, ld1, XB, 2 * F, row0, wmat(wpk, M_PHI1));
   tile_ln_silu_tan(H1, ld1, row0, h1p, stat, lnv, lnv + F);
   front_product<F / 16>(DAp, F, H1, ld1, row0, wmat(wpk, M_PHI2));
@@ -445,19 +469,23 @@ __device__ __forceinline__ void lane_fronts(const Tile& c, int kb) {
   for (int rr = 0; rr < 16; ++rr) {
     const int j = jr0 + rr;
     const bf162 dd2 = lg[3 * R + j];
+    if constexpr (F == 64) {  // a lane 2 of the row's 64 columns
+      sts_b2(XB, row0 + rr, 2 * lane, 2 * F, mul2(lds_b2(pef, j, 2 * lane, F), dd2));
+    } else {
 #pragma unroll
-    for (int cc = 0; cc < F / 128; ++cc) {
-      const int col = 128 * cc + 4 * lane;
-      sts_b2(XB, row0 + rr, col, 2 * F, mul2(lds_b2(pef, j, col, F), dd2));
-      sts_b2(XB, row0 + rr, col + 2, 2 * F, mul2(lds_b2(pef, j, col + 2, F), dd2));
+      for (int cc = 0; cc < F / 128; ++cc) {
+        const int col = 128 * cc + 4 * lane;
+        sts_b2(XB, row0 + rr, col, 2 * F, mul2(lds_b2(pef, j, col, F), dd2));
+        sts_b2(XB, row0 + rr, col + 2, 2 * F, mul2(lds_b2(pef, j, col + 2, F), dd2));
+      }
     }
   }
   __syncwarp();
   // at F = 256 w's first product goes to XB's second half, free since phi's front
-  front_product<F / 16>(F == 128 ? XB : XB + F, 2 * F, XB, 2 * F, row0, wmat(wpk, M_W1));
+  front_product<F / 16>(SMEM_RES ? XB : XB + F, 2 * F, XB, 2 * F, row0, wmat(wpk, M_W1));
   }
   if constexpr (PART == FR_ALL || PART == FR_W2) {
-  bf16* W1o = F == 128 ? XB : XB + F;
+  bf16* W1o = SMEM_RES ? XB : XB + F;
   tile_ln_silu_tan(W1o, 2 * F, row0, h1w, stat + 4 * R, lnv + 4 * F, lnv + 5 * F);
   front_product<F / 16>(DAw, F, W1o, 2 * F, row0, wmat(wpk, M_W2));
   tile_ln_silu_tan(DAw, F, row0, h2w, stat + 6 * R, lnv + 6 * F, lnv + 7 * F);
@@ -606,7 +634,7 @@ pair_tangent_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ s,
   c.scr = scratch + ((size_t)c.b * N + c.i) * (SCR_TILES * RF);
   // shared memory: what does not depend on L first, at constant offsets
   bf16* base = reinterpret_cast<bf16*>(smem);
-  if constexpr (F == 128) {
+  if constexpr (SMEM_RES) {
     c.h1p = base, c.h2p = base + RF, c.a2p = base + 2 * RF, c.h1w = base + 3 * RF;
     c.h2w = base + 4 * RF, c.a2w = base + 5 * RF, c.pef = base + 6 * RF, c.G = base + 7 * RF;
     c.wacc = reinterpret_cast<float*>(base + 8 * RF);
@@ -628,7 +656,7 @@ pair_tangent_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ s,
   c.acc = c.geo + NGEO * R + 4 * MAX_L * R;
   c.stat = c.acc + 7 * F;
   c.lnv = c.stat + 4 * 2 * R;
-  if constexpr (F == 128) {
+  if constexpr (SMEM_RES) {
     c.XB = reinterpret_cast<bf16*>(c.wacc + SIDE_FLOATS);
     c.DAp = c.XB + xb_tiles(L) * RF;
     c.DAw = c.DAp + L * RF;
@@ -638,10 +666,10 @@ pair_tangent_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ s,
 
   const bool active = warp < 2 * L;  // the warps that own stacked rows
   // XB in the chunk loop: DG | two stages of p | q
-  bf16* PQ = c.XB + (F == 128 ? L : MAX_L) * RF;
+  bf16* PQ = c.XB + (SMEM_RES ? L : MAX_L) * RF;
   const int nblk = K / L;
   for (int kb = 0; kb < nblk; ++kb) {
-    if constexpr (F == 128) {
+    if constexpr (SMEM_RES) {
       if (active) lane_fronts<FR_ALL>(c, kb);
     } else {
       if (active) lane_fronts<FR_PHI>(c, kb);
@@ -660,18 +688,18 @@ pair_tangent_mma_kernel(const float* __restrict__ x, const bf16* __restrict__ s,
       const bf16* P = PQ + (k & 1) * 2 * RF;
       if (k + 1 < 5) {
         fetch_pq(PQ + ((k + 1) & 1) * 2 * RF, c.scr + (k + 1) * 2 * RF);
-      } else if constexpr (F == 256) {  // the next block's phi residuals, into the free stage
+      } else if constexpr (!SMEM_RES) {  // the next block's phi residuals, into the free stage
         if (kb + 1 < nblk) fetch_pq(PQ + 2 * RF, c.scr + 10 * RF);
       }
-      if constexpr (F == 128) {
-        if (active) lane_chunk<FP / 2>(c, kb, k, P, P + RF, warp >> 1, 64 * (warp & 1));
+      if constexpr (SMEM_RES) {  // a lane's 32 rows, half the columns a warp
+        if (active) lane_chunk<FP / 2>(c, kb, k, P, P + RF, warp >> 1, F / 2 * (warp & 1));
       } else {  // every warp, 32 columns a pass: at L = 2 4 warps a lane, two passes each
         const int wpl = NW / L;
         for (int col0 = 32 * (warp % wpl); col0 < F; col0 += 32 * wpl)
           lane_chunk<2>(c, kb, k, P, P + RF, warp / wpl, col0);
       }
     }
-    if constexpr (F == 256) cp_async_wait_all();
+    if constexpr (!SMEM_RES) cp_async_wait_all();
     __syncthreads();
 
     // per lane outputs of dst atom i: dv with the chirality tangent, ds

@@ -45,8 +45,15 @@
 // tile and chunk k's p, q), the a2 tangents of both MLPs (2 x 64 x F), five
 // residual tiles of 32 x F and the geometry. One CTA of 8 warps an SM, 248
 // registers a thread, no spills.
-// Built at two widths from this file (PK_F, pair_common.cuh; ops/_build.py):
-// F = 128 (library pair_tangent_tf32x3) as above, and F = 256 (library
+// Built at three widths from this file (PK_F, pair_common.cuh; ops/_build.py):
+// F = 128 (library pair_tangent_tf32x3) as above; F = 64 (library
+// pair_tangent_tf32x3_f64, -DPK_F=64, the validation CLIs' default width),
+// which keeps F = 128's layout (the residuals in shared memory) with lane
+// tiles of TT = 128 rows, so that the CTA's 8 warps are 4 row blocks x 2
+// column blocks of 32 (the warp's block, accumulators and weight fragments
+// are F = 128's): 32 lanes a tile at N = 4 (the CLI's exact frame, K = 12,
+// is one tile), 6 at N = 19; 181,504 bytes of shared memory, one CTA an SM;
+// LayerNorm takes a row a half-warp, 16 rows a warp; and F = 256 (library
 // pair_tangent_tf32x3_f256, -DPK_F=256; the 10506 profile's 29 atoms x F =
 // 256), where the buffers above would need 433,920 bytes. There:
 // - lane tiles of TT = 32 rows (one lane a tile at N = 29, two or more at
@@ -74,7 +81,7 @@ enum { P_R0, P_R1, P_R2, P_DIST, P_INV, P_SID, P_MASK, P_DIR0, P_DIR1, P_DIR2, P
 // geometry tangents of a tile's stacked rows (arrays of TT floats)
 enum { L_DDIR0, L_DDIR1, L_DDIR2, L_DDIST, LGEO };
 
-constexpr int TT = F == 128 ? TR : 32;  // rows of a lane tile
+constexpr int TT = F == 64 ? 2 * TR : F == 128 ? TR : 32;  // rows of a lane tile
 constexpr int RT = TT / 32;             // row blocks of 32: warp w owns rows 32 (w % RT) ..
 constexpr int NTL = TT / NW;            // rows a warp in the LayerNorms
 // the stacked input tile; in the 5F chunks dh, then chunk k's p, q
@@ -82,7 +89,7 @@ constexpr int XB_F = TT * LDX > TT * F + 2 * R * F ? TT * LDX : TT * F + 2 * R *
 constexpr int DA_F = TT * F;    // an a2-tangent tile
 constexpr int RES_F = R * F;    // a residual tile, one row a source atom
 constexpr int NRES = 5;         // h1, h2 of phi and of w; dPE/ddist
-constexpr int NRES_SMEM = F == 128 ? NRES : 0;  // of them in shared memory; else in the scratch
+constexpr int NRES_SMEM = F == 256 ? 0 : NRES;  // of them in shared memory (F = 64, 128); else in the scratch
 constexpr int SIDE_F = (PGEO + LGEO) * TT + 4 * 2 * R + 3 * F + TT;
 constexpr size_t TANGENT_SMEM =
     sizeof(float) * (size_t)(XB_F + 2 * DA_F + NRES_SMEM * RES_F + SIDE_F);
@@ -94,15 +101,42 @@ __host__ __device__ constexpr size_t scratch_floats(int N) {
 
 // LayerNorm -> SiLU keeping its pre-LN rows and statistics (ln_silu_keep) and
 // its tangent (ln_silu_tan_rows) on the TT-row tile: tf32_common.cuh's at F =
-// 128; at F = 256 warp w takes rows NTL w .. NTL w + NTL - 1, lane l the
-// columns 128 c + 4 l .. + 3 of each 128-wide half c
+// 128; at F = 64 warp w takes rows NTL w .. NTL w + NTL - 1 two at a time, a
+// half-warp a row, lane l of it the columns 4 (l % 16) .. + 3 (the shuffle
+// sums take both halves, so a pair's rows past nrows, or whose source atom
+// is -1, compute and store nothing); at F = 256 warp w takes rows NTL w ..
+// NTL w + NTL - 1, lane l the columns 128 c + 4 l .. + 3 of each 128-wide
+// half c
 __device__ __forceinline__ void ln_keep(float* T, int ld, float* H, float* stat, int nrows,
                                         const float* __restrict__ scale,
                                         const float* __restrict__ bias) {
-  if constexpr (F == 128) {
+  if constexpr (F == 64) {
+    const int lane = lane_id(), hl = lane & 15, w = warp_id();
+    const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + 4 * hl));
+    const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + 4 * hl));
+#pragma unroll 1
+    for (int pr = 0; pr < NTL; pr += 2) {
+      if (NTL * w + pr >= nrows) break;  // the pair's first row: the same for the warp
+      const int r = NTL * w + pr + (lane >> 4);
+      const bool on = r < nrows;
+      float4* at = reinterpret_cast<float4*>(T + swz(r, 4 * hl, ld));
+      const float4 v = *at;
+      const float mu = half_sum(v.x + v.y + v.z + v.w) * (1.f / F);
+      const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+      const float rstd = 1.f / sqrtf(half_sum(d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3) * (1.f / F) + 1e-5f);
+      if (!on) continue;
+      *reinterpret_cast<float4*>(H + swz(r, 4 * hl, F)) = v;
+      if (hl == 0) {
+        stat[r] = mu;
+        stat[R + r] = rstd;
+      }
+      *at = make_float4(silu(d0 * rstd * sc.x + bi.x), silu(d1 * rstd * sc.y + bi.y),
+                        silu(d2 * rstd * sc.z + bi.z), silu(d3 * rstd * sc.w + bi.w));
+    }
+  } else if constexpr (F == 128) {
     ln_silu_keep(T, ld, H, stat, nrows, scale, bias);
   } else {
-    constexpr int CH = F / 128;
+    constexpr int CH = F == 256 ? 2 : 1;  // 128-wide halves (the branch is F = 256's)
     const int lane = lane_id(), w = warp_id();
 #pragma unroll 1
     for (int rr = 0; rr < NTL; ++rr) {
@@ -145,10 +179,39 @@ __device__ __forceinline__ void ln_keep(float* T, int ld, float* H, float* stat,
 __device__ __forceinline__ void ln_tan(float* T, int ld, const float* H, const float* stat,
                                        const int* rowj, const float* __restrict__ scale,
                                        const float* __restrict__ bias) {
-  if constexpr (F == 128) {
+  if constexpr (F == 64) {
+    const int lane = lane_id(), hl = lane & 15, w = warp_id();
+    const float4 s4 = __ldg(reinterpret_cast<const float4*>(scale + 4 * hl));
+    const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + 4 * hl));
+    const float sc[4] = {s4.x, s4.y, s4.z, s4.w}, bi[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll 1
+    for (int pr = 0; pr < NTL; pr += 2) {
+      const int r = NTL * w + pr + (lane >> 4), j = rowj[r], jj = j < 0 ? 0 : j;
+      float4* at = reinterpret_cast<float4*>(T + swz(r, 4 * hl, ld));
+      const float4 d4 = *at, h4 = *reinterpret_cast<const float4*>(H + swz(jj, 4 * hl, F));
+      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+      const float mu = stat[jj], rstd = stat[R + jj];
+      const float cen[4] = {h4.x - mu, h4.y - mu, h4.z - mu, h4.w - mu};
+      float cd = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) cd += cen[c] * dv[c];
+      const float dmu = half_sum(dv[0] + dv[1] + dv[2] + dv[3]) * (1.f / F);
+      const float dvar = 2.f * (half_sum(cd) * (1.f / F));
+      const float drstd = -0.5f * rstd * rstd * rstd * dvar;
+      float o[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float dl = ((dv[c] - dmu) * rstd + cen[c] * drstd) * sc[c];
+        const float l = cen[c] * rstd * sc[c] + bi[c];
+        const float sig = 1.f / (1.f + expf(-l));
+        o[c] = sig * (1.f + l * (1.f - sig)) * dl;
+      }
+      *at = j < 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : make_float4(o[0], o[1], o[2], o[3]);
+    }
+  } else if constexpr (F == 128) {
     ln_silu_tan_rows(T, ld, H, stat, rowj, scale, bias);
   } else {
-    constexpr int CH = F / 128;
+    constexpr int CH = F == 256 ? 2 : 1;  // 128-wide halves (the branch is F = 256's)
     const int lane = lane_id(), w = warp_id();
 #pragma unroll 1
     for (int rr = 0; rr < NTL; ++rr) {
@@ -264,9 +327,9 @@ pair_tangent_tf32x3_kernel(const float* __restrict__ x, const float* __restrict_
   float* DAw = DAp + DA_F;         // a2 tangent of w
   const int b = blockIdx.y, i = blockIdx.x;
   float* scr = scratch + ((size_t)b * N + i) * scratch_floats(N);  // [chunk][p | q][N][F]
-  // residuals, one row a source atom: in shared memory at F = 128, after
-  // p, q in the scratch at F = 256
-  float* H1P = F == 128 ? DAw + DA_F : scr + 10 * (size_t)N * F;
+  // residuals, one row a source atom: in shared memory at F = 64 and 128,
+  // after p, q in the scratch at F = 256
+  float* H1P = NRES_SMEM ? DAw + DA_F : scr + 10 * (size_t)N * F;
   float* H2P = H1P + RES_F;
   float* H1W = H2P + RES_F;
   float* H2W = H1W + RES_F;

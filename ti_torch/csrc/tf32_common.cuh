@@ -8,7 +8,8 @@
 // or by truncation in B4 and B5), the staging of row tiles by cp.async,
 // its epilogues, LayerNorm -> SiLU on the rows of a 64-row tile, and for the
 // tangent kernels the same keeping its pre-LN rows and statistics, and its
-// tangent replayed at them.
+// tangent replayed at them. The LayerNorms here take F = 128 (a warp a row);
+// the kernels hold their F = 64 and F = 256 forms (half_sum: a half-warp a row).
 #pragma once
 
 #include "pair_common.cuh"
@@ -292,6 +293,14 @@ __device__ __forceinline__ void acc_gate(float* T, int row0, int col0, const Acc
                           pv.y * (acc[rt][p][2 * h + 1] + bb.y) * m);
       }
   }
+}
+
+// the sum over the 16 lanes of the thread's half-warp (at F = 64 a half-warp
+// holds a row, 4 columns a lane)
+__device__ __forceinline__ float half_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
 // LayerNorm (f32 statistics, eps 1e-5) -> SiLU in place on a swizzled

@@ -8,21 +8,20 @@ in .gitignore) and is reused while it is newer than its sources.
 
 Every wrapper counts its launches in ``LAUNCHES``, under its kernel's own
 name: one per kernel launch and nowhere else, so a run can show that its
-path went through the kernels. B1 (``pair_layer``) has five libraries:
-``pair_layer_tf32x3`` (f32 on the tensor cores), ``pair_layer_tf32x3_f256``
-(the same source built at F = 256), ``pair_layer_mma`` (bf16_agg on the
-tensor cores), ``pair_layer_mma_f256`` (the same source built at F = 256)
-and ``pair_layer`` (the f32-FMA kernels of both types, kept for timing); B2
-(``pair_layer_cb``, chain_block > 1) has the same five:
-``pair_layer_tf32x3`` and ``pair_layer_tf32x3_f256`` (f32),
-``pair_layer_mma`` and ``pair_layer_mma_f256`` (bf16_agg) and
-``pair_layer`` (``variant="fma"``). B3 (``pair_tangent``) has five:
-``pair_tangent_mma`` (bf16_agg on the tensor cores),
-``pair_tangent_mma_f256`` (the same source built at F = 256),
-``pair_tangent_tf32x3`` (f32 on the tensor cores),
-``pair_tangent_tf32x3_f256`` (the same source built at F = 256) and
-``pair_tangent`` (the f32-FMA kernel, kept for timing). Every library but
-the four ``_f256`` ones is built at F = 128. B4
+path went through the kernels. B1 (``pair_layer``) has seven libraries:
+``pair_layer_tf32x3`` (f32 on the tensor cores), ``pair_layer_tf32x3_f64``
+and ``pair_layer_tf32x3_f256`` (the same source built at F = 64 and 256),
+``pair_layer_mma`` (bf16_agg on the tensor cores), ``pair_layer_mma_f64``
+and ``pair_layer_mma_f256`` (the same source at F = 64 and 256) and
+``pair_layer`` (the f32-FMA kernels of both types, kept for timing); B2
+(``pair_layer_cb``, chain_block > 1) has the same seven. B3
+(``pair_tangent``) has seven: ``pair_tangent_mma`` (bf16_agg on the tensor
+cores), ``pair_tangent_mma_f64`` and ``pair_tangent_mma_f256`` (the same
+source at F = 64 and 256), ``pair_tangent_tf32x3`` (f32 on the tensor
+cores), ``pair_tangent_tf32x3_f64`` and ``pair_tangent_tf32x3_f256`` (the
+same source at F = 64 and 256) and ``pair_tangent`` (the f32-FMA kernel,
+kept for timing). Every library but the four ``_f64`` and the four
+``_f256`` ones is built at F = 128. B4
 (``fused_edge_mlp``) has two: ``fused_edge_mlp_tf32x3`` (on the tensor
 cores) and ``fused_edge_mlp`` (the f32-FMA kernel, kept for timing); B5
 (``fused_edge_mlp_jvp``) has two: ``fused_edge_mlp_jvp_tf32x3`` (on the
@@ -48,16 +47,24 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("pair_layer", "pair_layer_tf32x3", "pair_layer_tf32x3_f256", "pair_layer_mma",
-           "pair_layer_mma_f256", "pair_tangent", "pair_tangent_mma", "pair_tangent_mma_f256",
-           "pair_tangent_tf32x3", "pair_tangent_tf32x3_f256", "fused_edge_mlp",
-           "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3", "fused_mlp",
-           "fused_mlp_tf32x3", "div_kernel", "div_kernel_tf32x3")
-# libraries built from another library's source: name -> (source, nvcc defines)
-BUILT_FROM = {"pair_layer_mma_f256": ("pair_layer_mma", ("-DPK_F=256",)),
-              "pair_layer_tf32x3_f256": ("pair_layer_tf32x3", ("-DPK_F=256",)),
-              "pair_tangent_mma_f256": ("pair_tangent_mma", ("-DPK_F=256",)),
-              "pair_tangent_tf32x3_f256": ("pair_tangent_tf32x3", ("-DPK_F=256",))}
+KERNELS = ("pair_layer", "pair_layer_tf32x3", "pair_layer_tf32x3_f64", "pair_layer_tf32x3_f256",
+           "pair_layer_mma", "pair_layer_mma_f64", "pair_layer_mma_f256", "pair_tangent",
+           "pair_tangent_mma", "pair_tangent_mma_f64", "pair_tangent_mma_f256",
+           "pair_tangent_tf32x3", "pair_tangent_tf32x3_f64", "pair_tangent_tf32x3_f256",
+           "fused_edge_mlp", "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp",
+           "fused_edge_mlp_jvp_tf32x3", "fused_mlp", "fused_mlp_tf32x3", "div_kernel",
+           "div_kernel_tf32x3")
+# libraries built from another library's source: name -> (source, nvcc defines);
+# the source's C functions keep their names in each build
+BUILT_FROM = {f"{src}_f{f}": (src, (f"-DPK_F={f}",))
+              for src in ("pair_layer_mma", "pair_layer_tf32x3", "pair_tangent_mma",
+                          "pair_tangent_tf32x3")
+              for f in (64, 256)}
+
+
+def source_of(name: str) -> str:
+    """The source (and C function prefix) library ``name`` is built from."""
+    return BUILT_FROM.get(name, (name, ()))[0]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "pair_layer", "pair_layer_cb", "pair_tangent", "fused_edge_mlp", "fused_edge_mlp_jvp",

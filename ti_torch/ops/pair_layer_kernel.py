@@ -7,12 +7,15 @@ fragment order by ``pack_tf32_weights``), and B1 and B2 in bf16_agg
 ``pack_mma_weights``). B2 in f32 is B1's 3xTF32 kernel. csrc/pair_layer.cu
 (f32 FMA) keeps both types of B1 and B2 as ``variant="fma"``. Every kernel
 is built for F = 128; csrc/pair_layer_mma.cu and csrc/pair_layer_tf32x3.cu
-are built at F = 256 as well (libraries ``pair_layer_mma_f256`` and
-``pair_layer_tf32x3_f256``), so B1 and B2 on the tensor cores take the
-10506 profile's width in both types: ``fast_profile`` sends its bf16_agg
-trajectory through the first, ``traj_forward_impl="pair_kernel"`` its f32
-trajectory through the second. B3 (ops/pair_tangent_kernel.py) has the
-same two ``_f256`` builds of its tensor-core sources.
+are built at F = 256 and F = 64 as well (libraries ``pair_layer_mma_f256``,
+``pair_layer_tf32x3_f256``, ``pair_layer_mma_f64`` and
+``pair_layer_tf32x3_f64``), so B1 and B2 on the tensor cores take the
+10506 profile's width and the validation CLIs' default width in both
+types: ``fast_profile`` sends the 10506 bf16_agg trajectory through
+``pair_layer_mma_f256``, ``traj_forward_impl="pair_kernel"`` its f32
+trajectory through ``pair_layer_tf32x3_f256``. B3
+(ops/pair_tangent_kernel.py) has the same ``_f64`` and ``_f256`` builds of
+its tensor-core sources.
 
 Port of ti_tpu/ops/pair_layer_kernel.py (the Pallas ``_pair_layer_kernel``,
 and ``_pair_layer_kernel_cb`` for ``chain_block`` > 1). The chain-blocked
@@ -20,8 +23,8 @@ Pallas grid amortises a TPU grid step's overhead over C chains; a CUDA grid
 has no such overhead. On this card the tensor-core kernels cut the
 (B·N·N, F) pair rows into 64-row tiles of whole (chain, dst atom) groups;
 ``chain_block`` C only sets how many such tiles a CTA of
-csrc/pair_layer_mma.cu takes, min(C, 3), sharing each weight fragment it
-loads, and changes nothing in csrc/pair_layer_tf32x3.cu (in
+csrc/pair_layer_mma.cu takes, min(C, 3) (min(C, 4) at F = 64, one at F =
+256), sharing each weight fragment it loads, and changes nothing in csrc/pair_layer_tf32x3.cu (in
 csrc/pair_layer.cu it is C chains a CTA). Every C gives B1's result to the
 bit on the tensor cores.
 Per chain and pair row p = i·N + j (dst i, src j) the layer computes the
@@ -66,13 +69,20 @@ from ti_torch.ops.mlp_block import (
 )
 
 KERNEL_F = 128       # the feature width the CUDA kernels are built for
-# the libraries built for another width
-LIB_WIDTHS = {"pair_layer_mma_f256": 256, "pair_layer_tf32x3_f256": 256,
-              "pair_tangent_mma_f256": 256, "pair_tangent_tf32x3_f256": 256}
-F256_ROUTE = ("F = 256 runs only in B1, B2 and B3 on the tensor cores (pair_layer, variant "
-              "None or 'tc': library pair_layer_mma_f256 for bf16_agg weights, "
-              "pair_layer_tf32x3_f256 for f32 weights; pair_tangent, variant 'mma': "
-              "pair_tangent_mma_f256 for bf16_agg, pair_tangent_tf32x3_f256 for f32)")
+# the tensor-core libraries of B1, B2 and B3 built for another width, by
+# width: each is its F = 128 library's name with this suffix
+WIDTH_SUFFIX = {64: "_f64", 256: "_f256"}
+LIB_WIDTHS = {f"{lib}{sfx}": f for f, sfx in WIDTH_SUFFIX.items()
+              for lib in ("pair_layer_mma", "pair_layer_tf32x3", "pair_tangent_mma",
+                          "pair_tangent_tf32x3")}
+TC_WIDTHS_ROUTE = (
+    "F = 64, 128 and 256 run in B1, B2 and B3 on the tensor cores, and F = 64 and 256 only "
+    "there (pair_layer, variant None or 'tc': libraries pair_layer_mma_f64, pair_layer_mma "
+    "and pair_layer_mma_f256 for bf16_agg weights, pair_layer_tf32x3_f64, pair_layer_tf32x3 "
+    "and pair_layer_tf32x3_f256 for f32 weights; pair_tangent, variant 'mma': "
+    "pair_tangent_mma_f64, pair_tangent_mma and pair_tangent_mma_f256 for bf16_agg, "
+    "pair_tangent_tf32x3_f64, pair_tangent_tf32x3 and pair_tangent_tf32x3_f256 for f32); "
+    "every other kernel and variant='fma' take F = 128 only")
 KERNEL_MAX_N = 32    # pair rows per thread group: one dst atom's N src atoms
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on Hopper
 MAX_CHAIN_BLOCK = 4   # of csrc/pair_layer.cu: 256 threads a chain, 1024 threads a CTA
@@ -89,9 +99,12 @@ def mma_tile_bytes(f: int = KERNEL_F) -> int:
 
 
 def mma_max_tiles(f: int = KERNEL_F) -> int:
-    """Row tiles that fit the shared memory of a CTA: three at F = 128, one
-    at F = 256."""
-    return SMEM_LIMIT // mma_tile_bytes(f)
+    """Row tiles a CTA takes at most: as many as fit its shared memory at F
+    = 128 (three) and F = 256 (one); four at F = 64, where six fit (C = 4
+    is the largest chain block a path runs, and each tile count is a kernel
+    of its own)."""
+    fit = SMEM_LIMIT // mma_tile_bytes(f)
+    return min(fit, 4) if f == 64 else fit
 
 
 MMA_TILE_BYTES = mma_tile_bytes()
@@ -269,13 +282,14 @@ def tc_smem_bytes(f: int = KERNEL_F) -> int:
     """Shared memory of one CTA of csrc/pair_layer_tf32x3.cu at width ``f``:
     the f32 tiles X = [s_j | e_ij] (TC_ROWS x 2F) and Y = PE (TC_ROWS x F),
     and the geometry rows. 99,584 bytes at F = 128 (two CTAs an SM),
-    197,888 at F = 256 (one)."""
+    197,888 at F = 256 (one), 50,432 at F = 64 (four)."""
     return 4 * TC_ROWS * (3 * f + _TC_GEO)
 
 
 def tc_threads(f: int = KERNEL_F) -> int:
     """Threads of a CTA of csrc/pair_layer_tf32x3.cu: a warp for each 32 x 32
-    block of the 64-row tile's F columns (8 warps at F = 128, 16 at 256)."""
+    block of the 64-row tile's F columns (4 warps at F = 64, 8 at F = 128,
+    16 at 256)."""
     return 2 * f
 
 
@@ -304,9 +318,10 @@ class MmaPlan(NamedTuple):
 
 def mma_tiles(chain_block: int, f: int = KERNEL_F) -> int:
     """Row tiles a CTA of csrc/pair_layer_mma.cu takes for ``chain_block``
-    at width ``f``: as many, up to the ones that fit its shared memory (three
-    at F = 128, one at F = 256). Four walked in two rounds of two were slower
-    than three at once, so chain_block 4 takes three (PERF.md, section 6)."""
+    at width ``f``: as many, up to ``mma_max_tiles`` (three at F = 128, one
+    at F = 256, four at F = 64). Four walked in two rounds of two were
+    slower than three at once at F = 128, so chain_block 4 takes three there
+    (PERF.md, section 6)."""
     return min(chain_block, mma_max_tiles(f))
 
 
@@ -431,15 +446,22 @@ _P = ctypes.c_void_p
 
 class WidthRefusal(ValueError):
     """A kernel's library is not built for the width it was given: the
-    port refuses that route (and names the ones that take F = 256) rather
-    than run the plain version in its place."""
+    port refuses that route (and names the widths that run, and where)
+    rather than run the plain version in its place."""
 
 
 def check_width(f: int, what: str, width: int = KERNEL_F) -> None:
     """Raise ``WidthRefusal`` unless ``what`` (a library or a kernel) is
-    built for ``f``; the message names the routes that take F = 256."""
+    built for ``f``; the message names the widths that run and their routes."""
     if f != width:
-        raise WidthRefusal(f"{what} is built for F={width}, got F={f}; {F256_ROUTE}")
+        raise WidthRefusal(f"{what} is built for F={width}, got F={f}; {TC_WIDTHS_ROUTE}")
+
+
+def width_library(lib: str, f: int) -> str:
+    """The build of tensor-core library ``lib`` (an F = 128 name) for width
+    ``f``: ``lib`` itself at F = 128 and at every width no library is built
+    for (its launch check then refuses the width)."""
+    return lib + WIDTH_SUFFIX.get(f, "")
 
 
 def _check_pair_inputs(x, s, v, e, wts: PairLayerWeights, lib: str):
@@ -487,18 +509,17 @@ def group_smem_bytes(bf16: bool) -> int:
 def _route(bf16: bool, chain_block: int, variant: Optional[str], f: int = KERNEL_F) -> str:
     """The library a launch takes: the tensor-core kernel of the weights'
     type for every ``chain_block`` ("pair_layer_tf32x3" for f32, and at F =
-    256 "pair_layer_tf32x3_f256"; "pair_layer_mma" for bf16_agg, min(C, 3)
-    tiles a CTA, and at F = 256 "pair_layer_mma_f256", one tile a CTA), or,
-    for ``variant="fma"``, "pair_layer" (csrc/pair_layer.cu, which refuses
-    chain_block > MAX_CHAIN_BLOCK when it launches). Only the two ``_f256``
-    libraries take F = 256; the others refuse it, and every library refuses
-    any other width, when they launch."""
+    64 and 256 "pair_layer_tf32x3_f64" and "_f256"; "pair_layer_mma" for
+    bf16_agg, min(C, 3) tiles a CTA, and "pair_layer_mma_f64", min(C, 4), and
+    "pair_layer_mma_f256", one tile a CTA), or, for ``variant="fma"``,
+    "pair_layer" (csrc/pair_layer.cu, which refuses chain_block >
+    MAX_CHAIN_BLOCK when it launches). Each library takes its own width
+    only, and refuses any other when it launches."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"variant must be None or one of {VARIANTS}, got {variant!r}")
     if variant == "fma":
         return "pair_layer"
-    lib = "pair_layer_mma" if bf16 else "pair_layer_tf32x3"
-    return f"{lib}_f256" if f == 256 else lib
+    return width_library("pair_layer_mma" if bf16 else "pair_layer_tf32x3", f)
 
 
 def _packed(wts: PairLayerWeights, x, numel: int, dtype, what: str, how: str) -> torch.Tensor:
@@ -515,15 +536,16 @@ def _packed(wts: PairLayerWeights, x, numel: int, dtype, what: str, how: str) ->
 
 def _launch(lib: str, x, s, v, e, wts: PairLayerWeights, length_scale: float, c: int):
     """One launch of library ``lib``: pair_layer_tf32x3 (B1/B2 f32 on the
-    tensor cores, whatever C), pair_layer_tf32x3_f256 (the same at F = 256,
-    16 warps a CTA), pair_layer_mma (B1/B2 bf16_agg on the tensor cores,
-    min(C, 3) row tiles a CTA), pair_layer_mma_f256 (the same at F = 256,
-    one row tile a CTA) or pair_layer (f32 FMA, C chains a CTA)."""
+    tensor cores, whatever C), pair_layer_tf32x3_f64 and _f256 (the same at
+    F = 64, 4 warps a CTA, and at F = 256, 16 warps a CTA), pair_layer_mma
+    (B1/B2 bf16_agg on the tensor cores, min(C, 3) row tiles a CTA),
+    pair_layer_mma_f64 and _f256 (the same at F = 64, min(C, 4) row tiles a
+    CTA, and at F = 256, one) or pair_layer (f32 FMA, C chains a CTA)."""
     b, n, f, _ = _check_pair_inputs(x, s, v, e, wts, lib)
-    if lib in ("pair_layer_tf32x3", "pair_layer_tf32x3_f256"):
+    if lib.startswith("pair_layer_tf32x3"):
         mats = _packed(wts, x, 2 * wts.mats.numel(), torch.float32, "3xTF32", "with_tf32_weights")
         args = ()
-    elif lib in ("pair_layer_mma", "pair_layer_mma_f256"):
+    elif lib.startswith("pair_layer_mma"):
         mats = _packed(wts, x, wts.mats.numel(), BF16, "fragment-order", "with_mma_weights")
         args = (mma_tiles(c, f),)
     else:
@@ -535,7 +557,7 @@ def _launch(lib: str, x, s, v, e, wts: PairLayerWeights, length_scale: float, c:
                 f"1024 threads and {SMEM_LIMIT} bytes (chain_block <= {MAX_CHAIN_BLOCK})")
         mats, args = wts.mats, (c,)
     handle = _build.load(lib)
-    fn = getattr(handle, lib.removesuffix("_f256") if lib != "pair_layer" else
+    fn = getattr(handle, _build.source_of(lib) if lib != "pair_layer" else
                  "pair_layer_bf16" if wts.bf16 else "pair_layer_f32")
     fn.argtypes = [_P] * 9 + [ctypes.c_int] * (2 + len(args)) + [ctypes.c_float, _P]
     fn.restype = ctypes.c_int
@@ -557,12 +579,13 @@ def pair_layer(x, s, v, e, wts: PairLayerWeights, length_scale: float, chain_blo
     weights' type runs, for every ``chain_block``: 3xTF32 for f32
     (``with_tf32_weights``; C changes nothing in it), ``mma.sync`` bf16 for
     bf16_agg (``with_mma_weights``; ``mma_tiles``: min(C, 3) 64-row tiles a
-    CTA; one at F = 256, library pair_layer_mma_f256); every C gives B1's
-    bits. At F = 256 f32 takes library pair_layer_tf32x3_f256.
+    CTA; min(C, 4) at F = 64, library pair_layer_mma_f64; one at F = 256,
+    library pair_layer_mma_f256); every C gives B1's bits. At F = 64 and
+    256 f32 takes library pair_layer_tf32x3_f64 or _f256.
     ``variant="fma"`` takes the f32-FMA kernel (C chains a CTA, C <=
-    MAX_CHAIN_BLOCK). Only the tensor-core kernels take F = 256; the
-    f32-FMA one raises on a CUDA tensor of that width, and every library at
-    any other width but 128."""
+    MAX_CHAIN_BLOCK). Only the tensor-core kernels take F = 64 and 256; the
+    f32-FMA one raises on a CUDA tensor of those widths, and every library
+    at any other width but 128."""
     c = check_chain_block(chain_block)
     lib = _route(wts.bf16, c, variant, s.shape[-1])
     if x.device.type == "cpu":
@@ -680,7 +703,7 @@ def pair_kernel_drift(model, params, template, *, compute_dtype=None,
                       device=None, kernel: bool = True, chain_block: int = 1):
     """Batched drift ``(xs (B,N,3), t, temps (B,K)) -> (B,N,3)`` through
     kernel B1, or B2 with ``chain_block`` > 1 (min(C, 3) 64-row tiles a
-    CTA in bf16_agg, B1's tiles in f32) — the
+    CTA in bf16_agg, min(C, 4) at F = 64, B1's tiles in f32) — the
     velocity-only trajectory segments of the Gauss quadrature-dlogp path
     and the SDE drift. Packs the weights once, here. Runs on ``cuda``
     unless ``device`` says otherwise; ``kernel=False`` builds the same

@@ -7,11 +7,15 @@ csrc/pair_tangent_tf32x3.cu (``mma.sync`` in 3xTF32, the split of
 ``pair_layer_kernel.pack_tf32_weights``, lanes stacked into 64-row tiles).
 csrc/pair_tangent.cu keeps the f32-FMA kernel, reachable as
 ``variant="fma"`` to be timed beside the f32 one. Both tensor-core sources
-are built at F = 128 and, with -DPK_F=256, at the 10506 profile's F = 256
+are built at F = 128, with -DPK_F=256 at the 10506 profile's F = 256
 (libraries ``pair_tangent_mma_f256`` and ``pair_tangent_tf32x3_f256``: the
 residuals the lanes replay move from shared memory to each CTA's scratch,
-lane blocks of 1 or 2 in bf16_agg, 32-row lane tiles in f32). The f32-FMA
-kernel and every library at F = 64 refuse their width (``WidthRefusal``).
+lane blocks of 1 or 2 in bf16_agg, 32-row lane tiles in f32), and with
+-DPK_F=64 at the validation CLIs' default F = 64 (``pair_tangent_mma_f64``
+and ``pair_tangent_tf32x3_f64``: F = 128's layout, lane blocks up to 4 in
+bf16_agg, 128-row lane tiles in f32). The f32-FMA kernel takes F = 128
+only, and every width no library is built for is refused
+(``WidthRefusal``).
 
 Port of ti_tpu/ops/pair_tangent_kernel.py (the Pallas
 ``_pair_tangent_kernel``). Per chain the layer computes kernel B1's primal
@@ -59,6 +63,7 @@ from ti_torch.ops.pair_layer_kernel import (
     prepare,
     primal_plain,
     tile_src,
+    width_library,
 )
 
 
@@ -72,12 +77,12 @@ def smem_bytes(bf16: bool, lane_block: int, f: int = KERNEL_F) -> int:
     ``variant="fma"``) for f32."""
     L = lane_block
     if bf16:
-        # residual tiles (F = 128: 7 and the primal gates; wider: dPE/ddist and the
-        # gates, the primal keeping the others in the work buffers), the stacked work
-        # buffer and 2 lb a2-tangent tiles for lb lanes (wider: at least 2); per-lane
-        # sums and lane geometry (slots lanes), geometry, primal sums, LayerNorm
-        # statistics and vectors
-        res, lb, slots = (8, L, 4) if f == KERNEL_F else (2, max(L, 2), max(L, 2))
+        # residual tiles (F = 64, 128: 7 and the primal gates; F = 256: dPE/ddist and
+        # the gates, the primal keeping the others in the work buffers), the stacked
+        # work buffer and 2 lb a2-tangent tiles for lb lanes (F = 256: at least 2);
+        # per-lane sums and lane geometry (slots lanes), geometry, primal sums,
+        # LayerNorm statistics and vectors
+        res, lb, slots = (2, max(L, 2), max(L, 2)) if f == 256 else (8, L, 4)
         return (2 * (res + max(2 * lb, lb + 4) + 2 * lb) * _R * f
                 + 4 * (slots * 7 * f + _NGEO * _R + 4 * slots * _R + 7 * f + 8 * _R + 8 * f))
     return (4 * (9 + 3 * L) * _R * f
@@ -86,21 +91,22 @@ def smem_bytes(bf16: bool, lane_block: int, f: int = KERNEL_F) -> int:
 
 def tf32_tile_rows(f: int = KERNEL_F) -> int:
     """Rows of a lane tile of csrc/pair_tangent_tf32x3.cu: TC_ROWS at F =
-    128, 32 at F = 256."""
-    return TC_ROWS if f == KERNEL_F else _R
+    128, 32 at F = 256, 2 TC_ROWS at F = 64 (the CTA's 8 warps are then 4
+    row blocks x 2 column blocks of 32)."""
+    return {64: 2 * TC_ROWS, 256: _R}.get(f, TC_ROWS)
 
 
 def tf32_smem_bytes(f: int = KERNEL_F) -> int:
     """Dynamic shared memory of one CTA of csrc/pair_tangent_tf32x3.cu at
     width ``f``, for any N: the stacked input (T x 2F f32, T the tile's
     rows; at F = 256 T x F more, which a chunk's p, q need), the a2 tangents
-    of both MLPs (2 x T x F), at F = 128 five residual tiles of 32 rows (h1,
-    h2 of both MLPs, dPE/ddist; at F = 256 they are in the scratch), the
-    geometry, the LayerNorm statistics, the primal's chirality sums and the
-    row map."""
+    of both MLPs (2 x T x F), at F = 64 and 128 five residual tiles of 32
+    rows (h1, h2 of both MLPs, dPE/ddist; at F = 256 they are in the
+    scratch), the geometry, the LayerNorm statistics, the primal's
+    chirality sums and the row map."""
     t = tf32_tile_rows(f)
     xb = max(2 * t * f, t * f + 2 * _R * f)
-    res = 5 * _R * f if f == KERNEL_F else 0
+    res = 0 if f == 256 else 5 * _R * f
     return 4 * (xb + 2 * t * f + res + _TC_GEO * t + 8 * _R + 3 * f + t)
 
 
@@ -108,14 +114,14 @@ def tf32_scratch_floats(n: int, f: int = KERNEL_F) -> int:
     """Floats of one CTA's scratch in csrc/pair_tangent_tf32x3.cu: its
     primal p, q of the N source atoms (10 N F); at F = 256 then its five
     residual tiles (5 x 32 x F)."""
-    return 10 * n * f + (0 if f == KERNEL_F else 5 * _R * f)
+    return 10 * n * f + (5 * _R * f if f == 256 else 0)
 
 
 def mma_scratch_tiles(f: int = KERNEL_F) -> int:
     """32 x F bf16 tiles of one CTA's scratch in csrc/pair_tangent_mma.cu:
     its primal p, q (10); at F = 256 then the pre-LN residuals its lanes
     replay (h1, h2 of both MLPs)."""
-    return 10 if f == KERNEL_F else 14
+    return 14 if f == 256 else 10
 
 
 class LaneTilePlan(NamedTuple):
@@ -138,7 +144,7 @@ def lane_tile_plan(n: int, k_lanes: int, f: int = KERNEL_F) -> LaneTilePlan:
 def _pick_lane_block(k_lanes: int, bf16: bool, f: int = KERNEL_F) -> int:
     """Lanes replayed together per primal recompute: the largest of 4 and 2
     that divides K and whose buffers fit one CTA's shared memory (4 at F =
-    128, 2 at F = 256), else 1, in bf16; 1 in f32."""
+    64 and 128, 2 at F = 256), else 1, in bf16; 1 in f32."""
     if not bf16:
         return 1
     for cand in (4, 2):
@@ -231,7 +237,7 @@ _P = ctypes.c_void_p
 def _route(bf16: bool, variant: str, f: int = KERNEL_F) -> str:
     """The library a launch takes: the tensor-core kernel of the weights'
     type ("pair_tangent_mma" for bf16_agg, "pair_tangent_tf32x3" for f32; at
-    F = 256 "pair_tangent_mma_f256" and "pair_tangent_tf32x3_f256"), or for
+    F = 64 and 256 their "_f64" and "_f256" builds), or for
     ``variant="fma"`` the f32-FMA kernel ("pair_tangent", f32 only, F = 128
     only: another width raises ``WidthRefusal``). At any other width the
     route is F = 128's, whose launch check refuses the width."""
@@ -243,14 +249,13 @@ def _route(bf16: bool, variant: str, f: int = KERNEL_F) -> str:
                              "bf16_agg runs on the tensor cores (variant='mma')")
         check_width(f, "pair_tangent")
         return "pair_tangent"
-    lib = "pair_tangent_mma" if bf16 else "pair_tangent_tf32x3"
-    return f"{lib}_f256" if f == 256 else lib
+    return width_library("pair_tangent_mma" if bf16 else "pair_tangent_tf32x3", f)
 
 
 def _kernel_weights(lib: str, wts: PairLayerWeights, x) -> torch.Tensor:
     """The matrices library ``lib`` reads: the packing ``prepare`` attached
     (3xTF32 hi/lo pairs for pair_tangent_tf32x3, the bf16 fragment order for
-    pair_tangent_mma, at either width), checked; the row-major ones for
+    pair_tangent_mma, at every width), checked; the row-major ones for
     pair_tangent."""
     if lib.startswith("pair_tangent_tf32x3"):
         return _packed(wts, x, 2 * wts.mats.numel(), torch.float32, "3xTF32", "with_tf32_weights")
@@ -261,7 +266,8 @@ def _kernel_weights(lib: str, wts: PairLayerWeights, x) -> torch.Tensor:
 
 def _check_lane_block(bf16: bool, k_lanes: int, L: int, f: int = KERNEL_F) -> None:
     """Raise on a lane block a lane-block kernel cannot launch with at
-    width ``f`` (at F = 256 bf16_agg takes 1 or 2: 4 does not fit)."""
+    width ``f`` (at F = 256 bf16_agg takes 1 or 2: 4 does not fit; at F = 64
+    and 128 1, 2 or 4)."""
     if k_lanes < 1 or L < 1 or k_lanes % L:
         raise ValueError(f"lane_block {L} must divide the lane count {k_lanes}")
     if bf16 and L not in (1, 2, 4):
@@ -280,9 +286,10 @@ def pair_tangent(x, s, v, e, dx, ds, dv, de, wts: PairLayerWeights,
     csrc/pair_tangent_mma.cu (which needs ``with_mma_weights``), f32 in
     csrc/pair_tangent_tf32x3.cu (which needs ``with_tf32_weights``, and
     stacks the lanes it is given into tiles of T // N whole lanes, T = 64
-    at F = 128 and 32 at F = 256: it ignores ``lane_block``); at F = 256
-    their ``_f256`` libraries. ``variant="fma"`` takes the f32-FMA kernel
-    (f32 weights only; bf16 raises; F = 128 only), kept for timing.
+    at F = 128, 128 at F = 64 and 32 at F = 256: it ignores
+    ``lane_block``); at F = 64 and 256 their ``_f64`` and ``_f256``
+    libraries. ``variant="fma"`` takes the f32-FMA kernel (f32 weights
+    only; bf16 raises; F = 128 only), kept for timing.
     ``lane_block`` is the lanes a block of the plain version and of the
     lane-block kernels."""
     if x.device.type == "cpu":

@@ -46,10 +46,10 @@ from ti_torch.ops import _build
 from ti_torch.ops.mlp_block import MLPWeights, _mlp_block, _mlp_block_jvp
 from ti_torch.ops.pair_layer_kernel import (
     _R,
-    F256_ROUTE,
     KERNEL_F,
     SMEM_LIMIT,
     TC_ROWS,
+    TC_WIDTHS_ROUTE,
     PairLayerWeights,
     WidthRefusal,
     _pack_tf32_matrix,
@@ -436,7 +436,7 @@ def fused_mlp(x, pack: MLPPack, variant: str = "tc"):
     _check("x", x, (r, pack.f_in), dev)
     if pack.w.w2.shape[0] != f:
         raise WidthRefusal(f"fused_mlp takes hidden width F={f}, got F={pack.w.w2.shape[0]}; "
-                           f"{F256_ROUTE}")
+                           f"{TC_WIDTHS_ROUTE}")
     for t in (pack.mats, pack.vecs):
         if t.device != dev:
             raise ValueError(f"weights must be on {dev}, found them on {t.device}")

@@ -873,8 +873,8 @@ def sample_molecular_sde(
     (``forward_impl="dense"``, ``chain_block`` ignored) or the pair-kernel
     forward (``"pair_kernel"``: kernel B1, or B2 with ``chain_block`` > 1;
     ``compute_dtype`` None or "bf16_agg"). On the card ``chain_block`` C
-    (any C >= 1) sets min(C, 3) 64-row tiles of pair rows a CTA in bf16_agg,
-    which share each weight fragment the CTA loads, and changes nothing in
+    (any C >= 1) sets min(C, 3) 64-row tiles of pair rows a CTA in bf16_agg
+    (min(C, 4) at F = 64, one at F = 256), which share each weight fragment the CTA loads, and changes nothing in
     f32, where B2 is B1's 3xTF32 kernel: every C gives B1's bits. The noise of
     each step is drawn from ``generator`` unless ``noise`` (n_steps, C, N,
     3) is given. Runs on ``cuda`` unless ``device`` says otherwise.
