@@ -185,9 +185,13 @@ Phases (any failure exits non-zero and prints no result):
      pair_tangent_tf32x3, samples/s, and 64 chains against the plain
      versions (dlogp at phase 4's bar; the samples no farther from the same
      trajectory in f64 than twice the plain route's); the published latent
-     profile (bf16, the exact divergence, no kernel) at 160 chains with its
-     peak memory, and
-     the multi-temperature preset at its batch of 10; one ``train_latent``
+     profile (bf16, the exact divergence, no kernel) at its batch of 256
+     chains, its Gauss nodes in the lane blocks of ``exact_lane_block``,
+     with its block, seconds, samples/s and peak memory; one published 10506
+     node (29 atoms, F = 256 x 5, 87 lanes) at 256 chains, its block, time
+     and peak, its first 8 chains against the node at 8 chains (within twice
+     that node's distance from f32); the multi-temperature preset at its
+     batch of 10; one ``train_latent``
      update card against CPU (phase 12's bars), 16 trainer steps and that
      field through the kernel route; the BG→TI composition (a generator at
      1000 K, then ``sample_ambient`` under ``fast_profile`` at 128 chains,
@@ -1403,12 +1407,13 @@ def phase_training(card: str) -> None:
 
 
 LATENT_CHAINS, LATENT_CMP = 256, 64  # latent_preset's batch; the plain-version comparison's
-# the published latent profile (bf16, exact divergence as 57 lanes at once)
-# needs 0.031 + 0.3233 GiB a chain at a node (tools/latent_memory_probe.py):
-# 82.8 GiB at 256 chains. At 224 (72.5 GiB) it ran out of memory after the
-# earlier phases (13.2 GiB of the allocator's cache reserved but unallocated),
-# so it runs at 160 (51.8 GiB)
-PUBLISHED_LATENT_CHAINS = 160
+# the published latent profiles at their batch: the exact divergence's lanes
+# in the blocks of exact_lane_block (2 of 29 lanes at 00031, 15 of 6 at
+# 10506 on an 80 GB H100); the 10506 node is held, on its first 8 chains, to
+# the same node at 8 chains (all 87 lanes at once), within twice that node's
+# distance from the node in f32 (a bf16 rounding grows through 5 layers of F
+# = 256: the two bf16 nodes part by 3.1e-2 of max |div| on this field)
+PUBLISHED_LATENT_CHAINS, CMP_10506 = 256, 8
 # phase 13(e): 64 chains (cut from 128 for the smoke's time), 16 RK4
 # steps, Simpson-9 and GL-8 over t in [0, 0.25].
 # Along this random field's trajectories the divergence has kinks (the norms of
@@ -1450,6 +1455,65 @@ def latent_noise(b: int, seed: int) -> np.ndarray:
     return z - z.mean(axis=1, keepdims=True)
 
 
+def latent_10506_node(card: str) -> None:
+    """13(b): one Gauss node of the published 10506 profile
+    (``fast_profile(latent_preset("10506", Ts=[300]), family="latent")``:
+    29 atoms, F = 256 x 5, bf16, GL-16, the exact divergence as 87 lanes) at
+    its batch of 256 chains, in the lane blocks ``_config_sampler`` gives
+    it, through ``node_divergences`` as the Gauss sampler calls it: its
+    block, time and peak memory; its first CMP_10506 chains against the same
+    node at CMP_10506 chains (all lanes at once) within twice that node's
+    distance from the f32 node (of max |div|); no kernel launched."""
+    from ti_torch.config import fast_profile, latent_preset
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+    from ti_torch.sampling.drivers import _compute_dtype, _exact_div_chunk, molecular_v_fn_of
+    from ti_torch.sampling.integrators import node_divergences
+    from ti_torch.train.latent import build_latent_model
+
+    cfg = fast_profile(latent_preset("10506", Ts=[300]), family="latent")
+    n, b, dev = 29, cfg.batch_size, torch.device("cuda")
+    require((b, cfg.n_features, cfg.score_layers, cfg.dlogp_quad_points, cfg.compute_dtype,
+             cfg.divergence) == (PUBLISHED_LATENT_CHAINS, 256, LAYERS, 16, "bf16", "exact"),
+            "the published 10506 latent profile")
+    tpl = graph_template(make_synthetic_molecule(n, seed=0), t_cond=0)
+    model = torch_default_weights_(build_latent_model(cfg, n), seed=4)
+    v = molecular_v_fn_of(model, None, tpl, compute_dtype=_compute_dtype(cfg), device="cuda")(
+        torch.zeros(b, 0, device="cuda"))
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal((b, n, 3)), dtype=torch.float32,
+                        device="cuda")
+    x = x - x.mean(dim=1, keepdim=True)
+    blocks = {c: _exact_div_chunk(cfg, model, tpl, dev, c) for c in (b, CMP_10506)}
+    t = 0.5 * (1.0 + np.polynomial.legendre.leggauss(cfg.dlogp_quad_points)[0][0])  # node 1
+    v32 = molecular_v_fn_of(model, None, tpl, device="cuda")(
+        torch.zeros(CMP_10506, 0, device="cuda"))
+    with torch.no_grad():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        div, secs, routes = counted(lambda: node_divergences(v, x[None], [t],
+                                                             div_chunk=blocks[b]))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        small = node_divergences(v, x[None, :CMP_10506], [t], div_chunk=blocks[CMP_10506])
+        f32 = node_divergences(v32, x[None, :CMP_10506], [t])
+    div, small, f32 = (a[:, 0].cpu().numpy() for a in (div, small, f32))
+    scale = np.abs(f32).max()
+    err = float(np.abs(div[:CMP_10506] - small).max() / scale)
+    err32 = float(np.abs(div[:CMP_10506] - f32).max() / scale)
+    bar = 2.0 * float(np.abs(small - f32).max() / scale)
+    log(f"[latent 10506 node] {b} chains x 87 lanes in blocks of {blocks[b]} "
+        f"({-(-87 // blocks[b])} blocks): one node at t = {t:.4f} in {secs:.3f} s, peak "
+        f"{peak:.2f} GiB above its inputs (host clock, {card}); launches {by_lib(routes)}; first "
+        f"{CMP_10506} chains against the node at {CMP_10506} chains (lane block "
+        f"{blocks[CMP_10506]}): max |diff| / max |div| {err:.3e} (bar {bar:.3e}: twice that "
+        f"node's distance from the f32 node; against f32 {err32:.3e}), max |div| {scale:.3f}")
+    require(not routes, f"the 10506 node runs no kernel: {routes}")
+    require(blocks[b] is not None and blocks[CMP_10506] is None,
+            f"the 10506 node is blocked at {b} chains and whole at {CMP_10506}: {blocks}")
+    require(np.isfinite(div).all() and err <= bar,
+            "the 10506 node: finite, its first chains as the unblocked node's within twice "
+            "the bf16 rounding of that node")
+
+
 def phase_latent(ambient_model, card: str) -> None:
     """13. The latent family at the 00031 width (19 atoms, F = 128, 5
     layers), on origin-centred harmonic wells:
@@ -1465,9 +1529,13 @@ def phase_latent(ambient_model, card: str) -> None:
         bar on this field) no farther from the f64 trajectory than twice the
         plain route's;
     (b) the published latent profile (``fast_profile(..., family="latent")``
-        as it stands: bf16, the dense forward, no kernel) at
-        PUBLISHED_LATENT_CHAINS chains, its peak memory and samples/s, and
-        the multi-temperature preset ``latent_preset("00031")``
+        as it stands: bf16, the dense forward, no kernel) at its batch of
+        PUBLISHED_LATENT_CHAINS chains, the exact divergence at its Gauss
+        nodes in the lane blocks ``_config_sampler`` sizes
+        (``exact_lane_block``): the block, seconds, samples/s, peak memory
+        and the dlogp's difference from route (a)'s; one node of the
+        published 10506 profile at its 256 chains (``latent_10506_node``);
+        and the multi-temperature preset ``latent_preset("00031")``
         (conditioning "latent") at its batch of 10;
     (c) ``train_latent`` on the card: one update's loss and gradients
         against the CPU (edge f32 at batch 12, phase 12's bars), 16 steps of
@@ -1492,6 +1560,7 @@ def phase_latent(ambient_model, card: str) -> None:
     from ti_torch.ops.pair_layer_kernel import pair_kernel_drift
     from ti_torch.ops.pair_tangent_kernel import pair_tangent_div_fn
     from ti_torch.sampling.drivers import (
+        _exact_div_chunk,
         make_ode_sampler,
         molecular_v_fn_of,
         sample_ambient,
@@ -1593,28 +1662,32 @@ def phase_latent(ambient_model, card: str) -> None:
             "latent kernel route: dlogp agrees with the plain versions (rtol 1e-3, atol 1e-3 "
             "max|dlogp|)")
 
-    # (b) the published profile, and the multi-temperature preset
+    # (b) the published profiles at their batch, and the multi-temperature preset
     cfg_pub = fast_profile(latent_preset("00031", Ts=[300]), family="latent")
     require((cfg_pub.compute_dtype, cfg_pub.traj_forward_impl, cfg_pub.div_forward_impl,
-             cfg_pub.divergence) == ("bf16", "default", "default", "exact"),
-            "the published latent profile")
+             cfg_pub.divergence, cfg_pub.batch_size) == ("bf16", "default", "default", "exact",
+                                                         PUBLISHED_LATENT_CHAINS),
+            "the published latent profile at its batch")
     b = PUBLISHED_LATENT_CHAINS
+    block = _exact_div_chunk(cfg_pub, model, tpl[0], torch.device("cuda"), b)
     sample_latent(cfg_pub, model, None, tpl[0], noise=noise[:16], save=False, batch_size=16,
                   device="cuda")  # warm-up
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     pub, secs, routes = counted(lambda: sample_latent(cfg_pub, model, None, tpl[0],
-                                                      noise=noise[:b], save=False, batch_size=b,
-                                                      device="cuda"))
+                                                      noise=noise[:b], save=False, device="cuda"))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     diff = pub["dlogps"] - out["dlogps"][:b]
-    log(f"[latent published profile] {b} chains (bf16, exact divergence, dense forward) in "
-        f"{secs:.3f} s, {b / secs:.3f} samples/s, peak memory {peak:.2f} GiB (host clock, "
-        f"{card}); launches {by_lib(routes)}; dlogp minus route (a)'s: mean {diff.mean():.4f}, "
-        f"max |.| {np.abs(diff).max():.4f}")
+    log(f"[latent published profile] {b} chains (bf16, exact divergence, dense forward, lane "
+        f"block {block} of {3 * N_ATOMS}) in {secs:.3f} s, {b / secs:.3f} samples/s, peak memory "
+        f"{peak:.2f} GiB (host clock, {card}); launches {by_lib(routes)}; dlogp minus route "
+        f"(a)'s: mean {diff.mean():.4f}, max |.| {np.abs(diff).max():.4f}")
     require(not routes, f"the published latent profile runs no kernel: {routes}")
+    require(block is not None and 1 <= block < 3 * N_ATOMS,
+            f"the published latent profile's nodes run in lane blocks at {b} chains: {block}")
     require(np.isfinite(pub["samples"]).all() and np.isfinite(pub["dlogps"]).all(),
             "published latent profile: finite samples and dlogp")
+    latent_10506_node(card)
     cfg_all = fast_profile(latent_preset("00031"), family="latent")
     model_all = torch_default_weights_(build_latent_model(cfg_all, N_ATOMS), seed=2)
     require((cfg_all.batch_size, model_all.conditioning, len(cfg_all.T)) == (10, "latent", 8),

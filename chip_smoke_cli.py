@@ -15,6 +15,9 @@ The launch counts are set to 0 before each step and read after it:
   chains, RK4-64, GL-8, B3's full frame): exactly 1,440 B1 launches from
   pair_layer_tf32x3 and 40 B3 from pair_tangent_tf32x3, its artifacts equal
   to the bit to ``sample_latent`` called with the same config and seed;
+  then ``mdqm9_sample_latent --fast_profile`` as it stands (bf16, the exact
+  divergence on the dense forward) at the preset's 256 chains, its nodes in
+  lane blocks (``exact_lane_block``): no launch, finite artifacts;
 - (b) ``mdqm9_sample_sde --sde_forward_impl pair_kernel`` on the test split
   (256 chains, 20 steps, f32, chain_block 1): exactly 100 B1 launches, its
   samples equal to the bit to ``sample_molecular_sde``;
@@ -112,7 +115,7 @@ def _latent_chain(root: str, card: str) -> None:
     """(a): train one epoch, sample on the kernel route, against sample_latent."""
     from ti_torch.cli import mdqm9_sample_latent, mdqm9_train_latent
     from ti_torch.data.mdqm9 import MDQM9LatentDataset
-    from ti_torch.sampling.drivers import sample_latent
+    from ti_torch.sampling.drivers import _exact_div_chunk, sample_latent
     from ti_torch.train.common import load_checkpoint
     from ti_torch.train.latent import build_latent_model, checkpoint_path
 
@@ -156,6 +159,26 @@ def _latent_chain(root: str, card: str) -> None:
     require(same, "18a: the latent CLI's artifacts equal sample_latent's to the bit")
     require(np.isfinite(ref["samples"]).all() and np.isfinite(ref["dlogps"]).all(),
             "18a: finite samples and dlogp")
+
+    # the published profile as it stands (bf16, the exact divergence on the
+    # dense forward, its nodes in lane blocks) at the preset's batch
+    pub_argv = flags + ["--fast_profile", "--data_save_name", "pub"]
+    cfg_pub = mdqm9_train_latent.parse(pub_argv)
+    block = _exact_div_chunk(cfg_pub, build_latent_model(cfg_pub, ds.template.n_atoms),
+                             ds.template, torch.device(DEVICE), cfg_pub.batch_size)
+    line = _cli(mdqm9_sample_latent.main, ["--device", DEVICE, *pub_argv])
+    pub = {stem: np.load(os.path.join(root, "latent", f"{stem}_pub_forward.npy"))
+           for stem in ("samples", "dlogps")}
+    log(f"[18a latent CLI published] mdqm9_sample_latent --fast_profile: {line['n']} chains in "
+        f"a batch of {cfg_pub.batch_size} (bf16, exact divergence, lane block {block} of "
+        f"{3 * ds.template.n_atoms}) in {line['seconds']:.3f} s, "
+        f"{line['n'] / line['seconds']:.3f} samples/s (host clock, {card}); launches "
+        f"{line['route_launches']}")
+    require(line["n"] == LATENT_CHAINS and not any(line["route_launches"].values())
+            and np.isfinite(pub["samples"]).all() and np.isfinite(pub["dlogps"]).all(),
+            "18a: the published latent profile through the CLI: its chains, no kernel, finite")
+    _card_check(block is not None, f"18a: the published profile's nodes run in lane blocks at "
+                f"{cfg_pub.batch_size} chains: {block}")
 
 
 def _sde(root: str, card: str) -> None:

@@ -1311,6 +1311,42 @@ def test_latent_kernel_route_matches_plain_route(Ts):
 
 
 @pytest.mark.gpu
+def test_published_latent_profile_at_its_batch():
+    """The published 00031 latent profile (``fast_profile(latent_preset(
+    "00031", Ts=[300]), family="latent")``: bf16, the dense forward, GL-8
+    exact nodes) at its batch of 256 chains, RK4-9: the nodes run in the
+    lane blocks ``exact_lane_block`` sizes from the card's total memory
+    (blocked, at least 1), no kernel launches, the samples and dlogp are
+    finite, and two calls agree to the bit."""
+    import numpy as np
+
+    from ti_torch.config import fast_profile, latent_preset
+    from ti_torch.data.mdqm9 import graph_template, make_synthetic_molecule
+    from ti_torch.sampling.drivers import _exact_div_chunk, sample_latent
+    from ti_torch.train.latent import build_latent_model
+
+    _card()
+    cfg = fast_profile(latent_preset("00031", Ts=[300]), family="latent", n_steps=9)
+    assert (cfg.batch_size, cfg.compute_dtype, cfg.divergence) == (256, "bf16", "exact")
+    model = torch_default_weights_(build_latent_model(cfg, N))
+    template = graph_template(make_synthetic_molecule(N, seed=0), t_cond=0)
+    block = _exact_div_chunk(cfg, model, template, torch.device("cuda"), cfg.batch_size)
+    assert block is not None and 1 <= block < 3 * N
+    runs = []
+    for _ in range(2):
+        _build.reset_launches()
+        runs.append(sample_latent(cfg, model, None, template, n_samples=256, save=False,
+                                  device="cuda"))
+        torch.cuda.synchronize()
+        assert not any(_build.ROUTE_LAUNCHES.values())
+    a, b = runs
+    assert a["samples"].shape == (256, 2, N, 3)
+    assert np.isfinite(a["samples"]).all() and np.isfinite(a["dlogps"]).all()
+    np.testing.assert_array_equal(a["samples"], b["samples"])
+    np.testing.assert_array_equal(a["dlogps"], b["dlogps"])
+
+
+@pytest.mark.gpu
 def test_train_latent_runs_on_the_card_by_default(tmp_path):
     import numpy as np
 

@@ -9,7 +9,9 @@ flattened state (d = prod(x.shape[1:])).
 
 - ``divergence_exact``: trace(J) from d forward-mode JVPs against the
   identity basis (``torch.func.jvp`` under ``vmap``), all at once or in
-  ``chunk``-lane blocks.
+  ``chunk``-lane blocks; ``exact_lane_block`` sizes the block of a node on
+  the dense forward from its shape and a share of the card's memory
+  (``exact_lane_budget``), after the memory model ``exact_node_bytes``.
 - ``divergence_hutchinson``: Σ_k w_k z_kᵀ J z_k with rademacher or Haar
   orthogonal probes (``_probe_block``), drawn from a ``torch.Generator``
   or passed in explicitly.
@@ -209,6 +211,70 @@ def divergence_exact(f, x: torch.Tensor, chunk: Optional[int] = None, axis_name=
     if group is not None:
         dist.all_reduce(div, group=group)
     return f(x), div
+
+
+# Peak bytes of one exact node on the dense forward (models/cpainn_dense.py::
+# apply_dense under vmap(jvp)), above its inputs, in units of N²·F elements of
+# the compute dtype: a part a chain (the primal's pair tensors) and a part a
+# lane and chain (the (B·K, N, N, c·F) tangents of one layer, freed before the
+# next, so the layer count does not enter). Fit to the peaks
+# tools/latent_memory_probe.py measured in bf16 on an H100 at 19 atoms, F =
+# 128 and 29 atoms, F = 256 (within 1% of each); f32 peaks sit 38% below the
+# model, which only makes its blocks smaller than they need be (PERF.md §6).
+NODE_CHAIN_UNITS = 44.8
+NODE_LANE_UNITS = 65.0
+# The share of the card's total memory an exact node may take: fixed, so that
+# one config gives the same blocks, and so the same bits, on every call.
+EXACT_LANE_SHARE = 0.6
+
+
+def _itemsize(compute_dtype) -> int:
+    """Bytes an element of the dense forward's compute dtype (None = f32;
+    torch.bfloat16, "bf16" and "bf16_agg" are 2)."""
+    if compute_dtype in (torch.bfloat16, "bf16", "bfloat16", "bf16_agg"):
+        return 2
+    if compute_dtype in (None, torch.float32, "f32", "float32", ""):
+        return 4
+    raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+
+
+def exact_node_bytes(batch: int, lanes: int, n_atoms: int, n_features: int,
+                     compute_dtype) -> float:
+    """The memory model's peak bytes of one exact node of ``batch`` chains
+    evaluating ``lanes`` lanes at once on the dense forward."""
+    unit = n_atoms * n_atoms * n_features * _itemsize(compute_dtype)
+    return batch * unit * (NODE_CHAIN_UNITS + lanes * NODE_LANE_UNITS)
+
+
+def exact_lane_budget(device) -> Optional[int]:
+    """The bytes an exact node may take on ``device``: EXACT_LANE_SHARE of
+    the card's total memory (never its free memory, which changes from call
+    to call); None on the CPU (no blocking)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return int(EXACT_LANE_SHARE * torch.cuda.get_device_properties(dev).total_memory)
+
+
+def exact_lane_block(batch: int, n_atoms: int, n_features: int, n_layers: int, compute_dtype,
+                     budget_bytes: Optional[int]) -> Optional[int]:
+    """The lanes an exact node of ``batch`` chains evaluates at once on the
+    dense forward (``divergence_exact``'s ``chunk``): None when all d =
+    3·n_atoms fit in ``budget_bytes`` under ``exact_node_bytes`` (or no
+    budget is given), else the largest block that fits, balanced so that
+    the ceil(d / k) blocks are near equal, and at least 1. ``n_layers``
+    does not enter: the layers run in turn, each freeing its pair tensors
+    before the next (one peak at 2 and 5 layers, PERF.md §6). The blocks
+    change a node's result only by the order of its sum."""
+    if budget_bytes is None:
+        return None
+    d = 3 * n_atoms
+    unit = batch * n_atoms * n_atoms * n_features * _itemsize(compute_dtype)
+    fit = int((budget_bytes / unit - NODE_CHAIN_UNITS) // NODE_LANE_UNITS)
+    if fit >= d:
+        return None
+    blocks = -(-d // max(fit, 1))
+    return -(-d // blocks)
 
 
 def divergence_hutchinson(f, x: torch.Tensor, generator: Optional[torch.Generator] = None, *,

@@ -664,11 +664,31 @@ def _div_drift_of(cfg, model, params, template, device=None):
     )
 
 
-def _config_sampler(cfg, model, params, template, dev):
-    """The sampler ``cfg`` names for ``model``: its solver and dlogp route,
-    ``n_save`` = n_steps for dopri5, else max(2, n_steps // 50 + 1), and
-    the trajectory and divergence hooks of ``cfg.traj_forward_impl`` and
-    ``cfg.div_forward_impl``."""
+def _exact_div_chunk(cfg, model, template, dev, batch):
+    """The lane block of the exact divergence on the dense forward
+    (``exact_lane_block`` at ``batch`` chains and the device's budget), or
+    None: another estimator, or the nodes run through ``div_drift``."""
+    from ti_torch.ops.divergence import exact_lane_block, exact_lane_budget
+
+    if not cfg.return_dlogp or cfg.divergence != "exact" \
+            or getattr(cfg, "div_forward_impl", "default") not in ("", "default"):
+        return None
+    return exact_lane_block(batch, template.n_atoms, model.n_features, model.score_layers,
+                            _compute_dtype(cfg), exact_lane_budget(dev))
+
+
+def _config_sampler(cfg, model, params, template, dev, batch: Optional[int] = None):
+    """The sampler ``cfg`` names for ``model`` at ``batch`` chains (None:
+    ``cfg.batch_size``): its solver and dlogp route, ``n_save`` = n_steps
+    for dopri5, else max(2, n_steps // 50 + 1), and the trajectory and
+    divergence hooks of ``cfg.traj_forward_impl`` and
+    ``cfg.div_forward_impl``. The exact divergence on the dense forward
+    (the Gauss nodes, or every stage of the stage-coupled solvers) runs in
+    lane blocks of ``exact_lane_block``: None, all lanes at once, wherever
+    they fit in a fixed share of the card's memory (and always on the
+    CPU). The blocks depend on the shape, the compute dtype and the card's
+    total memory only, so one config gives the same bits on every call, and
+    change a result only by the order of a sum."""
     return make_ode_sampler(
         molecular_v_fn_of(model, params, template, compute_dtype=_compute_dtype(cfg),
                           device=dev),
@@ -679,6 +699,7 @@ def _config_sampler(cfg, model, params, template, dev):
         rtol=cfg.rtol,
         return_dlogp=cfg.return_dlogp,
         divergence=cfg.divergence,
+        div_chunk=_exact_div_chunk(cfg, model, template, dev, batch or cfg.batch_size),
         steps_per_dispatch=cfg.steps_per_dispatch or None,
         dlogp_quad_points=getattr(cfg, "dlogp_quad_points", 0) or None,
         dlogp_quad=getattr(cfg, "dlogp_quad", "simpson"),
@@ -715,7 +736,7 @@ def sample_ambient(
     x0 = np.asarray(x0, dtype=np.float32)
     n = len(x0)
     bs = batch_size or cfg.batch_size
-    sampler = _config_sampler(cfg, model, params, template, dev)
+    sampler = _config_sampler(cfg, model, params, template, dev, bs)
 
     if latent_z is None:
         latent_z = np.zeros_like(x0)
@@ -792,7 +813,12 @@ def sample_latent(
     noise, with dlogp, through the route ``cfg`` names (as
     ``sample_ambient``: the trajectory and divergence hooks of
     ``cfg.traj_forward_impl``/``cfg.div_forward_impl`` on the segmented
-    Gauss path). ``samples`` is (n, n_save, N, 3), its first save point the
+    Gauss path). The exact divergence on the dense forward (the published
+    profile's Gauss nodes) evaluates its 3N lanes in blocks that
+    ``exact_lane_block`` sizes from the batch, the shape, the compute dtype
+    and the card's total memory, all at once where they fit: the blocks
+    change dlogp only by rounding, and one config gives the same bits on
+    every call. ``samples`` is (n, n_save, N, 3), its first save point the
     noise. Each batch draws its noise from a generator seeded by
     ``cfg.seed`` (on the device, before the sampler's probes) unless
     ``noise`` (n, N, 3) gives it, used as it is; a tail batch is padded and
@@ -804,7 +830,7 @@ def sample_latent(
     n = n_samples or (len(noise) if noise is not None else cfg.n_latent_samples)
     bs = batch_size or cfg.batch_size
     n_atoms = template.n_atoms
-    sampler = _config_sampler(cfg, model, params, template, dev)
+    sampler = _config_sampler(cfg, model, params, template, dev, bs)
 
     if save:
         os.makedirs(cfg.data_save_path, exist_ok=True)
