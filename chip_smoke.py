@@ -58,7 +58,10 @@ that the path went through its kernels:
   version, timed, and the 10506 profile's divergence nodes through it;
 - B1/B2 and B3 at F = 64 in both types (chip_smoke_f64.py): against their
   plain versions, timed, and ``validate_mdqm9_physics`` on its kernel routes
-  at its own default width, and the SDE through B2 at that width.
+  at its own default width, and the SDE through B2 at that width;
+- B4, B5 and B6 at F = 256 (chip_smoke_fused_f256.py): against their plain
+  versions, timed, and the fused-MLP paths (``fused_velocity_fn``, the
+  ``dense_fused`` sampler, the exact divergence) on the 10506 model.
 
     python3 chip_smoke.py
 
@@ -290,7 +293,21 @@ Phases (any failure exits non-zero and prints no result):
      on the f32 and the bf16_agg kernel flags (792 B1 and 30 B3 launches a
      run, all ``_f64``) against its default route on the same field and
      the closed-form bars; the SDE on that field through B2 (C = 4);
- 23. the ``kernels`` line, the card line and the result line.
+ 23. kernels B4, B5 and B6 at F = 256 (``phase_fused_f256``,
+     chip_smoke_fused_f256.py): fused_edge_mlp_tf32x3_f256,
+     fused_edge_mlp_jvp_tf32x3_f256 and fused_mlp_tf32x3_f256 (32-row tiles
+     for B4 and B5; B6 one CTA an SM) against their plain versions at the
+     10506 shapes (B4 at 13,456 pair and 12,992 edge rows; B5 at K = 32 over
+     13,456 rows and K = 87 over 3,364; B6 on the combine, update and
+     readout at 464 node rows) and at ragged ones, two launches to the bit,
+     timed in turns with the plain versions beside their bounds, their
+     layouts against the wrappers'; ``fused_velocity_fn`` at 16 chains
+     against ``dense_velocity_fn`` (5 B4 and 7 B6 launches, all ``_f256``);
+     the ``dense_fused`` sampler at the 10506 fast profile's settings in f32
+     (RK4-16, GL-8, Hutchinson-32, 16 chains: 440 B4 and 40 B5 launches, all
+     ``_f256``) against ``impl="dense"`` on the same probes, samples/s of
+     both; the exact divergence (87 lanes, 4 chains) through both;
+ 24. the ``kernels`` line, the card line and the result line.
 
 Exits with code 2 when no CUDA card is available.
 """
@@ -376,6 +393,11 @@ SOURCES = {  # kernel: (CUDA source, the TPU kernel it replaces)
     "fused_edge_mlp_jvp": ("ti_torch/csrc/fused_edge_mlp_jvp_tf32x3.cu",
                            "ti_tpu/ops/pallas_kernels.py:232"),
     "fused_mlp": ("ti_torch/csrc/fused_mlp_tf32x3.cu", "ti_tpu/ops/pallas_kernels.py:343"),
+    "fused_edge_mlp_f256": ("ti_torch/csrc/fused_edge_mlp_tf32x3.cu",
+                            "ti_tpu/ops/pallas_kernels.py:180"),
+    "fused_edge_mlp_jvp_f256": ("ti_torch/csrc/fused_edge_mlp_jvp_tf32x3.cu",
+                                "ti_tpu/ops/pallas_kernels.py:232"),
+    "fused_mlp_f256": ("ti_torch/csrc/fused_mlp_tf32x3.cu", "ti_tpu/ops/pallas_kernels.py:343"),
     "div_kernel": ("ti_torch/csrc/div_kernel_tf32x3.cu", "ti_tpu/ops/div_kernel.py:117"),
 }
 
@@ -2764,7 +2786,8 @@ def main() -> int:
                  "pair_layer_tf32x3", "pair_layer_tf32x3_f256", "pair_layer_tf32x3_f64",
                  "pair_layer_mma", "pair_layer_mma_f256", "pair_layer_mma_f64",
                  "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3", "fused_mlp_tf32x3",
-                 "div_kernel_tf32x3"):
+                 "fused_edge_mlp_tf32x3_f256", "fused_edge_mlp_jvp_tf32x3_f256",
+                 "fused_mlp_tf32x3_f256", "div_kernel_tf32x3"):
         spills = [ln.strip() for ln in report[name]["ptxas"].splitlines() if "spill" in ln]
         require(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
                                      for ln in spills), f"{name} builds without register spills: {spills}")
@@ -3214,9 +3237,16 @@ def main() -> int:
 
     launches22 = phase_f64(rows_kernels, report, card)
 
-    # ---- 23. result lines ----
+    # ---- 23. B4, B5 and B6 at F = 256, the fused paths on the 10506 model ----
     mark("23")
-    path_launches = {**launches20, **launches21, **launches22, "pair_layer": launches["pair_layer"],
+    from chip_smoke_fused_f256 import phase_fused_f256
+
+    launches23 = phase_fused_f256(rows_kernels, report, card)
+
+    # ---- 24. result lines ----
+    mark("24")
+    path_launches = {**launches20, **launches21, **launches22, **launches23,
+                     "pair_layer": launches["pair_layer"],
                      "pair_layer_bf16_agg": launches16["pair_layer"],
                      "pair_layer_bf16_agg_f256": launches10506["pair_layer"],
                      "pair_tangent": launches["pair_tangent"],

@@ -23,13 +23,15 @@ from chip_smoke import torch_default_weights_
 from ti_torch.models.cpainn import CPaiNN
 from ti_torch.ops import _build
 from ti_torch.ops import pallas_kernels as pk
-from ti_torch.ops.mlp_block import mlp_weights
+from ti_torch.ops.mlp_block import MLPWeights, mlp_weights
 from ti_torch.ops.pair_layer_kernel import (
     MMA_MAX_TILES,
+    WidthRefusal,
     mma_smem_bytes,
     mma_tile_plan,
     mma_tiles,
     pack_layer,
+    pack_pair_mlps,
     pair_layer,
     pair_layer_plain,
     tc_smem_bytes,
@@ -187,6 +189,27 @@ def _jvp_inputs(r, k, seed=2):
         _rows(k, r, 2 * F, seed=seed + 2), _rows(k, r, F, seed=seed + 3)
 
 
+def _edge_layer(f):
+    """A message layer's two MLPs at width ``f`` (random, 1/sqrt(f_in)),
+    packed for B4 and B5 with their 3xTF32 split, on the card."""
+    g = torch.Generator().manual_seed(f)
+
+    def mlp(f_in):
+        def t(*shape):
+            return torch.randn(*shape, generator=g) / shape[0] ** 0.5
+
+        return MLPWeights(t(f_in, f), t(f), 1 + 0.1 * t(f), t(f), t(f, f), t(f), 1 + 0.1 * t(f),
+                          t(f), t(f, 5 * f), t(5 * f))
+
+    return with_tf32_weights(pack_pair_mlps(mlp(2 * f), mlp(f), torch.float32, "cuda"))
+
+
+def _edge_rows(f, r, k=0):
+    """B4's rows at width ``f`` (in_feat, pe), and with k > 0 B5's lanes."""
+    rows = (_rows(r, 2 * f), _rows(r, f, seed=3))
+    return rows + ((_rows(k, r, 2 * f, seed=4), _rows(k, r, f, seed=5)) if k else ())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 3, 57, 87])
 @pytest.mark.parametrize("r", [5, 65, 11_552])
@@ -226,16 +249,28 @@ def test_fused_edge_mlp_jvp_tc_counts_and_refusals():
     import ctypes
 
     _card()
-    lib = _build.load("fused_edge_mlp_jvp_tf32x3")
-    lib.fused_edge_mlp_jvp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
-    assert lib.fused_edge_mlp_jvp_tf32x3_smem_bytes() == pk.tc_jvp_smem_bytes()
-    assert lib.fused_edge_mlp_jvp_tf32x3_scratch_floats() == pk.TC_JVP_SCRATCH
+    for f, name in ((F, "fused_edge_mlp_jvp_tf32x3"), (F256, "fused_edge_mlp_jvp_tf32x3_f256")):
+        lib = _build.load(name)
+        lib.fused_edge_mlp_jvp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+        assert lib.fused_edge_mlp_jvp_tf32x3_smem_bytes() == pk.tc_jvp_smem_bytes(f)
+        assert lib.fused_edge_mlp_jvp_tf32x3_scratch_floats() == pk.tc_jvp_scratch(f)
+        assert lib.fused_edge_mlp_jvp_tf32x3_rows() == pk.edge_tile_rows(f)
+    assert pk.tc_jvp_scratch(F) == pk.TC_JVP_SCRATCH
     w = pack_layer(_params(), 0, F, torch.float32, "cuda")
     args = _jvp_inputs(70, 2)
     with pytest.raises(ValueError, match="with_tf32_weights"):
         pk.fused_edge_mlp_jvp(*args, w)
     with pytest.raises(ValueError, match="variant"):
         pk.fused_edge_mlp_jvp(*args, with_tf32_weights(w), variant="mma")
+    before = dict(_build.LAUNCHES)
+    for f in (64, 32):  # built by no library: refused, nothing launched
+        w, rows = _edge_layer(f), _edge_rows(f, 70, k=2)
+        with pytest.raises(WidthRefusal, match=f"fused_edge_mlp_jvp_tf32x3 is built for F=128, "
+                                               f"got F={f}"):
+            pk.fused_edge_mlp_jvp(*rows, w)
+    with pytest.raises(WidthRefusal, match="fused_edge_mlp_jvp is built for F=128, got F=256"):
+        pk.fused_edge_mlp_jvp(*_edge_rows(F256, 70, k=2), _edge_layer(F256), variant="fma")
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.gpu
@@ -273,23 +308,35 @@ def test_fused_edge_mlp_tc_is_deterministic_and_agrees_with_fma():
 
 @pytest.mark.gpu
 def test_fused_edge_mlp_tc_counts_and_refusals():
-    """The wrapper's shared-memory count is the kernel's own and the card
-    holds EDGE_CTAS_PER_SM of its CTAs an SM (so it builds within 128
-    registers); a layer without its 3xTF32 packing raises on the card (no
-    fallback), and so does an unknown variant."""
+    """The wrapper's shared-memory and tile-row counts are the kernel's own
+    at F = 128 and 256 and the card holds EDGE_CTAS_PER_SM of its CTAs an
+    SM at both (so each builds within 128 registers); a layer without its
+    3xTF32 packing raises on the card (no fallback), and so does an unknown
+    variant; F = 64 and 32, and ``variant="fma"`` at F = 256, are refused
+    and launch nothing."""
     import ctypes
 
     _card()
-    lib = _build.load("fused_edge_mlp_tf32x3")
-    lib.fused_edge_mlp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
-    assert lib.fused_edge_mlp_tf32x3_smem_bytes() == pk.tc_edge_smem_bytes()
-    assert lib.fused_edge_mlp_tf32x3_ctas_per_sm() == pk.EDGE_CTAS_PER_SM
+    for f, name in ((F, "fused_edge_mlp_tf32x3"), (F256, "fused_edge_mlp_tf32x3_f256")):
+        lib = _build.load(name)
+        lib.fused_edge_mlp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+        assert lib.fused_edge_mlp_tf32x3_smem_bytes() == pk.tc_edge_smem_bytes(f)
+        assert lib.fused_edge_mlp_tf32x3_ctas_per_sm() == pk.EDGE_CTAS_PER_SM
+        assert lib.fused_edge_mlp_tf32x3_rows() == pk.edge_tile_rows(f)
     w = pack_layer(_params(), 0, F, torch.float32, "cuda")
     in_feat, pe = _rows(70, 2 * F), _rows(70, F, seed=3)
     with pytest.raises(ValueError, match="with_tf32_weights"):
         pk.fused_edge_mlp(in_feat, pe, w)
     with pytest.raises(ValueError, match="variant"):
         pk.fused_edge_mlp(in_feat, pe, with_tf32_weights(w), variant="mma")
+    before = dict(_build.LAUNCHES)
+    for f in (64, 32):
+        with pytest.raises(WidthRefusal, match=f"fused_edge_mlp_tf32x3 is built for F=128, "
+                                               f"got F={f}"):
+            pk.fused_edge_mlp(*_edge_rows(f, 70), _edge_layer(f))
+    with pytest.raises(WidthRefusal, match="fused_edge_mlp is built for F=128, got F=256"):
+        pk.fused_edge_mlp(*_edge_rows(F256, 70), _edge_layer(F256), variant="fma")
+    assert _build.LAUNCHES == before
 
 
 _MLP_SHAPES = [("combine", 4 * F), ("latent combine", 3 * F), ("update_0.mlp", 2 * F),
@@ -352,13 +399,16 @@ def test_fused_mlp_tc_counts_and_refusals():
     from ti_torch.ops.mlp_block import MLPWeights
 
     _card()
-    lib = _build.load("fused_mlp_tf32x3")
-    lib.fused_mlp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
-    assert lib.fused_mlp_tf32x3_smem_bytes() == pk.tc_mlp_smem_bytes()
-    assert lib.fused_mlp_tf32x3_rows() == pk.MLP_ROWS
-    assert lib.fused_mlp_tf32x3_ctas_per_sm() == pk.MLP_CTAS_PER_SM
+    for f, name in ((F, "fused_mlp_tf32x3"), (F256, "fused_mlp_tf32x3_f256")):
+        lib = _build.load(name)
+        lib.fused_mlp_tf32x3_smem_bytes.restype = ctypes.c_ulonglong
+        assert lib.fused_mlp_tf32x3_smem_bytes() == pk.tc_mlp_smem_bytes(f)
+        assert lib.fused_mlp_tf32x3_rows() == pk.MLP_ROWS
+        assert lib.fused_mlp_tf32x3_ctas_per_sm() == pk.mlp_ctas_per_sm(f)
+    assert pk.mlp_ctas_per_sm(F) == pk.MLP_CTAS_PER_SM
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert pk.MLP_CTAS_PER_SM * sms >= pk.mlp_plan(2432, 2 * F, 3 * F).ctas
+    assert pk.mlp_ctas_per_sm(F256) * sms >= pk.mlp_plan(16 * 29, 2 * F256, 3 * F256, F256).ctas
     pack = _mlp_pack("update_0.mlp", 2 * F)
     x = _rows(70, 2 * F)
     with pytest.raises(ValueError, match="no 3xTF32 packing"):
@@ -378,6 +428,8 @@ def test_fused_mlp_tc_counts_and_refusals():
 
     with pytest.raises(ValueError, match="hidden width F=128"):
         pk.fused_mlp(_rows(70, 64), pk.pack_mlp(mlp(64, 64, 64), "cuda"))
+    with pytest.raises(WidthRefusal, match="fused_mlp takes hidden width F=128, got F=256"):
+        pk.fused_mlp(_rows(70, F256), pk.pack_mlp(mlp(F256, F256, 2), "cuda"), variant="fma")
     for f_in in (20, 36):
         odd = pk.pack_mlp(mlp(f_in, F, 3), "cuda")
         x = _rows(70, f_in, seed=f_in)
@@ -691,7 +743,8 @@ def test_pair_layer_f256_refusals_and_counts():
     and of B3 and B4 refuse the width on the card, naming the routes that
     take it, and launch nothing (B1 in f32 runs:
     test_pair_layer_tf32x3_f256_matches_plain; B3 on the tensor cores:
-    test_pair_tangent_f256_matches_plain)."""
+    test_pair_tangent_f256_matches_plain; B4 on the tensor cores:
+    test_fused_edge_mlp_f256_matches_plain)."""
     import ctypes
 
     from ti_torch.ops.pair_layer_kernel import mma_max_tiles, mma_tile_bytes
@@ -721,8 +774,8 @@ def test_pair_layer_f256_refusals_and_counts():
         pair_tangent(*base16, *lanes16, w16, 10.0, variant="fma")
     x, s = base32[0], base32[1]
     rows = s.reshape(-1, F256)
-    with pytest.raises(ValueError, match="fused_edge_mlp_tf32x3 is built for F=128, " + route):
-        pk.fused_edge_mlp(torch.cat([rows, rows], dim=-1), rows, w32)
+    with pytest.raises(ValueError, match="fused_edge_mlp is built for F=128, " + route):
+        pk.fused_edge_mlp(torch.cat([rows, rows], dim=-1), rows, w32, variant="fma")
     assert _build.LAUNCHES == before
 
 
@@ -1912,3 +1965,69 @@ def test_validate_mdqm9_cli_kernel_routes_at_f64(tmp_path, capsys, traj_impl, di
                                      f"pair_tangent:{tangent}": 2 * 3}
     assert (row["traj_impl"], row["div_impl"]) == (traj_impl, div_impl)
     assert all(math.isfinite(v) for v in row.values() if isinstance(v, float))
+
+
+# B4, B5 and B6 at F = 256 (chip_smoke.py phase 23(a)): the 10506 model's
+# shapes (16 chains of 29 atoms: 13,456 pair rows, 12,992 edge rows, 464
+# node rows; K = 32 probes, K = 87 exact lanes at 4 chains) and ragged ones,
+# each against its plain version and twice to the bit
+
+def _params256():
+    model = torch_default_weights_(CPaiNN(F256, 1, n_atoms=29))
+    return {name: t.detach() for name, t in model.state_dict().items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [1, 31, 33, 1007, 12_992, 13_456])
+def test_fused_edge_mlp_f256_matches_plain(r):
+    """B4 at F = 256 (fused_edge_mlp_tf32x3_f256, 32-row tiles): every
+    launch from the ``_f256`` library, two launches equal to the bit."""
+    _card()
+    w = with_tf32_weights(pack_layer(_params256(), 0, F256, torch.float32, "cuda"))
+    in_feat, pe = _edge_rows(F256, r)
+    key = ("fused_edge_mlp", "fused_edge_mlp_tf32x3_f256")
+    before = _build.ROUTE_LAUNCHES.get(key, 0)
+    out, again = pk.fused_edge_mlp(in_feat, pe, w), pk.fused_edge_mlp(in_feat, pe, w)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[key] == before + 2
+    assert torch.equal(out, again)
+    _assert_close([out], [pk.fused_edge_mlp_reference(in_feat, pe, w.phi, w.w)], torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,k", [(5, 1), (65, 3), (1007, 7), (3364, 87), (13_456, 32)])
+def test_fused_edge_mlp_jvp_f256_matches_plain(r, k):
+    """B5 at F = 256 (fused_edge_mlp_jvp_tf32x3_f256, 32-row tiles, the
+    residuals in shared memory): every launch from the ``_f256`` library,
+    two launches equal to the bit."""
+    _card()
+    w = with_tf32_weights(pack_layer(_params256(), 0, F256, torch.float32, "cuda"))
+    args = _edge_rows(F256, r, k)
+    key = ("fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3_f256")
+    before = _build.ROUTE_LAUNCHES.get(key, 0)
+    out, again = pk.fused_edge_mlp_jvp(*args, w), pk.fused_edge_mlp_jvp(*args, w)
+    torch.cuda.synchronize()
+    assert _build.ROUTE_LAUNCHES[key] == before + 2
+    assert torch.equal(out, again)
+    _assert_close([out], [pk.edge_mlp_jvp_reference(*args, w.phi, w.w)], torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,f_in", [("combine", 4 * F256), ("latent combine", 3 * F256),
+                                       ("update_0.mlp", 2 * F256), ("readout.mlp", F256)])
+def test_fused_mlp_f256_matches_plain(name, f_in):
+    """B6 at F = 256 (fused_mlp_tf32x3_f256, 32 columns a warp, 256-column
+    chunks) at one row, a tile and one row, the 464 node rows of 16 chains
+    and 2432: every launch from the ``_f256`` library, two to the bit."""
+    _card()
+    w = mlp_weights(_params256(), "combine" if name == "latent combine" else name)
+    pack = pk.pack_mlp(w._replace(w1=w.w1[:f_in]), "cuda")
+    key = ("fused_mlp", "fused_mlp_tf32x3_f256")
+    for r in (1, 17, 464, 2432):
+        x = _rows(r, f_in, seed=r)
+        before = _build.ROUTE_LAUNCHES.get(key, 0)
+        out, again = pk.fused_mlp(x, pack), pk.fused_mlp(x, pack)
+        torch.cuda.synchronize()
+        assert _build.ROUTE_LAUNCHES[key] == before + 2
+        assert torch.equal(out, again)
+        _assert_close([out], [pk._mlp_block(x, pack.w)], torch.float32)

@@ -22,6 +22,7 @@ def _port_sources():
     yield ROOT / "chip_smoke_validate.py"
     yield ROOT / "chip_smoke_b3_f256.py"
     yield ROOT / "chip_smoke_f64.py"
+    yield ROOT / "chip_smoke_fused_f256.py"
 
 
 def test_imports_with_jax_blocked():
@@ -101,6 +102,7 @@ def test_no_source_imports_jax_or_ti_tpu():
                                    ROOT / "chip_smoke_validate.py",
                                    ROOT / "chip_smoke_b3_f256.py",
                                    ROOT / "chip_smoke_f64.py",
+                                   ROOT / "chip_smoke_fused_f256.py",
                                    ROOT / "ti_torch" / "analysis" / "oracles.py"} | {
         ROOT / "ti_torch" / "cli" / f"validate_{name}_physics.py"
         for name in ("mdqm9", "latent", "bg_ti")} <= set(_port_sources())

@@ -47,80 +47,135 @@
 // Shared memory (231,424 bytes, fused_edge_mlp_jvp_tf32x3_smem_bytes): four
 // residual tiles, the statistics, the [din | in] input tile (64 x 2F, whose
 // halves then hold the fronts' products and phi's a2) and the [dpe | pe] tile
-// (64 x F, then w's a2). One CTA of 8 warps an SM. Only F = 128 is built.
+// (64 x F, then w's a2). One CTA of 8 warps an SM.
+// Built at two widths from this file (PK_F, pair_common.cuh; ops/_build.py):
+// F = 128 (library fused_edge_mlp_jvp_tf32x3) as above, and F = 256 (library
+// fused_edge_mlp_jvp_tf32x3_f256, -DPK_F=256; the 10506 model's width), where
+// the buffers above would take 460,800 bytes. There the row tile is ETR = 32
+// rows, and warp w owns its 32 rows and columns 32 w .. 32 w + 31 (the warp's
+// block, accumulators and weight fragments are F = 128's). The same buffers,
+// four 32 x 256 residual tiles, the statistics, [din | in] (32 x 512) and
+// [dpe | pe] (32 x 256), take 230,400 bytes: they stay in shared memory, one
+// CTA an SM. A CTA's scratch holds p, q of 32 rows of 5F, the same 327,680
+// bytes as at F = 128 (43 MB over 132 CTAs, in the 50 MB L2). LayerNorm and
+// its tangent take 4 rows a warp and 8 columns a lane (two 128-wide chunks).
+// At K = 32 over 13,456 rows (one node of 16 chains of 29 atoms) the bound
+// is 5.29 ms as three TF32 passes.
 
 #include "tf32_common.cuh"
 
 namespace pk {
 namespace tf32x3 {
 
-constexpr int TILE_F = TR * F;         // one 64 x F f32 tile
-constexpr int NSTAT = 8 * TR;          // mean and 1/std of each row, per LayerNorm
-constexpr size_t JVP_SMEM = sizeof(float) * (size_t)(4 * TILE_F + NSTAT + TR * LDX + TILE_F);
+static_assert(F == 128 || F == 256, "B5 is built at F = 128 and 256");
+constexpr int ETR = F == 256 ? 32 : TR;  // rows of a row tile
+constexpr int RB = ETR / 32;             // its 32-row blocks: warp w owns rows 32 (w % RB) ..
+static_assert(RB * (F / 32) == NW, "a warp a 32 x 32 block of the tile");
+constexpr int CH = F / 128;              // 128-wide chunks of a row: lane l takes 128 c + 4 l ..
+constexpr int RW = ETR / NW;             // rows a warp in the LayerNorms
+constexpr int TILE_F = ETR * F;          // one ETR x F f32 tile
+constexpr int NSTAT = 8 * ETR;           // mean and 1/std of each row, per LayerNorm
+constexpr size_t JVP_SMEM = sizeof(float) * (size_t)(4 * TILE_F + NSTAT + ETR * LDX + TILE_F);
 constexpr int FRAG4 = 8;               // float4s of a thread's 32 x 32 accumulator block
 constexpr int SCR4 = 5 * 2 * FRAG4 * NT;  // float4s of a CTA's scratch: [chunk][p | q][slot][thread]
+static_assert(4 * SCR4 == 10 * ETR * F, "the scratch holds a tile's p and q");
 
-// LayerNorm (f32 statistics, eps 1e-5) -> SiLU in place on a swizzled TR-row
-// tile, as ln_silu_rows; each row's pre-LN values go to H (row stride F) and
-// its mean and 1/std to st[r], st[TR + r]
+// LayerNorm (f32 statistics, eps 1e-5) -> SiLU in place on a swizzled ETR-row
+// tile, as ln_silu_rows (lane l the columns 128 c + 4 l .. + 3 of each chunk
+// c); each row's pre-LN values go to H (row stride F) and its mean and 1/std
+// to st[r], st[ETR + r]
 __device__ __forceinline__ void ln_silu_keep_rows(float* T, int ld, float* H, float* st,
                                                   const float* __restrict__ scale,
                                                   const float* __restrict__ bias) {
   const int lane = lane_id(), w = warp_id();
-  const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + 4 * lane));
-  const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + 4 * lane));
+  float4 sc[CH], bi[CH];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    sc[c] = __ldg(reinterpret_cast<const float4*>(scale + 128 * c + 4 * lane));
+    bi[c] = __ldg(reinterpret_cast<const float4*>(bias + 128 * c + 4 * lane));
+  }
 #pragma unroll 1
-  for (int rr = 0; rr < TR / NW; ++rr) {
-    const int r = 8 * w + rr;
-    float4* at = reinterpret_cast<float4*>(T + swz(r, 4 * lane, ld));
-    const float4 v = *at;
-    *reinterpret_cast<float4*>(H + swz(r, 4 * lane, F)) = v;
-    const float mu = warp_sum(v.x + v.y + v.z + v.w) * (1.f / F);
-    const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
-    const float rstd = 1.f / sqrtf(warp_sum(d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3) * (1.f / F) + 1e-5f);
+  for (int rr = 0; rr < RW; ++rr) {
+    const int r = RW * w + rr;
+    float4 v[CH];
+    float sum, sq;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      v[c] = *reinterpret_cast<const float4*>(T + swz(r, 128 * c + 4 * lane, ld));
+      *reinterpret_cast<float4*>(H + swz(r, 128 * c + 4 * lane, F)) = v[c];
+      const float s = v[c].x + v[c].y + v[c].z + v[c].w;
+      sum = c ? sum + s : s;
+    }
+    const float mu = warp_sum(sum) * (1.f / F);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const float d0 = v[c].x - mu, d1 = v[c].y - mu, d2 = v[c].z - mu, d3 = v[c].w - mu;
+      const float s = d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+      sq = c ? sq + s : s;
+    }
+    const float rstd = 1.f / sqrtf(warp_sum(sq) * (1.f / F) + 1e-5f);
     if (lane == 0) {
       st[r] = mu;
-      st[TR + r] = rstd;
+      st[ETR + r] = rstd;
     }
-    *at = make_float4(silu(d0 * rstd * sc.x + bi.x), silu(d1 * rstd * sc.y + bi.y),
-                      silu(d2 * rstd * sc.z + bi.z), silu(d3 * rstd * sc.w + bi.w));
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const float d0 = v[c].x - mu, d1 = v[c].y - mu, d2 = v[c].z - mu, d3 = v[c].w - mu;
+      *reinterpret_cast<float4*>(T + swz(r, 128 * c + 4 * lane, ld)) =
+          make_float4(silu(d0 * rstd * sc[c].x + bi[c].x), silu(d1 * rstd * sc[c].y + bi[c].y),
+                      silu(d2 * rstd * sc[c].z + bi[c].z), silu(d3 * rstd * sc[c].w + bi[c].w));
+    }
   }
 }
 
-// Tangent of LayerNorm -> SiLU in place on a swizzled TR-row tile, row r
-// replayed at the pre-LN primal H[r] and its statistics st[r], st[TR + r]
+// Tangent of LayerNorm -> SiLU in place on a swizzled ETR-row tile, row r
+// replayed at the pre-LN primal H[r] and its statistics st[r], st[ETR + r]
 // (_ln_silu_jvp: the LN tangent at f32 statistics times SiLU's slope)
 __device__ __forceinline__ void ln_silu_tan_keep_rows(float* T, int ld, const float* H,
                                                       const float* st,
                                                       const float* __restrict__ scale,
                                                       const float* __restrict__ bias) {
   const int lane = lane_id(), w = warp_id();
-  const float4 s4 = __ldg(reinterpret_cast<const float4*>(scale + 4 * lane));
-  const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + 4 * lane));
-  const float sc[4] = {s4.x, s4.y, s4.z, s4.w}, bi[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll 1
-  for (int rr = 0; rr < TR / NW; ++rr) {
-    const int r = 8 * w + rr;
-    float4* at = reinterpret_cast<float4*>(T + swz(r, 4 * lane, ld));
-    const float4 d4 = *at, h4 = *reinterpret_cast<const float4*>(H + swz(r, 4 * lane, F));
-    const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-    const float mu = st[r], rstd = st[TR + r];
-    const float cen[4] = {h4.x - mu, h4.y - mu, h4.z - mu, h4.w - mu};
-    float cd = 0.f;
+  float sc[CH][4], bi[CH][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) cd += cen[c] * dv[c];
-    const float dmu = warp_sum(dv[0] + dv[1] + dv[2] + dv[3]) * (1.f / F);
+  for (int c = 0; c < CH; ++c) {
+    const float4 s4 = __ldg(reinterpret_cast<const float4*>(scale + 128 * c + 4 * lane));
+    const float4 b4 = __ldg(reinterpret_cast<const float4*>(bias + 128 * c + 4 * lane));
+    sc[c][0] = s4.x, sc[c][1] = s4.y, sc[c][2] = s4.z, sc[c][3] = s4.w;
+    bi[c][0] = b4.x, bi[c][1] = b4.y, bi[c][2] = b4.z, bi[c][3] = b4.w;
+  }
+#pragma unroll 1
+  for (int rr = 0; rr < RW; ++rr) {
+    const int r = RW * w + rr;
+    const float mu = st[r], rstd = st[ETR + r];
+    float dv[CH][4], cen[CH][4], sd, cd = 0.f;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const float4 d4 = *reinterpret_cast<const float4*>(T + swz(r, 128 * c + 4 * lane, ld));
+      const float4 h4 = *reinterpret_cast<const float4*>(H + swz(r, 128 * c + 4 * lane, F));
+      dv[c][0] = d4.x, dv[c][1] = d4.y, dv[c][2] = d4.z, dv[c][3] = d4.w;
+      cen[c][0] = h4.x - mu, cen[c][1] = h4.y - mu, cen[c][2] = h4.z - mu, cen[c][3] = h4.w - mu;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cd += cen[c][e] * dv[c][e];
+      const float s = dv[c][0] + dv[c][1] + dv[c][2] + dv[c][3];
+      sd = c ? sd + s : s;
+    }
+    const float dmu = warp_sum(sd) * (1.f / F);
     const float dvar = 2.f * (warp_sum(cd) * (1.f / F));
     const float drstd = -0.5f * rstd * rstd * rstd * dvar;
-    float o[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float dl = ((dv[c] - dmu) * rstd + cen[c] * drstd) * sc[c];
-      const float l = cen[c] * rstd * sc[c] + bi[c];
-      const float sig = 1.f / (1.f + expf(-l));
-      o[c] = sig * (1.f + l * (1.f - sig)) * dl;
+    for (int c = 0; c < CH; ++c) {
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dl = ((dv[c][e] - dmu) * rstd + cen[c][e] * drstd) * sc[c][e];
+        const float l = cen[c][e] * rstd * sc[c][e] + bi[c][e];
+        const float sig = 1.f / (1.f + expf(-l));
+        o[e] = sig * (1.f + l * (1.f - sig)) * dl;
+      }
+      *reinterpret_cast<float4*>(T + swz(r, 128 * c + 4 * lane, ld)) =
+          make_float4(o[0], o[1], o[2], o[3]);
     }
-    *at = make_float4(o[0], o[1], o[2], o[3]);
   }
 }
 
@@ -156,17 +211,17 @@ edge_jvp_tf32x3_kernel(const float* __restrict__ in, const float* __restrict__ p
   float* H2P = H1P + TILE_F;
   float* H1W = H2P + TILE_F;
   float* H2W = H1W + TILE_F;
-  float* ST = H2W + TILE_F;        // per LayerNorm (h1p, h2p, h1w, h2w): mean (TR), 1/std (TR)
+  float* ST = H2W + TILE_F;        // per LayerNorm (h1p, h2p, h1w, h2w): mean (ETR), 1/std (ETR)
   float* XB = ST + NSTAT;          // [in | din] of a tile (row stride LDX); X1 | X2
   float* X1 = XB;
   float* X2 = XB + F;              // phi's a2 (primal, then tangent)
-  float* Y = XB + TR * LDX;        // [pe | dpe] of a tile (row stride F); w's a2
+  float* Y = XB + ETR * LDX;       // [pe | dpe] of a tile (row stride F); w's a2
 
   const int warp = warp_id(), lane = lane_id(), g = lane >> 2, t = lane & 3;
-  const int row0 = 32 * (warp & 1), col0 = 32 * (warp >> 1), nt0 = 4 * (warp >> 1);
+  const int row0 = 32 * (warp % RB), col0 = 32 * (warp / RB), nt0 = 4 * (warp / RB);
   const float *vp = vecs + V_PHI, *vw = vecs + V_W;
   float4* scr = scratch + (size_t)blockIdx.x * SCR4;
-  const long long units = (long long)((rows + TR - 1) / TR) * K;
+  const long long units = (long long)((rows + ETR - 1) / ETR) * K;
   const long long u0 = units * blockIdx.x / ctas, u1 = units * (blockIdx.x + 1) / ctas;
   long long primal_tile = -1;
   Acc acc;
@@ -174,15 +229,15 @@ edge_jvp_tf32x3_kernel(const float* __restrict__ in, const float* __restrict__ p
   for (long long u = u0; u < u1; ++u) {
     const long long tile = u / K;
     const int l = (int)(u - tile * K);
-    const size_t r0 = (size_t)tile * TR;
-    const int nrows = min(TR, rows - (int)r0);
+    const size_t r0 = (size_t)tile * ETR;
+    const int nrows = min(ETR, rows - (int)r0);
     __syncthreads();  // every warp is done with XB and Y
 
     if (tile != primal_tile) {
       // ---- the primal of the tile: residuals to shared memory, p, q to the scratch ----
       primal_tile = tile;
-      stage_rows(XB, LDX, in, 2 * F, r0, nrows);
-      stage_rows(Y, F, pe, F, r0, nrows);
+      stage_rows<ETR>(XB, LDX, in, 2 * F, r0, nrows);
+      stage_rows<ETR>(Y, F, pe, F, r0, nrows);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();
@@ -197,18 +252,18 @@ edge_jvp_tf32x3_kernel(const float* __restrict__ in, const float* __restrict__ p
       mma3t<F / 8, FN>(acc, X1, LDX, row0, wmat(wpk, M_PHI2), nt0);
       acc_store(X2, LDX, row0, col0, acc, vp + V_B2);  // X2 was last read before the barriers above
       __syncthreads();
-      ln_silu_keep_rows(X2, LDX, H2P, ST + 2 * TR, vp + V_LN2S, vp + V_LN2B);  // a2 of phi
+      ln_silu_keep_rows(X2, LDX, H2P, ST + 2 * ETR, vp + V_LN2S, vp + V_LN2B);  // a2 of phi
       acc_zero(acc);
       mma3t<F / 8, FN>(acc, Y, F, row0, wmat(wpk, M_W1), nt0);
       acc_store(X1, LDX, row0, col0, acc, vw + V_B1);  // X1 was last read before the barrier above
       __syncthreads();
-      ln_silu_keep_rows(X1, LDX, H1W, ST + 4 * TR, vw + V_LN1S, vw + V_LN1B);
+      ln_silu_keep_rows(X1, LDX, H1W, ST + 4 * ETR, vw + V_LN1S, vw + V_LN1B);
       __syncthreads();
       acc_zero(acc);
       mma3t<F / 8, FN>(acc, X1, LDX, row0, wmat(wpk, M_W2), nt0);
       acc_store(Y, F, row0, col0, acc, vw + V_B2);  // Y was last read before the barrier above
       __syncthreads();
-      ln_silu_keep_rows(Y, F, H2W, ST + 6 * TR, vw + V_LN2S, vw + V_LN2B);  // a2 of w
+      ln_silu_keep_rows(Y, F, H2W, ST + 6 * ETR, vw + V_LN2S, vw + V_LN2B);  // a2 of w
       __syncthreads();
 #pragma unroll 1
       for (int k = 0; k < 5; ++k) {
@@ -223,8 +278,8 @@ edge_jvp_tf32x3_kernel(const float* __restrict__ in, const float* __restrict__ p
     }
 
     // ---- lane l of the tile ----
-    stage_rows(XB, LDX, din + (size_t)l * rows * 2 * F, 2 * F, r0, nrows);
-    stage_rows(Y, F, dpe + (size_t)l * rows * F, F, r0, nrows);
+    stage_rows<ETR>(XB, LDX, din + (size_t)l * rows * 2 * F, 2 * F, r0, nrows);
+    stage_rows<ETR>(Y, F, dpe + (size_t)l * rows * F, F, r0, nrows);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
@@ -240,19 +295,19 @@ edge_jvp_tf32x3_kernel(const float* __restrict__ in, const float* __restrict__ p
     mma3t<F / 8, FN>(acc, X1, LDX, row0, wmat(wpk, M_PHI2), nt0);
     acc_put(X2, LDX, row0, col0, acc);  // X2 was last read before the barriers above
     __syncthreads();
-    ln_silu_tan_keep_rows(X2, LDX, H2P, ST + 2 * TR, vp + V_LN2S, vp + V_LN2B);  // da2 of phi
+    ln_silu_tan_keep_rows(X2, LDX, H2P, ST + 2 * ETR, vp + V_LN2S, vp + V_LN2B);  // da2 of phi
     // w's tangent front, replayed at h1w, h2w
     acc_zero(acc);
     mma3t<F / 8, FN>(acc, Y, F, row0, wmat(wpk, M_W1), nt0);
     acc_put(X1, LDX, row0, col0, acc);  // X1 was last read before the barrier above
     __syncthreads();
-    ln_silu_tan_keep_rows(X1, LDX, H1W, ST + 4 * TR, vw + V_LN1S, vw + V_LN1B);
+    ln_silu_tan_keep_rows(X1, LDX, H1W, ST + 4 * ETR, vw + V_LN1S, vw + V_LN1B);
     __syncthreads();
     acc_zero(acc);
     mma3t<F / 8, FN>(acc, X1, LDX, row0, wmat(wpk, M_W2), nt0);
     acc_put(Y, F, row0, col0, acc);  // Y was last read before the barrier above
     __syncthreads();
-    ln_silu_tan_keep_rows(Y, F, H2W, ST + 6 * TR, vw + V_LN2S, vw + V_LN2B);  // da2 of w
+    ln_silu_tan_keep_rows(Y, F, H2W, ST + 6 * ETR, vw + V_LN2S, vw + V_LN2B);  // da2 of w
     __syncthreads();
 
     // the 5F chunks: dp q + p dq from registers to the output
@@ -303,14 +358,14 @@ edge_jvp_tf32x3_kernel(const float* __restrict__ in, const float* __restrict__ p
 
 // mats is the layer's matrices split into TF32 hi and lo parts in fragment
 // order (ops/pair_layer_kernel.pack_tf32_weights, 2 x 15 F^2 f32 values);
-// scratch holds ctas x 5 x 2 x 64 x F floats (each CTA's primal p, q);
-// 1 <= ctas <= ceil(rows / 64) K.
+// scratch holds ctas x 5 x 2 x ETR x F floats (each CTA's primal p, q; ETR = 64
+// at F = 128, 32 at F = 256); 1 <= ctas <= ceil(rows / ETR) K.
 extern "C" int fused_edge_mlp_jvp_tf32x3(const void* in, const void* pe, const void* din,
                                          const void* dpe, const void* mats, const void* vecs,
                                          void* out, void* scratch, int rows, int K, int ctas,
                                          void* stream) {
   using namespace pk::tf32x3;
-  const long long units = (long long)((rows + TR - 1) / TR) * K;
+  const long long units = (long long)((rows + ETR - 1) / ETR) * K;
   if (rows < 1 || K < 1 || ctas < 1 || ctas > units) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(edge_jvp_tf32x3_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -328,3 +383,6 @@ extern "C" unsigned long long fused_edge_mlp_jvp_tf32x3_smem_bytes() {
 
 // floats of one CTA's scratch
 extern "C" int fused_edge_mlp_jvp_tf32x3_scratch_floats() { return 4 * pk::tf32x3::SCR4; }
+
+// rows of a row tile
+extern "C" int fused_edge_mlp_jvp_tf32x3_rows() { return pk::tf32x3::ETR; }

@@ -43,16 +43,43 @@
 //   stay in L2;
 // - padding rows of the last tile (R % 64) are zero in the input and never
 //   stored. No atomics: two launches agree to the bit.
-// Only F = 128 is built.
+// Built at two widths from this file (PK_F, pair_common.cuh; ops/_build.py):
+// F = 128 (library fused_edge_mlp_tf32x3) as above, and F = 256 (library
+// fused_edge_mlp_tf32x3_f256, -DPK_F=256; the 10506 model's width), where a
+// 64-row tile would take 196,608 bytes of shared memory: one CTA of 16 warps
+// an SM, as B1 at F = 256. There the tile is ETR = 32 rows instead: 98,304
+// bytes of shared memory (the [in] tile 32 x 512, the [pe] tile 32 x 256),
+// so two CTAs of 8 warps still share an SM at 128 registers a thread, and
+// warp w owns the tile's 32 rows and columns 32 w .. 32 w + 31 (the warp's
+// block, accumulators and weight fragments are F = 128's). A CTA then reads
+// the weights once for its 32 rows where at F = 128 its two row halves read
+// them once each for 64: the same weight bytes a row. LayerNorm takes 4 rows
+// a warp and 8 columns a lane (tf32_common.cuh::ln_silu_wide). The layer's
+// weights are 3.9 MB, 7.9 MB packed hi/lo: in L2. At 13,456 dense pair rows
+// (16 chains of 29 atoms) the bound is 0.160 ms as three TF32 passes.
 
 #include "tf32_common.cuh"
 
 namespace pk {
 namespace tf32x3 {
 
-constexpr size_t EDGE_SMEM = sizeof(float) * (size_t)(TR * LDX + TR * F);
+static_assert(F == 128 || F == 256, "B4 is built at F = 128 and 256");
+constexpr int ETR = F == 256 ? 32 : TR;  // rows of a CTA's tile
+constexpr int RB = ETR / 32;             // its 32-row blocks: warp w owns rows 32 (w % RB) ..
+static_assert(RB * (F / 32) == NW, "a warp a 32 x 32 block of the tile");
+constexpr size_t EDGE_SMEM = sizeof(float) * (size_t)(ETR * LDX + ETR * F);
 constexpr int CTAS_PER_SM = 2;  // CTAs of 8 warps an SM: at most 128 registers a thread
 constexpr bool AHEAD = false;   // weight fragments loaded a k-step pair ahead: 32 more registers
+
+// LayerNorm -> SiLU in place on the tile's F-wide rows: a warp a row, 8 rows a
+// warp at F = 128, 4 at F = 256
+__device__ __forceinline__ void ln_silu_tile(float* T, int ld, const float* __restrict__ scale,
+                                             const float* __restrict__ bias) {
+  if constexpr (F == 128)
+    ln_silu_rows(T, ld, scale, bias);
+  else
+    ln_silu_wide<ETR / NW>(T, ld, warp_id(), scale, bias);
+}
 
 // (acc + bias) * p to rows r0 + r < r0 + nrows of o (row stride 5F), p read
 // from this thread's own positions of the swizzled tile P (row stride LDX,
@@ -93,17 +120,17 @@ edge_tf32x3_kernel(const float* __restrict__ in, const float* __restrict__ pe,
   float* XB = smem;          // the [in] tile (row stride LDX); X1 | X2
   float* X1 = XB;            // phi's h1, a1; w's h1, a1; then each chunk's p
   float* X2 = XB + F;        // phi's h2, then a2
-  float* Y = XB + TR * LDX;  // the [pe] tile (row stride F); w's h2, then a2
+  float* Y = XB + ETR * LDX;  // the [pe] tile (row stride F); w's h2, then a2
 
   const int warp = warp_id();
-  const int row0 = 32 * (warp & 1), col0 = 32 * (warp >> 1), nt0 = 4 * (warp >> 1);
+  const int row0 = 32 * (warp % RB), col0 = 32 * (warp / RB), nt0 = 4 * (warp / RB);
   const float *vp = vecs + V_PHI, *vw = vecs + V_W;
-  const size_t r0 = (size_t)blockIdx.x * TR;
-  const int nrows = min(TR, rows - (int)r0);
+  const size_t r0 = (size_t)blockIdx.x * ETR;
+  const int nrows = min(ETR, rows - (int)r0);
   Acc acc;
 
-  stage_rows(XB, LDX, in, 2 * F, r0, nrows);
-  stage_rows(Y, F, pe, F, r0, nrows);
+  stage_rows<ETR>(XB, LDX, in, 2 * F, r0, nrows);
+  stage_rows<ETR>(Y, F, pe, F, r0, nrows);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -113,25 +140,25 @@ edge_tf32x3_kernel(const float* __restrict__ in, const float* __restrict__ pe,
   __syncthreads();  // every warp has read the input
   acc_store(X1, LDX, row0, col0, acc, vp + V_B1);
   __syncthreads();
-  ln_silu_rows(X1, LDX, vp + V_LN1S, vp + V_LN1B);
+  ln_silu_tile(X1, LDX, vp + V_LN1S, vp + V_LN1B);
   __syncthreads();
   acc_zero(acc);
   mma3t<F / 8, FN, AHEAD>(acc, X1, LDX, row0, wmat(wpk, M_PHI2), nt0);
   acc_store(X2, LDX, row0, col0, acc, vp + V_B2);  // X2 was last read before the barriers above
   __syncthreads();
-  ln_silu_rows(X2, LDX, vp + V_LN2S, vp + V_LN2B);  // a2 of phi
+  ln_silu_tile(X2, LDX, vp + V_LN2S, vp + V_LN2B);  // a2 of phi
   // w's front
   acc_zero(acc);
   mma3t<F / 8, FN, AHEAD>(acc, Y, F, row0, wmat(wpk, M_W1), nt0);
   acc_store(X1, LDX, row0, col0, acc, vw + V_B1);  // X1 was last read before the barrier above
   __syncthreads();
-  ln_silu_rows(X1, LDX, vw + V_LN1S, vw + V_LN1B);
+  ln_silu_tile(X1, LDX, vw + V_LN1S, vw + V_LN1B);
   __syncthreads();
   acc_zero(acc);
   mma3t<F / 8, FN, AHEAD>(acc, X1, LDX, row0, wmat(wpk, M_W2), nt0);
   acc_store(Y, F, row0, col0, acc, vw + V_B2);  // Y was last read before the barrier above
   __syncthreads();  // every warp is done with X1
-  ln_silu_rows(Y, F, vw + V_LN2S, vw + V_LN2B);  // a2 of w
+  ln_silu_tile(Y, F, vw + V_LN2S, vw + V_LN2B);  // a2 of w
   __syncthreads();
 
   // the 5F chunks: p into this thread's positions of X1, then p q to the output
@@ -151,7 +178,7 @@ edge_tf32x3_kernel(const float* __restrict__ in, const float* __restrict__ pe,
 
 // mats is the layer's matrices split into TF32 hi and lo parts in fragment
 // order (ops/pair_layer_kernel.pack_tf32_weights, 2 x 15 F^2 f32 values);
-// one CTA a 64-row tile.
+// one CTA an ETR-row tile (64 rows at F = 128, 32 at F = 256).
 extern "C" int fused_edge_mlp_tf32x3(const void* in, const void* pe, const void* mats,
                                      const void* vecs, void* out, int rows, void* stream) {
   using namespace pk::tf32x3;
@@ -160,7 +187,7 @@ extern "C" int fused_edge_mlp_tf32x3(const void* in, const void* pe, const void*
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)EDGE_SMEM);
   if (err != cudaSuccess) return (int)err;
-  edge_tf32x3_kernel<<<(rows + TR - 1) / TR, pk::NT, EDGE_SMEM, (cudaStream_t)stream>>>(
+  edge_tf32x3_kernel<<<(rows + ETR - 1) / ETR, pk::NT, EDGE_SMEM, (cudaStream_t)stream>>>(
       (const float*)in, (const float*)pe, (const float*)mats, (const float*)vecs, (float*)out,
       rows);
   return (int)cudaGetLastError();
@@ -169,6 +196,9 @@ extern "C" int fused_edge_mlp_tf32x3(const void* in, const void* pe, const void*
 extern "C" unsigned long long fused_edge_mlp_tf32x3_smem_bytes() {
   return (unsigned long long)pk::tf32x3::EDGE_SMEM;
 }
+
+// rows of a CTA's tile
+extern "C" int fused_edge_mlp_tf32x3_rows() { return pk::tf32x3::ETR; }
 
 // CTAs of the kernel an SM can hold at once, as the card reports it (its
 // registers and shared memory decide); negative: a CUDA error code

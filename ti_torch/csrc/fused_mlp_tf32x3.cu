@@ -47,17 +47,34 @@
 //   hold the two hidden activations), so no f_in needs a tile of it whole:
 //   16,384 bytes of shared memory a CTA;
 // - no atomics: two launches on the same inputs agree to the bit.
-// Only F = 128 is built.
+// Built at two widths from this file (PK_F, pair_common.cuh; ops/_build.py):
+// F = 128 (library fused_mlp_tf32x3) as above, and F = 256 (library
+// fused_mlp_tf32x3_f256, -DPK_F=256; the 10506 model's width). There the 8
+// warps take 32 hidden columns each (four n-tiles a pass, the last Dense's
+// n-tiles dealt 4 at a time where they come in 32s, as the update's 96 and
+// the combine's 32), and the chunks are 256 columns wide, so that a chunk
+// buffer still holds a hidden activation: 32,768 bytes of shared memory. The
+// combine (4F = 1,024 in) arrives in four chunks, the update (2F = 512) in
+// two. LayerNorm takes 2 rows a warp and 8 columns a lane. With four n-tiles
+// a pass a thread needs more than 128 registers, so one CTA an SM (at 464 node
+// rows, 16 chains of 29 atoms, 29 CTAs: latency, not the card's peak, sets
+// the pace; the combine's bound is 0.0022 ms).
 
 #include "tf32_common.cuh"
 
 namespace pk {
 namespace tf32x3 {
 
-constexpr int TM = 16;    // rows of a CTA's tile: one row tile of mma.m16n8k8
-constexpr int KC = 128;   // input columns staged a chunk
+static_assert(F == 128 || F == 256, "B6 is built at F = 128 and 256");
+constexpr int TM = 16;       // rows of a CTA's tile: one row tile of mma.m16n8k8
+constexpr int KC = F;        // input columns staged a chunk: a chunk buffer holds a hidden activation
+constexpr int WC = F / NW;   // hidden columns a warp: 16 at F = 128, 32 at F = 256
+constexpr int NPW = WC / 8;  // their n-tiles
+constexpr int CH = F / 128;  // 128-wide chunks of a row in the LayerNorms: lane l takes 128 c + 4 l ..
 constexpr size_t MLP_SMEM = sizeof(float) * (size_t)(2 * TM * KC);
-static_assert(KC == F && NW * 16 == F, "a chunk buffer holds the row slice; a warp 16 columns");
+// CTAs an SM the launch bounds ask: two at F = 128 (at most 128 registers a
+// thread); one at F = 256, where four n-tiles a pass spilled 28 bytes at 128
+constexpr int MIN_CTAS = F == 256 ? 1 : 2;
 
 // columns [kc, kc + KC) of rows r0 .. r0 + TM - 1 of x (row stride f_in, a
 // multiple of 4; x 16-byte aligned) into the swizzled TM x KC tile S by
@@ -74,7 +91,8 @@ __device__ __forceinline__ void stage_chunk(float* S, const float* __restrict__ 
   }
 }
 
-constexpr int NPM = 3;         // n-tiles a warp takes at most in one pass over K
+constexpr int NPM = F == 256 ? 4 : 3;  // n-tiles a warp takes at most in one pass over K
+static_assert(NPW <= NPM, "a warp's hidden columns in one pass");
 using AccR = float[NPM][4];   // acc[p][c]: row g + 8 (c / 2), column 8 p + 2 t + (c % 2)
 
 // This thread's weight fragments of k-steps ks, ks + 1 for n-tiles nt0 ..
@@ -157,21 +175,27 @@ __device__ __forceinline__ void acc_clear(AccR& acc) {
 
 // LayerNorm (f32 statistics, eps 1e-5) -> SiLU in place on the swizzled TM x F
 // tile H: warp w takes rows RW w .. RW w + RW - 1 at once (their sums
-// interleave), lane l columns 4l .. 4l + 3; each row's sums are
-// tf32_common.cuh::ln_silu_rows'
+// interleave), lane l columns 128 c + 4 l .. + 3 of each 128-wide chunk c;
+// each row's sums are tf32_common.cuh::ln_silu_rows' at F = 128
 __device__ __forceinline__ void ln_silu_tile(float* H, const float* __restrict__ scale,
                                              const float* __restrict__ bias) {
   constexpr int RW = TM / NW;
   const int lane = lane_id(), w = warp_id();
-  const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + 4 * lane));
-  const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + 4 * lane));
-  float4 v[RW];
+  float4 sc[CH], bi[CH], v[RW][CH];
   float mu[RW], ss[RW];
 #pragma unroll
-  for (int rr = 0; rr < RW; ++rr) {
-    v[rr] = *reinterpret_cast<const float4*>(H + swz(RW * w + rr, 4 * lane, F));
-    mu[rr] = v[rr].x + v[rr].y + v[rr].z + v[rr].w;
+  for (int c = 0; c < CH; ++c) {
+    sc[c] = __ldg(reinterpret_cast<const float4*>(scale + 128 * c + 4 * lane));
+    bi[c] = __ldg(reinterpret_cast<const float4*>(bias + 128 * c + 4 * lane));
   }
+#pragma unroll
+  for (int rr = 0; rr < RW; ++rr)
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      v[rr][c] = *reinterpret_cast<const float4*>(H + swz(RW * w + rr, 128 * c + 4 * lane, F));
+      const float s = v[rr][c].x + v[rr][c].y + v[rr][c].z + v[rr][c].w;
+      mu[rr] = c ? mu[rr] + s : s;
+    }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
 #pragma unroll
@@ -179,9 +203,13 @@ __device__ __forceinline__ void ln_silu_tile(float* H, const float* __restrict__
 #pragma unroll
   for (int rr = 0; rr < RW; ++rr) {
     mu[rr] *= 1.f / F;
-    const float d0 = v[rr].x - mu[rr], d1 = v[rr].y - mu[rr], d2 = v[rr].z - mu[rr],
-                d3 = v[rr].w - mu[rr];
-    ss[rr] = d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const float d0 = v[rr][c].x - mu[rr], d1 = v[rr][c].y - mu[rr], d2 = v[rr][c].z - mu[rr],
+                  d3 = v[rr][c].w - mu[rr];
+      const float s = d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+      ss[rr] = c ? ss[rr] + s : s;
+    }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -190,21 +218,24 @@ __device__ __forceinline__ void ln_silu_tile(float* H, const float* __restrict__
 #pragma unroll
   for (int rr = 0; rr < RW; ++rr) {
     const float rstd = 1.f / sqrtf(ss[rr] * (1.f / F) + 1e-5f);
-    const float d0 = v[rr].x - mu[rr], d1 = v[rr].y - mu[rr], d2 = v[rr].z - mu[rr],
-                d3 = v[rr].w - mu[rr];
-    *reinterpret_cast<float4*>(H + swz(RW * w + rr, 4 * lane, F)) =
-        make_float4(silu(d0 * rstd * sc.x + bi.x), silu(d1 * rstd * sc.y + bi.y),
-                    silu(d2 * rstd * sc.z + bi.z), silu(d3 * rstd * sc.w + bi.w));
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const float d0 = v[rr][c].x - mu[rr], d1 = v[rr][c].y - mu[rr], d2 = v[rr][c].z - mu[rr],
+                  d3 = v[rr][c].w - mu[rr];
+      *reinterpret_cast<float4*>(H + swz(RW * w + rr, 128 * c + 4 * lane, F)) =
+          make_float4(silu(d0 * rstd * sc[c].x + bi[c].x), silu(d1 * rstd * sc[c].y + bi[c].y),
+                      silu(d2 * rstd * sc[c].z + bi[c].z), silu(d3 * rstd * sc[c].w + bi[c].w));
+    }
   }
 }
 
-// acc + bias into the warp's 16 x 16 block at column col of the swizzled
+// acc + bias into the warp's 16 x WC block at column col of the swizzled
 // TM x F tile H (bias indexed by the column)
 __device__ __forceinline__ void put_block(float* H, int col, const AccR& acc,
                                           const float* __restrict__ bias) {
   const int lane = lane_id(), g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
+  for (int p = 0; p < NPW; ++p) {
     const int c = col + 8 * p + 2 * t;
     const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + c));
 #pragma unroll
@@ -234,7 +265,7 @@ __device__ __forceinline__ void store_out(float* __restrict__ out, int f_out, si
   }
 }
 
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, MIN_CTAS)
 fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ wpk,
                         const float* __restrict__ vecs, float* __restrict__ out, int rows,
                         int f_in, int k_pad, int f_out) {
@@ -243,7 +274,7 @@ fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w
   float* S1 = smem + TM * KC;     // input chunks 1, 3, ...; then the second
   const size_t r0 = (size_t)blockIdx.x * TM;
   const int nrows = min(TM, rows - (int)r0);
-  const int warp = warp_id(), col = 16 * warp;  // the warp's columns of the hidden Dense
+  const int warp = warp_id(), col = WC * warp;  // the warp's columns of the hidden Dense
   const uint4* W1 = reinterpret_cast<const uint4*>(wpk);
   const uint4* W2 = reinterpret_cast<const uint4*>(wpk + 2 * (size_t)k_pad * F);
   const uint4* W3 = reinterpret_cast<const uint4*>(wpk + 2 * (size_t)(k_pad + F) * F);
@@ -264,7 +295,7 @@ fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w
       cp_async_wait_all();
     __syncthreads();
     float* S = (c & 1) ? S1 : S0;
-    dense_rows<2>(acc, S, KC, min(KC, k_pad - c * KC) / 8, W1, FN, c * KC / 8, col / 8);
+    dense_rows<NPW>(acc, S, KC, min(KC, k_pad - c * KC) / 8, W1, FN, c * KC / 8, col / 8);
     __syncthreads();  // every warp has read S
     if (c + 2 < chunks) stage_chunk(S, x, f_in, r0, nrows, (c + 2) * KC);
     cp_async_commit();
@@ -276,24 +307,24 @@ fused_mlp_tf32x3_kernel(const float* __restrict__ x, const float* __restrict__ w
 
   // Dense 2
   acc_clear(acc);
-  dense_rows<2>(acc, S0, F, F / 8, W2, FN, 0, col / 8);
+  dense_rows<NPW>(acc, S0, F, F / 8, W2, FN, 0, col / 8);
   put_block(S1, col, acc, vecs + V_B2);  // S1 was last read in Dense 1
   __syncthreads();
   ln_silu_tile(S1, vecs + V_LN2S, vecs + V_LN2B);
   __syncthreads();
 
-  // Dense 3: its n-tiles in groups of gs (3 where they come in NW threes, as
-  // the update's 48; else 2), dealt to the warps in turn; a last group may
-  // hold one
+  // Dense 3: its n-tiles in groups of gs (NPM where they come in NW NPMs, as
+  // the update's 48 at F = 128 and 96 at F = 256; else 2), dealt to the warps
+  // in turn; a last group may hold one
   const int nt3 = (f_out + 7) / 8;
   const int gs = nt3 % (NW * NPM) == 0 ? NPM : 2;
 #pragma unroll 1
   for (int nt = gs * warp; nt < nt3; nt += NW * gs) {
     acc_clear(acc);
     const int np = min(gs, nt3 - nt);
-    if (np == 3) {
-      dense_rows<3>(acc, S1, F, F / 8, W3, nt3, 0, nt);
-      store_out<3>(out, f_out, r0, nrows, nt, acc, vecs + V_B3);
+    if (np == NPM) {
+      dense_rows<NPM>(acc, S1, F, F / 8, W3, nt3, 0, nt);
+      store_out<NPM>(out, f_out, r0, nrows, nt, acc, vecs + V_B3);
     } else if (np == 2) {
       dense_rows<2>(acc, S1, F, F / 8, W3, nt3, 0, nt);
       store_out<2>(out, f_out, r0, nrows, nt, acc, vecs + V_B3);

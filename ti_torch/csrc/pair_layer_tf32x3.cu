@@ -85,10 +85,8 @@ constexpr int MIN_CTAS = F == 64 ? 4 : F == 128 ? 2 : 1;
 // LayerNorm (f32 statistics, eps 1e-5) -> SiLU in place on a swizzled TR x F
 // tile: ln_silu_rows at F = 128; at F = 64 warp w takes rows TR / BNW * w ..
 // (16), two at a time, a half-warp a row and lane l of it the columns
-// 4 (l % 16) .. + 3; at F = 256 warp w takes rows TR / BNW * w .. and lane l
-// the columns 128 c + 4 l .. + 3 of each 128-wide chunk c, read from the
-// tile once for the mean, once for the variance and once to write (holding
-// a row's 8 values across the two reductions spilled registers)
+// 4 (l % 16) .. + 3; at F = 256 warp w takes rows TR / BNW * w .. + 3
+// (tf32_common.cuh::ln_silu_wide)
 __device__ __forceinline__ void ln_silu_tile(float* T, int ld, const float* __restrict__ scale,
                                              const float* __restrict__ bias) {
   if constexpr (F == 64) {
@@ -109,36 +107,7 @@ __device__ __forceinline__ void ln_silu_tile(float* T, int ld, const float* __re
   } else if constexpr (F == 128) {
     ln_silu_rows(T, ld, scale, bias);
   } else {
-    constexpr int CH = F / 128, RW = TR / BNW;
-    const int lane = lane_id(), w = (threadIdx.x & (BNT - 1)) >> 5;
-#pragma unroll 1
-    for (int rr = 0; rr < RW; ++rr) {
-      const int r = RW * w + rr;
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const float4 v = *reinterpret_cast<const float4*>(T + swz(r, 128 * c + 4 * lane, ld));
-        sum += v.x + v.y + v.z + v.w;
-      }
-      const float mu = warp_sum(sum) * (1.f / F);
-      float sq = 0.f;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const float4 v = *reinterpret_cast<const float4*>(T + swz(r, 128 * c + 4 * lane, ld));
-        const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
-        sq += d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
-      }
-      const float rstd = 1.f / sqrtf(warp_sum(sq) * (1.f / F) + 1e-5f);
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        float4* at = reinterpret_cast<float4*>(T + swz(r, 128 * c + 4 * lane, ld));
-        const float4 v = *at;
-        const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + 128 * c + 4 * lane));
-        const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + 128 * c + 4 * lane));
-        *at = make_float4(silu((v.x - mu) * rstd * sc.x + bi.x), silu((v.y - mu) * rstd * sc.y + bi.y),
-                          silu((v.z - mu) * rstd * sc.z + bi.z), silu((v.w - mu) * rstd * sc.w + bi.w));
-      }
-    }
+    ln_silu_wide<TR / BNW>(T, ld, (threadIdx.x & (BNT - 1)) >> 5, scale, bias);
   }
 }
 

@@ -8,8 +8,9 @@
 // or by truncation in B4 and B5), the staging of row tiles by cp.async,
 // its epilogues, LayerNorm -> SiLU on the rows of a 64-row tile, and for the
 // tangent kernels the same keeping its pre-LN rows and statistics, and its
-// tangent replayed at them. The LayerNorms here take F = 128 (a warp a row);
-// the kernels hold their F = 64 and F = 256 forms (half_sum: a half-warp a row).
+// tangent replayed at them. The LayerNorms here take F = 128 (a warp a row),
+// and F = 256 in ln_silu_wide (a warp a row, 8 columns a lane); the kernels
+// hold their other F = 64 and F = 256 forms (half_sum: a half-warp a row).
 #pragma once
 
 #include "pair_common.cuh"
@@ -224,12 +225,13 @@ __device__ __forceinline__ void mma3t(Acc& acc, const float* A, int lda, int row
   }
 }
 
-// rows r0 .. r0 + TR - 1 of a (rows x W) matrix into a swizzled TR-row tile
-// of row stride ld by cp.async, zero from row nrows on (no commit, no wait)
+// rows r0 .. r0 + ROWS - 1 of a (rows x W) matrix into a swizzled ROWS-row
+// tile of row stride ld by cp.async, zero from row nrows on (no commit, no wait)
+template <int ROWS = TR>
 __device__ __forceinline__ void stage_rows(float* T, int ld, const float* __restrict__ src, int W,
                                            size_t r0, int nrows) {
   const int w4 = W / 4;
-  for (int idx = threadIdx.x; idx < TR * w4; idx += NT) {
+  for (int idx = threadIdx.x; idx < ROWS * w4; idx += NT) {
     const int r = idx / w4, f = 4 * (idx % w4);
     float* d = T + swz(r, f, ld);
     if (r < nrows)
@@ -319,6 +321,46 @@ __device__ __forceinline__ void ln_silu_rows(float* T, int ld, const float* __re
     const float rstd = 1.f / sqrtf(warp_sum(d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3) * (1.f / F) + 1e-5f);
     *at = make_float4(silu(d0 * rstd * sc.x + bi.x), silu(d1 * rstd * sc.y + bi.y),
                       silu(d2 * rstd * sc.z + bi.z), silu(d3 * rstd * sc.w + bi.w));
+  }
+}
+
+// LayerNorm (f32 statistics, eps 1e-5) -> SiLU in place on rows RW w .. RW w +
+// RW - 1 of a swizzled tile F (a multiple of 128) wide, for warp w: lane l takes
+// the columns 128 c + 4 l .. + 3 of each 128-wide chunk c, read from the tile
+// once for the mean, once for the variance and once to write (holding a row's
+// 8 values at F = 256 across the two reductions spilled registers in B1)
+template <int RW>
+__device__ __forceinline__ void ln_silu_wide(float* T, int ld, int w, const float* __restrict__ scale,
+                                             const float* __restrict__ bias) {
+  constexpr int CH = F / 128;
+  const int lane = lane_id();
+#pragma unroll 1
+  for (int rr = 0; rr < RW; ++rr) {
+    const int r = RW * w + rr;
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(T + swz(r, 128 * c + 4 * lane, ld));
+      sum += v.x + v.y + v.z + v.w;
+    }
+    const float mu = warp_sum(sum) * (1.f / F);
+    float sq = 0.f;
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(T + swz(r, 128 * c + 4 * lane, ld));
+      const float d0 = v.x - mu, d1 = v.y - mu, d2 = v.z - mu, d3 = v.w - mu;
+      sq += d0 * d0 + d1 * d1 + d2 * d2 + d3 * d3;
+    }
+    const float rstd = 1.f / sqrtf(warp_sum(sq) * (1.f / F) + 1e-5f);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      float4* at = reinterpret_cast<float4*>(T + swz(r, 128 * c + 4 * lane, ld));
+      const float4 v = *at;
+      const float4 sc = __ldg(reinterpret_cast<const float4*>(scale + 128 * c + 4 * lane));
+      const float4 bi = __ldg(reinterpret_cast<const float4*>(bias + 128 * c + 4 * lane));
+      *at = make_float4(silu((v.x - mu) * rstd * sc.x + bi.x), silu((v.y - mu) * rstd * sc.y + bi.y),
+                        silu((v.z - mu) * rstd * sc.z + bi.z), silu((v.w - mu) * rstd * sc.w + bi.w));
+    }
   }
 }
 

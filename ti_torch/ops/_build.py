@@ -20,14 +20,17 @@ cores), ``pair_tangent_mma_f64`` and ``pair_tangent_mma_f256`` (the same
 source at F = 64 and 256), ``pair_tangent_tf32x3`` (f32 on the tensor
 cores), ``pair_tangent_tf32x3_f64`` and ``pair_tangent_tf32x3_f256`` (the
 same source at F = 64 and 256) and ``pair_tangent`` (the f32-FMA kernel,
-kept for timing). Every library but the four ``_f64`` and the four
-``_f256`` ones is built at F = 128. B4
-(``fused_edge_mlp``) has two: ``fused_edge_mlp_tf32x3`` (on the tensor
-cores) and ``fused_edge_mlp`` (the f32-FMA kernel, kept for timing); B5
-(``fused_edge_mlp_jvp``) has two: ``fused_edge_mlp_jvp_tf32x3`` (on the
-tensor cores) and ``fused_edge_mlp_jvp`` (the f32-FMA kernel, kept for
-timing); B6 (``fused_mlp``) has two: ``fused_mlp_tf32x3`` (on the tensor
-cores) and ``fused_mlp`` (the f32-FMA kernel, kept for timing). B7
+kept for timing). B4
+(``fused_edge_mlp``) has three: ``fused_edge_mlp_tf32x3`` (on the tensor
+cores), ``fused_edge_mlp_tf32x3_f256`` (the same source at F = 256) and
+``fused_edge_mlp`` (the f32-FMA kernel, kept for timing); B5
+(``fused_edge_mlp_jvp``) has three: ``fused_edge_mlp_jvp_tf32x3`` (on the
+tensor cores), ``fused_edge_mlp_jvp_tf32x3_f256`` (the same source at F =
+256) and ``fused_edge_mlp_jvp`` (the f32-FMA kernel, kept for timing); B6
+(``fused_mlp``) has three: ``fused_mlp_tf32x3`` (on the tensor cores),
+``fused_mlp_tf32x3_f256`` (the same source at F = 256) and ``fused_mlp``
+(the f32-FMA kernel, kept for timing). Every library but the four
+``_f64`` and the seven ``_f256`` ones is built at F = 128. B7
 (``div_kernel``) has two: ``div_kernel_tf32x3`` (on the tensor
 cores) and ``div_kernel`` (the f32-FMA kernel, kept for timing). ``ROUTES``
 says which library a kernel's last launch came from,
@@ -51,15 +54,20 @@ KERNELS = ("pair_layer", "pair_layer_tf32x3", "pair_layer_tf32x3_f64", "pair_lay
            "pair_layer_mma", "pair_layer_mma_f64", "pair_layer_mma_f256", "pair_tangent",
            "pair_tangent_mma", "pair_tangent_mma_f64", "pair_tangent_mma_f256",
            "pair_tangent_tf32x3", "pair_tangent_tf32x3_f64", "pair_tangent_tf32x3_f256",
-           "fused_edge_mlp", "fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp",
-           "fused_edge_mlp_jvp_tf32x3", "fused_mlp", "fused_mlp_tf32x3", "div_kernel",
+           "fused_edge_mlp", "fused_edge_mlp_tf32x3", "fused_edge_mlp_tf32x3_f256",
+           "fused_edge_mlp_jvp", "fused_edge_mlp_jvp_tf32x3", "fused_edge_mlp_jvp_tf32x3_f256",
+           "fused_mlp", "fused_mlp_tf32x3", "fused_mlp_tf32x3_f256", "div_kernel",
            "div_kernel_tf32x3")
 # libraries built from another library's source: name -> (source, nvcc defines);
 # the source's C functions keep their names in each build
-BUILT_FROM = {f"{src}_f{f}": (src, (f"-DPK_F={f}",))
-              for src in ("pair_layer_mma", "pair_layer_tf32x3", "pair_tangent_mma",
-                          "pair_tangent_tf32x3")
-              for f in (64, 256)}
+BUILT_FROM = {
+    **{f"{src}_f{f}": (src, (f"-DPK_F={f}",))
+       for src in ("pair_layer_mma", "pair_layer_tf32x3", "pair_tangent_mma",
+                   "pair_tangent_tf32x3")
+       for f in (64, 256)},
+    **{f"{src}_f256": (src, ("-DPK_F=256",))
+       for src in ("fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3", "fused_mlp_tf32x3")},
+}
 
 
 def source_of(name: str) -> str:

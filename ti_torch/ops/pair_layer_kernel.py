@@ -72,9 +72,14 @@ KERNEL_F = 128       # the feature width the CUDA kernels are built for
 # the tensor-core libraries of B1, B2 and B3 built for another width, by
 # width: each is its F = 128 library's name with this suffix
 WIDTH_SUFFIX = {64: "_f64", 256: "_f256"}
-LIB_WIDTHS = {f"{lib}{sfx}": f for f, sfx in WIDTH_SUFFIX.items()
-              for lib in ("pair_layer_mma", "pair_layer_tf32x3", "pair_tangent_mma",
-                          "pair_tangent_tf32x3")}
+LIB_WIDTHS = {
+    **{f"{lib}{sfx}": f for f, sfx in WIDTH_SUFFIX.items()
+       for lib in ("pair_layer_mma", "pair_layer_tf32x3", "pair_tangent_mma",
+                   "pair_tangent_tf32x3")},
+    # B4, B5 and B6 on the tensor cores (ops/pallas_kernels.py): F = 256 only
+    **{f"{lib}_f256": 256 for lib in ("fused_edge_mlp_tf32x3", "fused_edge_mlp_jvp_tf32x3",
+                                      "fused_mlp_tf32x3")},
+}
 TC_WIDTHS_ROUTE = (
     "F = 64, 128 and 256 run in B1, B2 and B3 on the tensor cores, and F = 64 and 256 only "
     "there (pair_layer, variant None or 'tc': libraries pair_layer_mma_f64, pair_layer_mma "
@@ -82,7 +87,10 @@ TC_WIDTHS_ROUTE = (
     "and pair_layer_tf32x3_f256 for f32 weights; pair_tangent, variant 'mma': "
     "pair_tangent_mma_f64, pair_tangent_mma and pair_tangent_mma_f256 for bf16_agg, "
     "pair_tangent_tf32x3_f64, pair_tangent_tf32x3 and pair_tangent_tf32x3_f256 for f32); "
-    "every other kernel and variant='fma' take F = 128 only")
+    "F = 128 and 256 run in B4, B5 and B6 on the tensor cores (variant 'tc': "
+    "fused_edge_mlp_tf32x3 and fused_edge_mlp_tf32x3_f256, fused_edge_mlp_jvp_tf32x3 and "
+    "fused_edge_mlp_jvp_tf32x3_f256, fused_mlp_tf32x3 and fused_mlp_tf32x3_f256); "
+    "B7 and variant='fma' take F = 128 only")
 KERNEL_MAX_N = 32    # pair rows per thread group: one dst atom's N src atoms
 SMEM_LIMIT = 232_448  # bytes of shared memory one CTA may use on Hopper
 MAX_CHAIN_BLOCK = 4   # of csrc/pair_layer.cu: 256 threads a chain, 1024 threads a CTA
@@ -461,7 +469,8 @@ def width_library(lib: str, f: int) -> str:
     """The build of tensor-core library ``lib`` (an F = 128 name) for width
     ``f``: ``lib`` itself at F = 128 and at every width no library is built
     for (its launch check then refuses the width)."""
-    return lib + WIDTH_SUFFIX.get(f, "")
+    built = lib + WIDTH_SUFFIX.get(f, "")
+    return built if built in LIB_WIDTHS else lib
 
 
 def _check_pair_inputs(x, s, v, e, wts: PairLayerWeights, lib: str):

@@ -4,7 +4,13 @@
 csrc/fused_mlp_tf32x3.cu, B4, B5 and B6 on the tensor cores in 3xTF32, with
 csrc/fused_edge_mlp.cu, csrc/fused_edge_mlp_jvp.cu and csrc/fused_mlp.cu,
 their f32-FMA kernels, as ``variant="fma"``) — with their plain PyTorch
-versions beside them.
+versions beside them. The three tensor-core sources are built at F = 128
+and, as ``fused_edge_mlp_tf32x3_f256``, ``fused_edge_mlp_jvp_tf32x3_f256``
+and ``fused_mlp_tf32x3_f256``, at F = 256 (the 10506 model's width): each
+wrapper reads F from its inputs and takes the library of that width
+(``pair_layer_kernel.width_library``); F = 256 cuts B4's and B5's row
+tiles to 32 rows. Every other width, and ``variant="fma"`` at any width
+but 128, raises ``WidthRefusal`` on the card.
 
 Port of ti_tpu/ops/pallas_kernels.py (named after it). B4 computes
 phi(in) · w(pe) per row, both MLPs Dense-LN-SiLU ×2 → Dense 5F, keeping
@@ -47,6 +53,7 @@ from ti_torch.ops.mlp_block import MLPWeights, _mlp_block, _mlp_block_jvp
 from ti_torch.ops.pair_layer_kernel import (
     _R,
     KERNEL_F,
+    LIB_WIDTHS,
     SMEM_LIMIT,
     TC_ROWS,
     TC_WIDTHS_ROUTE,
@@ -56,6 +63,7 @@ from ti_torch.ops.pair_layer_kernel import (
     _packed,
     check_width,
     unpack_pair_mlps,
+    width_library,
 )
 
 PLAIN_CALLS = {"fused_edge_mlp": 0, "fused_edge_mlp_jvp": 0, "fused_mlp": 0}
@@ -67,8 +75,10 @@ EDGE_CTAS_PER_SM = 2  # CTAs of csrc/fused_edge_mlp_tf32x3.cu an SM holds at onc
 # B6's variants: the 3xTF32 tensor-core kernel, or the f32-FMA one
 MLP_LIBS = {"tc": "fused_mlp_tf32x3", "fma": "fused_mlp"}
 MLP_ROWS = 16        # rows of a CTA of csrc/fused_mlp_tf32x3.cu (TM)
-MLP_CHUNK = 128      # input columns it stages a chunk (two chunks in flight)
-MLP_CTAS_PER_SM = 2  # its CTAs an SM holds at once
+# input columns it stages a chunk (two chunks in flight): F, so that a chunk
+# buffer holds a hidden activation; F = 128's here
+MLP_CHUNK = KERNEL_F
+MLP_CTAS_PER_SM = 2  # its CTAs an SM holds at once at F = 128 (mlp_ctas_per_sm)
 MLP_K_STEP = 16      # W1's rows are padded to a multiple of this (two 8-row k-steps)
 MLP_N_TILE = 8       # W3's columns are padded to a multiple of this (one n-tile)
 
@@ -88,6 +98,13 @@ class MLPPack(NamedTuple):
     f_out: int
     w: MLPWeights
     tc: Optional[torch.Tensor] = None
+
+
+def mlp_ctas_per_sm(f: int = KERNEL_F) -> int:
+    """CTAs of csrc/fused_mlp_tf32x3.cu an SM holds at once at hidden width
+    ``f``: two at F = 128 (128 registers a thread), one at F = 256 (its
+    four n-tiles a pass need more)."""
+    return 1 if f == 256 else MLP_CTAS_PER_SM
 
 
 def mlp_k_pad(f_in: int) -> int:
@@ -176,8 +193,7 @@ def _check(name: str, t: torch.Tensor, shape, dev) -> None:
         raise ValueError(f"{name} must be contiguous on {dev}")
 
 
-def _check_pair_mlps(wts: PairLayerWeights, dev) -> None:
-    f = KERNEL_F
+def _check_pair_mlps(wts: PairLayerWeights, dev, f: int) -> None:
     if wts.mats.dtype != torch.float32 or wts.mats.numel() != 15 * f * f \
             or wts.vecs.numel() != 22 * f:
         raise ValueError(f"the fused edge-MLP kernels take f32 weights packed at F={f} "
@@ -193,16 +209,28 @@ def _rows(t: torch.Tensor) -> int:
     return t.shape[0]
 
 
-def _route(libs: dict, variant: str) -> str:
+def _route(libs: dict, variant: str, f: int) -> str:
+    """The library of ``variant`` at width ``f``: the ``"tc"`` library's
+    build for ``f`` where there is one (``width_library``), else its F =
+    128 library, whose launch check then refuses ``f``."""
     if variant not in libs:
         raise ValueError(f"variant must be one of {tuple(libs)}, got {variant!r}")
-    return libs[variant]
+    return width_library(libs[variant], f)
 
 
-def _edge_route(variant: str) -> str:
-    """The library a B4 launch takes: ``"tc"`` the 3xTF32 tensor-core
-    kernel, ``"fma"`` the f32-FMA kernel."""
-    return _route(EDGE_LIBS, variant)
+def _edge_route(variant: str, f: int = KERNEL_F) -> str:
+    """The library a B4 launch takes at width ``f``: ``"tc"`` the 3xTF32
+    tensor-core kernel (``fused_edge_mlp_tf32x3``, or its ``_f256``
+    build), ``"fma"`` the f32-FMA kernel."""
+    return _route(EDGE_LIBS, variant, f)
+
+
+def edge_tile_rows(f: int = KERNEL_F) -> int:
+    """Rows of a row tile of csrc/fused_edge_mlp_tf32x3.cu and
+    csrc/fused_edge_mlp_jvp_tf32x3.cu at width ``f``: TC_ROWS (64) at F =
+    128, 32 at F = 256 (a 64-row tile would leave B4 one CTA an SM, and
+    would not fit B5's buffers in a CTA's shared memory)."""
+    return 32 if f == 256 else TC_ROWS
 
 
 def _tc_weights(wts: PairLayerWeights, x) -> torch.Tensor:
@@ -211,15 +239,16 @@ def _tc_weights(wts: PairLayerWeights, x) -> torch.Tensor:
     return _packed(wts, x, 2 * wts.mats.numel(), torch.float32, "3xTF32", "with_tf32_weights")
 
 
-def tc_edge_smem_bytes() -> int:
-    """Dynamic shared memory of one CTA of csrc/fused_edge_mlp_tf32x3.cu:
-    the [in] tile (TC_ROWS x 2F) and the [pe] tile (TC_ROWS x F), f32."""
-    return 4 * TC_ROWS * 3 * KERNEL_F
+def tc_edge_smem_bytes(f: int = KERNEL_F) -> int:
+    """Dynamic shared memory of one CTA of csrc/fused_edge_mlp_tf32x3.cu at
+    width ``f``: the [in] tile (edge_tile_rows x 2F) and the [pe] tile
+    (edge_tile_rows x F), f32; 98,304 bytes at F = 128 and 256."""
+    return 4 * edge_tile_rows(f) * 3 * f
 
 
 class EdgePlan(NamedTuple):
     """How csrc/fused_edge_mlp_tf32x3.cu splits a launch: CTA c takes rows
-    [TC_ROWS·c, min(TC_ROWS·(c + 1), R)), ``ctas`` of them; ``resident``
+    [T·c, min(T·(c + 1), R)) (T = ``edge_tile_rows``), ``ctas`` of them; ``resident``
     fit the card at once (EDGE_CTAS_PER_SM an SM), so they run in
     ``waves`` rounds."""
 
@@ -228,8 +257,8 @@ class EdgePlan(NamedTuple):
     waves: int
 
 
-def edge_plan(rows: int, sms: int) -> EdgePlan:
-    ctas, resident = -(-rows // TC_ROWS), sms * EDGE_CTAS_PER_SM
+def edge_plan(rows: int, sms: int, f: int = KERNEL_F) -> EdgePlan:
+    ctas, resident = -(-rows // edge_tile_rows(f)), sms * EDGE_CTAS_PER_SM
     return EdgePlan(ctas, resident, -(-ctas // resident))
 
 
@@ -237,18 +266,19 @@ def fused_edge_mlp(in_feat, pe, wts: PairLayerWeights, variant: str = "tc"):
     """phi(in_feat) · w(pe): in_feat (R, 2F), pe (R, F) -> (R, 5F), f32.
     Launches kernel B4 on a CUDA tensor, the plain version on a CPU one
     (under either variant). ``variant="tc"`` takes the 3xTF32 tensor-core
-    kernel (csrc/fused_edge_mlp_tf32x3.cu, which needs
+    kernel (csrc/fused_edge_mlp_tf32x3.cu, at F = 128 or 256, which needs
     ``with_tf32_weights``); ``variant="fma"`` the f32-FMA kernel
-    (csrc/fused_edge_mlp.cu), kept for timing."""
-    lib = _edge_route(variant)
+    (csrc/fused_edge_mlp.cu, F = 128), kept for timing."""
+    f = pe.shape[-1]
+    lib = _edge_route(variant, f)
     if not _on_card(in_feat, "fused_edge_mlp"):
         PLAIN_CALLS["fused_edge_mlp"] += 1
         return fused_edge_mlp_reference(in_feat, pe, wts.phi, wts.w)
-    dev, f, r = in_feat.device, KERNEL_F, _rows(in_feat)
-    check_width(pe.shape[-1], lib)
+    dev, r = in_feat.device, _rows(in_feat)
+    check_width(f, lib, LIB_WIDTHS.get(lib, KERNEL_F))
     _check("in_feat", in_feat, (r, 2 * f), dev)
     _check("pe", pe, (r, f), dev)
-    _check_pair_mlps(wts, dev)
+    _check_pair_mlps(wts, dev, f)
     mats = _tc_weights(wts, in_feat) if variant == "tc" else wts.mats
     handle = _build.load(lib)
     fn = getattr(handle, "fused_edge_mlp_tf32x3" if variant == "tc" else "fused_edge_mlp_f32")
@@ -268,21 +298,27 @@ def jvp_smem_bytes(lane_block: int) -> int:
     return 4 * (8 + 2 * lane_block) * _R * KERNEL_F
 
 
-def tc_jvp_smem_bytes() -> int:
-    """Dynamic shared memory of one CTA of csrc/fused_edge_mlp_jvp_tf32x3.cu:
-    four residual tiles (TC_ROWS x F), the mean and 1/std of four
-    LayerNorms per row, the [in | din] tile (TC_ROWS x 2F) and the
-    [pe | dpe] tile (TC_ROWS x F), all f32."""
-    f = KERNEL_F
-    return 4 * TC_ROWS * (4 * f + 8 + 2 * f + f)
+def tc_jvp_smem_bytes(f: int = KERNEL_F) -> int:
+    """Dynamic shared memory of one CTA of csrc/fused_edge_mlp_jvp_tf32x3.cu
+    at width ``f``: four residual tiles (T x F, T = ``edge_tile_rows``), the
+    mean and 1/std of four LayerNorms per row, the [in | din] tile (T x 2F)
+    and the [pe | dpe] tile (T x F), all f32: 231,424 bytes at F = 128,
+    230,400 at 256."""
+    return 4 * edge_tile_rows(f) * (4 * f + 8 + 2 * f + f)
 
 
-TC_JVP_SCRATCH = 10 * TC_ROWS * KERNEL_F  # floats of one CTA's p, q (5F each, 64 rows)
+def tc_jvp_scratch(f: int = KERNEL_F) -> int:
+    """Floats of one CTA's p, q (5F each, a row tile) in the scratch of
+    csrc/fused_edge_mlp_jvp_tf32x3.cu: 81,920 at F = 128 and 256."""
+    return 10 * edge_tile_rows(f) * f
+
+
+TC_JVP_SCRATCH = tc_jvp_scratch()
 
 
 class JvpPlan(NamedTuple):
     """How csrc/fused_edge_mlp_jvp_tf32x3.cu splits a launch: ``units`` =
-    ``tiles`` row tiles of TC_ROWS rows times K lanes, tile-major (unit u
+    ``tiles`` row tiles of ``edge_tile_rows`` rows times K lanes, tile-major (unit u
     is lane u % K of tile u // K), over ``ctas`` persistent CTAs; CTA c
     takes units [units·c // ctas, units·(c + 1) // ctas)."""
 
@@ -291,16 +327,17 @@ class JvpPlan(NamedTuple):
     ctas: int
 
 
-def jvp_plan(rows: int, k_lanes: int, sms: int) -> JvpPlan:
-    tiles = -(-rows // TC_ROWS)
+def jvp_plan(rows: int, k_lanes: int, sms: int, f: int = KERNEL_F) -> JvpPlan:
+    tiles = -(-rows // edge_tile_rows(f))
     units = tiles * k_lanes
     return JvpPlan(tiles, units, min(sms, units))
 
 
-def _jvp_route(variant: str) -> str:
-    """The library a B5 launch takes: ``"tc"`` the 3xTF32 tensor-core
-    kernel, ``"fma"`` the f32-FMA kernel."""
-    return _route(JVP_LIBS, variant)
+def _jvp_route(variant: str, f: int = KERNEL_F) -> str:
+    """The library a B5 launch takes at width ``f``: ``"tc"`` the 3xTF32
+    tensor-core kernel (``fused_edge_mlp_jvp_tf32x3``, or its ``_f256``
+    build), ``"fma"`` the f32-FMA kernel."""
+    return _route(JVP_LIBS, variant, f)
 
 
 def _pick_lane_block(k_lanes: int) -> int:
@@ -329,18 +366,18 @@ def _launch_jvp_fma(in_feat, pe, din, dpe, wts, lane_block, out, r, k_lanes):
     _build.check(lib, rc, "fused_edge_mlp_jvp launch")
 
 
-def _launch_jvp_tc(in_feat, pe, din, dpe, wts, out, r, k_lanes):
+def _launch_jvp_tc(in_feat, pe, din, dpe, wts, out, r, k_lanes, lib: str, f: int):
     dev = out.device
     mats = _tc_weights(wts, in_feat)
-    plan = jvp_plan(r, k_lanes, torch.cuda.get_device_properties(dev).multi_processor_count)
-    scratch = torch.empty(plan.ctas * TC_JVP_SCRATCH, device=dev, dtype=torch.float32)
-    lib = _build.load("fused_edge_mlp_jvp_tf32x3")
-    fn = lib.fused_edge_mlp_jvp_tf32x3
+    plan = jvp_plan(r, k_lanes, torch.cuda.get_device_properties(dev).multi_processor_count, f)
+    scratch = torch.empty(plan.ctas * tc_jvp_scratch(f), device=dev, dtype=torch.float32)
+    handle = _build.load(lib)
+    fn = handle.fused_edge_mlp_jvp_tf32x3
     fn.argtypes = [_P] * 8 + [ctypes.c_int] * 3 + [_P]
     fn.restype = ctypes.c_int
     rc = fn(*(t.data_ptr() for t in (in_feat, pe, din, dpe, mats, wts.vecs, out, scratch)),
             r, k_lanes, plan.ctas, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "fused_edge_mlp_jvp_tf32x3 launch")
+    _build.check(handle, rc, f"{lib} launch")
 
 
 def fused_edge_mlp_jvp(in_feat, pe, din, dpe, wts: PairLayerWeights,
@@ -349,44 +386,45 @@ def fused_edge_mlp_jvp(in_feat, pe, din, dpe, wts: PairLayerWeights,
     pe (R, F); tangents din (K, R, 2F), dpe (K, R, F) -> (K, R, 5F), f32.
     Launches kernel B5 on a CUDA tensor, the plain version on a CPU one
     (under either variant). ``variant="tc"`` takes the 3xTF32 tensor-core
-    kernel (csrc/fused_edge_mlp_jvp_tf32x3.cu, which needs
-    ``with_tf32_weights`` and ignores ``lane_block``); ``variant="fma"``
-    the f32-FMA kernel (csrc/fused_edge_mlp_jvp.cu, ``lane_block`` lanes a
-    primal recompute), kept for timing."""
-    lib = _jvp_route(variant)
+    kernel (csrc/fused_edge_mlp_jvp_tf32x3.cu, at F = 128 or 256, which
+    needs ``with_tf32_weights`` and ignores ``lane_block``);
+    ``variant="fma"`` the f32-FMA kernel (csrc/fused_edge_mlp_jvp.cu, F =
+    128, ``lane_block`` lanes a primal recompute), kept for timing."""
+    f = pe.shape[-1]
+    lib = _jvp_route(variant, f)
     if not _on_card(in_feat, "fused_edge_mlp_jvp"):
         PLAIN_CALLS["fused_edge_mlp_jvp"] += 1
         return edge_mlp_jvp_reference(in_feat, pe, din, dpe, wts.phi, wts.w)
-    dev, f, r = in_feat.device, KERNEL_F, _rows(in_feat)
-    check_width(pe.shape[-1], lib)
+    dev, r = in_feat.device, _rows(in_feat)
+    check_width(f, lib, LIB_WIDTHS.get(lib, KERNEL_F))
     k_lanes = din.shape[0] if din.dim() == 3 else -1
     _check("in_feat", in_feat, (r, 2 * f), dev)
     _check("pe", pe, (r, f), dev)
     _check("din", din, (k_lanes, r, 2 * f), dev)
     _check("dpe", dpe, (k_lanes, r, f), dev)
-    _check_pair_mlps(wts, dev)
+    _check_pair_mlps(wts, dev, f)
     if k_lanes < 1:
         raise ValueError(f"din and dpe need at least one lane, got {tuple(din.shape)}")
     out = torch.empty((k_lanes, r, 5 * f), device=dev, dtype=torch.float32)
     if variant == "tc":
-        _launch_jvp_tc(in_feat, pe, din, dpe, wts, out, r, k_lanes)
+        _launch_jvp_tc(in_feat, pe, din, dpe, wts, out, r, k_lanes, lib, f)
     else:
         _launch_jvp_fma(in_feat, pe, din, dpe, wts, lane_block, out, r, k_lanes)
     _build.count_launch("fused_edge_mlp_jvp", lib)
     return out
 
 
-def tc_mlp_smem_bytes() -> int:
-    """Dynamic shared memory of one CTA of csrc/fused_mlp_tf32x3.cu: two
-    input chunks of MLP_ROWS x MLP_CHUNK f32, which then hold the two hidden
-    activations (MLP_ROWS x F)."""
-    return 4 * 2 * MLP_ROWS * MLP_CHUNK
+def tc_mlp_smem_bytes(f: int = KERNEL_F) -> int:
+    """Dynamic shared memory of one CTA of csrc/fused_mlp_tf32x3.cu at hidden
+    width ``f``: two input chunks of MLP_ROWS x F f32, which then hold the
+    two hidden activations: 16,384 bytes at F = 128, 32,768 at 256."""
+    return 4 * 2 * MLP_ROWS * f
 
 
 class MlpPlan(NamedTuple):
     """How csrc/fused_mlp_tf32x3.cu splits a launch: CTA c takes rows
     [MLP_ROWS·c, min(MLP_ROWS·(c + 1), R)), ``ctas`` of them; the input
-    arrives in ``chunks`` chunks of MLP_CHUNK columns, and the last Dense
+    arrives in ``chunks`` chunks of F columns, and the last Dense
     has ``out_tiles`` n-tiles of 8 columns."""
 
     ctas: int
@@ -394,21 +432,21 @@ class MlpPlan(NamedTuple):
     chunks: int
 
 
-def mlp_plan(rows: int, f_in: int, f_out: int) -> MlpPlan:
+def mlp_plan(rows: int, f_in: int, f_out: int, f: int = KERNEL_F) -> MlpPlan:
     return MlpPlan(-(-rows // MLP_ROWS), mlp_n_pad(f_out) // MLP_N_TILE,
-                   -(-mlp_k_pad(f_in) // MLP_CHUNK))
+                   -(-mlp_k_pad(f_in) // f))
 
 
-def _mlp_route(variant: str) -> str:
-    """The library a B6 launch takes: ``"tc"`` the 3xTF32 tensor-core
-    kernel, ``"fma"`` the f32-FMA kernel."""
-    return _route(MLP_LIBS, variant)
+def _mlp_route(variant: str, f: int = KERNEL_F) -> str:
+    """The library a B6 launch takes at hidden width ``f``: ``"tc"`` the
+    3xTF32 tensor-core kernel (``fused_mlp_tf32x3``, or its ``_f256``
+    build), ``"fma"`` the f32-FMA kernel."""
+    return _route(MLP_LIBS, variant, f)
 
 
-def _tc_mlp_weights(pack: MLPPack, x) -> torch.Tensor:
-    """``pack.tc``, checked against what csrc/fused_mlp_tf32x3.cu reads;
-    raises where the pack carries none."""
-    f = KERNEL_F
+def _tc_mlp_weights(pack: MLPPack, x, f: int) -> torch.Tensor:
+    """``pack.tc``, checked against what csrc/fused_mlp_tf32x3.cu reads at
+    hidden width ``f``; raises where the pack carries none."""
     numel = 2 * f * (mlp_k_pad(pack.f_in) + f + mlp_n_pad(pack.f_out))
     tc = pack.tc
     if tc is None:
@@ -424,19 +462,20 @@ def fused_mlp(x, pack: MLPPack, variant: str = "tc"):
     """One MLP over rows: x (R, f_in) -> (R, f_out), f32. Launches kernel
     B6 on a CUDA tensor, the plain version on a CPU one (under either
     variant). ``variant="tc"`` takes the 3xTF32 tensor-core kernel
-    (csrc/fused_mlp_tf32x3.cu, which needs ``pack.tc`` and x's rows in
-    16-byte steps); ``variant="fma"`` the f32-FMA kernel
-    (csrc/fused_mlp.cu), kept for timing. Either takes f_in a multiple of
-    4 (the packing pads W1's rows to the k-step)."""
-    lib = _mlp_route(variant)
+    (csrc/fused_mlp_tf32x3.cu, at hidden width F = 128 or 256, which needs
+    ``pack.tc`` and x's rows in 16-byte steps); ``variant="fma"`` the f32-FMA
+    kernel (csrc/fused_mlp.cu, F = 128), kept for timing. Either takes f_in
+    a multiple of 4 (the packing pads W1's rows to the k-step)."""
+    f = pack.w.w2.shape[0]
+    lib = _mlp_route(variant, f)
     if not _on_card(x, "fused_mlp"):
         PLAIN_CALLS["fused_mlp"] += 1
         return _mlp_block(x, pack.w)
-    dev, f, r = x.device, KERNEL_F, _rows(x)
+    dev, r = x.device, _rows(x)
     _check("x", x, (r, pack.f_in), dev)
-    if pack.w.w2.shape[0] != f:
-        raise WidthRefusal(f"fused_mlp takes hidden width F={f}, got F={pack.w.w2.shape[0]}; "
-                           f"{TC_WIDTHS_ROUTE}")
+    width = LIB_WIDTHS.get(lib, KERNEL_F)
+    if f != width:
+        raise WidthRefusal(f"{lib} takes hidden width F={width}, got F={f}; {TC_WIDTHS_ROUTE}")
     for t in (pack.mats, pack.vecs):
         if t.device != dev:
             raise ValueError(f"weights must be on {dev}, found them on {t.device}")
@@ -444,7 +483,7 @@ def fused_mlp(x, pack: MLPPack, variant: str = "tc"):
         if pack.f_in % 4 or x.data_ptr() % 16:
             raise ValueError(f"fused_mlp variant='tc' takes f_in a multiple of 4 and x 16-byte "
                              f"aligned; got f_in={pack.f_in} at {x.data_ptr() % 16} bytes past")
-        mats = _tc_mlp_weights(pack, x)
+        mats = _tc_mlp_weights(pack, x, f)
     else:
         smem = 4 * _R * max(pack.f_in, f)
         if pack.f_in % 4 or smem > SMEM_LIMIT:
